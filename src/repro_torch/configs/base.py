@@ -1,0 +1,197 @@
+"""Model configuration of the port: a copy of the reference's
+``repro/configs/base.py`` :class:`ModelConfig` (fields unchanged).
+
+A config fully determines parameter shapes. It is a frozen dataclass, so
+configs are hashable. The input-shape configs of the LM side come with
+that side (ROADMAP.md, Queue 1, "LM side").
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+
+# ---------------------------------------------------------------------------
+# Per-layer block specification
+# ---------------------------------------------------------------------------
+# mixer:  "attn" | "attn_local" | "mamba" | "shared_attn" (weight-tied, zamba)
+# ffn:    "dense" | "moe" | "none"
+
+
+@dataclass(frozen=True)
+class BlockSpec:
+    mixer: str = "attn"
+    ffn: str = "dense"
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description.
+
+    ``d_ff`` follows the assignment sheet: for MoE archs it is the *expert*
+    hidden width (fine-grained experts); for dense archs the MLP width.
+    """
+
+    name: str
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm | cnn
+    source: str  # citation from the assignment sheet
+
+    num_layers: int = 0
+    d_model: int = 0
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+    head_dim: int = 0  # 0 -> d_model // num_heads
+
+    # --- attention details -------------------------------------------------
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    attn_logit_softcap: float = 0.0  # gemma2 = 50.0
+    final_logit_softcap: float = 0.0  # gemma2 = 30.0
+    sliding_window: int = 0  # window for "attn_local" mixers
+    local_global_pattern: int = 0  # gemma2: every Nth layer is global
+
+    # --- MoE ----------------------------------------------------------------
+    num_experts: int = 0
+    experts_per_token: int = 0
+    router_aux_coef: float = 0.01
+    moe_shared_ff: int = 0  # width of an always-on shared expert (0 = none)
+
+    # --- SSM (Mamba2 / SSD) -------------------------------------------------
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_ngroups: int = 1
+    ssm_conv: int = 4
+    ssm_chunk: int = 256
+
+    # --- hybrid (zamba2) ----------------------------------------------------
+    shared_attn_every: int = 0  # insert the shared attention block every N layers
+
+    # --- encoder/decoder (whisper) -------------------------------------------
+    encoder_layers: int = 0
+    encoder_seq: int = 0  # frames produced by the (stubbed) conv frontend
+
+    # --- VLM (internvl2) ------------------------------------------------------
+    vision_tokens: int = 0  # prefix embeddings from the (stubbed) ViT
+
+    # --- CNN (paper's own models) --------------------------------------------
+    cnn_variant: str = ""  # vgg11 | mobilenet_v3_small | squeezenet1_1
+    image_size: int = 32
+    image_channels: int = 3
+    num_classes: int = 10
+
+    # --- numerics / structure -------------------------------------------------
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    act: str = "silu"  # silu (SwiGLU) | gelu
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    remat: bool = True
+
+    # --- sharding hints ---------------------------------------------------------
+    fsdp: bool = False  # additionally shard params over the data axis (ZeRO-3)
+    serve_window: int = 0  # opt-in sliding-window serving for long_500k
+
+    # ------------------------------------------------------------------
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // max(self.num_heads, 1))
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab rounded up to a multiple of 256 so embedding/unembedding
+        tables shard evenly on any production mesh axis (logits are sliced
+        back to ``vocab_size``)."""
+        return -(-self.vocab_size // 256) * 256
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
+    def block_specs(self) -> Tuple[BlockSpec, ...]:
+        """The per-layer pattern of the decoder stack."""
+        if self.family == "cnn":
+            return ()
+        specs = []
+        for i in range(self.num_layers):
+            if self.family == "ssm":
+                specs.append(BlockSpec("mamba", "none"))
+            elif self.family == "hybrid":
+                # zamba2: mamba backbone; a weight-tied attention+MLP block is
+                # applied every `shared_attn_every` layers.
+                if self.shared_attn_every and (i + 1) % self.shared_attn_every == 0:
+                    specs.append(BlockSpec("shared_attn", "dense"))
+                else:
+                    specs.append(BlockSpec("mamba", "none"))
+            else:
+                if self.local_global_pattern:
+                    # gemma2: alternating local / global attention
+                    mixer = (
+                        "attn"
+                        if (i % self.local_global_pattern)
+                        == self.local_global_pattern - 1
+                        else "attn_local"
+                    )
+                else:
+                    mixer = "attn"
+                ffn = "moe" if self.num_experts else "dense"
+                specs.append(BlockSpec(mixer, ffn))
+        return tuple(specs)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + blocks + head)."""
+        if self.family == "cnn":
+            return -1  # computed from the pytree instead
+        d, hd = self.d_model, self.resolved_head_dim
+        n = self.vocab_size * d  # embedding
+        if not self.tie_embeddings:
+            n += self.vocab_size * d
+        attn = d * (self.num_heads * hd) + 2 * d * (self.num_kv_heads * hd) + (
+            self.num_heads * hd
+        ) * d
+        dense_ffn = 3 * d * self.d_ff
+        moe_ffn = self.num_experts * 3 * d * self.d_ff + d * self.num_experts
+        if self.moe_shared_ff:
+            moe_ffn += 3 * d * self.moe_shared_ff
+        mamba = 0
+        if self.ssm_state:
+            di, H, N, G = self.d_inner, self.ssm_heads, self.ssm_state, self.ssm_ngroups
+            in_proj = d * (2 * di + 2 * G * N + H)
+            mamba = in_proj + self.ssm_conv * (di + 2 * G * N) + di * d + 2 * H + di
+        shared = attn + dense_ffn  # counted once if weight-tied
+        tied_done = False
+        for spec in self.block_specs():
+            n += 2 * d  # norms
+            if spec.mixer in ("attn", "attn_local"):
+                n += attn
+            elif spec.mixer == "mamba":
+                n += mamba
+            elif spec.mixer == "shared_attn":
+                if not tied_done:
+                    n += shared
+                    tied_done = True
+                continue  # ffn included in the tied block
+            if spec.ffn == "dense":
+                n += dense_ffn
+            elif spec.ffn == "moe":
+                n += moe_ffn
+        if self.encoder_layers:
+            n += self.encoder_layers * (2 * d + attn + dense_ffn)
+            n += self.num_layers * (d + attn)  # decoder cross-attention
+        return n
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only routed experts)."""
+        if not self.num_experts:
+            return self.param_count()
+        full = self.param_count()
+        d = self.d_model
+        per_expert = 3 * d * self.d_ff
+        inactive = (self.num_experts - self.experts_per_token) * per_expert
+        return full - self.num_layers * inactive

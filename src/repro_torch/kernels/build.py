@@ -1,0 +1,91 @@
+"""Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
+
+Each ``csrc/*.cu`` file exposes a plain C interface and compiles on its own
+into ``build/<stem>-<hash>.so`` at the repository root (``.gitignore`` lists
+``build/``). The hash covers the source and the flags, so an edited source
+is rebuilt and a finished build is reused. Several sources build in
+parallel: one ``nvcc`` each, all started together.
+
+Nothing here runs at import time; the first kernel launch builds what it
+needs.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, Sequence
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+
+# sm_90a keeps Hopper-only instructions available. No --use_fast_math: the
+# QSGD parity rules need IEEE division and sqrtf.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler: ``nvcc`` on PATH, else ``$CUDA_HOME/bin``."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    path = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError(
+            "nvcc not found on PATH or under $CUDA_HOME/bin; the port's CUDA "
+            "kernels are built from source at first use"
+        )
+    return str(path)
+
+
+def library_path(source: str) -> Path:
+    src = CSRC / source
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"{src.stem}-{digest}.so"
+
+
+def build_all(sources: Sequence[str]) -> Dict[str, Path]:
+    """Compile every source not built yet, one ``nvcc`` per source in
+    parallel; returns ``{source: library path}``. Raises with the compiler's
+    output if any build fails."""
+    out = {s: library_path(s) for s in sources}
+    todo = [s for s in sources if not out[s].exists()]
+    if not todo:
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    compiler = nvcc()
+    procs = []
+    for s in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [compiler, *NVCC_FLAGS, "-o", tmp, str(CSRC / s)]
+        procs.append((s, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )))
+    failures = []
+    for s, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode == 0:
+            os.replace(tmp, out[s])  # atomic: a concurrent process sees all or nothing
+        else:
+            os.unlink(tmp)
+            failures.append(f"{s}: nvcc exited {proc.returncode}\n{log}")
+    if failures:
+        raise RuntimeError("CUDA build failed:\n" + "\n".join(failures))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load(source: str) -> ctypes.CDLL:
+    """Build ``csrc/<source>`` if needed and load it (once per process)."""
+    return ctypes.CDLL(str(build_all([source])[source]))
