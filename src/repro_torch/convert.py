@@ -42,22 +42,23 @@ def jax_order(names: Iterable[str]) -> List[str]:
     return sorted(names, key=key)
 
 
-def to_jax_layout(t: torch.Tensor) -> torch.Tensor:
-    """A port tensor in the reference's layout (a view where possible)."""
-    if t.dim() == 4:
-        return t.permute(2, 3, 1, 0)
-    if t.dim() == 2:
-        return t.t()
-    return t
+def _permute(t: torch.Tensor, lead: int, perm4, perm2) -> torch.Tensor:
+    perm = {4: perm4, 2: perm2}.get(t.dim() - lead)
+    if perm is None:
+        return t
+    return t.permute(*range(lead), *(lead + d for d in perm))
 
 
-def to_torch_layout(t: torch.Tensor) -> torch.Tensor:
-    """A tensor in the reference's layout -> the port's layout, contiguous."""
-    if t.dim() == 4:
-        return t.permute(3, 2, 0, 1).contiguous()
-    if t.dim() == 2:
-        return t.t().contiguous()
-    return t
+def to_jax_layout(t: torch.Tensor, lead: int = 0) -> torch.Tensor:
+    """A port tensor in the reference's layout (a view). ``lead`` leading
+    dimensions (a stacked peer dimension) are kept in front as they are."""
+    return _permute(t, lead, (2, 3, 1, 0), (1, 0))
+
+
+def to_torch_layout(t: torch.Tensor, lead: int = 0) -> torch.Tensor:
+    """A tensor in the reference's layout -> the port's layout, contiguous;
+    ``lead`` leading dimensions are kept in front as they are."""
+    return _permute(t, lead, (3, 2, 0, 1), (1, 0)).contiguous()
 
 
 def from_jax(flat: Mapping[str, np.ndarray], *, device) -> Dict[str, torch.Tensor]:
@@ -77,3 +78,29 @@ def to_jax(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         jax_path(name): to_jax_layout(params[name].detach()).cpu().numpy().copy()
         for name in jax_order(params)
     }
+
+
+def opt_state_from_jax(flat: Mapping[str, np.ndarray], *, device):
+    """A reference optimizer state, flattened as ``train/checkpoint.py:
+    _flatten`` flattens it -> the port's: ``{}`` for plain SGD, the momentum
+    dict for SGD with momentum, ``{"mu", "nu", "t"}`` for Adam(W). Each
+    moment leaf takes its parameter's layout mapping."""
+    if "t" in flat:
+        sub = lambda pre: {p[len(pre):]: a for p, a in flat.items() if p.startswith(pre)}
+        return {
+            "mu": from_jax(sub("mu/"), device=device),
+            "nu": from_jax(sub("nu/"), device=device),
+            "t": torch.tensor(int(np.asarray(flat["t"])), dtype=torch.int32, device=device),
+        }
+    return from_jax(flat, device=device)
+
+
+def opt_state_to_jax(state) -> Dict[str, np.ndarray]:
+    """The port's optimizer state -> the reference's, flattened as
+    ``_flatten`` flattens it (the inverse of :func:`opt_state_from_jax`)."""
+    if "t" in state:
+        out = {f"mu/{p}": a for p, a in to_jax(state["mu"]).items()}
+        out.update({f"nu/{p}": a for p, a in to_jax(state["nu"]).items()})
+        out["t"] = state["t"].cpu().numpy().copy()
+        return out
+    return to_jax(state)

@@ -56,7 +56,9 @@ def draw_uniforms(shape, generator: torch.Generator) -> torch.Tensor:
     """The rounding uniforms in [0, 1), drawn on the generator's device.
 
     The one place the codec draws random numbers; parity tests replace it
-    to feed the reference's uniforms."""
+    to feed the reference's uniforms. The host codec calls it once per leaf
+    with ``(nb, bucket)``; the device step's ``qsgd`` combine once per leaf
+    with ``(P, nb, bucket)``, leaves in JAX leaf order in both."""
     return torch.rand(shape, generator=generator, device=generator.device)
 
 
@@ -81,6 +83,17 @@ def dequantize(payload: Payload, cfg: QSGDConfig) -> torch.Tensor:
     shape = tuple(int(d) for d in np.asarray(payload["shape"]))
     n = int(np.prod(shape)) if shape else 1
     return flat[:n].reshape(shape)
+
+
+def dequant_reduce(
+    levels: torch.Tensor,  # (P, nb, bucket) int8: the peers' banks
+    norms: torch.Tensor,  # (P, nb) f32
+    w: torch.Tensor,  # (P,) f32 mixing weights (uniform 1/P on the full graph)
+    cfg: QSGDConfig,
+) -> torch.Tensor:
+    """Fused decode: ``sum_p w[p] * dequantize(levels[p], norms[p])`` ->
+    (nb, bucket) f32, in one pass that never builds the P dense banks."""
+    return K.qsgd_dequant_reduce(levels, norms, w, cfg.levels)
 
 
 # ---------------------------------------------------------------------------

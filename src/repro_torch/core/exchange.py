@@ -1,28 +1,45 @@
 """Pluggable gradient-exchange protocols — the paper's §III-B as an API.
 
-The port of the reference's ``repro/core/exchange.py``, host path only so
-far: one :class:`ExchangeProtocol` subclass serializes one peer's gradient
-for the :class:`~repro_torch.core.mailbox.HostMailbox`
-(:meth:`~ExchangeProtocol.host_encode` / :meth:`~ExchangeProtocol.host_decode`)
-and accounts its wire bytes (:meth:`~ExchangeProtocol.wire_bytes_per_edge`,
-scaled by the overlay degree in :meth:`~ExchangeProtocol.wire_bytes`).
+The port of the reference's ``repro/core/exchange.py``. One
+:class:`ExchangeProtocol` subclass implements both execution paths plus its
+wire-byte accounting:
 
-Gradients are ``{name: tensor}`` dicts in the port's layout. The device
-train step's ``combine`` comes with that step (ROADMAP.md, Queue 1,
-"Device train step and top-k"); the protocols of the reference that are
-not ported yet raise ``NotImplementedError`` from :func:`get_exchange`
+* **device path** — :meth:`~ExchangeProtocol.combine` and
+  :meth:`~ExchangeProtocol.combine_ef` run in the device train step
+  (``core/p2p.py``). On one card the P peers are a stacked leading
+  dimension: gradients are a ``{name: (P, *shape)}`` bank, the reference's
+  ``all_gather`` over the peer axis is that bank itself and its ``pmean`` a
+  reduction over dim 0. Each returns the mixed gradient of every peer,
+  ``{name: (P, *shape)}`` f32; on the full graph the P rows are one tensor
+  expanded, since every peer's mix is the same.
+* **host path** — :meth:`~ExchangeProtocol.host_encode` /
+  :meth:`~ExchangeProtocol.host_decode` serialize one peer's gradient for
+  the :class:`~repro_torch.core.mailbox.HostMailbox`.
+* **accounting** — :meth:`~ExchangeProtocol.wire_bytes_per_edge`, scaled
+  by the overlay degree in :meth:`~ExchangeProtocol.wire_bytes`.
+
+Gradients are ``{name: tensor}`` dicts in the port's layout. The lossy
+codecs permute each leaf to the reference's layout
+(``convert.to_jax_layout``) and flatten it before they quantize or select,
+and visit the leaves in JAX's flatten order (``convert.jax_order``), so
+their payloads are the reference's. The protocols of the reference that
+are not ported yet raise ``NotImplementedError`` from :func:`get_exchange`
 naming their ROADMAP item.
 """
 from __future__ import annotations
 
+import abc
 from dataclasses import dataclass
-from typing import Any, ClassVar, Dict, Mapping, Optional, Tuple, Type
+from typing import Any, Callable, ClassVar, Dict, Mapping, Optional, Tuple, Type
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from repro_torch.convert import jax_order, to_jax_layout, to_torch_layout
 from repro_torch.core import compression as C
 from repro_torch.kernels import qsgd as qsgd_kernels
+from repro_torch.kernels import topk as topk_kernels
 
 Grads = Mapping[str, torch.Tensor]
 
@@ -32,14 +49,16 @@ class ExchangeContext:
     """Everything a protocol needs besides the gradients themselves.
 
     ``graph`` is the resolved :class:`~repro_torch.core.graph.PeerGraph`;
-    ``mixing`` its Metropolis–Hastings matrix ``W`` as a float64 ``(P, P)``
-    array, or ``None`` for the full graph, where the weights are uniformly
-    ``1/P`` and the update keeps the plain-mean arithmetic.
+    ``mixing`` its Metropolis–Hastings matrix ``W`` as a ``(P, P)`` array,
+    or ``None`` for the full graph, where the weights are uniformly ``1/P``
+    and the update keeps the plain-mean arithmetic. The device path mixes
+    in float32, as the reference does.
     """
 
     num_peers: int = 1
     wire_dtype: torch.dtype = torch.float32
     qsgd: Optional[C.QSGDConfig] = None
+    topk_frac: float = 0.01
     graph: Any = None
     mixing: Any = None
 
@@ -61,16 +80,64 @@ class ExchangeContext:
         return float(max(self.num_peers - 1, 0))
 
 
-class ExchangeProtocol:
-    """Gradient-exchange protocol: host codec plus wire accounting."""
+def _mix(reduce: Callable[[torch.Tensor], torch.Tensor], ctx: ExchangeContext,
+         peers: int, device) -> torch.Tensor:
+    """The distinct mixes ``reduce(w)``, stacked: on the full graph one row,
+    ``w = 1/P``, which every peer shares; else one row per row of ``W``."""
+    if ctx.mixing is None:
+        w = torch.full((peers,), 1.0 / peers, dtype=torch.float32, device=device)
+        return reduce(w)[None]
+    mixing = torch.as_tensor(np.asarray(ctx.mixing, np.float32), device=device)
+    return torch.stack([reduce(mixing[r]) for r in range(peers)])
+
+
+def _flat_banks(grads: Grads):
+    """``(name, (P, n) f32 in the reference's layout, its leaf shape)`` for
+    each leaf of a stacked bank, in JAX leaf order."""
+    for name in jax_order(grads):
+        g = to_jax_layout(grads[name], lead=1)
+        yield name, g.reshape(g.shape[0], -1).to(torch.float32).contiguous(), g.shape[1:]
+
+
+def _leaf(flat: torch.Tensor, jshape, lead: int) -> torch.Tensor:
+    """A flat leaf (with ``lead`` leading dims) in the reference's layout ->
+    the port's layout."""
+    return to_torch_layout(flat.reshape(*flat.shape[:lead], *jshape), lead=lead)
+
+
+class ExchangeProtocol(abc.ABC):
+    """Gradient-exchange protocol: device combine, host codec, wire accounting."""
 
     name: ClassVar[str] = "?"  # set by @register_exchange
+    is_async: ClassVar[bool] = False  # consumes stale mailbox state
     requires_key: ClassVar[bool] = False  # needs random numbers (stochastic codec)
+    decomposes_per_edge: ClassVar[bool] = True  # False: fused collective
+    requires_full_graph: ClassVar[bool] = False  # True: refuses sparse overlays
+    sharded: ClassVar[bool] = False  # True: shards, not whole gradients, on the wire
     lossy: ClassVar[bool] = False  # True: codec drops information (EF applies)
+    hierarchical: ClassVar[bool] = False  # True: multi-level tree reduce
 
     def prepare(self, device: torch.device) -> None:
         """Build what the codec launches on ``device`` before the first step,
         so stage timings measure work, not compilation."""
+
+    # -- device path ---------------------------------------------------------
+    @abc.abstractmethod
+    def combine(self, grads: Grads, ctx: ExchangeContext, *, generator=None, state=None):
+        """``{name: (P, *shape)}`` bank -> (every peer's mixed gradient
+        ``{name: (P, *shape)}`` f32, new state). Sync protocols pass
+        ``state`` through untouched."""
+
+    def combine_ef(self, grads: Grads, ctx: ExchangeContext, *, generator=None, state=None):
+        """Error-feedback variant: -> (mixed, local_image, new_state).
+
+        ``local_image`` is the decoded image of each peer's own shipped
+        contribution, ``(P, *shape)``: EF-SGD keeps ``grads - local_image``
+        and adds it back before the next encode. Lossless protocols ship
+        ``grads`` verbatim, so the residual stays zero; lossy codecs
+        override."""
+        avg, state = self.combine(grads, ctx, generator=generator, state=state)
+        return avg, grads, state
 
     # -- host path -----------------------------------------------------------
     def host_encode(self, grads: Grads, ctx: ExchangeContext, *, generator=None):
@@ -113,8 +180,6 @@ _REGISTRY: Dict[str, Type[ExchangeProtocol]] = {}
 
 # Protocols of the reference that the port does not have yet -> ROADMAP item.
 _UNPORTED = {
-    "psum_mean": "Device train step and top-k",
-    "topk": "Device train step and top-k",
     "async": "Serverless and instance accounting",
     "reduce_scatter": "Robust, sharded and tree exchange",
     "tree": "Robust, sharded and tree exchange",
@@ -122,6 +187,16 @@ _UNPORTED = {
     "median": "Robust, sharded and tree exchange",
     "krum": "Robust, sharded and tree exchange",
 }
+
+
+def check_overlay(protocol: ExchangeProtocol, graph) -> None:
+    """Refuse a sparse overlay for a protocol that is one fused global
+    collective (it does not decompose into per-edge messages)."""
+    if not graph.is_full and graph.num_peers > 1 and not protocol.decomposes_per_edge:
+        raise ValueError(
+            f"exchange protocol {protocol.name!r} is a fused global collective "
+            f"and only supports graph='full'; got {graph.describe()}"
+        )
 
 
 def register_exchange(name: str):
@@ -173,10 +248,57 @@ def get_exchange(spec: str) -> ExchangeProtocol:
 class AllGatherMean(ExchangeProtocol):
     """Paper-faithful Algorithm 1: publish to own queue, consume all, average.
 
-    Under a sparse overlay the cluster's update generalizes the mean to the
-    Metropolis–Hastings neighbor mix; on the full graph the plain mean is
-    kept.
+    Device image: the stacked bank in the wire dtype is the all-gather; the
+    plain mean on the full graph, the Metropolis–Hastings mix ``W @ bank``
+    under a sparse overlay.
     """
+
+    def combine(self, grads, ctx, *, generator=None, state=None):
+        avg = {}
+        for k, g in grads.items():
+            bank = g.to(ctx.wire_dtype).to(torch.float32)
+            if ctx.mixing is None:
+                avg[k] = bank.mean(dim=0).expand(bank.shape)
+            else:
+                w = torch.as_tensor(np.asarray(ctx.mixing, np.float32), device=g.device)
+                avg[k] = torch.tensordot(w, bank, dims=([1], [0]))
+        return avg, state
+
+
+@register_exchange("psum_mean")
+class PsumMean(ExchangeProtocol):
+    """Beyond-paper optimized sync exchange: one fused all-reduce.
+
+    Mathematically identical to allgather_mean, strictly less traffic; a
+    ring all-reduce moves ``2 (P-1)/P x raw`` bytes per peer. The fused
+    reduction is inherently global, so this protocol only supports the full
+    overlay graph.
+    """
+
+    decomposes_per_edge = False
+
+    def combine(self, grads, ctx, *, generator=None, state=None):
+        if ctx.mixing is not None:
+            raise ValueError(
+                "psum_mean is a fused global all-reduce and only supports "
+                "graph='full'; use allgather_mean (or qsgd/topk) for sparse "
+                "overlays"
+            )
+        avg = {}
+        for k, g in grads.items():
+            # the reference's pmean in the wire dtype: peers summed in rank
+            # order, each partial sum rounded to the wire dtype, then / P
+            acc = g[0].to(ctx.wire_dtype)
+            for p in range(1, g.shape[0]):
+                acc = acc + g[p].to(ctx.wire_dtype)
+            avg[k] = (acc / g.shape[0]).to(torch.float32).expand(g.shape)
+        return avg, state
+
+    def wire_bytes(self, grads_like, ctx) -> int:
+        # Fused ring all-reduce: does not decompose into per-edge messages.
+        raw = self.wire_bytes_per_edge(grads_like, ctx)
+        P_ = max(ctx.num_peers, 1)
+        return int(raw * 2 * (P_ - 1) / P_)
 
 
 @register_exchange("qsgd")
@@ -197,6 +319,44 @@ class QSGDExchange(ExchangeProtocol):
         if device.type == "cuda":
             qsgd_kernels.load_library()
 
+    def _combine(self, grads, ctx, *, generator, want_local: bool):
+        """Shared device path: per leaf, in JAX leaf order, one
+        ``compression.draw_uniforms((P, nb, bucket), generator)`` call, one
+        quantize of all P peers' buckets, the fused ``dequant_reduce`` of
+        the P banks per distinct mix, and (EF) one dequantize of the P
+        banks for the local images. ``uniforms[p]`` plays the role of the
+        reference's ``uniform(split(fold_in(step_key, p), L)[leaf])``."""
+        if generator is None:
+            raise ValueError("qsgd exchange requires a torch.Generator")
+        qcfg = self._cfg(ctx)
+        avg, local = {}, {}
+        for name, flat, jshape in _flat_banks(grads):
+            peers, n = flat.shape
+            nb = -(-n // qcfg.bucket)  # each peer's leaf padded to whole buckets
+            buckets = F.pad(flat, (0, nb * qcfg.bucket - n)).reshape(peers * nb, qcfg.bucket)
+            u = C.draw_uniforms((peers, nb, qcfg.bucket), generator)
+            lev, nrm = qsgd_kernels.qsgd_quantize(
+                buckets, u.reshape(peers * nb, qcfg.bucket), qcfg.levels
+            )
+            lev3, nrm2 = lev.view(peers, nb, qcfg.bucket), nrm.view(peers, nb)
+            mixed = _mix(
+                lambda w: C.dequant_reduce(lev3, nrm2, w, qcfg).reshape(-1)[:n],
+                ctx, peers, flat.device,
+            )
+            avg[name] = _leaf(mixed, jshape, 1).expand(grads[name].shape)
+            if want_local:
+                dense = qsgd_kernels.qsgd_dequantize(lev, nrm, qcfg.levels)
+                local[name] = _leaf(dense.view(peers, -1)[:, :n], jshape, 1)
+        return avg, (local if want_local else None)
+
+    def combine(self, grads, ctx, *, generator=None, state=None):
+        avg, _ = self._combine(grads, ctx, generator=generator, want_local=False)
+        return avg, state
+
+    def combine_ef(self, grads, ctx, *, generator=None, state=None):
+        avg, local = self._combine(grads, ctx, generator=generator, want_local=True)
+        return avg, local, state
+
     def host_encode(self, grads, ctx, *, generator=None):
         if generator is None:
             raise ValueError("qsgd exchange requires a torch.Generator")
@@ -214,3 +374,99 @@ class QSGDExchange(ExchangeProtocol):
             nb = -(-int(np.prod(x.shape)) // qcfg.bucket)  # ceil: padded buckets
             total += nb * qcfg.bucket * 1 + nb * 4  # int8 levels + fp32 norms
         return total
+
+
+@register_exchange("topk")
+class TopKExchange(ExchangeProtocol):
+    """Top-k sparsified exchange: each peer ships only its ``topk_frac``
+    largest-magnitude gradient entries (values + int32 indices); receivers
+    scatter-add and average. Deterministic, biased towards large
+    coordinates.
+
+    Select and scatter are the port's kernels (``kernels/topk.py``), whose
+    selection is the reference's Pallas kernel's, tie rule included.
+    """
+
+    lossy = True
+
+    @staticmethod
+    def _k(n: int, frac: float) -> int:
+        return max(1, min(n, int(round(n * frac))))
+
+    def prepare(self, device: torch.device) -> None:
+        if device.type == "cuda":
+            topk_kernels.load_library()
+
+    def _combine(self, grads, ctx, *, want_local: bool):
+        """Shared device path: per leaf, one select per peer, the peers'
+        values rounded through the wire dtype, one fused scatter-accumulate
+        per distinct mix and (EF) one scatter of all P peers' own entries,
+        unrounded as the reference keeps them, into a (P * n) buffer."""
+        avg, local = {}, {}
+        for name, flat, jshape in _flat_banks(grads):
+            peers, n = flat.shape
+            k = self._k(n, ctx.topk_frac)
+            picks = [topk_kernels.topk_select_pack(flat[p], k) for p in range(peers)]
+            vals = torch.stack([v for v, _ in picks])
+            idx = torch.stack([i for _, i in picks])
+            vbank = vals.to(ctx.wire_dtype).to(torch.float32)
+            mixed = _mix(
+                lambda w: topk_kernels.topk_scatter_accum(vbank, idx, w, n),
+                ctx, peers, flat.device,
+            )
+            avg[name] = _leaf(mixed, jshape, 1).expand(grads[name].shape)
+            if want_local:
+                # peer p's entries land at p * n + idx: distinct, so one
+                # P = 1 scatter with weight 1 gives every peer's own image
+                offset = torch.arange(peers, dtype=torch.int32, device=idx.device)[:, None] * n
+                dense = topk_kernels.topk_scatter_accum(
+                    vals.reshape(1, -1), (idx + offset).reshape(1, -1),
+                    torch.ones((1,), dtype=torch.float32, device=vals.device), peers * n,
+                )
+                local[name] = _leaf(dense.view(peers, n), jshape, 1)
+        return avg, (local if want_local else None)
+
+    def combine(self, grads, ctx, *, generator=None, state=None):
+        avg, _ = self._combine(grads, ctx, want_local=False)
+        return avg, state
+
+    def combine_ef(self, grads, ctx, *, generator=None, state=None):
+        avg, local = self._combine(grads, ctx, want_local=True)
+        return avg, local, state
+
+    def host_encode(self, grads, ctx, *, generator=None):
+        itemsize = torch.empty((), dtype=ctx.wire_dtype).element_size()
+        payload, nbytes = {}, 0
+        for name in jax_order(grads):
+            g = to_jax_layout(grads[name])
+            flat = g.reshape(-1).to(torch.float32).contiguous()
+            k = self._k(flat.numel(), ctx.topk_frac)
+            vals, idx = topk_kernels.topk_select_pack(flat, k)
+            payload[name] = {
+                "values": vals.to(ctx.wire_dtype),
+                "idx": idx,
+                "shape": np.asarray(g.shape, np.int64),
+            }
+            nbytes += k * (itemsize + 4)
+        return payload, nbytes
+
+    def host_decode(self, payload, grads_like, ctx):
+        out = {}
+        for name in jax_order(payload):
+            p = payload[name]
+            shape = tuple(int(d) for d in p["shape"])
+            values = p["values"].to(torch.float32)
+            dense = topk_kernels.topk_scatter_accum(
+                values[None], p["idx"][None],
+                torch.ones((1,), dtype=torch.float32, device=values.device),
+                int(np.prod(shape)) if shape else 1,
+            )
+            out[name] = _leaf(dense, shape, 0)
+        return out
+
+    def wire_bytes_per_edge(self, grads_like, ctx) -> int:
+        itemsize = torch.empty((), dtype=ctx.wire_dtype).element_size()
+        return sum(
+            self._k(int(np.prod(x.shape)), ctx.topk_frac) * (itemsize + 4)
+            for x in grads_like.values()
+        )

@@ -34,7 +34,12 @@ from repro_torch.convert import jax_order
 from repro_torch.core import compression as C
 from repro_torch.core.convergence import ConvergenceDetector
 from repro_torch.core.events import LinkModel
-from repro_torch.core.exchange import ExchangeContext, ExchangeProtocol, get_exchange
+from repro_torch.core.exchange import (
+    ExchangeContext,
+    ExchangeProtocol,
+    check_overlay,
+    get_exchange,
+)
 from repro_torch.core.graph import PeerGraph, get_graph
 from repro_torch.core.mailbox import HostMailbox
 from repro_torch.data import BatchKey, DataLoader, Dataset, Partitioner
@@ -44,10 +49,10 @@ from repro_torch.optim import Optimizer, apply_updates
 Params = Dict[str, torch.Tensor]
 
 _ACCOUNTING = "Serverless and instance accounting"
-_ROBUST = "Robust, sharded and tree exchange"
+ROBUST = "Robust, sharded and tree exchange"
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
+def unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: ROADMAP.md, Queue 1, '{item}'"
     )
@@ -106,6 +111,7 @@ class LocalP2PCluster:
         graph: Any = "full",  # peer overlay: registered name or PeerGraph
         graph_seed: Optional[int] = None,  # defaults to `seed`
         qsgd: Optional[C.QSGDConfig] = None,
+        topk_frac: float = 0.01,
         ef: bool = False,  # EF-SGD residual feedback for lossy codecs
         network_bandwidth_bps: float = 1e9,  # simulated inter-peer link
         adversary: Any = None,
@@ -116,15 +122,15 @@ class LocalP2PCluster:
         device: Any = "cuda",
     ):
         if not sync:
-            raise _unported("async epochs (sync=False)", _ACCOUNTING)
+            raise unported("async epochs (sync=False)", _ACCOUNTING)
         if executor is not None:
-            raise _unported("the serverless / instance executor", _ACCOUNTING)
+            raise unported("the serverless / instance executor", _ACCOUNTING)
         if tracer is not None:
-            raise _unported("the trace recorder", _ACCOUNTING)
+            raise unported("the trace recorder", _ACCOUNTING)
         if adversary is not None:
-            raise _unported("the adversary model", _ROBUST)
+            raise unported("the adversary model", ROBUST)
         if reject_nonfinite:
-            raise _unported("reject_nonfinite", _ROBUST)
+            raise unported("reject_nonfinite", ROBUST)
         self.device = resolve_device(device)
 
         if cfg.family == "cnn" and dataset.kind == "image":
@@ -149,9 +155,11 @@ class LocalP2PCluster:
             None if (self.graph.is_full or num_peers <= 1)
             else self.graph.mixing_matrix()
         )
+        check_overlay(self.protocol, self.graph)
         self.ef = bool(ef)
         self.xctx = ExchangeContext(
-            num_peers=num_peers, qsgd=qsgd, graph=self.graph, mixing=self._mixing,
+            num_peers=num_peers, qsgd=qsgd, topk_frac=topk_frac, graph=self.graph,
+            mixing=self._mixing,
         )
         self.link = LinkModel(bandwidth_bps=network_bandwidth_bps)
         self.mailbox = HostMailbox(num_peers, graph=self.graph)

@@ -21,6 +21,8 @@ import tempfile
 from pathlib import Path
 from typing import Dict, Sequence
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
@@ -89,3 +91,21 @@ def build_all(sources: Sequence[str]) -> Dict[str, Path]:
 def load(source: str) -> ctypes.CDLL:
     """Build ``csrc/<source>`` if needed and load it (once per process)."""
     return ctypes.CDLL(str(build_all([source])[source]))
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+    """Raise unless ``t`` is a contiguous ``ndim``-d tensor of ``dtype``."""
+    if t.dtype != dtype or t.dim() != ndim:
+        raise ValueError(
+            f"{name} must be a {ndim}-d {dtype} tensor, got {t.dim()}-d {t.dtype}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def cuda_stream(device: torch.device) -> ctypes.c_void_p:
+    """The current CUDA stream of ``device``, for a kernel launch; a device
+    that is neither the CPU nor CUDA raises."""
+    if device.type != "cuda":
+        raise ValueError(f"the port's kernels run on CUDA or CPU tensors, got {device}")
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

@@ -1,13 +1,17 @@
-// QSGD quantize / dequantize for Hopper (sm_90a), bound with a plain C
-// interface and loaded through ctypes by repro_torch/kernels/qsgd.py.
+// QSGD quantize / dequantize / dequantize-and-reduce for Hopper (sm_90a),
+// bound with a plain C interface and loaded through ctypes by
+// repro_torch/kernels/qsgd.py.
 //
 // Replaces the Pallas TPU kernels repro/kernels/qsgd.py:_quantize_kernel
-// (wrapper qsgd_quantize) and :_dequantize_kernel (wrapper qsgd_dequantize).
+// (wrapper qsgd_quantize), :_dequantize_kernel (wrapper qsgd_dequantize) and
+// :_dequant_reduce_kernel (wrapper qsgd_dequant_reduce).
 //
 // Bound: device memory. quantize reads 8 B per element (x and u) and writes
 // 1 B per element plus 4 B per bucket row; dequantize reads 1 B per element
-// plus 4 B per row and writes 4 B. Both do a handful of fp32 operations per
-// element, two orders of magnitude below the card's fp32 rate per byte.
+// plus 4 B per row and writes 4 B; dequantize-and-reduce reads P bytes of
+// levels per output element and writes 4 B. All do a handful of fp32
+// operations per element, two orders of magnitude below the card's fp32
+// rate per byte.
 //
 // Design: one thread block per bucket row. The TPU kernel keeps an
 // (8, bucket) tile in VMEM and reduces each row there; here the row's sum of
@@ -131,6 +135,55 @@ dequantize_kernel(const int8_t* __restrict__ levels,
   }
 }
 
+// Dequantize-and-reduce over P peer banks: out[row] = sum_p lev[p][row] *
+// scale[p], scale[p] = (w[p] * norm[p][row]) / s, in the Pallas kernel's
+// order: the scale is rounded first, then each product, then the sum runs
+// p = 0 .. P-1 from 0. The explicit _rn intrinsics keep nvcc from contracting
+// a product and the following add into one FMA, which would round once
+// where the plain version rounds twice. The P scales of the row are computed
+// once into shared memory; each thread then loops over P for its elements,
+// so the dense per-peer banks are never written to device memory.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+dequant_reduce_kernel(const int8_t* __restrict__ levels,
+                      const float* __restrict__ norms,
+                      const float* __restrict__ w, float* __restrict__ out,
+                      int peers, long long nb, int bucket, float s) {
+  extern __shared__ float scale[];  // (peers,)
+  const long long row = blockIdx.x;
+  for (int p = threadIdx.x; p < peers; p += kThreads) {
+    scale[p] = __fdiv_rn(__fmul_rn(w[p], norms[p * nb + row]), s);
+  }
+  __syncthreads();
+  const size_t base = static_cast<size_t>(row) * bucket;
+  const size_t peer_stride = static_cast<size_t>(nb) * bucket;
+  if (kVec) {
+    float4* o4 = reinterpret_cast<float4*>(out + base);
+    for (int i = threadIdx.x; i < bucket / 4; i += kThreads) {
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int p = 0; p < peers; ++p) {
+        const char4 q =
+            reinterpret_cast<const char4*>(levels + p * peer_stride + base)[i];
+        const float c = scale[p];
+        acc.x = __fadd_rn(acc.x, __fmul_rn(static_cast<float>(q.x), c));
+        acc.y = __fadd_rn(acc.y, __fmul_rn(static_cast<float>(q.y), c));
+        acc.z = __fadd_rn(acc.z, __fmul_rn(static_cast<float>(q.z), c));
+        acc.w = __fadd_rn(acc.w, __fmul_rn(static_cast<float>(q.w), c));
+      }
+      o4[i] = acc;
+    }
+  } else {
+    for (int i = threadIdx.x; i < bucket; i += kThreads) {
+      float acc = 0.0f;
+      for (int p = 0; p < peers; ++p) {
+        const float q = static_cast<float>(levels[p * peer_stride + base + i]);
+        acc = __fadd_rn(acc, __fmul_rn(q, scale[p]));
+      }
+      out[base + i] = acc;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -165,6 +218,28 @@ int qsgd_dequantize_launch(const int8_t* levels, const float* norms, float* out,
       dequantize_kernel<true><<<grid, kThreads, 0, st>>>(levels, norms, out, bucket, s);
     } else {
       dequantize_kernel<false><<<grid, kThreads, 0, st>>>(levels, norms, out, bucket, s);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// levels (peers, nb, bucket) int8, norms (peers, nb) f32 and weights w
+// (peers,) f32 -> out (nb, bucket) f32. vec != 0: bucket % 4 == 0, levels
+// 4-byte and out 16-byte aligned.
+int qsgd_dequant_reduce_launch(const int8_t* levels, const float* norms,
+                               const float* w, float* out, int peers,
+                               long long nb, int bucket, float s, int vec,
+                               void* stream) {
+  if (nb > 0) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const unsigned grid = static_cast<unsigned>(nb);
+    const size_t smem = static_cast<size_t>(peers) * sizeof(float);
+    if (vec) {
+      dequant_reduce_kernel<true><<<grid, kThreads, smem, st>>>(
+          levels, norms, w, out, peers, nb, bucket, s);
+    } else {
+      dequant_reduce_kernel<false><<<grid, kThreads, smem, st>>>(
+          levels, norms, w, out, peers, nb, bucket, s);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,8 +1,9 @@
-"""QSGD quantize / dequantize: CUDA kernels for Hopper beside their plain
-PyTorch versions.
+"""QSGD quantize / dequantize / dequantize-and-reduce: CUDA kernels for
+Hopper beside their plain PyTorch versions.
 
 Replaces the Pallas TPU kernels ``repro/kernels/qsgd.py:qsgd_quantize``
-(``_quantize_kernel``) and ``qsgd_dequantize`` (``_dequantize_kernel``).
+(``_quantize_kernel``), ``qsgd_dequantize`` (``_dequantize_kernel``) and
+``qsgd_dequant_reduce`` (``_dequant_reduce_kernel``).
 The CUDA source is ``csrc/qsgd.cu``; its header says what bounds the
 kernels on the card (device memory) and why they are shaped as they are.
 
@@ -51,24 +52,22 @@ def dequantize_plain(levels: torch.Tensor, norms: torch.Tensor, s: int) -> torch
     return levels.to(torch.float32) * scale[:, None]
 
 
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
-    if t.dtype != dtype or t.dim() != ndim:
-        raise ValueError(
-            f"{name} must be a {ndim}-d {dtype} tensor, got {t.dim()}-d {t.dtype}"
-        )
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def dequant_reduce_plain(
+    levels: torch.Tensor, norms: torch.Tensor, w: torch.Tensor, s: int
+) -> torch.Tensor:
+    """Plain PyTorch ``sum_p w[p] * levels[p] * norms[p] / s`` -> (nb, B) f32,
+    in the Pallas kernel's order: ``scale = (w * norm) / s`` first, then the
+    products, summed p = 0 .. P-1 one after another."""
+    scale = (w[:, None] * norms) / torch.full_like(norms, float(s))
+    out = torch.zeros(levels.shape[1:], dtype=torch.float32, device=levels.device)
+    for p in range(levels.shape[0]):
+        out = out + levels[p].to(torch.float32) * scale[p][:, None]
+    return out
 
 
 def _check_levels(s: int) -> None:
     if not 1 <= int(s) <= 127:
         raise ValueError(f"QSGD levels s must be in [1, 127] to fit int8, got {s}")
-
-
-def _launch_args(device: torch.device):
-    if device.type != "cuda":
-        raise ValueError(f"QSGD kernels run on CUDA or CPU tensors, got {device}")
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 @functools.lru_cache(maxsize=None)
@@ -84,6 +83,11 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.qsgd_dequantize_launch.restype = ctypes.c_int
+    lib.qsgd_dequant_reduce_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.qsgd_dequant_reduce_launch.restype = ctypes.c_int
     return lib
 
 
@@ -102,8 +106,8 @@ def qsgd_quantize(
     buckets: torch.Tensor, u: torch.Tensor, s: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """buckets, u: (nb, B) f32 -> (levels int8 (nb, B), norms f32 (nb,))."""
-    _check(buckets, "buckets", torch.float32, 2)
-    _check(u, "u", torch.float32, 2)
+    build.check_tensor(buckets, "buckets", torch.float32, 2)
+    build.check_tensor(u, "u", torch.float32, 2)
     _check_levels(s)
     if u.shape != buckets.shape or u.device != buckets.device:
         raise ValueError(
@@ -112,7 +116,7 @@ def qsgd_quantize(
         )
     if buckets.device.type == "cpu":
         return quantize_plain(buckets, u, s)
-    stream = _launch_args(buckets.device)
+    stream = build.cuda_stream(buckets.device)
     nb, bucket = buckets.shape
     levels = torch.empty((nb, bucket), dtype=torch.int8, device=buckets.device)
     norms = torch.empty((nb,), dtype=torch.float32, device=buckets.device)
@@ -134,8 +138,8 @@ qsgd_quantize.launches = 0
 
 def qsgd_dequantize(levels: torch.Tensor, norms: torch.Tensor, s: int) -> torch.Tensor:
     """levels (nb, B) int8, norms (nb,) f32 -> f32 (nb, B)."""
-    _check(levels, "levels", torch.int8, 2)
-    _check(norms, "norms", torch.float32, 1)
+    build.check_tensor(levels, "levels", torch.int8, 2)
+    build.check_tensor(norms, "norms", torch.float32, 1)
     _check_levels(s)
     if norms.shape[0] != levels.shape[0] or norms.device != levels.device:
         raise ValueError(
@@ -144,7 +148,7 @@ def qsgd_dequantize(levels: torch.Tensor, norms: torch.Tensor, s: int) -> torch.
         )
     if levels.device.type == "cpu":
         return dequantize_plain(levels, norms, s)
-    stream = _launch_args(levels.device)
+    stream = build.cuda_stream(levels.device)
     nb, bucket = levels.shape
     out = torch.empty((nb, bucket), dtype=torch.float32, device=levels.device)
     if nb == 0 or bucket == 0:
@@ -161,3 +165,40 @@ def qsgd_dequantize(levels: torch.Tensor, norms: torch.Tensor, s: int) -> torch.
 
 
 qsgd_dequantize.launches = 0
+
+
+def qsgd_dequant_reduce(
+    levels: torch.Tensor, norms: torch.Tensor, w: torch.Tensor, s: int
+) -> torch.Tensor:
+    """levels (P, nb, B) int8, norms (P, nb) f32, mixing weights w (P,) f32
+    -> f32 (nb, B) = sum_p w[p] * dequantize(levels[p], norms[p])."""
+    build.check_tensor(levels, "levels", torch.int8, 3)
+    build.check_tensor(norms, "norms", torch.float32, 2)
+    build.check_tensor(w, "w", torch.float32, 1)
+    _check_levels(s)
+    peers, nb, bucket = levels.shape
+    if tuple(norms.shape) != (peers, nb) or tuple(w.shape) != (peers,) or not (
+        norms.device == w.device == levels.device
+    ):
+        raise ValueError(
+            f"norms {tuple(norms.shape)} on {norms.device} and w {tuple(w.shape)} "
+            f"on {w.device} must be ({peers}, {nb}) and ({peers},) on {levels.device}"
+        )
+    if levels.device.type == "cpu":
+        return dequant_reduce_plain(levels, norms, w, s)
+    stream = build.cuda_stream(levels.device)
+    out = torch.empty((nb, bucket), dtype=torch.float32, device=levels.device)
+    if nb == 0 or bucket == 0 or peers == 0:
+        return out.zero_()
+    with torch.cuda.device(levels.device):
+        err = _lib().qsgd_dequant_reduce_launch(
+            levels.data_ptr(), norms.data_ptr(), w.data_ptr(), out.data_ptr(), peers,
+            nb, bucket, float(s), _vectorizable(bucket, levels, out), stream,
+        )
+    if err:
+        raise RuntimeError(f"qsgd_dequant_reduce kernel launch failed: cudaError {err}")
+    qsgd_dequant_reduce.launches += 1
+    return out
+
+
+qsgd_dequant_reduce.launches = 0

@@ -1,0 +1,166 @@
+"""Top-k select-and-pack / scatter-accumulate: CUDA kernels for Hopper beside
+their plain PyTorch versions.
+
+Replaces the Pallas TPU kernels ``repro/kernels/topk.py:topk_select_pack``
+(``_select_kernel``) and ``topk_scatter_accum`` (``_scatter_kernel``). The
+CUDA source is ``csrc/topk.cu``; its header says how the selection is split
+over a cooperative grid and what bounds each kernel.
+
+The select is the Pallas kernel's algorithm, not an exact top-k: a 64-step
+float32 bisection on the magnitude threshold from ``lo = 0`` and
+``hi = max|x| * f32(1 + 1e-6) + f32(1e-30)``; every entry with
+``|x| >= hi`` is kept, the remaining slots are filled with the boundary
+entries ``lo <= |x| < hi`` in ascending index order, and the output lists
+the kept entries first and then the boundary ones, each in index order.
+So the payload equals the reference kernel's element for element, also
+where the bracket cannot close (a k-th magnitude below about
+``max * 2**-64``, as in a leaf of mostly exact zeros).
+
+A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
+tensor it launches the kernel, or raises: there is no fallback. Each
+wrapper counts its kernel launches in its ``launches`` attribute.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import build
+
+SOURCE = "topk.cu"
+BISECT_STEPS = 64
+MAX_GRID = 4096  # blocks of the select's cooperative grid, at most
+
+
+def select_pack_plain(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch select: (n,) f32 -> (values f32 (k,), indices int32
+    (k,)), the Pallas kernel's bisection and two-tier pack step for step."""
+    n = x.shape[0]
+    mag = x.abs()
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=x.device)
+    lo = f32(0.0)
+    hi = mag.max() * f32(1.0 + 1e-6) + f32(1e-30)
+    for _ in range(BISECT_STEPS):
+        mid = 0.5 * (lo + hi)
+        big = (mag >= mid).sum() >= k
+        lo, hi = torch.where(big, mid, lo), torch.where(big, hi, mid)
+    sure = mag >= hi
+    edge = (mag >= lo) & (mag < hi)
+    n_sure = sure.sum()
+    edge_rank = torch.cumsum(edge, 0) - 1
+    take = sure | (edge & (edge_rank < k - n_sure))
+    slot = torch.where(sure, torch.cumsum(sure, 0) - 1, n_sure + edge_rank)[take]
+    index = torch.arange(n, device=x.device)[take]
+    vals = torch.zeros((k,), dtype=torch.float32, device=x.device)
+    idx = torch.zeros((k,), dtype=torch.int32, device=x.device)
+    vals[slot] = x[index]
+    idx[slot] = index.to(torch.int32)
+    return vals, idx
+
+
+def scatter_accum_plain(
+    vals: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, n: int
+) -> torch.Tensor:
+    """Plain PyTorch ``sum_p w[p] * scatter(vals[p], idx[p])`` -> (n,) f32:
+    ``out[idx[p, j]] += vals[p, j] * w[p]``, peers added in the order
+    p = 0 .. P-1, indices outside [0, n) dropped."""
+    out = torch.zeros((n,), dtype=torch.float32, device=vals.device)
+    for p in range(vals.shape[0]):
+        keep = (idx[p] >= 0) & (idx[p] < n)
+        out.index_add_(0, idx[p][keep].to(torch.int64), (vals[p] * w[p])[keep])
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.load(SOURCE)
+    lib.topk_select_scratch_words.argtypes = [ctypes.c_int]
+    lib.topk_select_scratch_words.restype = ctypes.c_int
+    lib.topk_select_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.topk_select_launch.restype = ctypes.c_int
+    lib.topk_scatter_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+    ]
+    lib.topk_scatter_launch.restype = ctypes.c_int
+    return lib
+
+
+def load_library() -> None:
+    """Build and load the kernels ahead of their first launch."""
+    _lib()
+
+
+def topk_select_pack(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (n,) f32 -> (values f32 (k,), indices int32 (k,)) of the k largest
+    |x| by the bisection-threshold rule (module docstring)."""
+    build.check_tensor(x, "x", torch.float32, 1)
+    n = x.shape[0]
+    if not 1 <= k <= n < 2**31:
+        raise ValueError(f"k={k} out of range for n={n} (1 <= k <= n < 2**31)")
+    if x.device.type == "cpu":
+        return select_pack_plain(x, k)
+    stream = build.cuda_stream(x.device)
+    vals = torch.empty((k,), dtype=torch.float32, device=x.device)
+    idx = torch.empty((k,), dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        lib = _lib()
+        scratch = torch.empty(
+            (lib.topk_select_scratch_words(MAX_GRID),), dtype=torch.int32, device=x.device
+        )
+        err = lib.topk_select_launch(
+            x.data_ptr(), n, k, vals.data_ptr(), idx.data_ptr(), scratch.data_ptr(),
+            MAX_GRID, stream,
+        )
+    if err:
+        raise RuntimeError(f"topk_select_pack kernel launch failed: cudaError {err}")
+    topk_select_pack.launches += 1
+    return vals, idx
+
+
+topk_select_pack.launches = 0
+
+
+def topk_scatter_accum(
+    vals: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, n: int
+) -> torch.Tensor:
+    """vals (P, k) f32, idx (P, k) int32, mixing weights w (P,) f32 -> dense
+    (n,) f32 = sum_p w[p] * scatter(vals[p], idx[p]). Indices within one
+    peer must be distinct, as the select gives them."""
+    build.check_tensor(vals, "vals", torch.float32, 2)
+    build.check_tensor(idx, "idx", torch.int32, 2)
+    build.check_tensor(w, "w", torch.float32, 1)
+    peers, k = vals.shape
+    if idx.shape != vals.shape or tuple(w.shape) != (peers,) or not (
+        idx.device == w.device == vals.device
+    ):
+        raise ValueError(
+            f"idx {tuple(idx.shape)} on {idx.device} and w {tuple(w.shape)} on "
+            f"{w.device} must be ({peers}, {k}) and ({peers},) on {vals.device}"
+        )
+    if not 0 <= n < 2**31:
+        raise ValueError(f"n={n} out of range [0, 2**31)")
+    if vals.device.type == "cpu":
+        return scatter_accum_plain(vals, idx, w, n)
+    stream = build.cuda_stream(vals.device)
+    out = torch.empty((n,), dtype=torch.float32, device=vals.device)
+    if n == 0:
+        return out
+    with torch.cuda.device(vals.device):
+        err = _lib().topk_scatter_launch(
+            vals.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(), peers, k, n,
+            stream,
+        )
+    if err:
+        raise RuntimeError(f"topk_scatter_accum kernel launch failed: cudaError {err}")
+    topk_scatter_accum.launches += 1
+    return out
+
+
+topk_scatter_accum.launches = 0

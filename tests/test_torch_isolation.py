@@ -39,7 +39,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
 def test_port_imports_with_jax_blocked():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None\n"
-        "import repro_torch.core.simulate, repro_torch.convert, repro_torch.optim\n"
+        "import repro_torch.core.simulate, repro_torch.core.p2p, repro_torch.convert\n"
+        "import repro_torch.optim, repro_torch.kernels.qsgd, repro_torch.kernels.topk\n"
         "assert not any(m == 'repro' or m.startswith('repro.') for m in sys.modules)\n"
         "print('ok')\n"
     )
@@ -68,9 +69,16 @@ def test_cluster_defaults_to_the_card_and_refuses_to_fall_back():
 def test_kernel_wrappers_raise_on_a_device_they_do_not_serve():
     from repro_torch.kernels import qsgd as K
 
+    from repro_torch.kernels import topk as T
+
     x = torch.zeros(2, 256, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         K.qsgd_quantize(x, x, 7)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        T.topk_select_pack(x[0], 3)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        T.topk_scatter_accum(x, torch.zeros(2, 256, dtype=torch.int32, device="meta"),
+                             torch.ones(2, device="meta"), 9)
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

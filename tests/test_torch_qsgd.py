@@ -9,7 +9,10 @@ kernels in interpret mode, with the same uniforms ``u``:
   rounding boundary, where a last-digit difference in the norm may round the
   other way: there they differ by at most 1;
 * dequantize bit-identical to the oracle on identical levels and norms
-  (within rtol 1e-6 of the Pallas kernel, as the reference's own tests).
+  (within rtol 1e-6 of the Pallas kernel, as the reference's own tests);
+* dequantize-and-reduce within rtol 1e-6 of the Pallas kernel and of the
+  reference's jnp ``dequant_reduce`` (which dequantizes, then reduces: the
+  port follows the Pallas kernel's order, so the two differ in rounding).
 
 The CUDA kernels are held against the plain versions by ``test_cuda_*``
 (which skip without a card) and by ``chip_smoke.py``.
@@ -23,6 +26,7 @@ import torch
 from repro.core import compression as JC
 from repro.core.exchange import ExchangeContext as JContext
 from repro.core.exchange import get_exchange as jget_exchange
+from repro.kernels.qsgd import qsgd_dequant_reduce as pallas_dequant_reduce
 from repro.kernels.qsgd import qsgd_dequantize as pallas_dequantize
 from repro.kernels.qsgd import qsgd_quantize as pallas_quantize
 from repro_torch.core import compression as C
@@ -77,6 +81,23 @@ def test_plain_codec_matches_reference_oracle_and_pallas(nb, bucket, s):
     # the jitted Pallas body may divide by the constant s as a multiply by its
     # reciprocal, one rounding away from the oracle: its own tests use rtol 1e-6
     np.testing.assert_allclose(deq, np.asarray(pallas_dequantize(ref_lev, nrm, s)), rtol=1e-6)
+
+
+@pytest.mark.parametrize("peers", [1, 4])
+@pytest.mark.parametrize("nb,bucket", [(1, 128), (5, 256), (13, 512)])
+@pytest.mark.parametrize("s", [3, 127])
+def test_dequant_reduce_matches_pallas_and_oracle(peers, nb, bucket, s):
+    rng = np.random.default_rng(peers * 1000 + nb + bucket + s)
+    lev = rng.integers(-s, s + 1, size=(peers, nb, bucket)).astype(np.int8)
+    nrm = rng.uniform(0.1, 2.0, size=(peers, nb)).astype(np.float32)
+    nrm[0, nb // 2] = 0.0  # an all-zero bucket
+    w = rng.random(peers).astype(np.float32)
+    got = C.dequant_reduce(torch.from_numpy(lev), torch.from_numpy(nrm), torch.from_numpy(w),
+                           C.QSGDConfig(s, bucket))
+    assert got.shape == (nb, bucket) and got.dtype == torch.float32
+    j = (jnp.asarray(lev), jnp.asarray(nrm), jnp.asarray(w))
+    for want in (pallas_dequant_reduce(*j, s), JC.dequant_reduce(*j, JC.QSGDConfig(s, bucket))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
 
 
 def _leaf_tree(seed):
@@ -181,9 +202,16 @@ def test_wrappers_validate_inputs():
         K.qsgd_quantize(x, x, 128)
     with pytest.raises(ValueError, match="contiguous"):
         K.qsgd_dequantize(torch.zeros(256, 4, dtype=torch.int8).t(), torch.zeros(4), 7)
-    before = (K.qsgd_quantize.launches, K.qsgd_dequantize.launches)
+    lev = torch.zeros(2, 4, 256, dtype=torch.int8)
+    with pytest.raises(ValueError, match=r"must be \(2, 4\) and \(2,\)"):
+        K.qsgd_dequant_reduce(lev, torch.zeros(2, 3), torch.ones(2), 7)
+    with pytest.raises(ValueError, match="3-d"):
+        K.qsgd_dequant_reduce(lev[0], torch.zeros(2, 4), torch.ones(2), 7)
+    counters = (K.qsgd_quantize, K.qsgd_dequantize, K.qsgd_dequant_reduce)
+    before = [f.launches for f in counters]
     K.qsgd_dequantize(*K.qsgd_quantize(x, x, 7), 7)
-    assert (K.qsgd_quantize.launches, K.qsgd_dequantize.launches) == before  # CPU: no launch
+    K.qsgd_dequant_reduce(lev, torch.zeros(2, 4), torch.ones(2), 7)
+    assert [f.launches for f in counters] == before  # CPU: no launch
 
 
 @pytest.fixture
@@ -202,3 +230,12 @@ def test_cuda_kernels_match_plain(cuda, nb, bucket):
     np.testing.assert_allclose(nrm.cpu().numpy(), pnrm.cpu().numpy(), rtol=1e-5, atol=0)
     _assert_levels_match(lev.cpu().numpy(), plev.cpu().numpy(), x, pnrm.cpu().numpy(), u, 127)
     assert torch.equal(K.qsgd_dequantize(plev, pnrm, 127), K.dequantize_plain(plev, pnrm, 127))
+
+
+@pytest.mark.parametrize("peers,nb,bucket", [(4, 8192, 2048), (3, 13, 256), (4, 5, 301)])
+def test_cuda_dequant_reduce_matches_plain(cuda, peers, nb, bucket):
+    rng = np.random.default_rng(nb)
+    lev = torch.from_numpy(rng.integers(-127, 128, size=(peers, nb, bucket)).astype(np.int8)).cuda()
+    nrm = torch.from_numpy(rng.random((peers, nb), dtype=np.float32)).cuda()
+    w = torch.from_numpy(rng.random(peers, dtype=np.float32)).cuda()
+    assert torch.equal(K.qsgd_dequant_reduce(lev, nrm, w, 127), K.dequant_reduce_plain(lev, nrm, w, 127))

@@ -1,0 +1,303 @@
+"""The port's top-k kernels and exchange protocols against the reference's,
+on the CPU.
+
+* The plain select equals the reference's Pallas ``topk_select_pack`` (in
+  interpret mode) element for element, values and indices, including
+  exact ties and leaves of mostly exact zeros, where the bisection bracket
+  cannot close and the boundary tier fills by index; on tie-free input it
+  selects the index set of ``lax.top_k`` (``kernels/ref.py``).
+* The plain scatter equals the Pallas ``topk_scatter_accum`` and
+  ``topk_scatter_ref`` bit for bit, peers sharing indices.
+* ``topk`` and ``psum_mean``: host payloads, wire bytes and registry flags
+  are the reference's; each device ``combine`` / ``combine_ef`` on the
+  stacked ``(P, ...)`` bank matches the reference's under
+  ``jax.vmap(axis_name="data")`` within 1e-6 (``qsgd`` with the
+  reference's uniforms replayed).
+
+The CUDA kernels are held against the plain versions by ``test_cuda_*``
+(which skip without a card) and by ``chip_smoke.py``.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import compression as JC
+from repro.core.exchange import ExchangeContext as JContext
+from repro.core.exchange import get_exchange as jget_exchange
+from repro.core.graph import get_graph as jget_graph
+from repro.kernels import ref as kref
+from repro.kernels.topk import topk_scatter_accum as pallas_scatter
+from repro.kernels.topk import topk_select_pack as pallas_select
+from repro_torch import convert
+from repro_torch.core import compression as C
+from repro_torch.core import exchange as X
+from repro_torch.core.graph import get_graph
+from repro_torch.kernels import topk as K
+
+torch.set_num_threads(2)  # the test workers share the CPU with each other
+
+P = 4
+
+
+def _leaf(n, kind, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=n).astype(np.float32)
+    if kind == "ties":
+        x = (np.round(x * 4) / 4).astype(np.float32)  # many exact magnitude ties
+    elif kind == "mostly_zero":
+        x[rng.random(n) < 0.97] = 0.0
+        x[3], x[11] = 1e-25, -3e-38  # below max * 2**-64: the bracket stays open
+    return x
+
+
+@pytest.mark.parametrize("n", [300, 1000, 4097])
+@pytest.mark.parametrize("kind", ["normal", "ties", "mostly_zero"])
+def test_plain_select_is_the_pallas_payload(n, kind):
+    x = _leaf(n, kind, seed=n)
+    for k in (1, max(1, round(n * 0.01)), n):
+        want_v, want_i = pallas_select(jnp.asarray(x), k)  # interpret mode
+        got_v, got_i = K.topk_select_pack(torch.from_numpy(x), k)  # CPU -> plain
+        assert got_v.dtype == torch.float32 and got_i.dtype == torch.int32
+        np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v), err_msg=f"k={k}")
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i), err_msg=f"k={k}")
+
+
+def test_plain_select_on_an_all_zero_leaf():
+    x = np.zeros(301, np.float32)
+    for k in (3, 301):
+        v, i = K.topk_select_pack(torch.from_numpy(x), k)
+        want_v, want_i = pallas_select(jnp.asarray(x), k)
+        np.testing.assert_array_equal(i.numpy(), np.asarray(want_i))
+        np.testing.assert_array_equal(i.numpy(), np.arange(k))  # boundary tier by index
+        assert not v.any()
+
+
+@pytest.mark.parametrize("n,k", [(300, 3), (1000, 10), (4097, 41), (4097, 2000)])
+def test_plain_select_picks_the_top_k_set_on_tie_free_input(n, k):
+    x = np.random.default_rng(k).permutation(np.arange(1, n + 1)).astype(np.float32)
+    x *= np.where(np.random.default_rng(n).random(n) < 0.5, -1, 1).astype(np.float32)
+    v, i = K.topk_select_pack(torch.from_numpy(x), k)
+    rv, ri = kref.topk_select_ref(jnp.asarray(x), k)
+    assert set(i.tolist()) == set(np.asarray(ri).tolist())
+    np.testing.assert_array_equal(v.numpy(), x[i.numpy()])
+
+
+@pytest.mark.parametrize("k,n", [(50, 300), (128, 4097), (7, 7)])
+def test_plain_scatter_is_bit_identical_to_the_reference(k, n):
+    rng = np.random.default_rng(k + n)
+    vals = rng.normal(size=(P, k)).astype(np.float32)
+    # peers share indices: each peer draws from the same small pool
+    pool = rng.choice(n, size=min(n, 2 * k), replace=False)
+    idx = np.stack([rng.choice(pool, size=k, replace=False) for _ in range(P)]).astype(np.int32)
+    w = rng.random(P).astype(np.float32)
+    got = K.topk_scatter_accum(torch.from_numpy(vals), torch.from_numpy(idx),
+                               torch.from_numpy(w), n).numpy()
+    args = (jnp.asarray(vals), jnp.asarray(idx), jnp.asarray(w), n)
+    np.testing.assert_array_equal(got, np.asarray(pallas_scatter(*args)))
+    np.testing.assert_array_equal(got, np.asarray(kref.topk_scatter_ref(*args)))
+
+
+def test_wrappers_validate_inputs_and_count_no_cpu_launch():
+    x = torch.zeros(10)
+    with pytest.raises(ValueError, match="out of range"):
+        K.topk_select_pack(x, 11)
+    with pytest.raises(ValueError, match="out of range"):
+        K.topk_select_pack(x, 0)
+    with pytest.raises(ValueError, match="float32"):
+        K.topk_select_pack(x.double(), 1)
+    v, i, w = torch.zeros(2, 3), torch.zeros(2, 3, dtype=torch.int32), torch.ones(2)
+    with pytest.raises(ValueError, match=r"must be \(2, 3\) and \(2,\)"):
+        K.topk_scatter_accum(v, i[:, :2].contiguous(), w, 5)
+    with pytest.raises(ValueError, match="int32"):
+        K.topk_scatter_accum(v, i.long(), w, 5)
+    before = (K.topk_select_pack.launches, K.topk_scatter_accum.launches)
+    K.topk_scatter_accum(v, i, w, 5)
+    K.topk_select_pack(x, 3)
+    assert (K.topk_select_pack.launches, K.topk_scatter_accum.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# protocols: host path, accounting, registry
+# ---------------------------------------------------------------------------
+
+
+def _leaf_tree(seed, peers=None):
+    """Leaves in the port's layout (conv OIHW, linear (out, in), bias), with
+    a stacked peer dimension in front when ``peers`` is set."""
+    g = torch.Generator().manual_seed(seed)
+    lead = () if peers is None else (peers,)
+    return {
+        "conv.b": torch.randn(*lead, 24, generator=g),
+        "conv.w": torch.randn(*lead, 24, 3, 5, 5, generator=g),
+        "fc.w": torch.randn(*lead, 10, 70, generator=g),
+    }
+
+
+def _to_jax_tree(tree, lead=0):
+    j = {k: jnp.asarray(convert.to_jax_layout(v, lead=lead).numpy()) for k, v in tree.items()}
+    return {"conv": {"b": j["conv.b"], "w": j["conv.w"]}, "fc": {"w": j["fc.w"]}}
+
+
+def _jleaves(tree):
+    return dict(zip(["conv.b", "conv.w", "fc.w"], jax.tree_util.tree_leaves(tree)))
+
+
+@pytest.mark.parametrize("wire", ["float32", "bfloat16"])
+@pytest.mark.parametrize("frac", [0.01, 0.3])
+def test_topk_host_payload_and_wire_bytes_are_the_reference(wire, frac):
+    tree = _leaf_tree(0)
+    ctx = X.ExchangeContext(num_peers=P, topk_frac=frac, wire_dtype=getattr(torch, wire),
+                            graph=get_graph("ring", P))
+    jctx = JContext(num_peers=P, topk_frac=frac, wire_dtype=jnp.dtype(wire), topk_impl="kernel",
+                    graph=jget_graph("ring", P))
+    proto, jproto = X.get_exchange("topk"), jget_exchange("topk")
+    payload, nbytes = proto.host_encode(tree, ctx)
+    jpayload, jnbytes = jproto.host_encode(_to_jax_tree(tree), jctx)
+    assert nbytes == jnbytes
+    assert list(payload) == ["conv.b", "conv.w", "fc.w"]
+    jp = jax.tree_util.tree_leaves(jpayload, is_leaf=lambda p: isinstance(p, dict) and "values" in p)
+    for p, q in zip(payload.values(), jp):
+        assert p["values"].dtype == getattr(torch, wire)
+        np.testing.assert_array_equal(p["values"].float().numpy(), np.asarray(q["values"], np.float32))
+        np.testing.assert_array_equal(p["idx"].numpy(), np.asarray(q["idx"]))
+        np.testing.assert_array_equal(p["shape"], q["shape"])
+    dense = proto.host_decode(payload, tree, ctx)
+    jdense = _jleaves(jproto.host_decode(jpayload, _to_jax_tree(tree), jctx))
+    for k, d in dense.items():
+        assert d.shape == tree[k].shape
+        np.testing.assert_array_equal(convert.to_jax_layout(d).numpy(), np.asarray(jdense[k]))
+    for name in ("topk", "psum_mean", "allgather_mean"):
+        p, q = X.get_exchange(name), jget_exchange(name)
+        jtree = _to_jax_tree(tree)
+        full = dataclasses.replace(ctx, graph=get_graph("full", P))
+        jfull = dataclasses.replace(jctx, graph=jget_graph("full", P))
+        for c, jc in ((ctx, jctx), (full, jfull)):
+            assert p.wire_bytes_per_edge(tree, c) == q.wire_bytes_per_edge(jtree, jc)
+            assert p.wire_bytes(tree, c) == q.wire_bytes(jtree, jc)
+            assert p.host_wire_bytes(tree, c) == q.host_wire_bytes(jtree, jc)
+
+
+@pytest.mark.parametrize("wire", ["float32", "bfloat16"])
+def test_psum_mean_host_payload_is_the_reference(wire):
+    tree = _leaf_tree(1)
+    ctx = X.ExchangeContext(num_peers=P, wire_dtype=getattr(torch, wire))
+    jctx = JContext(num_peers=P, wire_dtype=jnp.dtype(wire))
+    payload, nbytes = X.get_exchange("psum_mean").host_encode(tree, ctx)
+    jpayload, jnbytes = jget_exchange("psum_mean").host_encode(_to_jax_tree(tree), jctx)
+    assert nbytes == jnbytes
+    for k, q in _jleaves(jpayload).items():
+        np.testing.assert_array_equal(
+            convert.to_jax_layout(payload[k]).float().numpy(), np.asarray(q, np.float32))
+
+
+@pytest.mark.parametrize("name", ["allgather_mean", "psum_mean", "qsgd", "topk"])
+def test_registry_names_and_flags_are_the_reference(name):
+    p, q = X.get_exchange(name), jget_exchange(name)
+    assert p.name == q.name == name
+    for flag in ("is_async", "requires_key", "decomposes_per_edge", "requires_full_graph",
+                 "sharded", "lossy", "hierarchical"):
+        assert getattr(p, flag) == getattr(q, flag), flag
+
+
+# ---------------------------------------------------------------------------
+# protocols: device combine on the stacked bank
+# ---------------------------------------------------------------------------
+
+
+def _replay_combine_uniforms(monkeypatch, key, num_leaves):
+    """The reference's uniforms for a combine under vmap: peer p's leaf i
+    draws ``uniform(split(fold_in(key, p), L)[i], (nb, bucket))``."""
+    calls = iter(range(num_leaves))
+
+    def draw(shape, generator):
+        i = next(calls)
+        peers, nb, bucket = shape
+        u = [jax.random.uniform(jax.random.split(jax.random.fold_in(key, p), num_leaves)[i],
+                                (nb, bucket), jnp.float32) for p in range(peers)]
+        return torch.from_numpy(np.stack([np.asarray(a) for a in u]))
+
+    monkeypatch.setattr(C, "draw_uniforms", draw)
+
+
+CASES = [
+    ("allgather_mean", "full", "float32", {}),
+    ("allgather_mean", "ring", "bfloat16", {}),
+    ("psum_mean", "full", "float32", {}),
+    ("psum_mean", "full", "bfloat16", {}),
+    ("qsgd", "full", "float32", {"qsgd": (7, 256)}),
+    ("qsgd", "ring", "float32", {"qsgd": (127, 128)}),
+    ("topk", "full", "float32", {"topk_frac": 0.05}),
+    ("topk", "ring", "bfloat16", {"topk_frac": 0.2}),
+    ("topk", "full", "float32", {"topk_frac": 1.0}),
+]
+
+
+@pytest.mark.parametrize("name,graph,wire,kw", CASES)
+def test_device_combine_matches_the_reference_under_vmap(monkeypatch, name, graph, wire, kw):
+    grads = _leaf_tree(2, peers=P)
+    key = jax.random.PRNGKey(7)
+    common = dict(num_peers=P)
+    jkw = dict(kw, qsgd=JC.QSGDConfig(*kw["qsgd"])) if "qsgd" in kw else dict(kw)
+    tkw = dict(kw, qsgd=C.QSGDConfig(*kw["qsgd"])) if "qsgd" in kw else dict(kw)
+    jgraph, tgraph = jget_graph(graph, P), get_graph(graph, P)
+    jmix = None if graph == "full" else jgraph.mixing_matrix().astype(np.float32)
+    tmix = None if graph == "full" else tgraph.mixing_matrix().astype(np.float32)
+    jctx = JContext(axis="data", wire_dtype=jnp.dtype(wire), graph=jgraph, mixing=jmix, **common, **jkw)
+    ctx = X.ExchangeContext(wire_dtype=getattr(torch, wire), graph=tgraph, mixing=tmix, **common, **tkw)
+    jproto, proto = jget_exchange(name), X.get_exchange(name)
+    jkey = key if jproto.requires_key else None
+
+    def body(g):
+        avg, local, _ = jproto.combine_ef(g, jctx, key=jkey)
+        plain, _ = jproto.combine(g, jctx, key=jkey)
+        return avg, local, plain
+
+    javg, jlocal, jplain = (_jleaves(t) for t in jax.vmap(body, axis_name="data")(_to_jax_tree(grads, 1)))
+    gen = torch.Generator() if proto.requires_key else None
+    _replay_combine_uniforms(monkeypatch, key, len(grads))
+    avg, local, _ = proto.combine_ef(grads, ctx, generator=gen)
+    _replay_combine_uniforms(monkeypatch, key, len(grads))
+    plain, _ = proto.combine(grads, ctx, generator=gen)
+    for k in grads:
+        for ours, theirs in ((avg, javg), (local, jlocal), (plain, jplain)):
+            assert ours[k].shape == grads[k].shape
+            got = convert.to_jax_layout(ours[k], lead=1).float().numpy()
+            np.testing.assert_allclose(got, np.asarray(theirs[k], np.float32), rtol=0, atol=1e-6,
+                                       err_msg=k)
+
+
+def test_psum_mean_refuses_a_sparse_overlay():
+    ctx = X.ExchangeContext(num_peers=P, graph=get_graph("ring", P),
+                            mixing=get_graph("ring", P).mixing_matrix())
+    with pytest.raises(ValueError, match="graph='full'"):
+        X.get_exchange("psum_mean").combine(_leaf_tree(0, peers=P), ctx)
+    with pytest.raises(ValueError, match="graph='full'"):
+        X.check_overlay(X.get_exchange("psum_mean"), get_graph("ring", P))
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+
+
+@pytest.mark.parametrize("n,kind", [(4096 * 4096, "normal"), (301, "ties"), (4097, "mostly_zero")])
+def test_cuda_kernels_match_plain(cuda, n, kind):
+    x = torch.from_numpy(_leaf(n, kind, seed=3)).cuda()
+    for k in (1, max(1, round(n * 0.01)), n):
+        v, i = K.topk_select_pack(x, k)
+        pv, pi = K.select_pack_plain(x, k)
+        assert torch.equal(v, pv) and torch.equal(i, pi)
+    vals = torch.stack([v] * P) * torch.arange(1, P + 1, device="cuda")[:, None]
+    idx = torch.stack([i] * P)  # every peer shares every index
+    w = torch.rand(P, device="cuda")
+    assert torch.equal(K.topk_scatter_accum(vals, idx, w, n), K.scatter_accum_plain(vals, idx, w, n))
