@@ -14,11 +14,15 @@ failure):
              (4, 8192, 2048) and ragged shapes; the top-k select at fc2/w
              (16,777,216 elements, k = 1 %), n = 301 with k = 3, exact ties,
              a leaf of mostly exact zeros, an all-zero leaf and k = n; the
-             scatter at P = 4 with shared indices.
+             scatter at P = 4 with shared indices; the SSD scan at the
+             mamba2-370m scoring shape (4, 2048, 32, 64), G = 1, N = 128,
+             chunk 256, in bf16 and f32, at a padded last chunk with 4
+             groups, and at a single chunk.
 3. reference — small runs on the card against the same runs on the CPU
              (plain versions), same init and uniforms: a 4-peer squeezenet
-             QSGD cluster epoch, and one device train step with qsgd + EF
-             and with topk + EF.
+             QSGD cluster epoch, one device train step with qsgd + EF and
+             with topk + EF, and a 3-layer reduced mamba2 in f32 (forward,
+             prefill logits and states, 8 greedy decode steps).
 4. path    — the main paths. ``LocalP2PCluster(...).run`` with the QSGD
              exchange: mobilenet-v3-small (full graph, 3 epochs), vgg11
              (full graph, 2 epochs), mobilenet-v3-small (ring, EF, 1 epoch);
@@ -26,11 +30,18 @@ failure):
              1 epoch). ``build_p2p_train_step`` at full width: vgg11 with
              qsgd(127, 2048) + EF and mobilenet-v3-small with topk(0.01) +
              EF, 4 peers x batch 32 on CIFAR-shaped 32x32 data, 4 steps
-             each. Launch counters are zeroed before and read after each
-             run and must equal the counts the path implies.
+             each. mamba2-370m at full width (48 layers, bf16): the scoring
+             ``forward(..., use_ssd_kernel=True)`` on 4 x 2048 tokens (48
+             SSD launches each) and the serve twin's prefill of 4 x 512
+             and 32 greedy tokens (no SSD launch, as in the reference).
+             Launch counters are zeroed before and read after each run and
+             must equal the counts the path implies.
 5. timing  — each kernel, its plain version, the PyTorch call that computes
              the same function where there is one, and the bound, at the
              main path's largest shapes, timed with CUDA events.
+6. profile — ``torch.profiler`` over one mamba2-370m scoring forward and
+             4 decode steps: the device's busy and idle share and kernel
+             time by kind (SSD kernel, matrix products, the rest).
 
 The last two lines of stdout are a ``{"kernels": [...]}`` JSON line and the
 result ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
@@ -63,7 +74,11 @@ KERNELS = {  # name -> (module attribute, CUDA source, TPU kernel it replaces)
     "qsgd_dequant_reduce": ("kq", "qsgd.cu", "src/repro/kernels/qsgd.py:42"),
     "topk_select_pack": ("kt", "topk.cu", "src/repro/kernels/topk.py:45"),
     "topk_scatter_accum": ("kt", "topk.cu", "src/repro/kernels/topk.py:122"),
+    "ssd_scan": ("ks", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:31"),
 }
+SSD_SCORING = (4, 2048, 32, 64, 1, 128, 256)  # B, S, H, P, G, N, chunk of mamba2-370m scoring
+SSD_LONG = (1, 32768, 32, 64, 1, 128, 256)  # one 32k sequence
+PROMPT, GEN = 512, 32  # the serve path
 
 
 def require(cond: bool, what: str) -> None:
@@ -241,6 +256,54 @@ def new_kernel_phase(torch, kq, kt):
     return errs
 
 
+def ssd_inputs(torch, shape, dtype, seed=0):
+    """x, dt, A, B, C as the reference's kernel test draws them: x ~ 0.5 N,
+    dt = 0.2 softplus(N), A = -exp(0.3 N), B and C ~ 0.3 N."""
+    Bsz, S_, H, P, G, N, _ = shape
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    rand = lambda *s: torch.randn(s, generator=g, device="cuda")
+    x = (rand(Bsz, S_, H, P) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(rand(Bsz, S_, H)) * 0.2
+    A = -torch.exp(rand(H) * 0.3)
+    return x, dt, A, (rand(Bsz, S_, G, N) * 0.3).to(dtype), (rand(Bsz, S_, G, N) * 0.3).to(dtype)
+
+
+def ssd_kernel_phase(torch, ks):
+    """The SSD kernel against its plain version on the same inputs. Not
+    bit-identical: the kernel's cumsum and dot products sum in another
+    order. At the small shapes every element within atol 2e-5 + rtol 2e-4
+    (the reference's own Pallas-vs-oracle tolerance); at the full-width
+    scoring shape, where a 128-deep product meets 256-step sums, the max
+    abs error within 2e-5 of max|y|."""
+    worst = 0.0
+    cases = ((SSD_SCORING, torch.bfloat16), (SSD_SCORING, torch.float32),
+             ((1, 80, 8, 32, 4, 16, 32), torch.float32),  # padded last chunk, 4 groups
+             ((2, 64, 4, 64, 1, 32, 64), torch.float32))  # a single chunk
+    for shape, dtype in cases:
+        args = ssd_inputs(torch, shape, dtype, seed=shape[1])
+        y = ks.ssd_scan(*args, chunk=shape[-1])
+        ref = ks.ssd_scan_plain(*args, chunk=shape[-1])
+        torch.cuda.synchronize()
+        require(y.shape == ref.shape == shape[:4] and y.dtype == torch.float32,
+                f"ssd_scan output {tuple(y.shape)} {y.dtype} at {shape}")
+        err = (y - ref).abs()
+        scale = float(ref.abs().max())
+        if shape == SSD_SCORING:
+            require(float(err.max()) <= 2e-5 * scale, f"ssd_scan max abs error {float(err.max()):.3e} "
+                    f"> 2e-5 * max|y| ({scale:.3e}) at {shape} {dtype}")
+            tol = "max abs <= 2e-5 max|y|"
+        else:
+            require(bool(torch.all(err <= 2e-5 + 2e-4 * ref.abs())),
+                    f"ssd_scan outside atol 2e-5 + rtol 2e-4 at {shape} {dtype}")
+            tol = "every element within atol 2e-5 + rtol 2e-4"
+        worst = max(worst, float(err.max()))
+        print(f"kernel check ssd_scan {shape} {str(dtype).split('.')[-1]}: max_abs_err="
+              f"{float(err.max()):.3e}, relative to max|y| {float(err.max()) / scale:.3e} "
+              f"(max|y| {scale:.3f}; {tol})")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # 3. the card against the CPU on a small input
 # ---------------------------------------------------------------------------
@@ -383,6 +446,48 @@ def reference_step_phase(torch):
                   f"coordinates beyond 1e-5: {n_far} of {gaps.numel()}")
 
 
+def reference_lm_phase(torch):
+    """A 3-layer reduced mamba2 in f32, the same weights (one CPU generator
+    seed) on the card and on the CPU: the forward with the SSD kernel (the
+    CPU takes its plain version), prefill logits and every layer's SSM and
+    convolution state, then 8 greedy decode steps. Logits within atol 1e-4
+    + rtol 1e-4 and states within 1e-5 + rtol 1e-5 (f32 products summed in
+    other orders by cuBLAS and the CPU); greedy tokens identical."""
+    import copy
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import serve
+
+    cfg = dataclasses.replace(reduced(get_config("mamba2-370m"), num_layers=3), dtype="float32")
+    cpu_model = models.init_model(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1))
+    runs = {}
+    for device, model in (("cpu", cpu_model), ("cuda", copy.deepcopy(cpu_model).to("cuda"))):
+        model.requires_grad_(False)
+        with torch.inference_mode():
+            logits, _ = models.forward(model, {"tokens": tokens}, cfg, use_ssd_kernel=True)
+            _, state = models.prefill(model, models.init_decode_state(cfg, 2, 49, device=device),
+                                      {"tokens": tokens}, cfg)
+        res = serve.generate(model, cfg, tokens.to(device), 9)  # prefill, then 8 decode steps
+        runs[device] = (logits.cpu(), dict(res, state=state))
+    (lc, rc), (lg, rg) = runs["cpu"], runs["cuda"]
+    close = lambda a, b, tol: bool(torch.all((a.cpu() - b.cpu()).abs() <= tol + tol * b.cpu().abs()))
+    require(close(lg, lc, 1e-4), "reduced mamba2 forward: card vs CPU logits beyond 1e-4")
+    require(close(rg["prefill_logits"], rc["prefill_logits"], 1e-4),
+            "reduced mamba2 prefill: card vs CPU logits beyond 1e-4")
+    for layer, (sg, sc) in enumerate(zip(rg["state"]["layers"], rc["state"]["layers"])):
+        for k in ("ssm", "conv"):
+            require(close(sg[k], sc[k], 1e-5), f"reduced mamba2 layer {layer} {k} state beyond 1e-5")
+    require((rg["tokens"] == rc["tokens"]).all(), "reduced mamba2: greedy tokens differ, card vs CPU")
+    err = float((lg - lc).abs().max())
+    print(f"reference check (reduced mamba2, 3 layers, f32, card with the SSD kernel vs CPU): "
+          f"forward logits max_abs_err={err:.3e}, prefill logits "
+          f"{float((rg['prefill_logits'].cpu() - rc['prefill_logits']).abs().max()):.3e}, "
+          f"8 greedy decode steps identical: {rg['tokens'][0].tolist()}")
+
+
 # ---------------------------------------------------------------------------
 # 4. the main path
 # ---------------------------------------------------------------------------
@@ -515,6 +620,167 @@ def drive_step(torch, mods, arch: str, steps: int, *, exchange: str):
     return launches
 
 
+def device_profile(torch, fn):
+    """Run ``fn`` under ``torch.profiler`` and read the device's kernels:
+    (device window ms from the first kernel's start to the last one's end,
+    busy ms in that window, {"ssd_scan" | "matmul" | "other": kernel ms},
+    the 5 kernels with the most device time, the number of device
+    activities); None when the profiler saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, (lo, hi) = 0.0, spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy, lo = busy + hi - lo, start
+        hi = max(hi, end)
+    busy += hi - lo
+    groups, by_name = {}, {}
+    for e in kernels:
+        us = e.time_range.end - e.time_range.start
+        low = e.name.lower()
+        key = "ssd_scan" if "ssd_kernel" in e.name else (
+            "matmul" if any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")) else "other")
+        groups[key] = groups.get(key, 0.0) + us / 1e3
+        by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return (spans[-1][1] - spans[0][0]) / 1e3, busy / 1e3, groups, top, len(kernels)
+
+
+def print_profile(what: str, prof) -> None:
+    if prof is None:
+        print(f"profile {what}: the profiler recorded no device kernels; busy share not measured")
+        return
+    window, busy, groups, top, count = prof
+    print(f"profile {what}: {count} device activities (kernels and copies), device window "
+          f"{window:.3f} ms, kernels busy {busy:.3f} ms "
+          f"(idle share {1 - busy / window:.1%}); by kind "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(groups.items()))
+          + "; top kernels " + "; ".join(f"{n[:60]} {v:.3f} ms" for n, v in top))
+
+
+def drive_lm(torch, mods):
+    """mamba2-370m at full width (48 layers, d_model 1024, vocab 50,280; the
+    weights random from a seeded generator), bf16 as configured, f32
+    matmuls without TF32. (a) Scoring: ``forward(..., use_ssd_kernel=True)``
+    on 4 x 2048 tokens, a warm-up and 3 timed calls, 48 SSD launches each.
+    (b) The serve twin's path: prefill of 4 x 512 tokens and 32 greedy
+    tokens, no SSD launch (prefill takes the plain chunked scan, as in the
+    reference). Prefill's last logits are held to the scoring forward's
+    last position on the same prompt within twice that forward's own bf16
+    error (its distance from the same forward in f32)."""
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    cfg = get_config("mamba2-370m")
+    layers = cfg.num_layers
+    t0 = time.perf_counter()
+    model = models.init_model(cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+                              device="cuda").requires_grad_(False)
+    torch.cuda.synchronize()
+    print(f"path mamba2-370m: {models.param_count(model)} params, init {time.perf_counter() - t0:.3f} s")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 2048), generator=g, device="cuda")
+    total = dict.fromkeys(KERNELS, 0)
+    expect = dict(dict.fromkeys(KERNELS, 0), ssd_scan=layers)
+
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for i in range(4):  # a warm-up, then 3 timed
+        reset_counters(mods)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            logits, _ = models.forward(model, {"tokens": tokens}, cfg, use_ssd_kernel=True)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches = read_counters(mods)
+        require(launches == expect, f"scoring forward {i}: launches {launches} != {expect}")
+        for name, count in launches.items():
+            total[name] += count
+    require(logits.shape == (*tokens.shape, cfg.vocab_size) and logits.dtype == torch.float32,
+            f"scoring logits {tuple(logits.shape)} {logits.dtype}")
+    require(bool(torch.isfinite(logits).all()), "scoring logits not finite")
+    steady = sum(secs[1:]) / 3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"path mamba2-370m scoring, 4 x 2048 tokens, use_ssd_kernel=True: warm-up {secs[0]:.3f} s, "
+          f"then {steady:.4f} s/forward ({[round(x, 4) for x in secs[1:]]}), "
+          f"{4 * 2048 / steady:.0f} tokens/s, peak device memory {peak:.2f} GiB, "
+          f"SSD launches {layers} per forward")
+    del logits
+
+    prompts = tokens[:, :PROMPT].contiguous()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for gen in (2, GEN):  # a short warm-up, then the timed request
+        reset_counters(mods)
+        runs.append(serve.generate(model, cfg, prompts, gen))
+        launches = read_counters(mods)
+        require(launches == dict.fromkeys(KERNELS, 0),
+                f"serve path: launches {launches}, expected none (prefill takes ssd_chunked)")
+    res = runs[-1]
+    require(res["tokens"].shape == (4, GEN) and bool((res["tokens"] >= 0).all())
+            and bool((res["tokens"] < cfg.vocab_size).all()), f"serve tokens {res['tokens'].shape}")
+    require(bool(torch.isfinite(res["prefill_logits"]).all()), "prefill logits not finite")
+    per_token = res["decode_s"] / (GEN - 1)
+    print(f"path mamba2-370m serve, batch 4, prompt {PROMPT}, {GEN} greedy tokens: prefill "
+          f"{res['prefill_s']:.4f} s, decode {per_token * 1e3:.2f} ms/token "
+          f"({4 / per_token:.1f} tok/s), {4 * (PROMPT + GEN) / (res['prefill_s'] + res['decode_s']):.1f} "
+          f"tok/s incl. prefill, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"SSD launches 0; request 0: {res['tokens'][0][:16].tolist()}")
+
+    reset_counters(mods)
+    with torch.inference_mode():
+        full, _ = models.forward(model, {"tokens": prompts}, cfg, use_ssd_kernel=True)
+        full32, _ = models.forward(model, {"tokens": prompts}, dataclasses.replace(cfg, dtype="float32"),
+                                   use_ssd_kernel=True)
+    for name, count in read_counters(mods).items():
+        total[name] += count
+    last, last32 = full[:, -1], full32[:, -1]
+    budget = 2 * float((last - last32).abs().max())
+    gap = float((res["prefill_logits"] - last).abs().max())
+    require(gap <= budget, f"prefill's last logits {gap:.3e} from the forward's last position, "
+            f"beyond twice the forward's bf16 error ({budget:.3e})")
+    print(f"path mamba2-370m prefill vs scoring forward, last position of the {PROMPT}-token prompt: "
+          f"max_abs_err={gap:.3e} (tolerance {budget:.3e}: twice the bf16 forward's distance from "
+          f"the f32 forward; max|logits| {float(last32.abs().max()):.3f})")
+    return total, (model, cfg, tokens, prompts)
+
+
+def profile_phase(torch, model, cfg, tokens, prompts):
+    """Device busy and idle share and kernel time by kind, from
+    ``torch.profiler``, over one scoring forward (4 x 2048) and over 4
+    decode steps at batch 4 after a 512-token prefill. Last, because the
+    profiler leaves host-side costs behind that slow later host-bound
+    work."""
+    from repro_torch import models
+
+    with torch.inference_mode():
+        print_profile("mamba2-370m scoring forward (4 x 2048)", device_profile(
+            torch, lambda: models.forward(model, {"tokens": tokens}, cfg, use_ssd_kernel=True)))
+        state0 = models.init_decode_state(cfg, prompts.shape[0], PROMPT + 4, device="cuda")
+        logits, state = models.prefill(model, state0, {"tokens": prompts}, cfg)
+        tok = logits.argmax(-1)[:, None]
+
+        def decode4():
+            st = state
+            for _ in range(4):
+                _, st = models.decode_step(model, st, tok, cfg)
+
+        print_profile(f"mamba2-370m 4 decode steps (batch {prompts.shape[0]})",
+                      device_profile(torch, decode4))
+
+
 # ---------------------------------------------------------------------------
 # 5. timing
 # ---------------------------------------------------------------------------
@@ -608,6 +874,45 @@ def timing_phase(torch, kq, kt):
     return out
 
 
+def ssd_timing(torch, ks):
+    """The SSD kernel and its plain version (plain, kernel, kernel, plain)
+    with bf16 inputs at the scoring shape and at one 32k sequence. Bound:
+    the larger of the bytes (x, B, C in bf16, dt and A in f32 read once, y
+    in f32 written once) at 3.35 TB/s and the chunked algorithm's fp32
+    operations, 2Q^2 N + 2Q^2 P + 4QNP per (batch, head, chunk), at 67
+    TFLOP/s. No single PyTorch call computes the scan."""
+    out = {}
+    for shape in (SSD_SCORING, SSD_LONG):
+        Bsz, S_, H, P, G, N, Q = shape
+        args = ssd_inputs(torch, shape, torch.bfloat16, seed=3)
+        kern = lambda: ks.ssd_scan(*args, chunk=Q)
+        plain = lambda: ks.ssd_scan_plain(*args, chunk=Q)
+        iters, plain_iters = (20, 10) if shape == SSD_SCORING else (5, 3)
+        t_plain1, _ = time_ms(torch, plain, plain_iters)
+        t_kern1, host1 = time_ms(torch, kern, iters)
+        t_kern2, host2 = time_ms(torch, kern, iters)
+        t_plain2, _ = time_ms(torch, plain, plain_iters)
+        nbytes = 2 * Bsz * S_ * H * P + 4 * Bsz * S_ * H + 4 * H + 2 * 2 * Bsz * S_ * G * N \
+            + 4 * Bsz * S_ * H * P
+        ops = Bsz * H * (-(-S_ // Q)) * (2 * Q * Q * N + 2 * Q * Q * P + 4 * Q * N * P)
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+        row = {
+            "ms": min(t_kern1, t_kern2),
+            "plain_ms": min(t_plain1, t_plain2),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,
+        }
+        print(f"timing ssd_scan {shape[:4]} G={G} N={N} chunk {Q} bf16: kernel {t_kern1:.4f}/{t_kern2:.4f} ms, "
+              f"plain {t_plain1:.4f}/{t_plain2:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+              f"{ops / 1e9:.2f} GFLOP at 67 TFLOP/s = {ops_ms:.4f} ms, {nbytes / 1e6:.1f} MB at 3.35 TB/s = "
+              f"{bytes_ms:.4f} ms; roofline share {row['bound_ms'] / row['ms']:.1%}), host enqueue "
+              f"{min(host1, host2) * 1e3:.1f} us/call, library none: no single PyTorch call computes it")
+        if shape == SSD_SCORING:
+            out["ssd_scan"] = row
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -616,9 +921,10 @@ def main() -> int:
         return 1
     from repro_torch.kernels import build
     from repro_torch.kernels import qsgd as kq
+    from repro_torch.kernels import ssd_scan as ks
     from repro_torch.kernels import topk as kt
 
-    mods = {"kq": kq, "kt": kt}
+    mods = {"kq": kq, "kt": kt, "ks": ks}
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
@@ -628,16 +934,19 @@ def main() -> int:
     print(f"nvidia-smi: {card}")
 
     t0 = time.perf_counter()
-    libs = build.build_all([kq.SOURCE, kt.SOURCE])
+    libs = build.build_all([kq.SOURCE, kt.SOURCE, ks.SOURCE])
     kq.load_library()
     kt.load_library()
+    ks.load_library()
     print(f"build: {', '.join(str(p.relative_to(ROOT)) for p in libs.values())} in {time.perf_counter() - t0:.2f} s")
 
     checks = kernel_phase(torch, kq)
     errs = {name: checks[name][0] for name in checks}
     errs.update(new_kernel_phase(torch, kq, kt))
+    errs["ssd_scan"] = ssd_kernel_phase(torch, ks)
     reference_phase(torch)
     reference_step_phase(torch)
+    reference_lm_phase(torch)
 
     total = dict.fromkeys(KERNELS, 0)
     runs = (
@@ -651,9 +960,14 @@ def main() -> int:
     for fn, arch, length, kw in runs:
         for name, count in fn(torch, mods, arch, length, **kw).items():
             total[name] += count
+    lm_counts, lm_run = drive_lm(torch, mods)
+    for name, count in lm_counts.items():
+        total[name] += count
     require(all(total.values()), f"a kernel was never launched on the main path: {total}")
 
     times = timing_phase(torch, kq, kt)
+    times.update(ssd_timing(torch, ks))
+    profile_phase(torch, *lm_run)
     kernels = [
         {
             "name": name,

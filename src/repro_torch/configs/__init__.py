@@ -1,23 +1,27 @@
-"""Config registry of the port: the paper's three CNNs, ``get_config(name)``.
+"""Config registry of the port: ``get_config(name)`` / ``--arch <id>``.
 
-The LM architectures of the reference's registry come with the LM side of
-the port (ROADMAP.md, Queue 1, "LM side").
+The paper's three CNNs and the LM architectures ported so far. The other
+LM architectures of the reference's registry come with their families
+(ROADMAP.md, Queue 1, item 11).
 """
 from __future__ import annotations
 
 import importlib
 from typing import Dict
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, reduced
 
 # arch id -> module name
 _ARCH_MODULES = {
+    "mamba2-370m": "mamba2_370m",
+    # the paper's own models
     "vgg11": "vgg11",
     "mobilenet-v3-small": "mobilenet_v3_small",
     "squeezenet1.1": "squeezenet1_1",
 }
 
-PAPER_ARCHS = tuple(_ARCH_MODULES)
+LM_ARCHS = tuple(list(_ARCH_MODULES)[:1])
+PAPER_ARCHS = tuple(list(_ARCH_MODULES)[1:])
 
 
 def get_config(name: str) -> ModelConfig:
@@ -33,4 +37,4 @@ def all_configs() -> Dict[str, ModelConfig]:
     return {n: get_config(n) for n in _ARCH_MODULES}
 
 
-__all__ = ["ModelConfig", "get_config", "all_configs", "PAPER_ARCHS"]
+__all__ = ["ModelConfig", "reduced", "get_config", "all_configs", "LM_ARCHS", "PAPER_ARCHS"]

@@ -2,11 +2,13 @@
 ``repro/configs/base.py`` :class:`ModelConfig` (fields unchanged).
 
 A config fully determines parameter shapes. It is a frozen dataclass, so
-configs are hashable. The input-shape configs of the LM side come with
-that side (ROADMAP.md, Queue 1, "LM side").
+configs are hashable. :func:`reduced` is a copy of the reference's too.
+The input-shape configs (``ShapeConfig``) come with the trainer
+(ROADMAP.md, Queue 1, item 9).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -195,3 +197,35 @@ class ModelConfig:
         per_expert = 3 * d * self.d_ff
         inactive = (self.num_experts - self.experts_per_token) * per_expert
         return full - self.num_layers * inactive
+
+
+def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
+    """A tiny same-family variant for CPU smoke tests (<=2 layers, d<=512)."""
+    small = dict(
+        num_layers=2,
+        d_model=min(cfg.d_model, 128) or 128,
+        num_heads=min(cfg.num_heads, 4) or 4,
+        num_kv_heads=min(cfg.num_kv_heads, 2) or 2,
+        d_ff=min(cfg.d_ff, 256) if cfg.d_ff else 0,
+        vocab_size=min(cfg.vocab_size, 512),
+        head_dim=32 if cfg.num_heads else 0,
+    )
+    if cfg.num_experts:
+        small.update(num_experts=4, experts_per_token=min(cfg.experts_per_token, 2))
+    if cfg.ssm_state:
+        small.update(ssm_state=16, ssm_headdim=32, ssm_chunk=32)
+    if cfg.shared_attn_every:
+        small.update(shared_attn_every=2)
+    if cfg.local_global_pattern:
+        small.update(local_global_pattern=2, sliding_window=64)
+    if cfg.sliding_window and not cfg.local_global_pattern:
+        small.update(sliding_window=64)
+    if cfg.encoder_layers:
+        small.update(encoder_layers=2, encoder_seq=64)
+    if cfg.vision_tokens:
+        small.update(vision_tokens=16)
+    if cfg.moe_shared_ff:
+        small.update(moe_shared_ff=64)
+    small.update(name=cfg.name + "-smoke", remat=False, fsdp=False)
+    small.update(overrides)
+    return dataclasses.replace(cfg, **small)

@@ -14,16 +14,29 @@ port side is ``{name: tensor}`` keyed by ``nn.Module`` parameter names
 The CNNs' only 4-d leaves are convolution kernels and their only 2-d
 leaves are linear weights, so the rank of a leaf picks its mapping.
 
+The LM (:func:`lm_from_jax` / :func:`lm_to_jax`) is mapped by name, not
+rank: the reference stacks each period slot's layers on a leading axis
+(``stack/j/mixer/in_proj`` is (n_groups, din, dout)), its convolution
+weight ``conv_w`` is (K, C) and ``embed`` is (V_pad, d). Group g of slot j
+is the port's layer ``g * period + j`` and ``tail/r`` its layer
+``n_groups * period + r``; ``in_proj``, ``out_proj`` and ``unembed``
+(din, dout) are ``nn.Linear`` weights (dout, din), ``conv_w`` (K, C) is the
+port's depthwise (C, 1, K), and every other leaf is unchanged.
+
 ``jax_order`` gives the order of JAX's tree flatten (sorted dict keys,
 list entries by index), which is also the order in which the QSGD wire
 format visits leaves.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Mapping
+from typing import Dict, Iterable, List, Mapping, Union
 
 import numpy as np
 import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import layer_grouping
 
 
 def jax_path(name: str) -> str:
@@ -104,3 +117,84 @@ def opt_state_to_jax(state) -> Dict[str, np.ndarray]:
         out["t"] = state["t"].cpu().numpy().copy()
         return out
     return to_jax(state)
+
+
+_LM_LINEAR = ("in_proj", "out_proj", "unembed")
+
+
+def _lm_leaf_to_torch(path: str, arr: np.ndarray):
+    """A reference LM leaf (path within its layer or at the top) -> (port
+    name, tensor)."""
+    last = path.rsplit("/", 1)[-1]
+    t = torch.from_numpy(np.array(arr, dtype=np.float32))
+    name = torch_name(path)
+    if last in _LM_LINEAR:
+        return f"{name}.weight", t.t().contiguous()
+    if last == "conv_w":
+        return name, t.t().contiguous()[:, None, :]
+    return name, t
+
+
+def _lm_leaf_to_jax(name: str, t: torch.Tensor):
+    """A port LM parameter (name within its layer or at the top) -> (reference
+    path, numpy array); the inverse of :func:`_lm_leaf_to_torch`."""
+    t = t.detach().cpu()
+    parts = name.split(".")
+    if parts[-1] == "weight" and parts[-2] in _LM_LINEAR:
+        return jax_path(".".join(parts[:-1])), t.t().numpy().copy()
+    if parts[-1] == "conv_w":
+        return jax_path(name), t[:, 0, :].t().numpy().copy()
+    return jax_path(name), t.numpy().copy()
+
+
+def lm_from_jax(flat: Mapping[str, np.ndarray], cfg: ModelConfig, *, device) -> Dict[str, torch.Tensor]:
+    """Reference LM ``{path: array}`` -> the port's ``LM`` state dict
+    ``{name: float32 tensor}`` on ``device``."""
+    period, n_groups, _ = layer_grouping(cfg)
+    out = {}
+    for path in sorted(flat):
+        parts = path.split("/")
+        if parts[0] in ("stack", "tail"):
+            slot, rest = int(parts[1]), "/".join(parts[2:])
+            if parts[0] == "stack":
+                layers = [(g * len(period) + slot, flat[path][g]) for g in range(n_groups)]
+            else:
+                layers = [(n_groups * len(period) + slot, flat[path])]
+            for layer, arr in layers:
+                name, t = _lm_leaf_to_torch(rest, arr)
+                out[f"layers.{layer}.{name}"] = t.to(device)
+        else:
+            name, t = _lm_leaf_to_torch(path, flat[path])
+            out[name] = t.to(device)
+    return out
+
+
+def lm_to_jax(
+    model_or_params: Union[nn.Module, Mapping[str, torch.Tensor]], cfg: ModelConfig
+) -> Dict[str, np.ndarray]:
+    """The port's LM (a module or its ``{name: tensor}``) -> the reference's
+    flat ``{path: numpy array}``, slot layers stacked on a leading axis; the
+    inverse of :func:`lm_from_jax`."""
+    params = (dict(model_or_params.named_parameters())
+              if isinstance(model_or_params, nn.Module) else dict(model_or_params))
+    period, n_groups, _ = layer_grouping(cfg)
+    per_layer: Dict[int, Dict[str, np.ndarray]] = {}
+    out = {}
+    for name, t in params.items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            path, arr = _lm_leaf_to_jax(".".join(parts[2:]), t)
+            per_layer.setdefault(int(parts[1]), {})[path] = arr
+        else:
+            path, arr = _lm_leaf_to_jax(name, t)
+            out[path] = arr
+    P = len(period)
+    for j in range(P):
+        for path in per_layer[j]:
+            out[f"stack/{j}/{path}"] = np.stack(
+                [per_layer[g * P + j][path] for g in range(n_groups)])
+    for layer in sorted(per_layer):
+        if layer >= n_groups * P:
+            for path, arr in per_layer[layer].items():
+                out[f"tail/{layer - n_groups * P}/{path}"] = arr
+    return {k: out[k] for k in sorted(out)}

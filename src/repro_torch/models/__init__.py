@@ -1,9 +1,13 @@
-"""Model API of the port: ``init_model`` / ``forward`` for ``family == "cnn"``.
+"""Model API of the port, over the families ported so far.
 
-``forward`` takes the reference's batch dict — ``images`` (B, H, W, C) NHWC
-numpy, ``labels`` (B,) — and moves the images to the model's device as
-NCHW. The LM families come with the LM side of the port (ROADMAP.md,
-Queue 1, "LM side").
+``batch`` dicts carry, depending on family:
+  tokens  (B, S) int        — the LM (numpy or a tensor)
+  images  (B, H, W, C)      — CNN, NHWC numpy, moved to the model's
+                              device as NCHW
+  labels  (B,)              — CNN training targets
+
+The CNNs and the Mamba-2 (``ssm``) LM are ported; the other LM families
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -15,20 +19,14 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import cnn as _cnn
-
-
-def _cnn_only(cfg: ModelConfig) -> None:
-    if cfg.family != "cnn":
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet: ROADMAP.md, "
-            "Queue 1, 'LM side'"
-        )
+from repro_torch.models import transformer as _tf
 
 
 def init_model(cfg: ModelConfig, *, generator: torch.Generator, device) -> nn.Module:
     """A freshly initialized model whose weights come from ``generator``."""
-    _cnn_only(cfg)
-    return _cnn.init_cnn(cfg, generator=generator, device=device)
+    if cfg.family == "cnn":
+        return _cnn.init_cnn(cfg, generator=generator, device=device)
+    return _tf.LM(cfg, generator=generator, device=device)
 
 
 def images_to_device(images: np.ndarray, device) -> torch.Tensor:
@@ -37,14 +35,42 @@ def images_to_device(images: np.ndarray, device) -> torch.Tensor:
     return x.to(device).permute(0, 3, 1, 2).contiguous()
 
 
+def _tokens(tokens, model: nn.Module) -> torch.Tensor:
+    """(B, S) int tokens (numpy or a tensor) -> int64 on the model's device."""
+    return torch.as_tensor(tokens, dtype=torch.int64).to(next(model.parameters()).device)
+
+
 def forward(
-    model: nn.Module, batch: Dict[str, np.ndarray], cfg: ModelConfig
+    model: nn.Module, batch: Dict, cfg: ModelConfig, *, use_ssd_kernel: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits, aux_loss); aux_loss is 0 for the CNNs."""
-    _cnn_only(cfg)
-    device = next(model.parameters()).device
-    logits = model(images_to_device(batch["images"], device))
-    return logits, torch.zeros((), dtype=torch.float32, device=device)
+    """Returns (logits, aux_loss); aux_loss is 0 for the CNNs and the SSM
+    LM. ``use_ssd_kernel`` sends the LM's full-sequence SSD scans through
+    the hand-written kernel."""
+    if cfg.family == "cnn":
+        device = next(model.parameters()).device
+        logits = model(images_to_device(batch["images"], device))
+        return logits, torch.zeros((), dtype=torch.float32, device=device)
+    return _tf.lm_forward(model, _tokens(batch["tokens"], model), cfg, use_ssd_kernel=use_ssd_kernel)
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int, *, device="cuda"):
+    if cfg.family == "cnn":
+        raise ValueError("CNNs have no decode step")
+    return _tf.init_decode_state(cfg, batch, seq_len, device=device)
+
+
+def prefill(model: nn.Module, state, batch: Dict, cfg: ModelConfig):
+    """One-shot prompt prefill into a decode state. Returns
+    (last-token logits, state positioned after the prompt)."""
+    if cfg.family == "cnn":
+        raise ValueError("CNNs have no decode step")
+    return _tf.lm_prefill(model, state, _tokens(batch["tokens"], model), cfg)
+
+
+def decode_step(model: nn.Module, state, token, cfg: ModelConfig):
+    if cfg.family == "cnn":
+        raise ValueError("CNNs have no decode step")
+    return _tf.lm_decode_step(model, state, _tokens(token, model), cfg)
 
 
 def param_count(model: nn.Module) -> int:

@@ -1,5 +1,5 @@
 """The port's own copies of the reference's numpy-only modules behave as the
-reference's do on the same inputs: configs, the data pipeline, overlay
+reference's do on the same inputs: configs and ``reduced``, the data pipeline, overlay
 graphs, the mailbox, convergence detection, the link model and the stage
 metrics. Exact equality throughout (no floating-point work differs)."""
 import dataclasses
@@ -8,22 +8,38 @@ import numpy as np
 import pytest
 
 from repro.configs import get_config as jget_config
+from repro.configs import reduced as jreduced
 from repro.core import convergence as jconv
 from repro.core import graph as jgraph
 from repro.core import mailbox as jmailbox
 from repro.core.events import LinkModel as JLinkModel
 from repro.data import pipeline as jpipe
 from repro.metrics import StageMetrics as JStageMetrics
-from repro_torch.configs import PAPER_ARCHS, get_config
+from repro_torch.configs import LM_ARCHS, PAPER_ARCHS, get_config, reduced
 from repro_torch.core import convergence, graph, mailbox
 from repro_torch.core.events import LinkModel
 from repro_torch.data import pipeline
 from repro_torch.metrics import StageMetrics
 
 
-@pytest.mark.parametrize("arch", PAPER_ARCHS)
+@pytest.mark.parametrize("arch", PAPER_ARCHS + LM_ARCHS)
 def test_configs_equal_reference(arch):
     assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jget_config(arch))
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("mamba2-370m", {}),
+    ("mamba2-370m", dict(num_layers=3)),
+    ("mamba2-370m", dict(vocab_size=512)),
+    ("vgg11", {}),
+])
+def test_reduced_equals_reference(arch, kw):
+    ours, theirs = reduced(get_config(arch), **kw), jreduced(jget_config(arch), **kw)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert (ours.d_inner, ours.ssm_heads, ours.padded_vocab, ours.param_count()) == (
+        theirs.d_inner, theirs.ssm_heads, theirs.padded_vocab, theirs.param_count())
+    assert [(s.mixer, s.ffn) for s in ours.block_specs()] == [
+        (s.mixer, s.ffn) for s in theirs.block_specs()]
 
 
 @pytest.mark.parametrize("name,kw", [
