@@ -35,7 +35,10 @@ failure):
              SSD launches each) and the serve twin's prefill of 4 x 512
              and 32 greedy tokens (no SSD launch, as in the reference).
              Launch counters are zeroed before and read after each run and
-             must equal the counts the path implies.
+             must equal the counts the path implies. Then the SSD kernel is
+             held to its plain version on one layer's own strided inputs
+             from a scoring forward; that forward's launches, and those of
+             the prefill-vs-forward check, stay out of the kernels line.
 5. timing  — each kernel, its plain version, the PyTorch call that computes
              the same function where there is one, and the bound, at the
              main path's largest shapes, timed with CUDA events.
@@ -673,9 +676,12 @@ def drive_lm(torch, mods):
     on 4 x 2048 tokens, a warm-up and 3 timed calls, 48 SSD launches each.
     (b) The serve twin's path: prefill of 4 x 512 tokens and 32 greedy
     tokens, no SSD launch (prefill takes the plain chunked scan, as in the
-    reference). Prefill's last logits are held to the scoring forward's
-    last position on the same prompt within twice that forward's own bf16
-    error (its distance from the same forward in f32)."""
+    reference). The kernels line counts only (a) and (b). Then two checks,
+    their launches required and left out of that line: the kernel on one
+    layer's own inputs (``check_ssd_on_path``), and prefill's last logits
+    against the scoring forward's last position on the same prompt, within
+    twice that forward's own bf16 error (its distance from the same forward
+    in f32)."""
     import dataclasses
 
     from repro_torch import models
@@ -739,13 +745,15 @@ def drive_lm(torch, mods):
           f"tok/s incl. prefill, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
           f"SSD launches 0; request 0: {res['tokens'][0][:16].tolist()}")
 
+    err = check_ssd_on_path(torch, mods, models, model, cfg, tokens, expect)
     reset_counters(mods)
     with torch.inference_mode():
         full, _ = models.forward(model, {"tokens": prompts}, cfg, use_ssd_kernel=True)
         full32, _ = models.forward(model, {"tokens": prompts}, dataclasses.replace(cfg, dtype="float32"),
                                    use_ssd_kernel=True)
-    for name, count in read_counters(mods).items():
-        total[name] += count
+    launches = read_counters(mods)  # a check, not the main path: kept out of the kernels line
+    require(launches == dict(expect, ssd_scan=2 * layers),
+            f"prefill check's two forwards: launches {launches}, expected {2 * layers} SSD launches")
     last, last32 = full[:, -1], full32[:, -1]
     budget = 2 * float((last - last32).abs().max())
     gap = float((res["prefill_logits"] - last).abs().max())
@@ -754,7 +762,49 @@ def drive_lm(torch, mods):
     print(f"path mamba2-370m prefill vs scoring forward, last position of the {PROMPT}-token prompt: "
           f"max_abs_err={gap:.3e} (tolerance {budget:.3e}: twice the bf16 forward's distance from "
           f"the f32 forward; max|logits| {float(last32.abs().max()):.3f})")
-    return total, (model, cfg, tokens, prompts)
+    return total, err, (model, cfg, tokens, prompts)
+
+
+def check_ssd_on_path(torch, mods, models, model, cfg, tokens, expect):
+    """The SSD kernel on the inputs the main path gives it: one more scoring
+    forward on the same 4 x 2048 tokens (48 launches, required and kept out
+    of the kernels line) hands its first layer's x, dt, A, B and C, strided
+    views of the convolution's output, to a recorder; the kernel is then
+    held to its plain version on those same views within 2e-5 of max|y|,
+    as at the scoring shape in the kernel phase."""
+    from repro_torch.models import ssm
+
+    scan, seen = ssm.ssd_scan, []
+
+    def record(*args, **kw):
+        if not seen:
+            seen.append((args, kw))
+        return scan(*args, **kw)
+
+    reset_counters(mods)
+    ssm.ssd_scan = record
+    try:
+        with torch.inference_mode():
+            models.forward(model, {"tokens": tokens}, cfg, use_ssd_kernel=True)
+    finally:
+        ssm.ssd_scan = scan
+    launches = read_counters(mods)
+    require(launches == expect, f"recording forward: launches {launches} != {expect}")
+    args, kw = seen[0]
+    with torch.inference_mode():
+        y = scan(*args, **kw)
+        ref = mods["ks"].ssd_scan_plain(*args, **kw)
+    torch.cuda.synchronize()
+    x, dt, _, Bm, _ = args
+    err, scale = float((y - ref).abs().max()), float(ref.abs().max())
+    require(x.dtype == torch.bfloat16 and not x.is_contiguous() and not Bm.is_contiguous(),
+            f"the path's SSD inputs: {x.dtype}, x strides {x.stride()}, B strides {Bm.stride()}")
+    require(err <= 2e-5 * scale, f"ssd_scan on the path's inputs: max abs error {err:.3e} > 2e-5 * "
+            f"max|y| ({scale:.3e})")
+    print(f"kernel check ssd_scan on layer 0's inputs of the scoring forward {tuple(x.shape)} bf16 "
+          f"(x strides {x.stride()}, dt {dt.stride()}, B/C {Bm.stride()}): max_abs_err={err:.3e}, "
+          f"relative to max|y| {err / scale:.3e} (max|y| {scale:.3f}; max abs <= 2e-5 max|y|)")
+    return err
 
 
 def profile_phase(torch, model, cfg, tokens, prompts):
@@ -878,9 +928,13 @@ def ssd_timing(torch, ks):
     """The SSD kernel and its plain version (plain, kernel, kernel, plain)
     with bf16 inputs at the scoring shape and at one 32k sequence. Bound:
     the larger of the bytes (x, B, C in bf16, dt and A in f32 read once, y
-    in f32 written once) at 3.35 TB/s and the chunked algorithm's fp32
-    operations, 2Q^2 N + 2Q^2 P + 4QNP per (batch, head, chunk), at 67
-    TFLOP/s. No single PyTorch call computes the scan."""
+    in f32 written once) at 3.35 TB/s and the fp32 operations that the
+    scan needs at least, at 67 TFLOP/s: those of the per-step recurrence,
+    4 B S H P N (a multiply-add into the state and one out of it per state
+    element and step). The chunked form the kernel runs does more, the
+    causal half of both (Q, Q) products and 4QNP per (batch, head, chunk);
+    that count is printed beside it. No single PyTorch call computes the
+    scan."""
     out = {}
     for shape in (SSD_SCORING, SSD_LONG):
         Bsz, S_, H, P, G, N, Q = shape
@@ -894,7 +948,8 @@ def ssd_timing(torch, ks):
         t_plain2, _ = time_ms(torch, plain, plain_iters)
         nbytes = 2 * Bsz * S_ * H * P + 4 * Bsz * S_ * H + 4 * H + 2 * 2 * Bsz * S_ * G * N \
             + 4 * Bsz * S_ * H * P
-        ops = Bsz * H * (-(-S_ // Q)) * (2 * Q * Q * N + 2 * Q * Q * P + 4 * Q * N * P)
+        ops = 4 * Bsz * S_ * H * P * N
+        chunked_ops = Bsz * H * (-(-S_ // Q)) * (Q * (Q + 1) * (N + P) + 4 * Q * N * P)
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
         row = {
             "ms": min(t_kern1, t_kern2),
@@ -905,8 +960,9 @@ def ssd_timing(torch, ks):
         }
         print(f"timing ssd_scan {shape[:4]} G={G} N={N} chunk {Q} bf16: kernel {t_kern1:.4f}/{t_kern2:.4f} ms, "
               f"plain {t_plain1:.4f}/{t_plain2:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
-              f"{ops / 1e9:.2f} GFLOP at 67 TFLOP/s = {ops_ms:.4f} ms, {nbytes / 1e6:.1f} MB at 3.35 TB/s = "
-              f"{bytes_ms:.4f} ms; roofline share {row['bound_ms'] / row['ms']:.1%}), host enqueue "
+              f"recurrence {ops / 1e9:.2f} GFLOP at 67 TFLOP/s = {ops_ms:.4f} ms, {nbytes / 1e6:.1f} MB at "
+              f"3.35 TB/s = {bytes_ms:.4f} ms; the chunked form's causal count {chunked_ops / 1e9:.2f} GFLOP "
+              f"= {chunked_ops / FP32_FLOPS * 1e3:.4f} ms; roofline share {row['bound_ms'] / row['ms']:.1%}), host enqueue "
               f"{min(host1, host2) * 1e3:.1f} us/call, library none: no single PyTorch call computes it")
         if shape == SSD_SCORING:
             out["ssd_scan"] = row
@@ -960,7 +1016,8 @@ def main() -> int:
     for fn, arch, length, kw in runs:
         for name, count in fn(torch, mods, arch, length, **kw).items():
             total[name] += count
-    lm_counts, lm_run = drive_lm(torch, mods)
+    lm_counts, lm_err, lm_run = drive_lm(torch, mods)
+    errs["ssd_scan"] = max(errs["ssd_scan"], lm_err)
     for name, count in lm_counts.items():
         total[name] += count
     require(all(total.values()), f"a kernel was never launched on the main path: {total}")

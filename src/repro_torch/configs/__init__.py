@@ -11,17 +11,10 @@ from typing import Dict
 
 from repro_torch.configs.base import ModelConfig, reduced
 
+LM_ARCHS = ("mamba2-370m",)
+PAPER_ARCHS = ("vgg11", "mobilenet-v3-small", "squeezenet1.1")  # the paper's own models
 # arch id -> module name
-_ARCH_MODULES = {
-    "mamba2-370m": "mamba2_370m",
-    # the paper's own models
-    "vgg11": "vgg11",
-    "mobilenet-v3-small": "mobilenet_v3_small",
-    "squeezenet1.1": "squeezenet1_1",
-}
-
-LM_ARCHS = tuple(list(_ARCH_MODULES)[:1])
-PAPER_ARCHS = tuple(list(_ARCH_MODULES)[1:])
+_ARCH_MODULES = {name: name.replace("-", "_").replace(".", "_") for name in LM_ARCHS + PAPER_ARCHS}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -13,10 +13,12 @@
 // bf16 (read as bf16, computed in f32); dt, A and y are f32. The carried
 // state (P, N) is f32 and is not returned, as in Pallas.
 //
-// Bound: fp32 operations. One chunk costs 2Q^2 N + 2Q^2 P + 4QNP operations
-// against (Q (P + 2N) inputs + QP outputs) elements moved, about 150
-// operations per byte at Q = 256, P = 64, N = 128: far above the card's
-// fp32 rate per byte of device memory (67 TFLOP/s / 3.35 TB/s = 20).
+// Bound: fp32 operations. The scan needs at least the per-step recurrence's
+// 4PN operations per (batch, head, step) against about 400 bytes moved
+// (x in bf16, dt, y in f32, B and C shared by the heads of a group), about
+// 80 operations per byte at P = 64, N = 128: above the card's fp32 rate per
+// byte of device memory (67 TFLOP/s / 3.35 TB/s = 20). The chunked form
+// computed here does Q(Q+1)(N+P) + 4QNP per chunk, 2.5x that at Q = 256.
 //
 // Design. The TPU walks the chunks in order on its sequential grid and
 // carries the state in VMEM scratch. Blocks run in no order here, so one

@@ -16,7 +16,9 @@ Per chunk of Q steps, for each (batch, head):
 with head h reading group h // (H / G) of B and C. The output is y
 (B, S, H, P) float32; the final state is not returned, as in Pallas.
 
-A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
+The plain version is ``ssd_chunked``, the port's copy of the reference's
+``models/ssm.py:ssd_chunked``; the model's prefill calls it too, for the
+final state. A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel, or raises: there is no fallback. The
 wrapper counts its kernel launches in its ``launches`` attribute.
 """
@@ -24,9 +26,10 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build
 
@@ -38,6 +41,72 @@ MAX_CHUNK = 1024
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def ssd_chunked(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H) (post-softplus)
+    A: torch.Tensor,  # (H,) negative decay rates
+    Bm: torch.Tensor,  # (B, S, G, N)
+    Cm: torch.Tensor,  # (B, S, G, N)
+    chunk: int,
+    init_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan in f32 (the reference's ``models/ssm.py:ssd_chunked``),
+    all chunks at once and then a scan over the chunk states. Returns (y (B, S, H, P), final_state (B, H, P, N))."""
+    Bsz, S, H, Pd = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    pad = (-S) % chunk
+    f32 = torch.float32
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
+    Sp = S + pad
+    nc = Sp // chunk
+
+    xc = x.reshape(Bsz, nc, chunk, H, Pd).to(f32)
+    dtc = dt.reshape(Bsz, nc, chunk, H).to(f32)
+    Bc = Bm.reshape(Bsz, nc, chunk, G, N).to(f32)
+    Cc = Cm.reshape(Bsz, nc, chunk, G, N).to(f32)
+
+    a = dtc * A.to(f32)  # (B, nc, Q, H) log-decay per step
+    cum = torch.cumsum(a, dim=2)  # inclusive within the chunk
+    # L[i, j] = exp(cum_i - cum_j) for i >= j, masked before the exp
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B, nc, Q, Q, H)
+    ii = torch.arange(chunk, device=x.device)
+    causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
+    L = torch.exp(torch.where(causal, diff, float("-inf")))
+
+    xdt = xc * dtc[..., None]  # (B, nc, Q, H, P)
+    Bh = Bc.repeat_interleave(rep, dim=3)  # (B, nc, Q, H, N)
+    Ch = Cc.repeat_interleave(rep, dim=3)
+
+    scores = torch.einsum("bnqhk,bnshk->bnqsh", Ch, Bh) * L  # (B, nc, Q, Q, H)
+    y_diag = torch.einsum("bnqsh,bnshp->bnqhp", scores, xdt)
+
+    # per-chunk end states: S_n = sum_j exp(cum_last - cum_j) B_j x_j dt_j
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)  # (B, nc, Q, H)
+    states = torch.einsum("bnqhk,bnqh,bnqhp->bnhpk", Bh, decay_to_end, xdt)
+
+    # inter-chunk recurrence over the chunk states
+    chunk_decay = torch.exp(cum[:, :, -1, :])  # (B, nc, H)
+    R = init_state.to(f32) if init_state is not None else torch.zeros(
+        (Bsz, H, Pd, N), dtype=f32, device=x.device)
+    entering = []
+    for n in range(nc):
+        entering.append(R)  # the state entering chunk n
+        R = R * chunk_decay[:, n, :, None, None] + states[:, n]
+    entering = torch.stack(entering, dim=1)  # (B, nc, H, P, N)
+
+    # off-diagonal contribution: C_i . (exp(cum_i) R_entering)
+    decay_from_start = torch.exp(cum)  # (B, nc, Q, H)
+    y_off = torch.einsum("bnqhk,bnhpk,bnqh->bnqhp", Ch, entering, decay_from_start)
+
+    y = (y_diag + y_off).reshape(Bsz, Sp, H, Pd)[:, :S]
+    return y, R
+
+
 def ssd_scan_plain(
     x: torch.Tensor,  # (B, S, H, P)
     dt: torch.Tensor,  # (B, S, H)
@@ -47,60 +116,9 @@ def ssd_scan_plain(
     *,
     chunk: int,
 ) -> torch.Tensor:
-    """Plain PyTorch SSD scan -> y (B, S, H, P) f32: the Pallas kernel's
-    algorithm, chunk by chunk in f32, every (batch, head) at once."""
-    Bsz, S, H, Pd = x.shape
-    G, N = Bm.shape[2], Bm.shape[3]
-    rep = H // G
-    pad = (-S) % chunk
-    f32 = torch.float32
-    pad_seq = lambda t: torch.nn.functional.pad(t.to(f32), (0, 0) * (t.dim() - 2) + (0, pad))
-    xf, dtf = pad_seq(x), pad_seq(dt)
-    Bh = pad_seq(Bm).repeat_interleave(rep, dim=2)  # (B, Sp, H, N)
-    Ch = pad_seq(Cm).repeat_interleave(rep, dim=2)
-    Af = A.to(f32)
-    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
-    state = torch.zeros((Bsz, H, Pd, N), dtype=f32, device=x.device)
-    ys = []
-    for c0 in range(0, S + pad, chunk):
-        xc, dtc = xf[:, c0 : c0 + chunk], dtf[:, c0 : c0 + chunk]
-        Bc, Cc = Bh[:, c0 : c0 + chunk], Ch[:, c0 : c0 + chunk]
-        cum = torch.cumsum(dtc * Af, dim=1)  # (B, Q, H)
-        diff = cum[:, :, None, :] - cum[:, None, :, :]  # (B, Q_i, Q_j, H)
-        L = torch.exp(torch.where(causal[None, :, :, None], diff, float("-inf")))
-        xdt = xc * dtc[..., None]  # (B, Q, H, P)
-        scores = torch.einsum("bihn,bjhn->bijh", Cc, Bc) * L
-        y = torch.einsum("bijh,bjhp->bihp", scores, xdt)
-        y = y + torch.einsum("bihn,bhpn->bihp", Cc, state) * torch.exp(cum)[..., None]
-        decay_to_end = torch.exp(cum[:, -1:] - cum)  # (B, Q, H)
-        new_state = torch.einsum("bjhp,bjhn->bhpn", xdt * decay_to_end[..., None], Bc)
-        state = state * torch.exp(cum[:, -1])[..., None, None] + new_state
-        ys.append(y)
-    return torch.cat(ys, dim=1)[:, :S]
-
-
-def ssd_scan_ref(
-    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sequential oracle, a copy of the reference's ``kernels/ref.py:
-    ssd_scan_ref``: h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t, y_t = h_t C_t.
-    Returns (y (B, S, H, P), final_state (B, H, P, N)). Only the tests use it."""
-    Bsz, S, H, Pd = x.shape
-    G, N = Bm.shape[2], Bm.shape[3]
-    rep = H // G
-    f32 = torch.float32
-    Bh = Bm.to(f32).repeat_interleave(rep, dim=2)
-    Ch = Cm.to(f32).repeat_interleave(rep, dim=2)
-    h = torch.zeros((Bsz, H, Pd, N), dtype=f32, device=x.device)
-    ys = []
-    for t in range(S):
-        x_t, dt_t = x[:, t].to(f32), dt[:, t].to(f32)
-        decay = torch.exp(dt_t * A.to(f32))
-        h = h * decay[..., None, None] + torch.einsum(
-            "bhp,bhn->bhpn", x_t * dt_t[..., None], Bh[:, t]
-        )
-        ys.append(torch.einsum("bhpn,bhn->bhp", h, Ch[:, t]))
-    return torch.stack(ys, dim=1), h
+    """Plain PyTorch SSD scan -> y (B, S, H, P) f32: ``ssd_chunked``'s y,
+    the kernel's function without the final state."""
+    return ssd_chunked(x, dt, A, Bm, Cm, chunk)[0]
 
 
 @functools.lru_cache(maxsize=None)

@@ -4,8 +4,8 @@ A copy of the reference's ``repro/models/ssm.py`` in PyTorch. A full
 sequence runs the chunked SSD algorithm (arXiv:2405.21060 §6): the
 intra-chunk dual form plus the inter-chunk state recurrence. Scoring may
 take the hand-written kernel (``kernels/ssd_scan.py``); prefill takes the
-plain ``ssd_chunked``, which also returns the final state; decode takes the
-O(1) recurrent step.
+plain ``ssd_chunked`` (beside the kernel there), which also returns the
+final state; decode takes the O(1) recurrent step.
 
 Public functions keep the reference's layouts: x (B, S, H, P), B/C
 (B, S, G, N), a convolution weight (K, C). The module stores its
@@ -22,7 +22,7 @@ from torch import nn
 from torch.nn.utils import skip_init
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
 from repro_torch.models.layers import RMSNorm, dense_init
 
 State = Dict[str, torch.Tensor]
@@ -67,72 +67,6 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tens
     for i in range(K):
         out = out + xp[:, i : i + x.shape[1], :] * w[i]
     return out + b
-
-
-def ssd_chunked(
-    x: torch.Tensor,  # (B, S, H, P)
-    dt: torch.Tensor,  # (B, S, H) (post-softplus)
-    A: torch.Tensor,  # (H,) negative decay rates
-    Bm: torch.Tensor,  # (B, S, G, N)
-    Cm: torch.Tensor,  # (B, S, G, N)
-    chunk: int,
-    init_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD scan in f32, all chunks at once and then a scan over the
-    chunk states. Returns (y (B, S, H, P), final_state (B, H, P, N))."""
-    Bsz, S, H, Pd = x.shape
-    G, N = Bm.shape[2], Bm.shape[3]
-    rep = H // G
-    pad = (-S) % chunk
-    f32 = torch.float32
-    if pad:
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
-        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
-    Sp = S + pad
-    nc = Sp // chunk
-
-    xc = x.reshape(Bsz, nc, chunk, H, Pd).to(f32)
-    dtc = dt.reshape(Bsz, nc, chunk, H).to(f32)
-    Bc = Bm.reshape(Bsz, nc, chunk, G, N).to(f32)
-    Cc = Cm.reshape(Bsz, nc, chunk, G, N).to(f32)
-
-    a = dtc * A.to(f32)  # (B, nc, Q, H) log-decay per step
-    cum = torch.cumsum(a, dim=2)  # inclusive within the chunk
-    # L[i, j] = exp(cum_i - cum_j) for i >= j, masked before the exp
-    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B, nc, Q, Q, H)
-    ii = torch.arange(chunk, device=x.device)
-    causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
-    L = torch.exp(torch.where(causal, diff, float("-inf")))
-
-    xdt = xc * dtc[..., None]  # (B, nc, Q, H, P)
-    Bh = Bc.repeat_interleave(rep, dim=3)  # (B, nc, Q, H, N)
-    Ch = Cc.repeat_interleave(rep, dim=3)
-
-    scores = torch.einsum("bnqhk,bnshk->bnqsh", Ch, Bh) * L  # (B, nc, Q, Q, H)
-    y_diag = torch.einsum("bnqsh,bnshp->bnqhp", scores, xdt)
-
-    # per-chunk end states: S_n = sum_j exp(cum_last - cum_j) B_j x_j dt_j
-    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)  # (B, nc, Q, H)
-    states = torch.einsum("bnqhk,bnqh,bnqhp->bnhpk", Bh, decay_to_end, xdt)
-
-    # inter-chunk recurrence over the chunk states
-    chunk_decay = torch.exp(cum[:, :, -1, :])  # (B, nc, H)
-    R = init_state.to(f32) if init_state is not None else torch.zeros(
-        (Bsz, H, Pd, N), dtype=f32, device=x.device)
-    entering = []
-    for n in range(nc):
-        entering.append(R)  # the state entering chunk n
-        R = R * chunk_decay[:, n, :, None, None] + states[:, n]
-    entering = torch.stack(entering, dim=1)  # (B, nc, H, P, N)
-
-    # off-diagonal contribution: C_i . (exp(cum_i) R_entering)
-    decay_from_start = torch.exp(cum)  # (B, nc, Q, H)
-    y_off = torch.einsum("bnqhk,bnhpk,bnqh->bnqhp", Ch, entering, decay_from_start)
-
-    y = (y_diag + y_off).reshape(Bsz, Sp, H, Pd)[:, :S]
-    return y, R
 
 
 def ssd_decode_step(

@@ -1,8 +1,9 @@
 """The port's SSD scan against the reference's, on the CPU.
 
-* ``ssd_scan_plain`` (the kernel's plain version) against the reference's
-  Pallas ``ssd_scan_pallas`` in interpret mode and against its sequential
-  oracle ``ssd_scan_ref``, at the shapes of ``tests/test_kernels.py``:
+* ``ssd_scan_plain`` (the kernel's plain version, ``ssd_chunked``'s y)
+  against the reference's Pallas ``ssd_scan_pallas`` in interpret mode and
+  against its sequential oracle ``ssd_scan_ref`` (y, and ``ssd_chunked``'s
+  final state against the oracle's), at the shapes of ``tests/test_kernels.py``:
   atol 2e-5 and rtol 2e-4 in f32, the tolerance of the reference's own
   Pallas-vs-oracle test (the chunked form sums in another order than the
   per-step recurrence). With bf16 inputs, the same tolerance against the
@@ -62,10 +63,9 @@ def test_plain_matches_pallas_and_oracle(B, S_, H, P, G, N, chunk):
     assert y.shape == (B, S_, H, P) and y.dtype == np.float32
     np.testing.assert_allclose(y, y_pallas, atol=2e-5, rtol=2e-4)
     np.testing.assert_allclose(y, np.asarray(y_ref), atol=2e-5, rtol=2e-4)
-    # the port's copy of the sequential oracle
-    y_o, h_o = K.ssd_scan_ref(*_torch(*arrays))
-    np.testing.assert_allclose(y_o.numpy(), np.asarray(y_ref), atol=2e-5, rtol=2e-4)
-    np.testing.assert_allclose(h_o.numpy(), np.asarray(h_ref), atol=2e-5, rtol=2e-4)
+    y_c, h_c = K.ssd_chunked(*_torch(*arrays), chunk)
+    assert torch.equal(torch.from_numpy(y), y_c)
+    np.testing.assert_allclose(h_c.numpy(), np.asarray(h_ref), atol=2e-5, rtol=2e-4)
 
 
 def test_plain_bf16_inputs_match_pallas():
