@@ -17,12 +17,17 @@ failure):
              scatter at P = 4 with shared indices; the SSD scan at the
              mamba2-370m scoring shape (4, 2048, 32, 64), G = 1, N = 128,
              chunk 256, in bf16 and f32, at a padded last chunk with 4
-             groups, and at a single chunk.
+             groups, and at a single chunk; flash attention at gemma2-2b's
+             scoring shape (1, 8192, 8 heads over 4, D 256), softcap 50,
+             window 4096 and none, in bf16, the same at S = 1024 in f32, a
+             ragged S = 1000, Sq 300 against Skv 500 without causal
+             masking, D 32, 64 and 128, and MHA (32 heads, D 64).
 3. reference — small runs on the card against the same runs on the CPU
              (plain versions), same init and uniforms: a 4-peer squeezenet
              QSGD cluster epoch, one device train step with qsgd + EF and
-             with topk + EF, and a 3-layer reduced mamba2 in f32 (forward,
-             prefill logits and states, 8 greedy decode steps).
+             with topk + EF, a 3-layer reduced mamba2 and a 3-layer
+             reduced gemma2 (S 160 over its window of 64) in f32 (forward,
+             prefill logits and states or caches, 8 greedy decode steps).
 4. path    — the main paths. ``LocalP2PCluster(...).run`` with the QSGD
              exchange: mobilenet-v3-small (full graph, 3 epochs), vgg11
              (full graph, 2 epochs), mobilenet-v3-small (ring, EF, 1 epoch);
@@ -34,17 +39,24 @@ failure):
              ``forward(..., use_ssd_kernel=True)`` on 4 x 2048 tokens (48
              SSD launches each) and the serve twin's prefill of 4 x 512
              and 32 greedy tokens (no SSD launch, as in the reference).
-             Launch counters are zeroed before and read after each run and
-             must equal the counts the path implies. Then the SSD kernel is
-             held to its plain version on one layer's own strided inputs
-             from a scoring forward; that forward's launches, and those of
-             the prefill-vs-forward check, stay out of the kernels line.
+             gemma2-2b at full width (26 layers, bf16): the scoring
+             ``forward`` on 1 x 8192 tokens (26 flash launches each), the serve twin at batch 4 with a
+             512-token prompt and 32 greedy tokens, and at batch 1 with a
+             6144-token prompt (the local layers' 4096-token caches roll)
+             and 16 tokens (26 flash launches in each prefill, none in
+             decode). Launch counters are zeroed before and read after each
+             run and must equal the counts the path implies. Then the SSD
+             kernel is held to its plain version on one layer's own inputs
+             from a scoring forward, and the flash kernel on a global and
+             a local layer's; those forwards' launches, and those of the
+             prefill-vs-forward checks, stay out of the kernels line.
 5. timing  — each kernel, its plain version, the PyTorch call that computes
              the same function where there is one, and the bound, at the
              main path's largest shapes, timed with CUDA events.
-6. profile — ``torch.profiler`` over one mamba2-370m scoring forward and
-             4 decode steps: the device's busy and idle share and kernel
-             time by kind (SSD kernel, matrix products, the rest).
+6. profile — ``torch.profiler`` over one scoring forward and 4 decode
+             steps of mamba2-370m and of gemma2-2b: the device's busy and
+             idle share and kernel time by kind (SSD or flash kernel,
+             matrix products, the rest).
 
 The last two lines of stdout are a ``{"kernels": [...]}`` JSON line and the
 result ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
@@ -52,6 +64,7 @@ a checkout of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -64,6 +77,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (data sheet)
+BF16_FLOPS = 989.4e12  # H100 SXM dense bf16 on the tensor cores (data sheet)
 S = 127  # QSGD levels on the main path
 BUCKET = 2048  # QSGD bucket on the main path
 FC2 = 4096 * 4096  # vgg11 fc2/w, the largest leaf
@@ -78,10 +92,15 @@ KERNELS = {  # name -> (module attribute, CUDA source, TPU kernel it replaces)
     "topk_select_pack": ("kt", "topk.cu", "src/repro/kernels/topk.py:45"),
     "topk_scatter_accum": ("kt", "topk.cu", "src/repro/kernels/topk.py:122"),
     "ssd_scan": ("ks", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:31"),
+    "flash_attention": ("kf", "flash_attention.cu", "src/repro/kernels/flash_attention.py:26"),
 }
 SSD_SCORING = (4, 2048, 32, 64, 1, 128, 256)  # B, S, H, P, G, N, chunk of mamba2-370m scoring
 SSD_LONG = (1, 32768, 32, 64, 1, 128, 256)  # one 32k sequence
 PROMPT, GEN = 512, 32  # the serve path
+FLASH_SCORING = (1, 8192, 8, 4, 256)  # B, S, H, K, D of gemma2-2b scoring: its full context
+GEMMA_WINDOW, GEMMA_SOFTCAP = 4096, 50.0  # the local layers' window, the attention softcap
+LONG_PROMPT, LONG_GEN = 6144, 16  # a prompt past the window: the local caches roll
+SSD_FLAGS = {"use_ssd_kernel": True}  # mamba2's scoring forward through the SSD kernel
 
 
 def require(cond: bool, what: str) -> None:
@@ -307,6 +326,98 @@ def ssd_kernel_phase(torch, ks):
     return worst
 
 
+def flash_inputs(torch, B, Sq, Skv, H, K, D, dtype, seed=0):
+    """q, k, v ~ 0.5 N, as the reference's kernel test draws them."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    rand = lambda *s: (torch.randn(s, generator=g, device="cuda") * 0.5).to(dtype)
+    return rand(B, Sq, H, D), rand(B, Skv, K, D), rand(B, Skv, K, D)
+
+
+def flash_tolerance(torch, ref, dtype):
+    """Per-element limit on |kernel - plain| for inputs of ``dtype``; ``ref``
+    is the plain version in f32. f32: the reference's own atol 2e-5 + rtol
+    2e-4. bf16: ``ref`` comes before the output's one rounding to bf16, and
+    the limit is that rounding, 2^-8 |ref|, plus 2e-5 max|ref| for the f32
+    sums the two add in other orders."""
+    if dtype == torch.float32:
+        return 2e-5 + 2e-4 * ref.abs(), "every element within atol 2e-5 + rtol 2e-4"
+    return (2.0 ** -8 * ref.abs() + 2e-5 * float(ref.abs().max()),
+            "every element within 2^-8 |o| + 2e-5 max|o| of the plain version in f32")
+
+
+def planted_faults(torch, kf, q, k, v, *, causal, softcap, window):
+    """Outputs of a kernel with a planted fault, made with the plain version
+    on q, k and v in f32 and rounded to q's dtype as the kernel rounds:
+    the key tile [S/2, S/2 + 64) skipped, and, when windowed, the window one
+    key too wide."""
+    Sq, Skv = q.shape[1], k.shape[1]
+    f = [t.float() for t in (q, k, v)]
+    qpos, kpos = torch.arange(Sq, device=q.device), torch.arange(Skv, device=k.device)
+    t0 = Skv // 2 // 64 * 64
+    skipped = torch.where((kpos >= t0) & (kpos < t0 + 64), -1, kpos)
+    faults = {f"key tile [{t0}, {t0 + 64}) skipped": (skipped, window)}
+    if causal and window:
+        faults[f"window {window + 1}"] = (kpos, window + 1)
+    for name, (kv_positions, w) in faults.items():
+        yield name, kf.attend(*f, causal=causal, q_positions=qpos, kv_positions=kv_positions,
+                              window=w if causal else 0, softcap_val=softcap).to(q.dtype)
+
+
+def check_flash(torch, kf, q, k, v, what, *, causal=True, softcap=0.0, window=0, faults=None):
+    """The flash kernel against its plain version on the same inputs, within
+    ``flash_tolerance``. ``faults="require"``: each of ``planted_faults``
+    must fall outside that limit; ``"report"``: print how far outside.
+    Returns the largest abs error."""
+    out = kf.flash_attention(q, k, v, causal=causal, softcap=softcap, window=window)
+    ref = kf.flash_attention_plain(*(t.float() for t in (q, k, v)), causal=causal, softcap=softcap,
+                                   window=window)
+    torch.cuda.synchronize()
+    require(out.shape == ref.shape == (*q.shape[:3], q.shape[3]) and out.dtype == q.dtype,
+            f"flash_attention output {tuple(out.shape)} {out.dtype} at {what}")
+    tol, rule = flash_tolerance(torch, ref, q.dtype)
+    err = (out.float() - ref).abs()
+    require(bool(torch.all(err <= tol)), f"flash_attention outside the limit at {what}: "
+            f"max err/limit {float((err / tol).max()):.3f}")
+    worst = float(err.max())
+    print(f"kernel check flash_attention {what} {str(q.dtype).split('.')[-1]}: max_abs_err={worst:.3e}, "
+          f"max err/limit {float((err / tol).max()):.3f} (max|o| {float(ref.abs().max()):.3f}; {rule})")
+    if faults:
+        for name, bad in planted_faults(torch, kf, q, k, v, causal=causal, softcap=softcap,
+                                        window=window):
+            bad_err = (bad.float() - ref).abs()
+            ratio = float((bad_err / tol).max())
+            require(faults == "report" or ratio > 1, f"the flash check at {what} would pass a "
+                    f"planted fault ({name}): max err/limit {ratio:.3f}")
+            print(f"  planted fault ({name}): max_abs_err={float(bad_err.max()):.3e}, "
+                  f"max err/limit {ratio:.3f}, {int((bad_err > tol).sum())} elements outside "
+                  f"({'rejected' if ratio > 1 else 'NOT rejected'})")
+    return worst
+
+
+def flash_kernel_phase(torch, kf):
+    B, S_, H, K, D = FLASH_SCORING
+    worst = 0.0
+    cases = (  # (B, Sq, Skv, H, K, D), dtype, causal, softcap, window
+        ((B, S_, S_, H, K, D), torch.bfloat16, True, GEMMA_SOFTCAP, GEMMA_WINDOW),
+        ((B, S_, S_, H, K, D), torch.bfloat16, True, GEMMA_SOFTCAP, 0),
+        ((B, 1024, 1024, H, K, D), torch.float32, True, GEMMA_SOFTCAP, GEMMA_WINDOW),
+        ((B, 1024, 1024, H, K, D), torch.float32, True, GEMMA_SOFTCAP, 0),
+        ((B, 1000, 1000, H, K, D), torch.float32, True, GEMMA_SOFTCAP, 300),  # ragged tiles
+        ((1, 300, 500, 8, 4, 128), torch.float32, False, 30.0, 100),  # the window is ignored
+        ((2, 256, 256, 4, 2, 32), torch.float32, True, 0.0, 0),
+        ((2, 256, 256, 4, 2, 64), torch.float32, True, 0.0, 64),
+        ((2, 256, 256, 16, 2, 128), torch.float32, True, 0.0, 0),
+        ((1, 1024, 1024, 32, 32, 64), torch.float32, True, 0.0, 0),  # MHA
+    )
+    for shape, dtype, causal, cap, window in cases:
+        q, k, v = flash_inputs(torch, *shape, dtype, seed=shape[1] + shape[5])
+        what = f"{shape} causal={causal} softcap={cap} window={window}"
+        worst = max(worst, check_flash(torch, kf, q, k, v, what, causal=causal, softcap=cap,
+                                       window=window, faults="require" if shape[1] == S_ else None))
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # 3. the card against the CPU on a small input
 # ---------------------------------------------------------------------------
@@ -449,13 +560,14 @@ def reference_step_phase(torch):
                   f"coordinates beyond 1e-5: {n_far} of {gaps.numel()}")
 
 
-def reference_lm_phase(torch):
-    """A 3-layer reduced mamba2 in f32, the same weights (one CPU generator
-    seed) on the card and on the CPU: the forward with the SSD kernel (the
-    CPU takes its plain version), prefill logits and every layer's SSM and
-    convolution state, then 8 greedy decode steps. Logits within atol 1e-4
-    + rtol 1e-4 and states within 1e-5 + rtol 1e-5 (f32 products summed in
-    other orders by cuBLAS and the CPU); greedy tokens identical."""
+def reference_lm_phase(torch, arch: str, seq: int, flags: dict):
+    """A 3-layer reduced ``arch`` in f32, the same weights (one CPU
+    generator seed) on the card and on the CPU: the forward with ``flags``
+    (the CPU takes the kernels' plain versions), prefill logits and every layer's state (SSM and convolution
+    states, or the K/V cache), then 8 greedy decode steps. Logits within
+    atol 1e-4 + rtol 1e-4 and states within 1e-5 + rtol 1e-5 (f32 products
+    summed in other orders by cuBLAS, the kernels and the CPU); greedy
+    tokens identical."""
     import copy
     import dataclasses
 
@@ -463,31 +575,34 @@ def reference_lm_phase(torch):
     from repro_torch.configs import get_config, reduced
     from repro_torch.launch import serve
 
-    cfg = dataclasses.replace(reduced(get_config("mamba2-370m"), num_layers=3), dtype="float32")
+    cfg = dataclasses.replace(reduced(get_config(arch), num_layers=3), dtype="float32")
     cpu_model = models.init_model(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
-    tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1))
+    tokens = torch.randint(0, cfg.vocab_size, (2, seq), generator=torch.Generator().manual_seed(1))
     runs = {}
     for device, model in (("cpu", cpu_model), ("cuda", copy.deepcopy(cpu_model).to("cuda"))):
         model.requires_grad_(False)
         with torch.inference_mode():
-            logits, _ = models.forward(model, {"tokens": tokens}, cfg, use_ssd_kernel=True)
-            _, state = models.prefill(model, models.init_decode_state(cfg, 2, 49, device=device),
+            logits, _ = models.forward(model, {"tokens": tokens}, cfg, **flags)
+            _, state = models.prefill(model, models.init_decode_state(cfg, 2, seq + 9, device=device),
                                       {"tokens": tokens}, cfg)
         res = serve.generate(model, cfg, tokens.to(device), 9)  # prefill, then 8 decode steps
         runs[device] = (logits.cpu(), dict(res, state=state))
     (lc, rc), (lg, rg) = runs["cpu"], runs["cuda"]
     close = lambda a, b, tol: bool(torch.all((a.cpu() - b.cpu()).abs() <= tol + tol * b.cpu().abs()))
-    require(close(lg, lc, 1e-4), "reduced mamba2 forward: card vs CPU logits beyond 1e-4")
+    tag = f"reduced {arch}"
+    require(close(lg, lc, 1e-4), f"{tag} forward: card vs CPU logits beyond 1e-4")
     require(close(rg["prefill_logits"], rc["prefill_logits"], 1e-4),
-            "reduced mamba2 prefill: card vs CPU logits beyond 1e-4")
+            f"{tag} prefill: card vs CPU logits beyond 1e-4")
     for layer, (sg, sc) in enumerate(zip(rg["state"]["layers"], rc["state"]["layers"])):
-        for k in ("ssm", "conv"):
-            require(close(sg[k], sc[k], 1e-5), f"reduced mamba2 layer {layer} {k} state beyond 1e-5")
-    require((rg["tokens"] == rc["tokens"]).all(), "reduced mamba2: greedy tokens differ, card vs CPU")
+        for k in sc:
+            require(close(sg[k], sc[k], 1e-5), f"{tag} layer {layer} {k} state beyond 1e-5")
+    require((rg["tokens"] == rc["tokens"]).all(), f"{tag}: greedy tokens differ, card vs CPU")
     err = float((lg - lc).abs().max())
-    print(f"reference check (reduced mamba2, 3 layers, f32, card with the SSD kernel vs CPU): "
+    print(f"reference check ({tag}, 3 layers, f32, {seq} tokens, card with "
+          f"{flags or 'the flash kernel'} vs CPU): "
           f"forward logits max_abs_err={err:.3e}, prefill logits "
           f"{float((rg['prefill_logits'].cpu() - rc['prefill_logits']).abs().max()):.3e}, "
+          f"states of {sorted(rc['state']['layers'][0])} within 1e-5, "
           f"8 greedy decode steps identical: {rg['tokens'][0].tolist()}")
 
 
@@ -626,7 +741,8 @@ def drive_step(torch, mods, arch: str, steps: int, *, exchange: str):
 def device_profile(torch, fn):
     """Run ``fn`` under ``torch.profiler`` and read the device's kernels:
     (device window ms from the first kernel's start to the last one's end,
-    busy ms in that window, {"ssd_scan" | "matmul" | "other": kernel ms},
+    busy ms in that window, {"ssd_scan" | "flash_attention" | "matmul" |
+    "other": kernel ms},
     the 5 kernels with the most device time, the number of device
     activities); None when the profiler saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
@@ -649,7 +765,8 @@ def device_profile(torch, fn):
     for e in kernels:
         us = e.time_range.end - e.time_range.start
         low = e.name.lower()
-        key = "ssd_scan" if "ssd_kernel" in e.name else (
+        key = "ssd_scan" if "ssd_kernel" in e.name else "flash_attention" if (
+            "flash_attention_kernel" in e.name) else (
             "matmul" if any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")) else "other")
         groups[key] = groups.get(key, 0.0) + us / 1e3
         by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
@@ -669,130 +786,169 @@ def print_profile(what: str, prof) -> None:
           + "; top kernels " + "; ".join(f"{n[:60]} {v:.3f} ms" for n, v in top))
 
 
-def drive_lm(torch, mods):
-    """mamba2-370m at full width (48 layers, d_model 1024, vocab 50,280; the
-    weights random from a seeded generator), bf16 as configured, f32
-    matmuls without TF32. (a) Scoring: ``forward(..., use_ssd_kernel=True)``
-    on 4 x 2048 tokens, a warm-up and 3 timed calls, 48 SSD launches each.
-    (b) The serve twin's path: prefill of 4 x 512 tokens and 32 greedy
-    tokens, no SSD launch (prefill takes the plain chunked scan, as in the
-    reference). The kernels line counts only (a) and (b). Then two checks,
-    their launches required and left out of that line: the kernel on one
-    layer's own inputs (``check_ssd_on_path``), and prefill's last logits
-    against the scoring forward's last position on the same prompt, within
-    twice that forward's own bf16 error (its distance from the same forward
-    in f32)."""
-    import dataclasses
-
+def init_lm(torch, arch: str):
+    """``arch`` at full width, its weights random from a seeded generator,
+    on the card."""
     from repro_torch import models
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
 
-    cfg = get_config("mamba2-370m")
-    layers = cfg.num_layers
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     model = models.init_model(cfg, generator=torch.Generator(device="cuda").manual_seed(0),
                               device="cuda").requires_grad_(False)
     torch.cuda.synchronize()
-    print(f"path mamba2-370m: {models.param_count(model)} params, init {time.perf_counter() - t0:.3f} s")
-    g = torch.Generator(device="cuda").manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (4, 2048), generator=g, device="cuda")
-    total = dict.fromkeys(KERNELS, 0)
-    expect = dict(dict.fromkeys(KERNELS, 0), ssd_scan=layers)
+    print(f"path {arch}: {models.param_count(model)} params, init {time.perf_counter() - t0:.3f} s")
+    return model, cfg
 
+
+def drive_scoring(torch, mods, model, cfg, tokens, flags: dict, expect: dict):
+    """The scoring forward with ``flags``: a warm-up and 3 timed calls,
+    each launching exactly ``expect``. Returns the launches of all four."""
+    from repro_torch import models
+
+    total = dict.fromkeys(KERNELS, 0)
     torch.cuda.reset_peak_memory_stats()
     secs = []
-    for i in range(4):  # a warm-up, then 3 timed
+    for i in range(4):
         reset_counters(mods)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.inference_mode():
-            logits, _ = models.forward(model, {"tokens": tokens}, cfg, use_ssd_kernel=True)
+            logits, _ = models.forward(model, {"tokens": tokens}, cfg, **flags)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         launches = read_counters(mods)
-        require(launches == expect, f"scoring forward {i}: launches {launches} != {expect}")
+        require(launches == expect, f"{cfg.name} scoring forward {i}: launches {launches} != {expect}")
         for name, count in launches.items():
             total[name] += count
     require(logits.shape == (*tokens.shape, cfg.vocab_size) and logits.dtype == torch.float32,
-            f"scoring logits {tuple(logits.shape)} {logits.dtype}")
-    require(bool(torch.isfinite(logits).all()), "scoring logits not finite")
+            f"{cfg.name} scoring logits {tuple(logits.shape)} {logits.dtype}")
+    require(bool(torch.isfinite(logits).all()), f"{cfg.name} scoring logits not finite")
+    if cfg.final_logit_softcap:
+        require(float(logits.abs().max()) <= cfg.final_logit_softcap,
+                f"{cfg.name} logits beyond the final softcap")
     steady = sum(secs[1:]) / 3
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"path mamba2-370m scoring, 4 x 2048 tokens, use_ssd_kernel=True: warm-up {secs[0]:.3f} s, "
-          f"then {steady:.4f} s/forward ({[round(x, 4) for x in secs[1:]]}), "
-          f"{4 * 2048 / steady:.0f} tokens/s, peak device memory {peak:.2f} GiB, "
-          f"SSD launches {layers} per forward")
-    del logits
+    print(f"path {cfg.name} scoring, {tokens.shape[0]} x {tokens.shape[1]} tokens, "
+          f"{flags or 'flash kernel'}: "
+          f"warm-up {secs[0]:.3f} s, then {steady:.4f} s/forward ({[round(x, 4) for x in secs[1:]]}), "
+          f"{tokens.numel() / steady:.0f} tokens/s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches per forward "
+          f"{ {k: v for k, v in expect.items() if v} }")
+    return total
 
-    prompts = tokens[:, :PROMPT].contiguous()
+
+def drive_serve(torch, mods, model, cfg, prompts, gen: int, expect: dict, what: str):
+    """The serve twin's ``generate``: prefill of ``prompts`` (through the
+    flash kernel), then ``gen`` greedy tokens, launching exactly
+    ``expect``. Returns (launches, ``generate``'s result)."""
+    from repro_torch.launch import serve
+
     torch.cuda.reset_peak_memory_stats()
-    runs = []
-    for gen in (2, GEN):  # a short warm-up, then the timed request
-        reset_counters(mods)
-        runs.append(serve.generate(model, cfg, prompts, gen))
-        launches = read_counters(mods)
-        require(launches == dict.fromkeys(KERNELS, 0),
-                f"serve path: launches {launches}, expected none (prefill takes ssd_chunked)")
-    res = runs[-1]
-    require(res["tokens"].shape == (4, GEN) and bool((res["tokens"] >= 0).all())
-            and bool((res["tokens"] < cfg.vocab_size).all()), f"serve tokens {res['tokens'].shape}")
-    require(bool(torch.isfinite(res["prefill_logits"]).all()), "prefill logits not finite")
-    per_token = res["decode_s"] / (GEN - 1)
-    print(f"path mamba2-370m serve, batch 4, prompt {PROMPT}, {GEN} greedy tokens: prefill "
-          f"{res['prefill_s']:.4f} s, decode {per_token * 1e3:.2f} ms/token "
-          f"({4 / per_token:.1f} tok/s), {4 * (PROMPT + GEN) / (res['prefill_s'] + res['decode_s']):.1f} "
-          f"tok/s incl. prefill, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-          f"SSD launches 0; request 0: {res['tokens'][0][:16].tolist()}")
+    reset_counters(mods)
+    res = serve.generate(model, cfg, prompts, gen)
+    launches = read_counters(mods)
+    require(launches == expect, f"{cfg.name} serve {what}: launches {launches} != {expect}")
+    B, P = prompts.shape
+    require(res["tokens"].shape == (B, gen) and bool((res["tokens"] >= 0).all())
+            and bool((res["tokens"] < cfg.vocab_size).all()), f"{cfg.name} serve tokens {res['tokens'].shape}")
+    require(bool(torch.isfinite(res["prefill_logits"]).all()), f"{cfg.name} prefill logits not finite")
+    if gen > 2:
+        per_token = res["decode_s"] / (gen - 1)
+        print(f"path {cfg.name} serve, {what}, prompt {P}, {gen} greedy tokens: prefill "
+              f"{res['prefill_s']:.4f} s, decode {per_token * 1e3:.2f} ms/token ({B / per_token:.1f} "
+              f"tok/s), {B * (P + gen) / (res['prefill_s'] + res['decode_s']):.1f} tok/s incl. prefill, "
+              f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+              f"{ {k: v for k, v in launches.items() if v} }; request 0: {res['tokens'][0][:16].tolist()}")
+    return launches, res
 
-    err = check_ssd_on_path(torch, mods, models, model, cfg, tokens, expect)
+
+def check_prefill_vs_forward(torch, mods, model, cfg, prompts, prefill_logits, flags, expect):
+    """Prefill's last logits against the scoring forward's last position on
+    the same prompts, within twice that forward's own bf16 error (its
+    distance from the same forward in f32). The two forwards must launch
+    2 x ``expect``; a check, so kept out of the kernels line."""
+    import dataclasses
+
+    from repro_torch import models
+
     reset_counters(mods)
     with torch.inference_mode():
-        full, _ = models.forward(model, {"tokens": prompts}, cfg, use_ssd_kernel=True)
+        full, _ = models.forward(model, {"tokens": prompts}, cfg, **flags)
         full32, _ = models.forward(model, {"tokens": prompts}, dataclasses.replace(cfg, dtype="float32"),
-                                   use_ssd_kernel=True)
-    launches = read_counters(mods)  # a check, not the main path: kept out of the kernels line
-    require(launches == dict(expect, ssd_scan=2 * layers),
-            f"prefill check's two forwards: launches {launches}, expected {2 * layers} SSD launches")
+                                   **flags)
+    launches = read_counters(mods)
+    twice = {k: 2 * v for k, v in expect.items()}
+    require(launches == twice, f"{cfg.name} prefill check's two forwards: launches {launches} != {twice}")
     last, last32 = full[:, -1], full32[:, -1]
     budget = 2 * float((last - last32).abs().max())
-    gap = float((res["prefill_logits"] - last).abs().max())
-    require(gap <= budget, f"prefill's last logits {gap:.3e} from the forward's last position, "
+    gap = float((prefill_logits - last).abs().max())
+    require(gap <= budget, f"{cfg.name} prefill's last logits {gap:.3e} from the forward's last position, "
             f"beyond twice the forward's bf16 error ({budget:.3e})")
-    print(f"path mamba2-370m prefill vs scoring forward, last position of the {PROMPT}-token prompt: "
-          f"max_abs_err={gap:.3e} (tolerance {budget:.3e}: twice the bf16 forward's distance from "
-          f"the f32 forward; max|logits| {float(last32.abs().max()):.3f})")
+    print(f"path {cfg.name} prefill vs scoring forward, last position of the {prompts.shape[1]}-token "
+          f"prompts: max_abs_err={gap:.3e} (tolerance {budget:.3e}: twice the bf16 forward's distance "
+          f"from the f32 forward; max|logits| {float(last32.abs().max()):.3f})")
+
+
+@contextlib.contextmanager
+def recording(module, attr: str, want=lambda args, kw: True):
+    """Replace ``module.attr`` by a pass-through that keeps the arguments of
+    its first call that ``want`` accepts; yields the list they go into."""
+    fn, seen = getattr(module, attr), []
+
+    def record(*args, **kw):
+        if not seen and want(args, kw):
+            seen.append((args, kw))
+        return fn(*args, **kw)
+
+    setattr(module, attr, record)
+    try:
+        yield seen
+    finally:
+        setattr(module, attr, fn)
+
+
+def drive_lm(torch, mods):
+    """mamba2-370m at full width (48 layers, d_model 1024, vocab 50,280),
+    bf16 as configured, f32 matmuls without TF32. (a) Scoring:
+    ``forward(..., use_ssd_kernel=True)`` on 4 x 2048 tokens, 48 SSD
+    launches each. (b) The serve twin: prefill of 4 x 512 tokens and 32
+    greedy tokens (a short warm-up first), no SSD launch (prefill takes the
+    plain chunked scan, as in the reference). The kernels line counts (a)
+    and (b). Then two checks, their launches required and left out of that
+    line: the kernel on one layer's own inputs (``check_ssd_on_path``) and
+    ``check_prefill_vs_forward``."""
+    model, cfg = init_lm(torch, "mamba2-370m")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 2048), generator=g, device="cuda")
+    expect = dict(dict.fromkeys(KERNELS, 0), ssd_scan=cfg.num_layers)
+    total = drive_scoring(torch, mods, model, cfg, tokens, SSD_FLAGS, expect)
+    prompts = tokens[:, :PROMPT].contiguous()
+    for gen, what in ((2, "warm-up"), (GEN, "batch 4")):
+        _, res = drive_serve(torch, mods, model, cfg, prompts, gen, dict.fromkeys(KERNELS, 0), what)
+    err = check_ssd_on_path(torch, mods, model, cfg, tokens, expect)
+    check_prefill_vs_forward(torch, mods, model, cfg, prompts, res["prefill_logits"],
+                             SSD_FLAGS, expect)
     return total, err, (model, cfg, tokens, prompts)
 
 
-def check_ssd_on_path(torch, mods, models, model, cfg, tokens, expect):
+def check_ssd_on_path(torch, mods, model, cfg, tokens, expect):
     """The SSD kernel on the inputs the main path gives it: one more scoring
     forward on the same 4 x 2048 tokens (48 launches, required and kept out
     of the kernels line) hands its first layer's x, dt, A, B and C, strided
     views of the convolution's output, to a recorder; the kernel is then
     held to its plain version on those same views within 2e-5 of max|y|,
     as at the scoring shape in the kernel phase."""
+    from repro_torch import models
     from repro_torch.models import ssm
 
-    scan, seen = ssm.ssd_scan, []
-
-    def record(*args, **kw):
-        if not seen:
-            seen.append((args, kw))
-        return scan(*args, **kw)
-
     reset_counters(mods)
-    ssm.ssd_scan = record
-    try:
-        with torch.inference_mode():
-            models.forward(model, {"tokens": tokens}, cfg, use_ssd_kernel=True)
-    finally:
-        ssm.ssd_scan = scan
+    with recording(ssm, "ssd_scan") as seen, torch.inference_mode():
+        models.forward(model, {"tokens": tokens}, cfg, use_ssd_kernel=True)
     launches = read_counters(mods)
     require(launches == expect, f"recording forward: launches {launches} != {expect}")
     args, kw = seen[0]
     with torch.inference_mode():
-        y = scan(*args, **kw)
+        y = ssm.ssd_scan(*args, **kw)
         ref = mods["ks"].ssd_scan_plain(*args, **kw)
     torch.cuda.synchronize()
     x, dt, _, Bm, _ = args
@@ -807,18 +963,80 @@ def check_ssd_on_path(torch, mods, models, model, cfg, tokens, expect):
     return err
 
 
-def profile_phase(torch, model, cfg, tokens, prompts):
+def drive_gemma(torch, mods):
+    """gemma2-2b at full width (26 layers alternating local and global
+    attention, d_model 2304, 8 heads over 4 KV heads of 256, vocab
+    256,000), bf16 as configured, f32 matmuls without TF32. (a) Scoring:
+    ``forward`` on 1 x 8192 tokens, its full
+    context, where the local layers' 4096 window bites: 26 flash launches
+    each. (b) The serve twin: batch 4, a 512-token prompt and 32 greedy
+    tokens (a short warm-up first), and batch 1, a 6144-token prompt and 16
+    tokens, so that the local layers' 4096-token caches roll: 26 flash
+    launches in each prefill, none in decode. The kernels line counts (a)
+    and (b), warm-ups included: 4 x 26 + 3 x 26. Then two checks, their
+    launches required and kept out of that line: the kernel on one layer's
+    own q, k and v (``check_flash_on_path``) and ``check_prefill_vs_forward``."""
+    model, cfg = init_lm(torch, "gemma2-2b")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, FLASH_SCORING[1]), generator=g, device="cuda")
+    expect = dict(dict.fromkeys(KERNELS, 0), flash_attention=cfg.num_layers)
+    total = drive_scoring(torch, mods, model, cfg, tokens, {}, expect)
+    prompts = torch.randint(0, cfg.vocab_size, (4, PROMPT), generator=g, device="cuda")
+    long_prompt = torch.randint(0, cfg.vocab_size, (1, LONG_PROMPT), generator=g, device="cuda")
+    served = {}
+    for what, prompt, gen in (("warm-up", prompts, 2), ("batch 4", prompts, GEN),
+                              ("batch 1 long", long_prompt, LONG_GEN)):
+        launches, served[what] = drive_serve(torch, mods, model, cfg, prompt, gen, expect, what)
+        for name, count in launches.items():
+            total[name] += count
+    err = check_flash_on_path(torch, mods, model, cfg, tokens, expect)
+    check_prefill_vs_forward(torch, mods, model, cfg, prompts, served["batch 4"]["prefill_logits"],
+                             {}, expect)
+    return total, err, (model, cfg, tokens, prompts)
+
+
+def check_flash_on_path(torch, mods, model, cfg, tokens, expect):
+    """The flash kernel on the inputs the main path gives it: one more
+    scoring forward on the same tokens (26 launches, required and kept out
+    of the kernels line) hands the q, k and v of its first local layer
+    (window 4096) and of its first global layer to recorders; the kernel is
+    then held to its plain version on each within ``flash_tolerance``, and
+    the planted faults' distances are printed beside it."""
+    from repro_torch import models
+    from repro_torch.models import layers
+
+    reset_counters(mods)
+    with recording(layers, "flash_attention", lambda args, kw: kw["window"] == 0) as glob, \
+            recording(layers, "flash_attention", lambda args, kw: kw["window"] != 0) as local, \
+            torch.inference_mode():
+        models.forward(model, {"tokens": tokens}, cfg)
+    launches = read_counters(mods)
+    require(launches == expect, f"gemma2 recording forward: launches {launches} != {expect}")
+    worst = 0.0
+    for name, seen in (("layer 0 (local)", local), ("layer 1 (global)", glob)):
+        (q, k, v), kw = seen[0]
+        require(q.dtype == torch.bfloat16
+                and q.shape == (*tokens.shape, cfg.num_heads, cfg.resolved_head_dim),
+                f"the path's flash inputs: {q.dtype} {tuple(q.shape)}")
+        with torch.inference_mode():
+            worst = max(worst, check_flash(
+                torch, mods["kf"], q, k, v, f"on {name}'s q, k, v of the scoring forward "
+                f"{tuple(q.shape)} K={k.shape[2]} {kw}", faults="report", **kw))
+    return worst
+
+
+def profile_phase(torch, name, model, cfg, tokens, prompts, flags):
     """Device busy and idle share and kernel time by kind, from
-    ``torch.profiler``, over one scoring forward (4 x 2048) and over 4
-    decode steps at batch 4 after a 512-token prefill. Last, because the
-    profiler leaves host-side costs behind that slow later host-bound
+    ``torch.profiler``, over one scoring forward (with ``flags``) and over 4
+    decode steps at the prompts' batch after their prefill. Last, because
+    the profiler leaves host-side costs behind that slow later host-bound
     work."""
     from repro_torch import models
 
     with torch.inference_mode():
-        print_profile("mamba2-370m scoring forward (4 x 2048)", device_profile(
-            torch, lambda: models.forward(model, {"tokens": tokens}, cfg, use_ssd_kernel=True)))
-        state0 = models.init_decode_state(cfg, prompts.shape[0], PROMPT + 4, device="cuda")
+        print_profile(f"{name} scoring forward {tuple(tokens.shape)}", device_profile(
+            torch, lambda: models.forward(model, {"tokens": tokens}, cfg, **flags)))
+        state0 = models.init_decode_state(cfg, prompts.shape[0], prompts.shape[1] + 4, device="cuda")
         logits, state = models.prefill(model, state0, {"tokens": prompts}, cfg)
         tok = logits.argmax(-1)[:, None]
 
@@ -827,7 +1045,7 @@ def profile_phase(torch, model, cfg, tokens, prompts):
             for _ in range(4):
                 _, st = models.decode_step(model, st, tok, cfg)
 
-        print_profile(f"mamba2-370m 4 decode steps (batch {prompts.shape[0]})",
+        print_profile(f"{name} 4 decode steps (batch {prompts.shape[0]})",
                       device_profile(torch, decode4))
 
 
@@ -969,6 +1187,77 @@ def ssd_timing(torch, ks):
     return out
 
 
+def flash_bound(torch, q, k, window: int):
+    """(bound ms, bound_by, bytes, operations) of causal flash attention on
+    these inputs: q, k, v read once and o written once at 3.35 TB/s, against
+    4 D H B per valid (query, key) pair, pairs = sum_i min(i + 1, window)
+    (the pairs this run's mask keeps, not the whole square), at the dense
+    bf16 tensor-core rate for bf16 inputs or the fp32 rate for f32."""
+    B, S_, H, D = q.shape
+    nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
+    i = torch.arange(S_, dtype=torch.float64)
+    pairs = float(torch.clamp(i + 1, max=window).sum()) if window else S_ * (S_ + 1) / 2
+    ops = 4 * D * H * B * pairs
+    rate = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", nbytes, ops
+
+
+def flash_timing(torch, kf):
+    """The flash kernel and its plain version (plain, kernel, kernel, plain)
+    at gemma2-2b's scoring shape in bf16 with softcap 50, for a local layer
+    (window 4096) and a global one (no window); the global layer is the
+    kernels line's row. Yardsticks the port never calls:
+    ``flex_attention`` under ``torch.compile`` with the same tanh softcap
+    as its ``score_mod`` and the causal (and window) mask as its block mask,
+    which computes the same function, and ``scaled_dot_product_attention``
+    (causal, GQA, no softcap, no window), a different function, printed
+    only."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+    from torch.nn.functional import scaled_dot_product_attention
+
+    B, S_, H, K, D = FLASH_SCORING
+    q, k, v = flash_inputs(torch, B, S_, S_, H, K, D, torch.bfloat16, seed=4)
+    qt, kt_, vt = (t.transpose(1, 2) for t in (q, k, v))  # (B, heads, S, D) views
+    flex = torch.compile(flex_attention)
+    score_mod = lambda score, b, h, qi, kj: torch.tanh(score / GEMMA_SOFTCAP) * GEMMA_SOFTCAP
+    out = {}
+    for window in (GEMMA_WINDOW, 0):
+        def mask_mod(b, h, qi, kj, window=window):
+            causal = qi >= kj
+            return causal & (qi - kj < window) if window else causal
+
+        t0 = time.perf_counter()
+        block_mask = create_block_mask(mask_mod, None, None, S_, S_, device="cuda")
+        lib = lambda: flex(qt, kt_, vt, score_mod=score_mod, block_mask=block_mask, enable_gqa=True)
+        got = lib()
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        kern = lambda: kf.flash_attention(q, k, v, softcap=GEMMA_SOFTCAP, window=window)
+        plain = lambda: kf.flash_attention_plain(q, k, v, softcap=GEMMA_SOFTCAP, window=window)
+        flex_err = float((got.transpose(1, 2).float() - kern().float()).abs().max())
+        t_plain1, _ = time_ms(torch, plain, 3)
+        t_kern1, host1 = time_ms(torch, kern, 10)
+        t_kern2, host2 = time_ms(torch, kern, 10)
+        t_plain2, _ = time_ms(torch, plain, 3)
+        t_lib, _ = time_ms(torch, lib, 20)
+        bound, by, nbytes, ops = flash_bound(torch, q, k, window)
+        row = {"ms": min(t_kern1, t_kern2), "plain_ms": min(t_plain1, t_plain2), "bound_ms": bound,
+               "bound_by": by, "library_ms": t_lib}
+        print(f"timing flash_attention {FLASH_SCORING} bf16 softcap {GEMMA_SOFTCAP} window {window}: "
+              f"kernel {t_kern1:.4f}/{t_kern2:.4f} ms, plain {t_plain1:.4f}/{t_plain2:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP at 989.4 TFLOP/s, {nbytes / 1e6:.1f} MB at "
+              f"3.35 TB/s; roofline share {bound / row['ms']:.1%}), host enqueue "
+              f"{min(host1, host2) * 1e3:.1f} us/call, library flex_attention (torch.compile, first call "
+              f"{compile_s:.1f} s) {t_lib:.4f} ms, max |flex - kernel| {flex_err:.3e}")
+        out[window] = row
+    t_sdpa, _ = time_ms(torch, lambda: scaled_dot_product_attention(
+        qt, kt_, vt, is_causal=True, enable_gqa=True), 20)
+    print(f"timing scaled_dot_product_attention {FLASH_SCORING} bf16, causal, GQA, no softcap and "
+          f"no window (a different function, printed as a yardstick only): {t_sdpa:.4f} ms")
+    return {"flash_attention": out[0]}
+
+
 def main() -> int:
     import torch
 
@@ -976,11 +1265,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 1
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import qsgd as kq
     from repro_torch.kernels import ssd_scan as ks
     from repro_torch.kernels import topk as kt
 
-    mods = {"kq": kq, "kt": kt, "ks": ks}
+    mods = {"kq": kq, "kt": kt, "ks": ks, "kf": kf}
+    start = time.perf_counter()
+    stamp = lambda what: print(f"[{time.perf_counter() - start:.1f} s] {what} done", flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
@@ -990,19 +1282,22 @@ def main() -> int:
     print(f"nvidia-smi: {card}")
 
     t0 = time.perf_counter()
-    libs = build.build_all([kq.SOURCE, kt.SOURCE, ks.SOURCE])
-    kq.load_library()
-    kt.load_library()
-    ks.load_library()
+    libs = build.build_all([kq.SOURCE, kt.SOURCE, ks.SOURCE, kf.SOURCE])
+    for mod in (kq, kt, ks, kf):
+        mod.load_library()
     print(f"build: {', '.join(str(p.relative_to(ROOT)) for p in libs.values())} in {time.perf_counter() - t0:.2f} s")
 
     checks = kernel_phase(torch, kq)
     errs = {name: checks[name][0] for name in checks}
     errs.update(new_kernel_phase(torch, kq, kt))
     errs["ssd_scan"] = ssd_kernel_phase(torch, ks)
+    errs["flash_attention"] = flash_kernel_phase(torch, kf)
+    stamp("kernels phase")
     reference_phase(torch)
     reference_step_phase(torch)
-    reference_lm_phase(torch)
+    reference_lm_phase(torch, "mamba2-370m", 40, SSD_FLAGS)
+    reference_lm_phase(torch, "gemma2-2b", 160, {})  # 160 > the window of 64
+    stamp("reference phase")
 
     total = dict.fromkeys(KERNELS, 0)
     runs = (
@@ -1016,15 +1311,25 @@ def main() -> int:
     for fn, arch, length, kw in runs:
         for name, count in fn(torch, mods, arch, length, **kw).items():
             total[name] += count
+    stamp("P2P paths")
     lm_counts, lm_err, lm_run = drive_lm(torch, mods)
     errs["ssd_scan"] = max(errs["ssd_scan"], lm_err)
-    for name, count in lm_counts.items():
-        total[name] += count
+    stamp("mamba2-370m path")
+    gemma_counts, gemma_err, gemma_run = drive_gemma(torch, mods)
+    errs["flash_attention"] = max(errs["flash_attention"], gemma_err)
+    stamp("gemma2-2b path")
+    for counts in (lm_counts, gemma_counts):
+        for name, count in counts.items():
+            total[name] += count
     require(all(total.values()), f"a kernel was never launched on the main path: {total}")
 
     times = timing_phase(torch, kq, kt)
     times.update(ssd_timing(torch, ks))
-    profile_phase(torch, *lm_run)
+    times.update(flash_timing(torch, kf))
+    stamp("timing phase")
+    profile_phase(torch, "mamba2-370m", *lm_run, SSD_FLAGS)
+    profile_phase(torch, "gemma2-2b", *gemma_run, {})
+    stamp("profile phase")
     kernels = [
         {
             "name": name,

@@ -11,7 +11,7 @@ from typing import Dict
 
 from repro_torch.configs.base import ModelConfig, reduced
 
-LM_ARCHS = ("mamba2-370m",)
+LM_ARCHS = ("mamba2-370m", "gemma2-2b", "qwen2.5-3b", "starcoder2-3b")
 PAPER_ARCHS = ("vgg11", "mobilenet-v3-small", "squeezenet1.1")  # the paper's own models
 # arch id -> module name
 _ARCH_MODULES = {name: name.replace("-", "_").replace(".", "_") for name in LM_ARCHS + PAPER_ARCHS}

@@ -19,9 +19,12 @@ rank: the reference stacks each period slot's layers on a leading axis
 (``stack/j/mixer/in_proj`` is (n_groups, din, dout)), its convolution
 weight ``conv_w`` is (K, C) and ``embed`` is (V_pad, d). Group g of slot j
 is the port's layer ``g * period + j`` and ``tail/r`` its layer
-``n_groups * period + r``; ``in_proj``, ``out_proj`` and ``unembed``
-(din, dout) are ``nn.Linear`` weights (dout, din), ``conv_w`` (K, C) is the
-port's depthwise (C, 1, K), and every other leaf is unchanged.
+``n_groups * period + r``; ``in_proj``, ``out_proj``, the attention's
+``wq``, ``wk``, ``wv``, ``wo``, the MLP's ``w_gate``, ``w_up``, ``w_down``
+and ``unembed`` (din, dout) are ``nn.Linear`` weights (dout, din),
+``conv_w`` (K, C) is the port's depthwise (C, 1, K), and every other leaf
+(norm scales, the attention biases ``bq``, ``bk``, ``bv``, the SSM
+vectors, ``embed``) is unchanged.
 
 ``jax_order`` gives the order of JAX's tree flatten (sorted dict keys,
 list entries by index), which is also the order in which the QSGD wire
@@ -119,7 +122,7 @@ def opt_state_to_jax(state) -> Dict[str, np.ndarray]:
     return to_jax(state)
 
 
-_LM_LINEAR = ("in_proj", "out_proj", "unembed")
+_LM_LINEAR = ("in_proj", "out_proj", "unembed", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
 def _lm_leaf_to_torch(path: str, arr: np.ndarray):

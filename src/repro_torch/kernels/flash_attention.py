@@ -1,0 +1,220 @@
+"""Flash attention (forward): a CUDA kernel for Hopper beside its plain
+PyTorch version, and the port's one plain attention, ``attend``.
+
+Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py:flash_attention``
+(``_flash_kernel``). The CUDA source is ``csrc/flash_attention.cu``; its
+header says what bounds the kernel on the card and how it tiles.
+
+The kernel's function, for query i and key j with positions counted from
+0 on both sides (also when Sq != Skv), query head h reading KV head
+h // (H / K):
+
+    s_ij  = (q_i / sqrt(D)) . k_j                 in f32
+    s_ij  = tanh(s_ij / softcap) * softcap        when softcap > 0
+    valid = j < Skv and, only when causal, 0 <= i - j < window  (window 0: none)
+    o_i   = softmax over the valid j of s_ij, times v, cast to q's dtype
+
+Without ``causal`` the window is ignored, as the Pallas kernel ignores it
+(``attend`` bounds |i - j| there; ``flash_attention_plain`` therefore
+passes it no window).
+
+``attend`` is the port's copy of the reference's ``models/layers.py:attend``
+(masks from positions, ``finfo(f32).min`` as the mask value, a direct
+softmax up to 1024 keys, an online softmax over blocks of 1024 beyond).
+The models' decode calls it over the KV cache; ``flash_attention_plain``
+calls it with ``arange`` positions. A wrapper takes its plain version only for a
+tensor on the CPU. For a CUDA tensor it launches the kernel, or raises:
+there is no fallback. The wrapper counts its kernel launches in its
+``launches`` attribute.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import build
+
+SOURCE = "flash_attention.cu"
+MAX_HEADDIM = 256  # what the kernel's shared-memory tiling takes (csrc/flash_attention.cu)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return torch.tanh(x / cap) * cap if cap else x
+
+
+def attend(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Skv, K, D)
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    q_positions: torch.Tensor,  # (Sq,) absolute positions of the queries
+    kv_positions: torch.Tensor,  # (Skv,) absolute positions of the keys (-1 = invalid)
+    window: int = 0,
+    softcap_val: float = 0.0,
+    block_kv: int = 1024,
+) -> torch.Tensor:
+    """Masked multi-head attention with GQA and online-softmax blocking
+    (the reference's ``attend``). Validity and locality come from the
+    positions alone, so one function serves full causal attention, sliding
+    windows, rolling decode caches and cross attention (``causal=False``,
+    where ``window`` bounds |q_pos - kv_pos|)."""
+    B, Sq, H, D = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    if H % K:
+        raise ValueError(f"the {K} KV heads must divide the {H} query heads")
+    G = H // K
+    f32 = torch.float32
+    qf = q.reshape(B, Sq, K, G, D).to(f32) / math.sqrt(D)
+    mask_value = torch.finfo(f32).min
+
+    def block(kb, kpos):
+        s = softcap(torch.einsum("bqkgd,bskd->bkgqs", qf, kb.to(f32)), softcap_val)
+        valid = (kpos >= 0)[None, :]
+        if causal:
+            rel = q_positions[:, None] - kpos[None, :]  # (Sq, Skv_b)
+            ok = rel >= 0
+            if window:
+                ok &= rel < window
+            valid = valid & ok
+        elif window:
+            valid = valid & ((q_positions[:, None] - kpos[None, :]).abs() < window)
+        return torch.where(valid, s, mask_value)
+
+    if Skv <= block_kv:
+        p = torch.softmax(block(k, kv_positions), dim=-1)
+        o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(f32))
+        return o.reshape(B, Sq, H, D).to(q.dtype)
+
+    # online softmax over key blocks (flash-style; memory O(block))
+    nblocks = -(-Skv // block_kv)
+    pad = nblocks * block_kv - Skv
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_positions = F.pad(kv_positions, (0, pad), value=-1)
+    m = torch.full((B, K, G, Sq), -math.inf, dtype=f32, device=q.device)
+    l = torch.zeros((B, K, G, Sq), dtype=f32, device=q.device)
+    acc = torch.zeros((B, K, G, Sq, D), dtype=f32, device=q.device)
+    for n in range(nblocks):
+        sl = slice(n * block_kv, (n + 1) * block_kv)
+        s = block(k[:, sl], kv_positions[sl])  # (B, K, G, Sq, block)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p, v[:, sl].to(f32))
+        m = m_new
+    o = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def flash_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, softcap: float = 0.0, window: int = 0,
+) -> torch.Tensor:
+    """Plain PyTorch flash attention: ``attend`` at positions ``arange(Sq)``
+    and ``arange(Skv)``, the window only when causal (the kernel's function)."""
+    return attend(
+        q, k, v, causal=causal,
+        q_positions=torch.arange(q.shape[1], device=q.device),
+        kv_positions=torch.arange(k.shape[1], device=k.device),
+        window=window if causal else 0, softcap_val=softcap,
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.load(SOURCE)
+    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.flash_attention_launch.argtypes = [
+        ptr, ptr, ptr, ptr,  # q, k, v, o
+        i32, i32, i32, i32, i32, i32, i32,  # batch, Sq, Skv, heads, kv heads, headdim, bf16
+        i64, i64, i64,  # q strides (batch, seq, head)
+        i64, i64, i64,  # k strides
+        i64, i64, i64,  # v strides
+        f32, f32, i32, i32,  # scale, softcap, causal, window
+        ptr,  # stream
+    ]
+    lib.flash_attention_launch.restype = ctypes.c_int
+    return lib
+
+
+def load_library() -> None:
+    """Build and load the kernel ahead of its first launch."""
+    _lib()
+
+
+def _check(q, k, v, window: int) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k and v must be 4-d: (batch, seq, heads, headdim)")
+    B, Sq, H, D = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, Skv, K, D) or v.shape != k.shape:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must both be "
+                         f"(batch {B}, seq, kv heads, headdim {D})")
+    if K == 0 or H % K:
+        raise ValueError(f"the {K} KV heads must divide the {H} query heads")
+    if Skv == 0:
+        raise ValueError("attention needs at least one key")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k and v must share one dtype of {list(_DTYPES)}, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if window < 0:
+        raise ValueError(f"window must be 0 (none) or positive, got {window}")
+    if not (k.device == q.device and v.device == q.device):
+        raise ValueError("q, k and v must lie on one device")
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Sq, H, D) f32 or bf16
+    k: torch.Tensor,  # (B, Skv, K, D), q's dtype
+    v: torch.Tensor,  # (B, Skv, K, D), q's dtype
+    *,
+    causal: bool = True,
+    softcap: float = 0.0,
+    window: int = 0,
+) -> torch.Tensor:
+    """Flash attention forward -> (B, Sq, H, D) in q's dtype. The inputs may
+    be strided views as long as their last dimension is contiguous; the
+    kernel masks the ragged last tiles, where the TPU wrapper pads. The
+    block sizes are the kernel's own (64 queries by 64 keys).
+
+    A query row with no valid key (only when causal with a window and
+    Sq > Skv + window - 1, never on a model path) gets 0 from the kernel;
+    the plain version gives it ``attend``'s uniform weights over the masked
+    keys, and the Pallas kernel weight 1 on its first fully masked block.
+    Such rows are outside the parity contract (ROADMAP.md, Queue 3)."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, softcap=softcap, window=window)
+    stream = build.cuda_stream(q.device)
+    B, Sq, H, D = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    if D % 32 or D > MAX_HEADDIM:
+        raise ValueError(f"the flash kernel takes a headdim that is a multiple of 32 up to "
+                         f"{MAX_HEADDIM}, got {D}")
+    if not all(t.stride(-1) == 1 for t in (q, k, v)):
+        raise ValueError("q, k and v must be contiguous in their last dimension")
+    o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    if o.numel() == 0:
+        return o
+    with torch.cuda.device(q.device):
+        err = _lib().flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            B, Sq, Skv, H, K, D, _DTYPES[q.dtype],
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            1.0 / math.sqrt(D), float(softcap), int(causal), int(window), stream,
+        )
+    if err:
+        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
+    flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0

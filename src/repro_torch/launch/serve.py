@@ -5,11 +5,13 @@ one-shot prefill, a twin of the reference's ``repro/launch/serve.py``.
         --prompt-len 512 --gen 32                       # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced --gen 4
 
-``--arch`` defaults to mamba2-370m, the one LM family ported so far; the
-reference defaults to gemma2-2b, whose family comes with the attention
-layers (ROADMAP.md, Queue 1, item 11). The weights are random, from a
-seeded ``torch.Generator``; reading a checkpoint waits for the npz reader
-(ROADMAP.md, Queue 1, item 9).
+``--arch`` defaults to gemma2-2b, as in the reference; the Mamba-2 and
+dense LMs are served (``--arch mamba2-370m``, ``qwen2.5-3b``,
+``starcoder2-3b``). The prefill's attention goes through the flash kernel
+(its plain version for a model on the CPU); decode attends over the KV
+cache with the plain ``attend``, as the reference does. The weights are
+random, from a seeded ``torch.Generator``; reading a checkpoint waits for
+the npz reader (ROADMAP.md, Queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -75,7 +77,7 @@ def generate(
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2-370m")
+    ap.add_argument("--arch", default="gemma2-2b")
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")
     ap.add_argument("--batch", type=int, default=4)

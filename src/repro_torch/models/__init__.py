@@ -6,8 +6,8 @@
                               device as NCHW
   labels  (B,)              — CNN training targets
 
-The CNNs and the Mamba-2 (``ssm``) LM are ported; the other LM families
-raise ``NotImplementedError`` naming their ROADMAP item.
+The CNNs and the Mamba-2 (``ssm``) and dense LMs are ported; the other LM
+families raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -41,16 +41,18 @@ def _tokens(tokens, model: nn.Module) -> torch.Tensor:
 
 
 def forward(
-    model: nn.Module, batch: Dict, cfg: ModelConfig, *, use_ssd_kernel: bool = False
+    model: nn.Module, batch: Dict, cfg: ModelConfig, *, use_ssd_kernel: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits, aux_loss); aux_loss is 0 for the CNNs and the SSM
-    LM. ``use_ssd_kernel`` sends the LM's full-sequence SSD scans through
-    the hand-written kernel."""
+    """Returns (logits, aux_loss); aux_loss is 0 for the CNNs and the ported
+    LMs. ``use_ssd_kernel`` sends the LM's full-sequence SSD scans through
+    the hand-written kernel; attention always takes the flash kernel (its
+    plain version on the CPU)."""
     if cfg.family == "cnn":
         device = next(model.parameters()).device
         logits = model(images_to_device(batch["images"], device))
         return logits, torch.zeros((), dtype=torch.float32, device=device)
-    return _tf.lm_forward(model, _tokens(batch["tokens"], model), cfg, use_ssd_kernel=use_ssd_kernel)
+    return _tf.lm_forward(model, _tokens(batch["tokens"], model), cfg,
+                          use_ssd_kernel=use_ssd_kernel)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int, *, device="cuda"):
@@ -61,13 +63,20 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int, *, device="cud
 
 def prefill(model: nn.Module, state, batch: Dict, cfg: ModelConfig):
     """One-shot prompt prefill into a decode state. Returns
-    (last-token logits, state positioned after the prompt)."""
+    (last-token logits, state positioned after the prompt); the prompt's
+    attention goes through the flash kernel.
+
+    Consumes ``state``: the attention layers' KV caches are written in
+    place and the same buffers returned (the reference returns new ones),
+    so clone a state you mean to keep. Mamba-2 layers get new states."""
     if cfg.family == "cnn":
         raise ValueError("CNNs have no decode step")
     return _tf.lm_prefill(model, state, _tokens(batch["tokens"], model), cfg)
 
 
 def decode_step(model: nn.Module, state, token, cfg: ModelConfig):
+    """One decode step of ``token`` (B, 1). Returns (logits (B, vocab), the
+    state one position on); it consumes ``state`` as ``prefill`` does."""
     if cfg.family == "cnn":
         raise ValueError("CNNs have no decode step")
     return _tf.lm_decode_step(model, state, _tokens(token, model), cfg)

@@ -1,18 +1,32 @@
-"""Model primitives of the port that the Mamba-2 LM uses: the subset of the
-reference's ``repro/models/layers.py`` on the SSM path.
+"""Model primitives of the port: the parts of the reference's
+``repro/models/layers.py`` that the Mamba-2 and dense LMs use.
 
 Parameters are stored in ``param_dtype`` (float32) and cast to the
 config's working dtype (bfloat16) at each use, as in the reference.
-Attention, the MLP, MoE and the RoPE helpers come with the attention
-families (ROADMAP.md, Queue 1, item 11). The reference's ``shard`` hints
-have no counterpart on one card.
+Linear weights are ``nn.Linear`` weights, (out, in); ``convert.py``
+transposes them from the reference's (in, out). Attention keeps the
+reference's layouts at its functions: q (B, S, H, D), k and v
+(B, S, K, D), a KV cache {"k", "v"} of (B, S_cache, K, D). The one plain
+attention, ``attend``, lives beside the flash kernel in
+``kernels/flash_attention.py``. MoE comes with its family (ROADMAP.md,
+Queue 1, item 11). The reference's ``shard`` hints have no counterpart on
+one card.
 """
 from __future__ import annotations
 
+import functools
 import math
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.nn.utils import skip_init
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import attend, flash_attention, softcap
+
+Cache = Dict[str, torch.Tensor]
 
 
 def dense_init(in_dim: int, out_dim: int, *, generator: torch.Generator, device, dtype) -> torch.Tensor:
@@ -22,8 +36,21 @@ def dense_init(in_dim: int, out_dim: int, *, generator: torch.Generator, device,
     return (w / math.sqrt(in_dim)).to(dtype)
 
 
-def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
-    return torch.tanh(x / cap) * cap if cap else x
+def dense_linear(in_dim: int, out_dim: int, *, generator: torch.Generator, device, dtype) -> nn.Linear:
+    """A bias-free ``nn.Linear`` whose weight is ``dense_init``'s."""
+    lin = skip_init(nn.Linear, in_dim, out_dim, bias=False, device=device, dtype=dtype)
+    lin.weight.data = dense_init(in_dim, out_dim, generator=generator, device=device, dtype=dtype)
+    return lin
+
+
+def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "silu":
+        return F.silu(x)
+    if kind == "gelu":
+        return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+    if kind == "relu":
+        return F.relu(x)
+    raise ValueError(f"unknown activation {kind}")
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -40,3 +67,152 @@ class RMSNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, eps: float) -> torch.Tensor:
         return rmsnorm(x, self.scale, eps)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (GPT-NeoX half rotation)
+# ---------------------------------------------------------------------------
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
+    """positions (..., S) int -> (sin, cos) of shape (..., S, head_dim // 2), f32."""
+    half = head_dim // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32, device=positions.device) / half))
+    angles = positions.to(torch.float32)[..., None] * freqs
+    return torch.sin(angles), torch.cos(angles)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, D); sin/cos (B, S, D/2) or (S, D/2), cast to x's dtype
+    before the multiply, as in the reference."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    if sin.dim() == 2:
+        sin, cos = sin[None], cos[None]
+    sin, cos = sin[:, :, None, :].to(x.dtype), cos[:, :, None, :].to(x.dtype)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, sliding window, softcap, KV cache)
+# ---------------------------------------------------------------------------
+
+
+class Attention(nn.Module):
+    """The parameters of the reference's ``init_attention``: ``wq``, ``wk``,
+    ``wv``, ``wo`` and, with ``qkv_bias``, ``bq``, ``bk``, ``bv``."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator, device):
+        super().__init__()
+        d, hd, H, K = cfg.d_model, cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+        pdt = getattr(torch, cfg.param_dtype)
+        lin = functools.partial(dense_linear, generator=generator, device=device, dtype=pdt)
+        self.wq, self.wk, self.wv, self.wo = lin(d, H * hd), lin(d, K * hd), lin(d, K * hd), lin(H * hd, d)
+        if cfg.qkv_bias:
+            zeros = lambda n: nn.Parameter(torch.zeros((n,), device=device, dtype=pdt))
+            self.bq, self.bk, self.bv = zeros(H * hd), zeros(K * hd), zeros(K * hd)
+
+
+def attention_apply(
+    attn: Attention,
+    x: torch.Tensor,  # (B, S, d)
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,  # (S,) absolute positions of x
+    window: int = 0,
+    cache: Optional[Cache] = None,  # prefill / decode: {"k", "v"} buffers
+    cache_pos: Optional[int] = None,  # decode: the current position
+    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """The reference's ``attention_apply`` for causal self-attention, three
+    routes: the full sequence (no cache), prefill (a cache and S > 1) and
+    decode (a cache and S = 1). Prefill and decode write the cache buffers
+    in place, where the reference returns new ones (a decode step would
+    otherwise copy every layer's whole cache), and return the same buffers.
+
+    The full-sequence and prefill routes go through the flash kernel: their
+    positions are ``arange(S)``, where it computes ``attend``'s function (on
+    the CPU the wrapper takes its plain version). Decode attends over the
+    rolling cache by position, through ``attend``. The reference's
+    ``causal=False`` (whisper's encoder) comes with cross attention."""
+    if cross_kv is not None:
+        raise NotImplementedError(
+            "cross attention is not ported yet: ROADMAP.md, Queue 1, item 11 "
+            "(the encoder-decoder, whisper)"
+        )
+    B, S, _ = x.shape
+    hd, H, K = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    dt = x.dtype
+    q = F.linear(x, attn.wq.weight.to(dt)).reshape(B, S, H, hd)
+    k = F.linear(x, attn.wk.weight.to(dt)).reshape(B, S, K, hd)
+    v = F.linear(x, attn.wv.weight.to(dt)).reshape(B, S, K, hd)
+    if cfg.qkv_bias:
+        q = q + attn.bq.to(dt).reshape(H, hd)
+        k = k + attn.bk.to(dt).reshape(K, hd)
+        v = v + attn.bv.to(dt).reshape(K, hd)
+    if cfg.rope_theta:
+        sin, cos = rope_tables(positions, hd, cfg.rope_theta)
+        q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
+    cap = cfg.attn_logit_softcap
+
+    if cache is not None and S == 1:
+        # decode: write this step's K/V into the cache, attend over the cache
+        Sc = cache["k"].shape[1]
+        j = torch.arange(Sc, device=x.device)
+        if window and Sc == window:
+            slot = cache_pos % window
+            kv_pos = cache_pos - torch.remainder(cache_pos - j, window)  # slot j's position
+        else:
+            slot = cache_pos
+            kv_pos = torch.where(j <= cache_pos, j, -1)
+        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+        kv_pos = torch.where(kv_pos >= 0, kv_pos, -1)
+        o = attend(q, cache["k"], cache["v"], causal=True, q_positions=positions,
+                   kv_positions=kv_pos, window=window, softcap_val=cap)
+        return F.linear(o.reshape(B, S, H * hd), attn.wo.weight.to(dt)), cache
+
+    if cache is not None:
+        # prefill: the whole prompt's K/V into the cache; a rolling cache
+        # keeps the last Sc tokens, token t at slot t % Sc
+        Sc = cache["k"].shape[1]
+        if Sc < S:
+            perm = torch.remainder(torch.arange(Sc, device=x.device) - S, Sc) + (S - Sc)
+            cache["k"].copy_(k[:, perm])
+            cache["v"].copy_(v[:, perm])
+        else:
+            cache["k"][:, :S] = k.to(cache["k"].dtype)
+            cache["v"][:, :S] = v.to(cache["v"].dtype)
+    o = flash_attention(q, k, v, causal=True, softcap=cap, window=window)
+    return F.linear(o.reshape(B, S, H * hd), attn.wo.weight.to(dt)), cache
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, seq_len: int, layer_window: int, dtype, *,
+                      device) -> Cache:
+    """Cache buffers of one attention layer (rolling if windowed)."""
+    size = min(seq_len, layer_window) if layer_window else seq_len
+    shape = (batch, size, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Dense MLP (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+
+
+class MLP(nn.Module):
+    """The parameters of the reference's ``init_mlp``."""
+
+    def __init__(self, d: int, f: int, *, generator: torch.Generator, device, dtype):
+        super().__init__()
+        self.w_gate = dense_linear(d, f, generator=generator, device=device, dtype=dtype)
+        self.w_up = dense_linear(d, f, generator=generator, device=device, dtype=dtype)
+        self.w_down = dense_linear(f, d, generator=generator, device=device, dtype=dtype)
+
+
+def mlp_apply(mlp: MLP, x: torch.Tensor, act: str) -> torch.Tensor:
+    dt = x.dtype
+    g = activation(F.linear(x, mlp.w_gate.weight.to(dt)), act)
+    u = F.linear(x, mlp.w_up.weight.to(dt))
+    return F.linear(g * u, mlp.w_down.weight.to(dt))

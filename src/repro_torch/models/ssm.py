@@ -19,11 +19,10 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.nn.utils import skip_init
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
-from repro_torch.models.layers import RMSNorm, dense_init
+from repro_torch.models.layers import RMSNorm, dense_linear
 
 State = Dict[str, torch.Tensor]
 
@@ -38,10 +37,8 @@ class Mamba2(nn.Module):
         H, N, G = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_ngroups
         conv_ch = di + 2 * G * N
         pdt = getattr(torch, cfg.param_dtype)
-        self.in_proj = skip_init(nn.Linear, d, 2 * di + 2 * G * N + H, bias=False, device=device,
-                                 dtype=pdt)
-        self.in_proj.weight.data = dense_init(d, 2 * di + 2 * G * N + H, generator=generator,
-                                              device=device, dtype=pdt)
+        self.in_proj = dense_linear(d, 2 * di + 2 * G * N + H, generator=generator, device=device,
+                                    dtype=pdt)
         conv = torch.randn((cfg.ssm_conv, conv_ch), generator=generator, device=device) * 0.1
         self.conv_w = nn.Parameter(conv.t().reshape(conv_ch, 1, cfg.ssm_conv).to(pdt))
         self.conv_b = nn.Parameter(torch.zeros((conv_ch,), device=device, dtype=pdt))
@@ -49,8 +46,7 @@ class Mamba2(nn.Module):
         self.D = nn.Parameter(torch.ones((H,), device=device, dtype=pdt))
         self.dt_bias = nn.Parameter(torch.zeros((H,), device=device, dtype=pdt))
         self.norm = RMSNorm(di, device=device, dtype=pdt)
-        self.out_proj = skip_init(nn.Linear, di, d, bias=False, device=device, dtype=pdt)
-        self.out_proj.weight.data = dense_init(di, d, generator=generator, device=device, dtype=pdt)
+        self.out_proj = dense_linear(di, d, generator=generator, device=device, dtype=pdt)
 
     def conv_kc(self) -> torch.Tensor:
         """The convolution weight in the reference's (K, C) layout (a view)."""

@@ -1,6 +1,7 @@
-"""Decoder-only LM of the port, for ``family == "ssm"`` (Mamba-2).
+"""Decoder-only LM of the port, for ``family == "ssm"`` (Mamba-2) and
+``family == "dense"`` (gemma2-2b, qwen2.5-3b, starcoder2-3b).
 
-A copy of the SSM path of the reference's ``repro/models/transformer.py``.
+A copy of those paths of the reference's ``repro/models/transformer.py``.
 The reference stacks the layers of each period slot on a leading axis and
 scans over the groups (``lax.scan``); here the layers are an
 ``nn.ModuleList`` run in order, layer ``g * period + j`` being group g of
@@ -8,6 +9,8 @@ slot j. ``convert.lm_from_jax`` / ``lm_to_jax`` carry weights across that
 layout (``layer_grouping`` gives it).
 
 Every other family raises ``NotImplementedError`` naming its ROADMAP item.
+A decode state holds each layer's SSM state or KV cache in layer order;
+prefill and decode write the KV caches in place (``layers.attention_apply``).
 """
 from __future__ import annotations
 
@@ -16,21 +19,29 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.nn.utils import skip_init
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
+from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
-from repro_torch.models.layers import RMSNorm, dense_init, rmsnorm, softcap
+from repro_torch.models.layers import RMSNorm, dense_linear, rmsnorm, softcap
 
 DecodeState = Dict[str, object]
 
 
+_UNPORTED = {  # family -> what ROADMAP.md, Queue 1, item 11 ports for it
+    "hybrid": "zamba2-1.2b's shared attention block",
+    "moe": "MoE: moe_apply",
+    "encdec": "the encoder-decoder, whisper",
+    "vlm": "the VLM stub, internvl2",
+}
+
+
 def require_ported(cfg: ModelConfig) -> None:
     """Raise for a family whose layers are not ported yet."""
-    if cfg.family != "ssm":
+    if cfg.family not in ("ssm", "dense"):
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet: only the Mamba-2 (ssm) LM is; "
-            "ROADMAP.md, Queue 1, item 11, 'LM side'"
+            f"model family {cfg.family!r} is not ported yet: the Mamba-2 (ssm) and dense LMs "
+            f"are; ROADMAP.md, Queue 1, item 11, 'LM side' ({_UNPORTED.get(cfg.family, cfg.family)})"
         )
 
 
@@ -51,18 +62,38 @@ def layer_grouping(cfg: ModelConfig) -> Tuple[Tuple[BlockSpec, ...], int, int]:
 
 
 class Block(nn.Module):
-    """``ln1`` and the Mamba-2 mixer (``ffn == "none"``)."""
+    """``ln1`` and the mixer (Mamba-2, or attention for ``attn`` and
+    ``attn_local``), then ``ln2`` and the dense MLP when ``ffn == "dense"``."""
 
-    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator, device):
+    def __init__(self, cfg: ModelConfig, spec: BlockSpec, *, generator: torch.Generator, device):
         super().__init__()
+        self.spec = spec
         pdt = getattr(torch, cfg.param_dtype)
         self.ln1 = RMSNorm(cfg.d_model, device=device, dtype=pdt)
-        self.mixer = S.Mamba2(cfg, generator=generator, device=device)
+        if spec.mixer == "mamba":
+            self.mixer = S.Mamba2(cfg, generator=generator, device=device)
+        else:
+            self.mixer = L.Attention(cfg, generator=generator, device=device)
+        if spec.ffn == "dense":
+            self.ln2 = RMSNorm(cfg.d_model, device=device, dtype=pdt)
+            self.ffn = L.MLP(cfg.d_model, cfg.d_ff, generator=generator, device=device, dtype=pdt)
 
-    def forward(self, x, cfg, *, cache=None, use_ssd_kernel=False):
-        y, new_cache = S.mamba2_apply(self.mixer, self.ln1(x, cfg.norm_eps), cfg, state=cache,
-                                      use_kernel=use_ssd_kernel)
-        return x + y, new_cache
+    def forward(self, x, cfg, *, positions, cache=None, cache_pos=None, use_ssd_kernel=False):
+        h = self.ln1(x, cfg.norm_eps)
+        if self.spec.mixer == "mamba":
+            y, new_cache = S.mamba2_apply(self.mixer, h, cfg, state=cache, use_kernel=use_ssd_kernel)
+        else:
+            # the reference's window rule (_block_apply)
+            if self.spec.mixer == "attn_local":
+                window = cfg.sliding_window
+            else:
+                window = cfg.serve_window if (cache is not None and cfg.sliding_window == 0) else 0
+            y, new_cache = L.attention_apply(self.mixer, h, cfg, positions=positions, window=window,
+                                             cache=cache, cache_pos=cache_pos)
+        x = x + y
+        if self.spec.ffn == "dense":
+            x = x + L.mlp_apply(self.ffn, self.ln2(x, cfg.norm_eps), cfg.act)
+        return x, new_cache
 
 
 class LM(nn.Module):
@@ -77,12 +108,10 @@ class LM(nn.Module):
         self.embed = nn.Parameter((emb * 0.02).to(pdt))
         self.final_norm = RMSNorm(cfg.d_model, device=device, dtype=pdt)
         if not cfg.tie_embeddings:
-            self.unembed = skip_init(nn.Linear, cfg.d_model, cfg.padded_vocab, bias=False,
-                                     device=device, dtype=pdt)
-            self.unembed.weight.data = dense_init(cfg.d_model, cfg.padded_vocab,
-                                                  generator=generator, device=device, dtype=pdt)
+            self.unembed = dense_linear(cfg.d_model, cfg.padded_vocab, generator=generator,
+                                        device=device, dtype=pdt)
         self.layers = nn.ModuleList(
-            Block(cfg, generator=generator, device=device) for _ in range(cfg.num_layers))
+            Block(cfg, spec, generator=generator, device=device) for spec in cfg.block_specs())
 
     def embed_tokens(self, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         # gather, then cast: the same values as the reference's cast-then-gather
@@ -95,42 +124,53 @@ class LM(nn.Module):
             logits = logits[..., : cfg.vocab_size]
         return softcap(logits.to(torch.float32), cfg.final_logit_softcap)
 
-    def run(self, x, cfg, *, caches: Optional[List] = None, use_ssd_kernel: bool = False):
+    def run(self, x, cfg, *, positions, caches: Optional[List] = None, cache_pos=None,
+            use_ssd_kernel: bool = False):
         new_caches = []
         for i, block in enumerate(self.layers):
-            x, nc = block(x, cfg, cache=None if caches is None else caches[i],
-                          use_ssd_kernel=use_ssd_kernel)
+            x, nc = block(x, cfg, positions=positions, cache=None if caches is None else caches[i],
+                          cache_pos=cache_pos, use_ssd_kernel=use_ssd_kernel)
             new_caches.append(nc)
         return rmsnorm(x, self.final_norm.scale, cfg.norm_eps), new_caches
 
 
 def lm_forward(
-    model: LM, tokens: torch.Tensor, cfg: ModelConfig, *, use_ssd_kernel: bool = False
+    model: LM, tokens: torch.Tensor, cfg: ModelConfig, *, use_ssd_kernel: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward (scoring). Returns (logits (B, S, vocab) f32, aux)."""
-    x, _ = model.run(model.embed_tokens(tokens, cfg), cfg, use_ssd_kernel=use_ssd_kernel)
+    x = model.embed_tokens(tokens, cfg)
+    x, _ = model.run(x, cfg, positions=torch.arange(x.shape[1], device=x.device),
+                     use_ssd_kernel=use_ssd_kernel)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return model.unembed_logits(x, cfg), aux
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int, *, device) -> DecodeState:
-    """Each layer's SSM and convolution state, in layer order (``seq_len``
-    sizes the attention families' caches, which the SSM LM has none of)."""
+    """Each layer's SSM state or KV cache, in layer order. A local
+    attention layer's cache holds ``min(seq_len, sliding_window)`` tokens,
+    another attention layer's ``min(seq_len, serve_window)`` when that is
+    set, else ``seq_len``."""
     require_ported(cfg)
     dt = getattr(torch, cfg.dtype)
-    return {
-        "pos": 0,
-        "layers": [S.init_mamba2_state(cfg, batch, dt, device=device)
-                   for _ in range(cfg.num_layers)],
-    }
+
+    def one(spec: BlockSpec):
+        if spec.mixer == "mamba":
+            return S.init_mamba2_state(cfg, batch, dt, device=device)
+        window = cfg.sliding_window if spec.mixer == "attn_local" else cfg.serve_window
+        return L.init_decode_cache(cfg, batch, seq_len, window, dt, device=device)
+
+    return {"pos": 0, "layers": [one(spec) for spec in cfg.block_specs()]}
 
 
 def lm_prefill(
     model: LM, state: DecodeState, tokens: torch.Tensor, cfg: ModelConfig
 ) -> Tuple[torch.Tensor, DecodeState]:
     """One-shot prefill of the prompt (B, S) into every layer's state.
-    Returns (last-token logits (B, vocab), the state at position S)."""
-    x, new_caches = model.run(model.embed_tokens(tokens, cfg), cfg, caches=state["layers"])
+    Returns (last-token logits (B, vocab), the state at position S).
+    Consumes ``state``: its KV caches are written in place and returned."""
+    x = model.embed_tokens(tokens, cfg)
+    x, new_caches = model.run(x, cfg, positions=torch.arange(x.shape[1], device=x.device),
+                              caches=state["layers"], cache_pos=0)
     logits = model.unembed_logits(x[:, -1:], cfg)[:, 0]
     return logits, {"pos": tokens.shape[1], "layers": new_caches}
 
@@ -138,7 +178,11 @@ def lm_prefill(
 def lm_decode_step(
     model: LM, state: DecodeState, token: torch.Tensor, cfg: ModelConfig
 ) -> Tuple[torch.Tensor, DecodeState]:
-    """One decode step of token (B, 1): returns (logits (B, vocab), new state)."""
-    x, new_caches = model.run(model.embed_tokens(token, cfg), cfg, caches=state["layers"])
+    """One decode step of token (B, 1): returns (logits (B, vocab), new state).
+    Consumes ``state``: its KV caches are written in place and returned."""
+    pos = state["pos"]
+    x = model.embed_tokens(token, cfg)
+    x, new_caches = model.run(x, cfg, positions=torch.tensor([pos], device=x.device),
+                              caches=state["layers"], cache_pos=pos)
     logits = model.unembed_logits(x, cfg)[:, 0]
-    return logits, {"pos": state["pos"] + 1, "layers": new_caches}
+    return logits, {"pos": pos + 1, "layers": new_caches}

@@ -31,6 +31,8 @@ def test_configs_equal_reference(arch):
     ("mamba2-370m", {}),
     ("mamba2-370m", dict(num_layers=3)),
     ("mamba2-370m", dict(vocab_size=512)),
+    ("gemma2-2b", dict(num_layers=3)),  # local_global_pattern 2, sliding_window 64
+    ("qwen2.5-3b", dict(num_layers=3, serve_window=32)),
     ("vgg11", {}),
 ])
 def test_reduced_equals_reference(arch, kw):

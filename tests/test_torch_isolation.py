@@ -41,7 +41,8 @@ def test_port_imports_with_jax_blocked():
         "import sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None\n"
         "import repro_torch.core.simulate, repro_torch.core.p2p, repro_torch.convert\n"
         "import repro_torch.optim, repro_torch.kernels.qsgd, repro_torch.kernels.topk\n"
-        "import repro_torch.kernels.ssd_scan, repro_torch.models.transformer\n"
+        "import repro_torch.kernels.ssd_scan, repro_torch.kernels.flash_attention\n"
+        "import repro_torch.models.transformer\n"
         "import repro_torch.launch.serve\n"
         "assert not any(m == 'repro' or m.startswith('repro.') for m in sys.modules)\n"
         "print('ok')\n"

@@ -190,9 +190,11 @@ def test_weights_round_trip_exactly():
 
 def test_unported_families_are_refused():
     cfg = reduced(get_config("mamba2-370m"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        models.init_model(dataclasses.replace(cfg, family="dense"),
-                          generator=torch.Generator(), device="cpu")
+    for family, what in (("moe", "MoE"), ("hybrid", "zamba2"), ("encdec", "whisper"),
+                         ("vlm", "internvl2")):
+        with pytest.raises(NotImplementedError, match=f"item 11.*{what}"):
+            models.init_model(dataclasses.replace(cfg, family=family),
+                              generator=torch.Generator(), device="cpu")
 
 
 def test_serve_twin_runs_on_the_cpu(capsys):
