@@ -19,9 +19,12 @@ failure):
              chunk 256, in bf16 and f32, at a padded last chunk with 4
              groups, and at a single chunk; flash attention at gemma2-2b's
              scoring shape (1, 8192, 8 heads over 4, D 256), softcap 50,
-             window 4096 and none, in bf16, the same at S = 1024 in f32, a
+             window 4096 and none, in bf16 (the tensor-core body), the same
+             at S = 1024 in f32 (the CUDA-core body), and in both types a
              ragged S = 1000, Sq 300 against Skv 500 without causal
-             masking, D 32, 64 and 128, and MHA (32 heads, D 64).
+             masking, D 32, 64 and 128, and MHA (32 heads, D 64); in bf16
+             also Sq 200 with a window of 40, D 96, 160, 192 and 224, and q,
+             k, v as strided views of one fused projection.
 3. reference — small runs on the card against the same runs on the CPU
              (plain versions), same init and uniforms: a 4-peer squeezenet
              QSGD cluster epoch, one device train step with qsgd + EF and
@@ -56,7 +59,9 @@ failure):
 6. profile — ``torch.profiler`` over one scoring forward and 4 decode
              steps of mamba2-370m and of gemma2-2b: the device's busy and
              idle share and kernel time by kind (SSD or flash kernel,
-             matrix products, the rest).
+             matrix products, the rest), and the flash launches by body:
+             a gemma2-2b forward must launch the bf16 body once per layer
+             and the f32 body never.
 
 The last two lines of stdout are a ``{"kernels": [...]}`` JSON line and the
 result ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
@@ -395,26 +400,53 @@ def check_flash(torch, kf, q, k, v, what, *, causal=True, softcap=0.0, window=0,
     return worst
 
 
+def fused_qkv(torch, B, S_, H, K, D, seed):
+    """q, k and v as strided views of one (B, S, (H + 2K) D) bf16 tensor, as
+    a fused projection would hand them over."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    x = (torch.randn((B, S_, (H + 2 * K) * D), generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+    q = x[..., :H * D].unflatten(-1, (H, D))
+    k = x[..., H * D:(H + K) * D].unflatten(-1, (K, D))
+    v = x[..., (H + K) * D:].unflatten(-1, (K, D))
+    return q, k, v
+
+
 def flash_kernel_phase(torch, kf):
+    """The flash kernel's cases. bf16 runs the tensor-core body, f32 the
+    CUDA-core one; every case below S 8192 runs in both, and the bf16 body
+    also at each headdim it is built for, at a window narrower than a key
+    tile, and on strided views."""
     B, S_, H, K, D = FLASH_SCORING
+    bf16, f32 = torch.bfloat16, torch.float32
     worst = 0.0
+    both = (  # (B, Sq, Skv, H, K, D), causal, softcap, window
+        ((B, 1000, 1000, H, K, D), True, GEMMA_SOFTCAP, 300),  # ragged tiles
+        ((1, 300, 500, 8, 4, 128), False, 30.0, 100),  # the window is ignored
+        ((2, 256, 256, 4, 2, 32), True, 0.0, 0),
+        ((2, 256, 256, 4, 2, 64), True, 0.0, 64),
+        ((2, 256, 256, 16, 2, 128), True, 0.0, 0),
+        ((1, 1024, 1024, 32, 32, 64), True, 0.0, 0),  # MHA
+    )
     cases = (  # (B, Sq, Skv, H, K, D), dtype, causal, softcap, window
-        ((B, S_, S_, H, K, D), torch.bfloat16, True, GEMMA_SOFTCAP, GEMMA_WINDOW),
-        ((B, S_, S_, H, K, D), torch.bfloat16, True, GEMMA_SOFTCAP, 0),
-        ((B, 1024, 1024, H, K, D), torch.float32, True, GEMMA_SOFTCAP, GEMMA_WINDOW),
-        ((B, 1024, 1024, H, K, D), torch.float32, True, GEMMA_SOFTCAP, 0),
-        ((B, 1000, 1000, H, K, D), torch.float32, True, GEMMA_SOFTCAP, 300),  # ragged tiles
-        ((1, 300, 500, 8, 4, 128), torch.float32, False, 30.0, 100),  # the window is ignored
-        ((2, 256, 256, 4, 2, 32), torch.float32, True, 0.0, 0),
-        ((2, 256, 256, 4, 2, 64), torch.float32, True, 0.0, 64),
-        ((2, 256, 256, 16, 2, 128), torch.float32, True, 0.0, 0),
-        ((1, 1024, 1024, 32, 32, 64), torch.float32, True, 0.0, 0),  # MHA
+        ((B, S_, S_, H, K, D), bf16, True, GEMMA_SOFTCAP, GEMMA_WINDOW),
+        ((B, S_, S_, H, K, D), bf16, True, GEMMA_SOFTCAP, 0),
+        ((B, 1024, 1024, H, K, D), f32, True, GEMMA_SOFTCAP, GEMMA_WINDOW),
+        ((B, 1024, 1024, H, K, D), f32, True, GEMMA_SOFTCAP, 0),
+        *((shape, dtype, *rest) for shape, *rest in both for dtype in (f32, bf16)),
+        ((2, 200, 200, H, K, D), bf16, True, GEMMA_SOFTCAP, 40),  # Sq % 128 != 0, window < 64
+        *(((1, 300, 300, 4, 2, d), bf16, True, 0.0, 0) for d in (96, 160, 192, 224)),
     )
     for shape, dtype, causal, cap, window in cases:
         q, k, v = flash_inputs(torch, *shape, dtype, seed=shape[1] + shape[5])
         what = f"{shape} causal={causal} softcap={cap} window={window}"
         worst = max(worst, check_flash(torch, kf, q, k, v, what, causal=causal, softcap=cap,
                                        window=window, faults="require" if shape[1] == S_ else None))
+    q, k, v = fused_qkv(torch, 2, 700, H, K, D, seed=7)
+    worst = max(worst, check_flash(
+        torch, kf, q, k, v, f"strided views of one fused (2, 700, {(H + 2 * K) * D}) tensor, "
+        f"q strides {q.stride()}, causal=True softcap={GEMMA_SOFTCAP} window=256",
+        softcap=GEMMA_SOFTCAP, window=256))
     return worst
 
 
@@ -738,13 +770,22 @@ def drive_step(torch, mods, arch: str, steps: int, *, exchange: str):
     return launches
 
 
+def flash_body(name: str):
+    """Which body of the flash kernel a device kernel's name is ("wgmma<D>":
+    bf16 on the tensor cores, "f32": the CUDA cores), or None."""
+    if "flash_attention_kernel_wgmma<" in name:
+        return "wgmma<" + name.split("flash_attention_kernel_wgmma<", 1)[1].split(">", 1)[0] + ">"
+    return "f32" if "flash_attention_kernel<" in name else None
+
+
 def device_profile(torch, fn):
     """Run ``fn`` under ``torch.profiler`` and read the device's kernels:
     (device window ms from the first kernel's start to the last one's end,
     busy ms in that window, {"ssd_scan" | "flash_attention" | "matmul" |
     "other": kernel ms},
     the 5 kernels with the most device time, the number of device
-    activities); None when the profiler saw no device activity."""
+    activities, {flash body: [launches, ms]}); None when the profiler saw no
+    device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -761,28 +802,38 @@ def device_profile(torch, fn):
             busy, lo = busy + hi - lo, start
         hi = max(hi, end)
     busy += hi - lo
-    groups, by_name = {}, {}
+    groups, by_name, bodies = {}, {}, {}
     for e in kernels:
         us = e.time_range.end - e.time_range.start
         low = e.name.lower()
+        body = flash_body(e.name)
+        if body:
+            count, ms = bodies.get(body, (0, 0.0))
+            bodies[body] = [count + 1, ms + us / 1e3]
         key = "ssd_scan" if "ssd_kernel" in e.name else "flash_attention" if (
             "flash_attention_kernel" in e.name) else (
             "matmul" if any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")) else "other")
         groups[key] = groups.get(key, 0.0) + us / 1e3
         by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return (spans[-1][1] - spans[0][0]) / 1e3, busy / 1e3, groups, top, len(kernels)
+    return (spans[-1][1] - spans[0][0]) / 1e3, busy / 1e3, groups, top, len(kernels), bodies
 
 
-def print_profile(what: str, prof) -> None:
+def print_profile(what: str, prof, flash: dict) -> None:
+    """Print a ``device_profile``; fail unless its flash launches by body
+    are exactly ``flash`` ({body: launches})."""
     if prof is None:
         print(f"profile {what}: the profiler recorded no device kernels; busy share not measured")
         return
-    window, busy, groups, top, count = prof
+    window, busy, groups, top, count, bodies = prof
+    seen = {body: n for body, (n, _) in bodies.items()}
+    require(seen == flash, f"profile {what}: flash launches by body {seen} != {flash}")
     print(f"profile {what}: {count} device activities (kernels and copies), device window "
           f"{window:.3f} ms, kernels busy {busy:.3f} ms "
           f"(idle share {1 - busy / window:.1%}); by kind "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(groups.items()))
+          + "; flash bodies " + (", ".join(f"{b} {n} launches {ms:.3f} ms" for b, (n, ms)
+                                           in sorted(bodies.items())) or "none")
           + "; top kernels " + "; ".join(f"{n[:60]} {v:.3f} ms" for n, v in top))
 
 
@@ -1025,17 +1076,18 @@ def check_flash_on_path(torch, mods, model, cfg, tokens, expect):
     return worst
 
 
-def profile_phase(torch, name, model, cfg, tokens, prompts, flags):
+def profile_phase(torch, name, model, cfg, tokens, prompts, flags, flash=None):
     """Device busy and idle share and kernel time by kind, from
-    ``torch.profiler``, over one scoring forward (with ``flags``) and over 4
-    decode steps at the prompts' batch after their prefill. Last, because
-    the profiler leaves host-side costs behind that slow later host-bound
+    ``torch.profiler``, over one scoring forward (with ``flags``; its flash
+    launches by body must be ``flash``) and over 4 decode steps at the
+    prompts' batch after their prefill (no flash launch). Last, because the
+    profiler leaves host-side costs behind that slow later host-bound
     work."""
     from repro_torch import models
 
     with torch.inference_mode():
         print_profile(f"{name} scoring forward {tuple(tokens.shape)}", device_profile(
-            torch, lambda: models.forward(model, {"tokens": tokens}, cfg, **flags)))
+            torch, lambda: models.forward(model, {"tokens": tokens}, cfg, **flags)), flash or {})
         state0 = models.init_decode_state(cfg, prompts.shape[0], prompts.shape[1] + 4, device="cuda")
         logits, state = models.prefill(model, state0, {"tokens": prompts}, cfg)
         tok = logits.argmax(-1)[:, None]
@@ -1046,7 +1098,7 @@ def profile_phase(torch, name, model, cfg, tokens, prompts, flags):
                 _, st = models.decode_step(model, st, tok, cfg)
 
         print_profile(f"{name} 4 decode steps (batch {prompts.shape[0]})",
-                      device_profile(torch, decode4))
+                      device_profile(torch, decode4), {})
 
 
 # ---------------------------------------------------------------------------
@@ -1328,7 +1380,9 @@ def main() -> int:
     times.update(flash_timing(torch, kf))
     stamp("timing phase")
     profile_phase(torch, "mamba2-370m", *lm_run, SSD_FLAGS)
-    profile_phase(torch, "gemma2-2b", *gemma_run, {})
+    gemma_cfg = gemma_run[1]  # every layer's scoring attention: the bf16 body at its headdim
+    profile_phase(torch, "gemma2-2b", *gemma_run, {},
+                  flash={f"wgmma<{gemma_cfg.resolved_head_dim}>": gemma_cfg.num_layers})
     stamp("profile phase")
     kernels = [
         {

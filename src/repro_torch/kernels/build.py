@@ -7,7 +7,9 @@ is rebuilt and a finished build is reused. Several sources build in
 parallel: one ``nvcc`` each, all started together.
 
 Nothing here runs at import time; the first kernel launch builds what it
-needs.
+needs. ``python -m repro_torch.kernels.build SOURCE...`` compiles the
+named sources once more with ``-Xptxas -v`` into a scratch file and prints
+what ptxas reports for each kernel: registers, shared memory and spills.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 from pathlib import Path
 from typing import Dict, Sequence
@@ -109,3 +112,20 @@ def cuda_stream(device: torch.device) -> ctypes.c_void_p:
     if device.type != "cuda":
         raise ValueError(f"the port's kernels run on CUDA or CPU tensors, got {device}")
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def ptxas_report(source: str) -> str:
+    """nvcc's output for ``csrc/<source>`` with ``-Xptxas -v`` (the library
+    built is thrown away)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(Path(tmp) / "lib.so"),
+               str(CSRC / source)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"{source}: nvcc exited {proc.returncode}\n{proc.stdout}")
+    return proc.stdout
+
+
+if __name__ == "__main__":
+    for name in sys.argv[1:]:
+        print(f"== {name}\n{ptxas_report(name)}")

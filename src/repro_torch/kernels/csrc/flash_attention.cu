@@ -6,43 +6,85 @@
 //
 // What it computes, for batch b, query head h (reading KV head h / (H / K)),
 // query i and key j, both counted from 0:
-//   s_ij  = (q_i * scale) . k_j                      scale = 1 / sqrt(D), f32
+//   s_ij  = (q_i . k_j) * scale                      scale = 1 / sqrt(D), f32
 //   s_ij  = tanh(s_ij / softcap) * softcap            when softcap > 0
 //   valid = j < Skv and, only when causal, 0 <= i - j < window (window 0: no bound)
 //   o_i   = sum_j p_ij v_j / max(sum_j p_ij, 1e-30)   online softmax over key tiles
-// q, k and v are f32 or bf16 (read in their type, computed in f32); o is
-// written in q's type. exp is expf and tanh tanhf (no --use_fast_math).
+// q, k and v are f32 or bf16, computed in f32; o is written in q's type.
+// tanh is tanhf (no --use_fast_math); exp is expf in the f32 body and exp2
+// of log2(e)-scaled arguments in the bf16 body. Two bodies compute it,
+// one for each input type, and flash_attention_launch picks by type: f32
+// runs the CUDA-core body (flash_attention_kernel), bf16 the tensor-core
+// body (flash_attention_kernel_wgmma). Neither stands in for the other.
 //
 // Bound: operations. A (query, key) pair costs 4D operations (a D-deep dot
 // product and a D-wide multiply-add into the output) against the 2D-byte
 // rows of q, k, v and o moved once each: at gemma2-2b's D = 256 and 8192
 // tokens the pairs are 2,000x more work than bytes, far above the card's
 // 295 operations per byte in bf16 on the tensor cores, let alone its 20 in
-// fp32 outside them. This kernel runs that work on the fp32 units.
+// fp32 outside them.
 //
-// Design. The TPU walks the key blocks on its sequential grid and keeps
-// the running max m, sum l and the (Qb, D) accumulator in VMEM scratch.
-// Here one block of 256 threads owns one (batch, head, 64-row query tile),
-// keeps m and l in registers (the 16 threads of a row group hold copies)
-// and the (64, D) accumulator in registers (4x4 micro-tiles), and loops
-// over the key tiles that can hold a valid key: up to the diagonal when
-// causal, from q0 - window + 1 when windowed. Skipping a tile changes
-// nothing: a masked entry contributes exp(-inf - m) = 0. Masked scores are
-// -inf and m starts at -1e30, so a row that has not met a valid key yet
-// adds nothing (the Pallas kernel adds weight 1 there and clears it with
-// alpha = 0 once a valid key arrives), and a row that meets none returns
-// 0. Both products are register-tiled f32 products out of shared memory:
-// q and k stored k-major (transposed, pitch 68) so that neighbouring
-// threads read neighbouring float4s, v and the probabilities likewise. At
-// D = 256 the q, k and v tiles take 64 KB each in f32, 222,464 bytes in
-// all with the probabilities, set with cudaFuncSetAttribute (one block per
-// SM). Query tiles run longest first, so the causal tail does not trail.
-// Rows and keys past the sequence read as zero and are masked: the
+// Both bodies loop over the key tiles that can hold a valid key: up to the
+// diagonal when causal, from q0 - window + 1 when windowed. Skipping a tile
+// changes nothing: a masked entry contributes exp(-inf - m) = 0. Masked
+// scores are -inf and m starts at -1e30, so a row that has not met a valid
+// key yet adds nothing (the Pallas kernel adds weight 1 there and clears it
+// with alpha = 0 once a valid key arrives), and a row that meets none
+// returns 0. Query tiles run longest first, so the causal tail does not
+// trail. Rows and keys past the sequence read as zero and are masked: the
 // wrapper pads nothing.
 //
-// What holds it back: the fp32 units at 1/15 of the bf16 tensor-core rate,
-// two shared-memory float4 reads per 16 FMAs, and one block of 8 warps per
-// SM at D = 256. wgmma with TMA-fed bf16 tiles is later work.
+// The f32 body runs the work on the fp32 units. The TPU walks the key
+// blocks on its sequential grid and keeps the running max m, sum l and the
+// (Qb, D) accumulator in VMEM scratch. Here one block of 256 threads owns
+// one (batch, head, 64-row query tile), keeps m and l in registers (the 16
+// threads of a row group hold copies) and the (64, D) accumulator in
+// registers (4x4 micro-tiles). Both products are register-tiled f32
+// products out of shared memory: q and k stored k-major (transposed, pitch
+// 68) so that neighbouring threads read neighbouring float4s, v and the
+// probabilities likewise. At D = 256 the q, k and v tiles take 64 KB each,
+// 222,464 bytes in all with the probabilities, set with
+// cudaFuncSetAttribute (one block per SM). What holds it back: the fp32
+// units at 1/15 of the bf16 tensor-core rate, two shared-memory float4
+// reads per 16 FMAs, and one block of 8 warps per SM at D = 256. It stays
+// for f32 inputs: TF32 would not meet the f32 checks (atol 2e-5 + rtol
+// 2e-4, and 1e-5 between a model's logits on the card and on the CPU).
+//
+// The bf16 body runs both products on the tensor cores, in FlashAttention-3's
+// shape. One block of 384 threads owns one (batch, query head, 128-row
+// query tile): two consumer warpgroups of 64 rows each and a producer
+// warpgroup, one thread of which drives the Tensor Memory Accelerator (TMA);
+// setmaxnreg moves registers from the producer (24) to the consumers (240).
+// The TMA descriptors (one per tensor, over the (B, S, heads, D) view and
+// its strides) cut each tile into 64-byte column chunks of 32 bf16 with the
+// matching 64-byte swizzle, so every D that is a multiple of 32 takes the
+// same code. q is loaded once; k and v pass through rings of 2 stages of
+// 64-key tiles, each stage with an mbarrier full/empty pair, so that the
+// next tiles load while this one is computed (at D = 256: 64 KB of q and
+// 2 x 2 x 32 KB of k and v, 197,704 bytes with the barriers and the
+// alignment slack). S = q k^T runs on wgmma.m64n64k16 from shared memory
+// into f32; the scale (after the product: 1/sqrt(D) is no power of two at
+// D = 128), softcap (tanhf), mask and online softmax act on the accumulator
+// fragment in registers, in log2 units (exp2 of log2(e)-scaled arguments).
+// O += P V runs on wgmma with P in registers (the S fragment is already
+// laid out as wgmma's A operand) and v read in its natural (key, d) layout,
+// transposed by the instruction. P goes in as two bf16 halves, hi = bf16(p)
+// and lo = bf16(p - hi), accumulated into the same f32 O: one rounding of p
+// to bf16 would move o by up to 2^-9 p |v| per key, outside the 2^-8 |o| +
+// 2e-5 max|o| the checks allow on rows that weigh a few keys heavily; the
+// split leaves 2^-18 p and costs 1.5x the tensor-core work, so the bound is
+// reachable at most to 2/3. Each consumer issues S of tile t together with
+// P V of tile t - 1 and runs the softmax of tile t while P V runs
+// (FlashAttention-3's overlap inside a warpgroup); the two warpgroups run
+// unsynchronised, as making them alternate (its ping-pong) measured slower
+// on the H100. The (64, D) O accumulator holds D/2 f32 a thread (128 at
+// D = 256), S and P 32 registers each beside it. What holds it back: the
+// softmax's CUDA-core work (a tanhf, with two special-function operations,
+// and an exp2 per score) beside the tensor cores, and shared-memory reads:
+// each S step reads 2 KB of q and 2 KB of k for 64 x 64 x 16 products, and
+// each v tile is read twice (for hi and lo) by both warpgroups. Each k and
+// v tile also feeds one query head, not both heads of its KV group.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -57,15 +99,14 @@ constexpr int kPitch = kTileQ + 4;  // k-major pitch of the transposed q, k and 
 constexpr int kMaxD = 256;
 constexpr int kMaxOTiles = kMaxD / 64;  // 4x4 micro-tiles of the (64, D) output per thread
 constexpr float kMInit = -1e30f;  // the running max before any valid key, as in Pallas
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {
   long long b, s, h;
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 __device__ __forceinline__ void fma44(float (&acc)[4][4], float4 a, float4 b) {
   const float av[4] = {a.x, a.y, a.z, a.w};
@@ -270,6 +311,603 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 body: wgmma on TMA-fed tiles.
+// ---------------------------------------------------------------------------
+
+constexpr int kTcThreads = 384;          // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int kTcConsumers = 256;
+constexpr int kTcTileQ = 128;            // query rows of a block, 64 per consumer warpgroup
+constexpr int kStages = 2;               // stages of the k and v rings
+constexpr int kChunkCols = 32;           // bf16 columns of a 64-byte swizzled chunk
+constexpr uint32_t kQChunkBytes = kTcTileQ * 64;  // one column chunk of the q tile
+constexpr uint32_t kKVChunkBytes = kTileK * 64;   // one column chunk of a k or v tile
+constexpr uint32_t kSwizzleRows = 8 * 64;         // 8 rows of 64 bytes: one swizzle atom
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the barrier's phase with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One (64-byte, rows) box of a (D, S, heads, batch) tensor map into shared
+// memory, counted on ``bar`` as it lands.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int row, int head, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(head), "r"(batch)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor for the 64-byte swizzle (layout type 2).
+// K-major tiles (q, k): rows of 64 bytes, 8-row groups ``sbo`` apart, the
+// leading offset unused. N-major tiles (v read as the B of P V): 32 columns
+// of one chunk contiguous, the next chunk ``lbo`` apart, 8-key groups ``sbo``.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (2ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most kPending committed wgmma groups are still running.
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Pin a register that an asynchronous wgmma reads or writes: the compiler
+// moves no other access to it across the wgmma fence or wait beside it.
+__device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void fence_reg(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+// d (64 x 64, f32) += a (64 x 16) * b (64 x 16)^T, both bf16 in shared memory,
+// K-major; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x N, f32) += a (64 x 16, bf16 in registers, the accumulator's own
+// layout) * b (16 x N, bf16 in shared memory, N-major: transposed by the
+// instruction).
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+// o (64 x kN slice of the accumulator) += the 16 keys of ``a`` times v's
+// rows starting at ``b``.
+template <int kN>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b) {
+  if constexpr (kN == 256) wgmma_rs_n256(d, a, b);
+  else if constexpr (kN == 128) wgmma_rs_n128(d, a, b);
+  else if constexpr (kN == 64) wgmma_rs_n64(d, a, b);
+  else wgmma_rs_n32(d, a, b);
+}
+
+// Reductions over the 4 lanes that hold one row of a wgmma fragment.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// The rows and columns of the score tile that one consumer thread holds.
+struct Rows {
+  int lo, hi;  // the warpgroup's first and last row inside the sequence
+  int r0, c0;  // this thread's rows r0 and r0 + 8, columns c0 and c0 + 1 of each 8
+};
+
+// The keys a score tile may see, and how a raw score s (q . k) becomes
+// z = log2(e) * its softmax argument: z = post * tanh(pre * s) with a
+// softcap (pre = scale / softcap, post = softcap log2(e)), z = post * s
+// without (post = scale log2(e)). exp2(z - max z) is the probability.
+struct Mask {
+  int Skv, causal, window, capped;
+  float pre, post;
+};
+
+template <int kN>
+__device__ __forceinline__ void fence_regs(float (&r)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) fence_reg(r[i]);
+}
+
+template <int kN>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) fence_reg(r[i]);
+}
+
+// S = q k^T over D: wgmma.m64n64k16 from the warpgroup's q rows at sQw and
+// the k tile at sKs, both K-major, 16 columns (32 bytes) a step.
+template <int kD>
+__device__ __forceinline__ void issue_s(float (&sc)[32], uint32_t sQw, uint32_t sKs) {
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    const uint32_t a = sQw + (kk / 2) * kQChunkBytes + (kk % 2) * 32;
+    const uint32_t b = sKs + (kk / 2) * kKVChunkBytes + (kk % 2) * 32;
+    wgmma_ss_n64(sc, smem_desc(a, 16, kSwizzleRows), smem_desc(b, 16, kSwizzleRows), kk > 0);
+  }
+}
+
+// O += (P_hi + P_lo) V over the 64 keys of the v tile at sVs, 16 keys a
+// step, in the widest wgmma N that tiles D (the whole row at D = 256).
+template <int kD>
+__device__ __forceinline__ void issue_pv(float (&acc)[kD / 2], uint32_t (&p_hi)[16],
+                                         uint32_t (&p_lo)[16], uint32_t sVs) {
+  constexpr int kN = kD % 256 == 0 ? 256 : kD % 128 == 0 ? 128 : kD % 64 == 0 ? 64 : 32;
+#pragma unroll
+  for (int kk = 0; kk < kTileK / 16; ++kk) {
+#pragma unroll
+    for (int n = 0; n < kD / kN; ++n) {
+      const uint32_t b = sVs + kk * 16 * 64 + n * (kN / kChunkCols) * kKVChunkBytes;
+      const uint64_t desc = smem_desc(b, kKVChunkBytes, kSwizzleRows);
+      wgmma_rs<kN>(acc + n * (kN / 2), p_hi + 4 * kk, desc);
+      wgmma_rs<kN>(acc + n * (kN / 2), p_lo + 4 * kk, desc);
+    }
+  }
+}
+
+// 2^x, flushing results below 2^-126 to zero: exp2f without its subnormal
+// path, the same 2-ulp approximation for every result that can weigh in a
+// row whose largest term is 1.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Softcap and mask the scores of keys j0.. in place, then the online
+// softmax of rows r0 and r0 + 8 in log2 units: m (the running max of z) and
+// l updated, alpha = 2^(m_old - m_new), sc = 2^(z - m_new). Each step runs
+// over all 32 scores without a branch, so that their chains interleave.
+__device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m_run)[2], float (&l_run)[2],
+                                             float (&alpha)[2], const Rows& rows, int j0,
+                                             const Mask& mk) {
+  if (mk.capped) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[e] = tanhf(sc[e] * mk.pre);
+  }
+  const bool edge = j0 + kTileK > mk.Skv ||
+                    (mk.causal && (j0 + kTileK - 1 > rows.lo ||
+                                   (mk.window > 0 && rows.hi - j0 >= mk.window)));
+  if (edge) {
+    // score e holds key j0 + c0 + k, k = 8 (e / 4) + (e & 1), of row r0 + 8 ((e >> 1) & 1):
+    // valid where lo[r] <= k <= hi[r]
+    int lo[2], hi[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = rows.r0 + 8 * r, base = j0 + rows.c0;
+      hi[r] = (mk.causal ? min(mk.Skv - 1, i) : mk.Skv - 1) - base;
+      lo[r] = mk.causal && mk.window > 0 ? i - mk.window + 1 - base : -kTileK;
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int k = 8 * (e / 4) + (e & 1), r = (e >> 1) & 1;
+      if (k < lo[r] || k > hi[r]) sc[e] = -INFINITY;
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};  // of tanh(pre s), or of s: post z is monotone in both
+#pragma unroll
+  for (int e = 0; e < 32; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+  float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m_run[r], quad_max(mx[r]) * mk.post);
+    alpha[r] = exp2_ftz(m_run[r] - m_new);
+    m_run[r] = m_new;
+  }
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    sc[e] = exp2_ftz(fmaf(sc[e], mk.post, -m_run[(e >> 1) & 1]));
+    sum[(e >> 1) & 1] += sc[e];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + quad_sum(sum[r]);
+  fence_regs(sc);  // the softmax stays ahead of the wait for the P V in flight
+}
+
+// O *= alpha row by row (skipped where the warp's running maxima did not
+// move: alpha = 1), and P split into two bf16 halves for the next P V.
+template <int kD>
+__device__ __forceinline__ void rescale_and_split(float (&acc)[kD / 2], const float (&alpha)[2],
+                                                  const float (&sc)[32], uint32_t (&p_hi)[16],
+                                                  uint32_t (&p_lo)[16]) {
+  if (__any_sync(0xffffffffu, alpha[0] != 1.0f || alpha[1] != 1.0f)) {
+#pragma unroll
+    for (int i = 0; i < kD / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+  }
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(sc[2 * n], sc[2 * n + 1]);
+    const float2 back = __bfloat1622float2(hi);
+    p_hi[n] = bf16x2_bits(hi);
+    p_lo[n] = bf16x2_bits(__floats2bfloat162_rn(sc[2 * n] - back.x, sc[2 * n + 1] - back.y));
+  }
+  fence_regs(acc);
+  fence_regs(p_hi);
+  fence_regs(p_lo);
+}
+
+constexpr uint32_t tc_smem_bytes(int D) {
+  // 1024 bytes of slack to align the tiles to the swizzle pattern, the
+  // q tile, kStages k and v tiles, 1 + 4 kStages barriers
+  return 1024 + kTcTileQ * D * 2 + 2 * kStages * kTileK * D * 2 + 8 * (1 + 4 * kStages);
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap,
+                             __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H, int rep,
+                             float scale, float softcap, int causal, int window) {
+  constexpr int kChunks = kD / kChunkCols;
+  constexpr uint32_t kQBytes = kChunks * kQChunkBytes, kKVBytes = kChunks * kKVChunkBytes;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;  // chunk c at sQ + c kQChunkBytes
+  const uint32_t sK = sQ + kQBytes;                            // stage s at sK + s kKVBytes
+  const uint32_t sV = sK + kStages * kKVBytes;
+  // barriers: q full; then k full, k empty, v full, v empty, each kStages of 8 bytes
+  const uint32_t q_full = sV + kStages * kKVBytes, k_full = q_full + 8;
+  const uint32_t k_empty = k_full + 8 * kStages, v_full = k_empty + 8 * kStages;
+  const uint32_t v_empty = v_full + 8 * kStages;
+
+  const int nq = (Sq + kTcTileQ - 1) / kTcTileQ;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * kTcTileQ;  // longest rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  int j_begin = 0, j_end = Skv;
+  if (causal) {
+    j_end = min(Skv, q0 + min(kTcTileQ, Sq - q0));
+    if (window > 0) j_begin = max(0, q0 - window + 1);
+  }
+  const int ntiles = j_end > j_begin ? (j_end - j_begin + kTileK - 1) / kTileK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, kTcConsumers);
+      mbar_init(v_empty + 8 * s, kTcConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: one thread issues every load; the rings' empty barriers pace it
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 2 * 128) {
+      const int hk = h / rep;
+      mbar_expect_tx(q_full, kQBytes);
+      for (int c = 0; c < kChunks; ++c) {
+        tma_load(sQ + c * kQChunkBytes, &qmap, q_full, c * kChunkCols, q0, h, b);
+      }
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % kStages;
+        const uint32_t parity = ((t / kStages) & 1) ^ 1;
+        const int j0 = j_begin + t * kTileK;
+        mbar_wait(k_empty + 8 * s, parity);
+        mbar_expect_tx(k_full + 8 * s, kKVBytes);
+        for (int c = 0; c < kChunks; ++c) {
+          tma_load(sK + s * kKVBytes + c * kKVChunkBytes, &kmap, k_full + 8 * s, c * kChunkCols,
+                   j0, hk, b);
+        }
+        mbar_wait(v_empty + 8 * s, parity);
+        mbar_expect_tx(v_full + 8 * s, kKVBytes);
+        for (int c = 0; c < kChunks; ++c) {
+          tma_load(sV + s * kKVBytes + c * kKVChunkBytes, &vmap, v_full + 8 * s, c * kChunkCols,
+                   j0, hk, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+    Rows rows;
+    rows.lo = q0 + 64 * wg;
+    rows.hi = min(rows.lo + 63, Sq - 1);
+    rows.r0 = rows.lo + 16 * warp + lane / 4;  // this thread's rows: r0 and r0 + 8
+    rows.c0 = 2 * (lane % 4);                  // and columns c0, c0 + 1 of each 8
+    const bool capped = softcap > 0.0f;
+    const Mask mask{Skv, causal, window, capped, capped ? scale / softcap : 0.0f,
+                    (capped ? softcap : scale) * kLog2e};
+    const uint32_t sQw = sQ + wg * (kQChunkBytes / 2);  // this warpgroup's 64 rows of q
+    float acc[kD / 2];
+#pragma unroll
+    for (int i = 0; i < kD / 2; ++i) acc[i] = 0.0f;
+    float m_run[2] = {kMInit, kMInit}, l_run[2] = {0.0f, 0.0f};
+    float sc[32];  // a (64, 64) score tile: rows r0, r0 + 8, columns 8n + c0 + {0, 1}
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[e] = 0.0f;
+    uint32_t p_hi[16], p_lo[16];  // its probabilities, P = hi + lo; pair n: scores 2n, 2n + 1
+    float alpha[2];
+
+    mbar_wait(q_full, 0);
+    // Step t issues S of tile t and P V of tile t - 1, so that the softmax of
+    // tile t runs while the tensor cores add P V of tile t - 1 (and the other
+    // warpgroup's products). Step 0 has no P V and step ntiles no S.
+    if (ntiles > 0) {
+      mbar_wait(k_full, 0);
+      wgmma_fence();
+      issue_s<kD>(sc, sQw, sK);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      mbar_arrive(k_empty);
+      softmax_tile(sc, m_run, l_run, alpha, rows, j_begin, mask);
+      rescale_and_split<kD>(acc, alpha, sc, p_hi, p_lo);
+      for (int t = 1; t < ntiles; ++t) {
+        const int s = t % kStages, sp = (t - 1) % kStages;
+        mbar_wait(k_full + 8 * s, (t / kStages) & 1);
+        mbar_wait(v_full + 8 * sp, ((t - 1) / kStages) & 1);
+        wgmma_fence();
+        issue_s<kD>(sc, sQw, sK + s * kKVBytes);
+        wgmma_commit();
+        issue_pv<kD>(acc, p_hi, p_lo, sV + sp * kKVBytes);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(sc);
+        mbar_arrive(k_empty + 8 * s);
+        softmax_tile(sc, m_run, l_run, alpha, rows, j_begin + t * kTileK, mask);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(p_hi);
+        fence_regs(p_lo);
+        mbar_arrive(v_empty + 8 * sp);
+        rescale_and_split<kD>(acc, alpha, sc, p_hi, p_lo);
+      }
+      const int sp = (ntiles - 1) % kStages;
+      mbar_wait(v_full + 8 * sp, ((ntiles - 1) / kStages) & 1);
+      wgmma_fence();
+      issue_pv<kD>(acc, p_hi, p_lo, sV + sp * kKVBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(v_empty + 8 * sp);
+    }
+
+    // o = acc / l, rounded once to bf16; rows past the sequence are not stored
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = rows.r0 + 8 * r;
+      if (i < Sq) {
+        const float denom = fmaxf(l_run[r], 1e-30f);
+        __nv_bfloat16* out = o + ((static_cast<long long>(b) * Sq + i) * H + h) * kD + rows.c0;
+#pragma unroll
+        for (int n = 0; n < kD / 8; ++n) {
+          *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) =
+              __floats2bfloat162_rn(acc[4 * n + 2 * r] / denom, acc[4 * n + 2 * r + 1] / denom);
+        }
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    const bool ok = err == cudaSuccess && found == cudaDriverEntryPointSuccess;
+    return ok ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// The (D, S, heads, batch) view of a bf16 (batch, S, heads, D) tensor with
+// element strides ``st``, in boxes of 64 bytes by ``rows``. Rows past S read
+// as zero. A dimension of size 1 is never stepped over: its stride is given
+// a valid value whatever the view's is.
+bool make_map(CUtensorMap* map, const void* ptr, int D, int S, int heads, int batch, Strides st,
+              int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const long long packed[3] = {static_cast<long long>(heads) * D, D,
+                               static_cast<long long>(S) * heads * D};
+  const long long given[3] = {st.s, st.h, st.b};
+  const int sizes[3] = {S, heads, batch};
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
+                        static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i) {
+    const long long e = sizes[i] == 1 ? packed[i] : given[i];
+    if (e <= 0 || (e * 2) % 16) return false;
+    strides[i] = static_cast<cuuint64_t>(e * 2);
+  }
+  cuuint32_t box[4] = {kChunkCols, static_cast<cuuint32_t>(rows), 1, 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  if (reinterpret_cast<uintptr_t>(ptr) % 16) return false;
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS;
+}
+
+template <int kD>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int batch, int Sq, int Skv,
+                 int H, int K, Strides qs, Strides ks, Strides vs, float scale, float softcap,
+                 int causal, int window, cudaStream_t stream) {
+  CUtensorMap qmap, kmap, vmap;
+  if (!make_map(&qmap, q, kD, Sq, H, batch, qs, kTcTileQ) ||
+      !make_map(&kmap, k, kD, Skv, K, batch, ks, kTileK) ||
+      !make_map(&vmap, v, kD, Skv, K, batch, vs, kTileK)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr size_t smem = tc_smem_bytes(kD);
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel_wgmma<kD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((Sq + kTcTileQ - 1) / kTcTileQ, H, batch);
+  flash_attention_kernel_wgmma<kD><<<grid, kTcThreads, smem, stream>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), Sq, Skv, H, H / K, scale, softcap, causal,
+      window);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
@@ -285,10 +923,24 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   }
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    return launch<__nv_bfloat16>(q, k, v, o, batch, Sq, Skv, H, K, D, qs, ks, vs, scale, softcap,
-                                 causal, window, st);
+  if (!bf16) {
+    return launch<float>(q, k, v, o, batch, Sq, Skv, H, K, D, qs, ks, vs, scale, softcap, causal,
+                         window, st);
   }
-  return launch<float>(q, k, v, o, batch, Sq, Skv, H, K, D, qs, ks, vs, scale, softcap, causal,
-                       window, st);
+#define FLASH_WGMMA_CASE(d)                                                                    \
+  case d:                                                                                      \
+    return launch_wgmma<d>(q, k, v, o, batch, Sq, Skv, H, K, qs, ks, vs, scale, softcap, causal, \
+                           window, st);
+  switch (D) {
+    FLASH_WGMMA_CASE(32)
+    FLASH_WGMMA_CASE(64)
+    FLASH_WGMMA_CASE(96)
+    FLASH_WGMMA_CASE(128)
+    FLASH_WGMMA_CASE(160)
+    FLASH_WGMMA_CASE(192)
+    FLASH_WGMMA_CASE(224)
+    FLASH_WGMMA_CASE(256)
+  }
+#undef FLASH_WGMMA_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -3,7 +3,9 @@ PyTorch version, and the port's one plain attention, ``attend``.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py:flash_attention``
 (``_flash_kernel``). The CUDA source is ``csrc/flash_attention.cu``; its
-header says what bounds the kernel on the card and how it tiles.
+header says what bounds the kernel on the card and how it tiles. It has one
+body for each input type: f32 runs on the CUDA cores, bf16 on the tensor
+cores (``wgmma`` on tiles that the Tensor Memory Accelerator loads).
 
 The kernel's function, for query i and key j with positions counted from
 0 on both sides (also when Sq != Skv), query head h reading KV head
@@ -40,6 +42,7 @@ from repro_torch.kernels import build
 
 SOURCE = "flash_attention.cu"
 MAX_HEADDIM = 256  # what the kernel's shared-memory tiling takes (csrc/flash_attention.cu)
+TMA_ALIGN = 16  # bytes: the bf16 body's TMA descriptors need this of base address and strides
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -171,6 +174,23 @@ def _check(q, k, v, window: int) -> None:
         raise ValueError("q, k and v must lie on one device")
 
 
+def _check_tma(q, k, v) -> None:
+    """The bf16 body reads q, k and v through TMA descriptors: each base
+    address, and the stride of each dimension longer than 1, must be a
+    positive multiple of 16 bytes."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        off = t.data_ptr() % TMA_ALIGN
+        if off:
+            raise ValueError(f"bf16 {name} must start on a {TMA_ALIGN}-byte boundary for the "
+                             f"kernel's TMA loads; it starts {off} bytes past one")
+        for dim in range(3):
+            step = t.stride(dim) * t.element_size()
+            if t.shape[dim] > 1 and (step <= 0 or step % TMA_ALIGN):
+                raise ValueError(f"bf16 {name}'s stride in dimension {dim} must be a positive "
+                                 f"multiple of {TMA_ALIGN} bytes for the kernel's TMA loads, "
+                                 f"got {step} bytes")
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, Sq, H, D) f32 or bf16
     k: torch.Tensor,  # (B, Skv, K, D), q's dtype
@@ -181,9 +201,11 @@ def flash_attention(
     window: int = 0,
 ) -> torch.Tensor:
     """Flash attention forward -> (B, Sq, H, D) in q's dtype. The inputs may
-    be strided views as long as their last dimension is contiguous; the
-    kernel masks the ragged last tiles, where the TPU wrapper pads. The
-    block sizes are the kernel's own (64 queries by 64 keys).
+    be strided views as long as their last dimension is contiguous (in
+    bf16 also with base addresses and strides on 16-byte boundaries, for
+    the TMA loads); the kernel masks the ragged last tiles, where the TPU
+    wrapper pads. The block sizes are the kernel's own: 64 queries by 64
+    keys in f32, 128 queries by 64 keys in bf16.
 
     A query row with no valid key (only when causal with a window and
     Sq > Skv + window - 1, never on a model path) gets 0 from the kernel;
@@ -201,6 +223,8 @@ def flash_attention(
                          f"{MAX_HEADDIM}, got {D}")
     if not all(t.stride(-1) == 1 for t in (q, k, v)):
         raise ValueError("q, k and v must be contiguous in their last dimension")
+    if q.dtype == torch.bfloat16:
+        _check_tma(q, k, v)
     o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o

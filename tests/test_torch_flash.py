@@ -170,8 +170,51 @@ def test_cuda_kernel_matches_plain(cuda, case, dtype):
         assert bool(torch.all(err <= 2.0 ** -8 * ref.abs() + 2e-5 * ref.abs().max()))
 
 
-def test_cuda_kernel_returns_zero_for_rows_without_a_valid_key(cuda):
-    q, k, v = (torch.from_numpy(a).cuda() for a in _inputs(1, 80, 40, 4, 2, 32, seed=3))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernel_returns_zero_for_rows_without_a_valid_key(cuda, dtype):
+    q, k, v = (torch.from_numpy(a).cuda().to(dtype) for a in _inputs(1, 80, 40, 4, 2, 32, seed=3))
     out = K.flash_attention(q, k, v, window=16)
     torch.cuda.synchronize()
     assert torch.equal(out[:, 40 + 16 - 1:], torch.zeros_like(out[:, 40 + 16 - 1:]))
+
+
+def _fused_views(B, S, H, Kh, D, dtype, offset=0, seed=0):
+    """q, k and v as strided views of one (B, S, offset + (H + 2 Kh) D)
+    tensor, the first ``offset`` columns of each row left out."""
+    x = np.random.default_rng(seed).normal(size=(B, S, offset + (H + 2 * Kh) * D)) * 0.5
+    x = torch.from_numpy(x.astype(np.float32)).to(dtype)[..., offset:]
+    return (x[..., :H * D].unflatten(-1, (H, D)), x[..., H * D:(H + Kh) * D].unflatten(-1, (Kh, D)),
+            x[..., (H + Kh) * D:].unflatten(-1, (Kh, D)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernel_takes_strided_views(cuda, dtype):
+    q, k, v = (t.cuda() for t in _fused_views(2, 150, 8, 4, 64, dtype, seed=4))
+    assert not q.is_contiguous()
+    out = K.flash_attention(q, k, v, softcap=50.0, window=40)
+    ref = K.flash_attention_plain(q.float(), k.float(), v.float(), softcap=50.0, window=40)
+    torch.cuda.synchronize()
+    err = (out.float() - ref).abs()
+    if dtype == torch.float32:
+        assert bool(torch.all(err <= 2e-5 + 2e-4 * ref.abs()))
+    else:
+        assert bool(torch.all(err <= 2.0 ** -8 * ref.abs() + 2e-5 * ref.abs().max()))
+
+
+def test_tma_check_refuses_misaligned_bf16_views():
+    # the bf16 body's TMA needs 16-byte base addresses and strides
+    q, k, v = _fused_views(1, 8, 2, 1, 32, torch.bfloat16)
+    K._check_tma(q, k, v)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        K._check_tma(*_fused_views(1, 8, 2, 1, 32, torch.bfloat16, offset=4))
+    narrow = torch.zeros((1, 8, 2 * 32 + 4), dtype=torch.bfloat16)[..., :64].unflatten(-1, (2, 32))
+    with pytest.raises(ValueError, match="stride in dimension 1"):
+        K._check_tma(narrow, k, v)
+
+
+def test_cuda_kernel_refuses_misaligned_bf16_views_before_launching(cuda):
+    q, k, v = (t.cuda() for t in _fused_views(1, 64, 4, 2, 32, torch.bfloat16, offset=4))
+    before = K.flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        K.flash_attention(q, k, v)
+    assert K.flash_attention.launches == before
