@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it.
 
     python3 chip_smoke.py        # from the repository root, no arguments
+    python3 chip_smoke.py --select-timing SRC   # the select alone (below)
 
 Phases, each of which fails the run on a failed check (none catches its own
 failure):
@@ -11,10 +12,16 @@ failure):
 2. kernels — each kernel against its plain PyTorch version on the card: the
              QSGD kernels at VGG-11's largest leaf (8192 x 2048 buckets),
              ragged shapes and all-zero buckets; dequantize-and-reduce at
-             (4, 8192, 2048) and ragged shapes; the top-k select at fc2/w
+             (4, 8192, 2048) and ragged shapes; the top-k select, values
+             and indices identical to the plain version, at fc2/w
              (16,777,216 elements, k = 1 %), n = 301 with k = 3, exact ties,
-             a leaf of mostly exact zeros, an all-zero leaf and k = n; the
-             scatter at P = 4 with shared indices; the SSD scan at the
+             a leaf of mostly exact zeros, an all-zero leaf, k = n, n = 1,
+             a NaN leaf, denormal magnitudes, +inf (n = 2, k = 1, and more
+             +inf entries than k), equal magnitudes, rows at the one-block
+             body's threshold - 1, at it and + 1, and (4, n) banks (one
+             launch each, every row identical) at mobilenet-v3-small's 46
+             distinct leaf sizes and at fc2/w; the scatter at P = 4 with
+             shared indices; the SSD scan at the
              mamba2-370m scoring shape (4, 2048, 32, 64), G = 1, N = 128,
              chunk 256, in bf16 and f32, at a padded last chunk with 4
              groups, and at a single chunk; flash attention at gemma2-2b's
@@ -24,7 +31,9 @@ failure):
              ragged S = 1000, Sq 300 against Skv 500 without causal
              masking, D 32, 64 and 128, and MHA (32 heads, D 64); in bf16
              also Sq 200 with a window of 40, D 96, 160, 192 and 224, and q,
-             k, v as strided views of one fused projection.
+             k, v as strided views of one fused projection. The flash and
+             SSD wrappers refuse grad mode (an input requiring grad) with
+             no launch, and launch under ``torch.inference_mode()``.
 3. reference — small runs on the card against the same runs on the CPU
              (plain versions), same init and uniforms: a 4-peer squeezenet
              QSGD cluster epoch, one device train step with qsgd + EF and
@@ -38,7 +47,7 @@ failure):
              1 epoch). ``build_p2p_train_step`` at full width: vgg11 with
              qsgd(127, 2048) + EF and mobilenet-v3-small with topk(0.01) +
              EF, 4 peers x batch 32 on CIFAR-shaped 32x32 data, 4 steps
-             each. mamba2-370m at full width (48 layers, bf16): the scoring
+             each (one bank select of all 4 peers per leaf and step). mamba2-370m at full width (48 layers, bf16): the scoring
              ``forward(..., use_ssd_kernel=True)`` on 4 x 2048 tokens (48
              SSD launches each) and the serve twin's prefill of 4 x 512
              and 32 greedy tokens (no SSD launch, as in the reference).
@@ -55,7 +64,9 @@ failure):
              prefill-vs-forward checks, stay out of the kernels line.
 5. timing  — each kernel, its plain version, the PyTorch call that computes
              the same function where there is one, and the bound, at the
-             main path's largest shapes, timed with CUDA events.
+             main path's largest shapes, timed with CUDA events; the select
+             also at (4, n) banks, over one mobilenet device step's 180
+             bank selects, and both its bodies over a sweep of row lengths.
 6. profile — ``torch.profiler`` over one scoring forward and 4 decode
              steps of mamba2-370m and of gemma2-2b: the device's busy and
              idle share and kernel time by kind (SSD or flash kernel,
@@ -66,12 +77,20 @@ failure):
 The last two lines of stdout are a ``{"kernels": [...]}`` JSON line and the
 result ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
 a checkout of the repository, it exits non-zero and prints no result.
+
+``--select-timing SRC`` runs only the select's timing and the mobilenet
+top-k + EF device step (with a profile of one step) on the ``repro_torch``
+under SRC, such as an earlier commit's ``src`` unpacked with ``git
+archive``, launching once per row where that has no bank select: run it
+for both commits in one call to compare them on one card. It prints no
+result line.
 """
 from __future__ import annotations
 
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -222,31 +241,87 @@ def check_dequant_reduce(torch, kq, peers, nb, bucket, offset=0):
     return err
 
 
-def topk_leaf(torch, n, kind, seed):
+def topk_leaf(torch, n, kind, seed, rows=None):
+    """A (n,) leaf, or a (rows, n) bank of such leaves, ~ 0.01 N, shaped by
+    ``kind``."""
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
-    x = torch.randn((n,), generator=g, device="cuda") * 0.01
+    shape = (n,) if rows is None else (rows, n)
+    x = torch.randn(shape, generator=g, device="cuda") * 0.01
+    flat = x.view(-1)
     if kind == "ties":
         x = torch.round(x * 400) / 400  # many exact magnitude ties
     elif kind == "mostly_zero":
-        x[torch.rand((n,), generator=g, device="cuda") < 0.97] = 0.0
-        x[3], x[11] = 1e-25, -3e-38  # below max * 2**-64: the bracket stays open
+        x[torch.rand(shape, generator=g, device="cuda") < 0.97] = 0.0
+        x[..., 3], x[..., 11] = 1e-25, -3e-38  # below max * 2**-64: the bracket stays open
     elif kind == "zeros":
         x.zero_()
+    elif kind == "nan":  # the max is NaN: no entry is kept
+        flat[n // 2] = float("nan")
+    elif kind == "denormal":  # every magnitude below 2**-126
+        x = x * 1e-38
+    elif kind == "inf":  # +inf among finite entries (n = 2, k = 1: lo = hi = inf)
+        flat[0] = float("inf")
+    elif kind == "infs":  # more +inf entries than k
+        flat[1: 7 * n // 8: n // 8] = float("inf")
+    elif kind == "equal":  # every magnitude equal, signs mixed
+        x = torch.where(x < 0, -0.25, 0.25)
     return x
 
 
 def check_select(torch, kt, x, k, kind):
     """Values and indices identical to the plain version (the Pallas
-    kernel's bisection and slot order)."""
+    kernel's bisection and slot order); every slot the pack fills holds
+    x[index] and every other slot (a NaN leaf's) value 0 and index 0."""
     v, i = kt.topk_select_pack(x, k)
     pv, pi = kt.select_pack_plain(x, k)
     torch.cuda.synchronize()
     require(torch.equal(i, pi), f"select indices differ at n={x.numel()} k={k} ({kind})")
     require(torch.equal(v, pv), f"select values differ at n={x.numel()} k={k} ({kind})")
-    require(torch.equal(v, x[i.long()]), f"select values are not x[idx] at n={x.numel()} k={k}")
-    print(f"kernel check select n={x.numel()} k={k} ({kind}): identical values and indices")
+    kept = (v != 0) | (i != 0)
+    require(torch.equal(v[kept], x[i[kept].long()]), f"select values are not x[idx] at n={x.numel()} k={k}")
+    print(f"kernel check select n={x.numel()} k={k} ({kind}): identical values and indices "
+          f"({int(kept.sum())} slots other than (0, 0))")
     return 0.0
+
+
+def check_select_bank(torch, kt, x, k, kind):
+    """One bank launch over a (P, n) bank: each row identical to the plain
+    version and to ``topk_select_pack`` of that row alone."""
+    before = kt.topk_select_pack.launches
+    v, i = kt.topk_select_pack_bank(x, k)
+    require(kt.topk_select_pack.launches == before + 1, f"bank ({tuple(x.shape)}) took "
+            f"{kt.topk_select_pack.launches - before} launches, not one")
+    for p in range(x.shape[0]):
+        pv, pi = kt.select_pack_plain(x[p], k)
+        sv, si = kt.topk_select_pack(x[p], k)
+        torch.cuda.synchronize()
+        require(torch.equal(i[p], pi) and torch.equal(v[p], pv),
+                f"bank {tuple(x.shape)} k={k} ({kind}): row {p} differs from the plain version")
+        require(torch.equal(i[p], si) and torch.equal(v[p], sv),
+                f"bank {tuple(x.shape)} k={k} ({kind}): row {p} differs from its own select")
+    return f"({x.shape[0]}, {x.shape[1]}) k={k}"
+
+
+def mobilenet_leaf_sizes(torch):
+    """The element counts of mobilenet-v3-small's 180 leaves at CIFAR
+    shape, as the device step's bank holds them."""
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_dataset
+
+    ds = make_dataset("cifar")
+    cfg = dataclasses.replace(get_config("mobilenet-v3-small"), image_size=ds.image_hw,
+                              image_channels=ds.channels, num_classes=ds.num_classes)
+    model = models.init_model(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    return [p.numel() for p in model.parameters()]
+
+
+def topk_k(n: int) -> int:
+    """The exchange's k at the main path's fraction (``TopKExchange._k``)."""
+    return max(1, min(n, round(n * TOPK_FRAC)))
 
 
 def check_scatter(torch, kt, n, k, peers=PEERS):
@@ -274,10 +349,26 @@ def new_kernel_phase(torch, kq, kt):
                                       (PEERS, 5, 301, 0), (2, 13, 256, 1)):
         errs["qsgd_dequant_reduce"] = max(errs["qsgd_dequant_reduce"],
                                           check_dequant_reduce(torch, kq, peers, nb, bucket, offset))
-    for n, k, kind in ((FC2, FC2_K, "normal"), (301, 3, "normal"), (4097, 41, "ties"),
-                       (4097, 2000, "ties"), (4097, 41, "mostly_zero"), (301, 3, "zeros"),
-                       (4097, 4097, "normal"), (16, 1, "normal")):
+    small = kt.small_row_max()  # the longest row of the one-block body
+    cases = [(FC2, FC2_K, "normal"), (301, 3, "normal"), (4097, 41, "ties"),
+             (4097, 2000, "ties"), (4097, 41, "mostly_zero"), (301, 3, "zeros"),
+             (4097, 4097, "normal"), (16, 1, "normal"), (1, 1, "normal"), (2, 1, "inf"),
+             (4097, 41, "inf"), (4097, 3, "infs"), (4097, 41, "nan"), (4097, 41, "denormal"),
+             (4097, 41, "equal")]
+    for n in (small - 1, small, small + 1):  # both bodies, either side of the threshold
+        cases.append((n, topk_k(n), "normal"))
+    for kind in ("ties", "mostly_zero", "nan", "denormal", "inf", "infs", "equal"):
+        cases.append((small + 1, topk_k(small + 1), kind))  # the grid body
+    for n, k, kind in cases:
         check_select(torch, kt, topk_leaf(torch, n, kind, seed=n + k), k, kind)
+    sizes = sorted(set(mobilenet_leaf_sizes(torch)))
+    banks = [check_select_bank(torch, kt, topk_leaf(torch, n, "normal", seed=n, rows=PEERS),
+                               topk_k(n), "normal") for n in sizes]
+    banks.append(check_select_bank(torch, kt, topk_leaf(torch, FC2, "normal", seed=5, rows=PEERS),
+                                   FC2_K, "normal"))
+    print(f"kernel check select banks, one launch each, every row identical to the plain version "
+          f"and to its own select: mobilenet-v3-small's {len(sizes)} distinct leaf sizes and "
+          f"fc2/w: {', '.join(banks)}")
     for n, k in ((FC2, FC2_K), (4097, 41), (7, 7)):
         errs["topk_scatter_accum"] = max(errs["topk_scatter_accum"], check_scatter(torch, kt, n, k))
     return errs
@@ -448,6 +539,34 @@ def flash_kernel_phase(torch, kf):
         f"q strides {q.stride()}, causal=True softcap={GEMMA_SOFTCAP} window=256",
         softcap=GEMMA_SOFTCAP, window=256))
     return worst
+
+
+def grad_guard_phase(torch, kf, ks):
+    """The LM kernels have no backward on the card yet (ROADMAP Queue 1
+    item 16). With grad mode on and an input that requires grad, each
+    wrapper raises RuntimeError before any launch (its counter unchanged);
+    the same call under ``torch.inference_mode()`` launches once."""
+    q, k, v = flash_inputs(torch, 1, 256, 256, 4, 2, 64, torch.bfloat16, seed=11)
+    ssd = ssd_inputs(torch, (1, 64, 4, 32, 1, 16, 32), torch.float32, seed=11)
+    for fn, args, kw in ((kf.flash_attention, (q, k, v), {}), (ks.ssd_scan, ssd, {"chunk": 32})):
+        name = fn.__name__
+        args = (args[0].detach().requires_grad_(True), *args[1:])
+        before = fn.launches
+        try:
+            fn(*args, **kw)
+            refused = ""
+        except RuntimeError as e:
+            refused = str(e)
+        torch.cuda.synchronize()
+        require("Queue 1 item 16" in refused, f"{name} under grad mode did not refuse: {refused!r}")
+        require(fn.launches == before, f"{name} launched before refusing grad mode")
+        with torch.inference_mode():
+            out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        require(fn.launches == before + 1 and bool(torch.isfinite(out).all()),
+                f"{name} under inference_mode: {fn.launches - before} launches")
+        print(f"kernel check {name} with an input requiring grad: RuntimeError under grad mode "
+              f"with no launch; one launch under inference_mode")
 
 
 # ---------------------------------------------------------------------------
@@ -701,10 +820,15 @@ def drive(torch, mods, arch: str, epochs: int, *, exchange: str = "qsgd", graph:
     return launches
 
 
-def drive_step(torch, mods, arch: str, steps: int, *, exchange: str):
+def drive_step(torch, mods, arch: str, steps: int, *, exchange: str, selects_per_leaf: int = 1,
+               profile: bool = False):
     """``build_p2p_train_step`` at full width: 4 peers x batch 32 on
     CIFAR-shaped data, SGD with momentum, lr 0.01, EF on; the first step is
-    timed apart (cuDNN plans, first launches)."""
+    timed apart (cuDNN plans, first launches). The top-k exchange selects
+    each leaf's (P, n) bank in one launch (``selects_per_leaf`` = P for
+    an earlier checkout that selected peer by peer). ``profile``: one more
+    step under ``torch.profiler``, its device busy share and kernel time
+    by kind printed (after the launches are read)."""
     import dataclasses
 
     import numpy as np
@@ -752,7 +876,8 @@ def drive_step(torch, mods, arch: str, steps: int, *, exchange: str):
         expect.update(qsgd_quantize=steps * leaves, qsgd_dequant_reduce=steps * leaves,
                       qsgd_dequantize=steps * leaves)
     else:
-        expect.update(topk_select_pack=steps * PEERS * leaves, topk_scatter_accum=steps * 2 * leaves)
+        expect.update(topk_select_pack=steps * selects_per_leaf * leaves,
+                      topk_scatter_accum=steps * 2 * leaves)
     tag = f"step {arch} {exchange} + EF"
     require(launches == expect, f"{tag}: launches {launches} != expected {expect}")
     require(all(math.isfinite(x) for x in losses), f"{tag}: non-finite loss {losses}")
@@ -767,6 +892,8 @@ def drive_step(torch, mods, arch: str, steps: int, *, exchange: str):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, losses {[round(x, 4) for x in losses]}, "
         f"launches {launches}"
     )
+    if profile:
+        print_profile(f"{tag} step", device_profile(torch, lambda: step(state, batches[-1])), {})
     return launches
 
 
@@ -811,7 +938,9 @@ def device_profile(torch, fn):
             count, ms = bodies.get(body, (0, 0.0))
             bodies[body] = [count + 1, ms + us / 1e3]
         key = "ssd_scan" if "ssd_kernel" in e.name else "flash_attention" if (
-            "flash_attention_kernel" in e.name) else (
+            "flash_attention_kernel" in e.name) else "topk_select" if re.search(
+            r"\bselect_(row_|grid_)?kernel", e.name) else "topk_scatter" if re.search(
+            r"\bscatter_kernel", e.name) else (
             "matmul" if any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")) else "other")
         groups[key] = groups.get(key, 0.0) + us / 1e3
         by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
@@ -1159,16 +1288,13 @@ def timing_phase(torch, kq, kt):
         ("qsgd_dequant_reduce", lambda: kq.qsgd_dequant_reduce(lev4, nrm4, w4, S),
          lambda: kq.dequant_reduce_plain(lev4, nrm4, w4, S), None,
          PEERS * n + 4 * PEERS * rows + 4 * PEERS + 4 * n, 2 * PEERS * n + 2 * PEERS * rows),
-        # select: one read of x and the packed output; one compare per element
-        ("topk_select_pack", lambda: kt.topk_select_pack(flat, k), lambda: kt.select_pack_plain(flat, k),
-         lambda: torch.topk(flat.abs(), k), 4 * n + 8 * k, n),
         ("topk_scatter_accum", lambda: kt.topk_scatter_accum(vals4, idx4, w4, n),
          lambda: kt.scatter_accum_plain(vals4, idx4, w4, n), None,
          8 * PEERS * k + 4 * PEERS + 4 * n, 2 * PEERS * k),
     )
     out = {}
     for name, kern, plain, library, nbytes, ops in cases:
-        iters = 10 if name == "topk_select_pack" else 50
+        iters = 50
         t_plain1, _ = time_ms(torch, plain, iters)
         t_kern1, host1 = time_ms(torch, kern, iters)
         t_kern2, host2 = time_ms(torch, kern, iters)
@@ -1192,6 +1318,86 @@ def timing_phase(torch, kq, kt):
             + ("none: no single PyTorch call computes it" if t_lib is None else f"{t_lib:.4f} ms")
         )
     return out
+
+
+def select_timing(torch, kt):
+    """The select, its plain version and ``torch.topk`` of the magnitudes
+    (which computes the same top-k set on tie-free input, in another
+    order), at fc2/w alone (the kernels line's row) and at (4, n) banks of
+    the device step: 240 (mobilenet-v3-small's median leaf), 82,944 and
+    589,824 entries a row, then one device step's 180 bank selects
+    together. Bound: bytes, each row read once (4 B an entry) and its k
+    values and indices written once (8 B each). ``kt`` without a bank
+    select (an earlier checkout's) launches once per row, as its device
+    step did."""
+    bank = getattr(kt, "topk_select_pack_bank", None)
+    if bank is None:
+        bank = lambda x, k: [kt.topk_select_pack(row, k) for row in x]
+    plain_bank = lambda x, k: [kt.select_pack_plain(row, k) for row in x]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    flat = (torch.randn((FC2_ROWS, BUCKET), generator=g, device="cuda") * 0.01).reshape(-1)
+    out = {}
+    cases = [("fc2/w", flat[None], FC2_K)]
+    for n in (240, 82944, 589824):
+        cases.append((f"bank ({PEERS}, {n})", torch.randn((PEERS, n), generator=g, device="cuda") * 0.01,
+                      topk_k(n)))
+    for what, x, k in cases:
+        rows, n = x.shape
+        if rows == 1:
+            kern, plain = lambda: kt.topk_select_pack(x[0], k), lambda: kt.select_pack_plain(x[0], k)
+            library = lambda: torch.topk(x[0].abs(), k)
+        else:
+            kern, plain = lambda: bank(x, k), lambda: plain_bank(x, k)
+            library = lambda: torch.topk(x.abs(), k, dim=1)
+        iters = 10 if n == FC2 else 50
+        t_plain1, _ = time_ms(torch, plain, iters)
+        t_kern1, host1 = time_ms(torch, kern, iters)
+        t_kern2, host2 = time_ms(torch, kern, iters)
+        t_plain2, _ = time_ms(torch, plain, iters)
+        t_lib, _ = time_ms(torch, library, iters)
+        nbytes = rows * (4 * n + 8 * k)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        row = {"ms": min(t_kern1, t_kern2), "plain_ms": min(t_plain1, t_plain2), "bound_ms": bound,
+               "bound_by": "bytes", "library_ms": t_lib}
+        print(f"timing topk_select_pack {what}, k {k}: kernel {t_kern1:.4f}/{t_kern2:.4f} ms, plain "
+              f"{t_plain1:.4f}/{t_plain2:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.2f} MB at 3.35 TB/s; "
+              f"roofline share {bound / row['ms']:.1%}), host enqueue {min(host1, host2) * 1e3:.1f} us/call, "
+              f"library torch.topk of the magnitudes {t_lib:.4f} ms ({t_lib / row['ms']:.2f}x the kernel)")
+        if n == FC2:
+            out["topk_select_pack"] = row
+    leaves = [torch.randn((PEERS, n), generator=g, device="cuda") * 0.01 for n in mobilenet_leaf_sizes(torch)]
+    step = lambda: [bank(x, topk_k(x.shape[1])) for x in leaves]
+    t_step, host_step = time_ms(torch, step, 2)
+    t_lib, _ = time_ms(torch, lambda: [torch.topk(x.abs(), topk_k(x.shape[1]), dim=1) for x in leaves], 2)
+    nbytes = sum(PEERS * (4 * x.shape[1] + 8 * topk_k(x.shape[1])) for x in leaves)
+    print(f"timing topk_select_pack, one mobilenet-v3-small device step's {len(leaves)} bank selects "
+          f"({PEERS} peers): device {t_step:.4f} ms, host enqueue {host_step:.4f} ms, bound "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes / 1e6:.2f} MB), library torch.topk per "
+          f"leaf {t_lib:.4f} ms")
+    if hasattr(kt, "select_launch"):
+        select_sweep(torch, kt)
+    return out
+
+
+def select_sweep(torch, kt):
+    """Both bodies of the select (one block per row, the cooperative grid)
+    at rows of n entries, for one row and for a bank of 4: the one-block
+    body's threshold (``small_row_max``) is the longest row where it is
+    no slower."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(6)
+    for rows in (1, PEERS):
+        line = []
+        for n in (1024, 4096, 8192, 12288, 16384, 24576, 32768, 49152, 65536, 81920, 90112,
+                  98304, 131072, 262144, 589824):
+            x = torch.randn((rows, n), generator=g, device="cuda") * 0.01
+            k = topk_k(n)
+            one, _ = time_ms(torch, lambda: kt.select_launch(x, k, 1), 20)
+            grid, _ = time_ms(torch, lambda: kt.select_launch(x, k, 2), 20)
+            line.append(f"{n}: {one:.4f}/{grid:.4f}")
+        print(f"timing topk_select_pack body sweep, ({rows}, n), ms one-block/grid: {', '.join(line)}; "
+              f"threshold in use {kt.small_row_max()}")
 
 
 def ssd_timing(torch, ks):
@@ -1310,12 +1516,39 @@ def flash_timing(torch, kf):
     return {"flash_attention": out[0]}
 
 
+def select_timing_only(torch, src: Path) -> int:
+    """``--select-timing SRC``: only ``select_timing`` and the mobilenet
+    top-k + EF device step (with a profile of one step), with the
+    ``repro_torch`` package under SRC (another checkout's ``src``, to time
+    an earlier select on the same card); prints no result line."""
+    sys.path.insert(0, str(src.resolve()))
+    from repro_torch.kernels import topk as kt
+
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import qsgd as kq
+    from repro_torch.kernels import ssd_scan as ks
+
+    require(Path(kt.__file__).resolve().is_relative_to(src.resolve()), f"topk from {kt.__file__}")
+    for mod in (kq, kt):
+        mod.load_library()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"nvidia-smi: {card_line()}; select of {kt.__file__}")
+    select_timing(torch, kt)
+    bank = hasattr(kt, "topk_select_pack_bank")
+    drive_step(torch, {"kq": kq, "kt": kt, "ks": ks, "kf": kf}, "mobilenet-v3-small", 4,
+               exchange="topk", selects_per_leaf=1 if bank else PEERS, profile=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--select-timing"]:
+        return select_timing_only(torch, Path(sys.argv[2]))
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import qsgd as kq
@@ -1344,6 +1577,7 @@ def main() -> int:
     errs.update(new_kernel_phase(torch, kq, kt))
     errs["ssd_scan"] = ssd_kernel_phase(torch, ks)
     errs["flash_attention"] = flash_kernel_phase(torch, kf)
+    grad_guard_phase(torch, kf, ks)
     stamp("kernels phase")
     reference_phase(torch)
     reference_step_phase(torch)
@@ -1376,6 +1610,7 @@ def main() -> int:
     require(all(total.values()), f"a kernel was never launched on the main path: {total}")
 
     times = timing_phase(torch, kq, kt)
+    times.update(select_timing(torch, kt))
     times.update(ssd_timing(torch, ks))
     times.update(flash_timing(torch, kf))
     stamp("timing phase")

@@ -398,17 +398,16 @@ class TopKExchange(ExchangeProtocol):
             topk_kernels.load_library()
 
     def _combine(self, grads, ctx, *, want_local: bool):
-        """Shared device path: per leaf, one select per peer, the peers'
-        values rounded through the wire dtype, one fused scatter-accumulate
-        per distinct mix and (EF) one scatter of all P peers' own entries,
-        unrounded as the reference keeps them, into a (P * n) buffer."""
+        """Shared device path: per leaf, one select over the peers' (P, n)
+        bank, the peers' values rounded through the wire dtype, one fused
+        scatter-accumulate per distinct mix and (EF) one scatter of all P
+        peers' own entries, unrounded as the reference keeps them, into a
+        (P * n) buffer."""
         avg, local = {}, {}
         for name, flat, jshape in _flat_banks(grads):
             peers, n = flat.shape
             k = self._k(n, ctx.topk_frac)
-            picks = [topk_kernels.topk_select_pack(flat[p], k) for p in range(peers)]
-            vals = torch.stack([v for v, _ in picks])
-            idx = torch.stack([i for _, i in picks])
+            vals, idx = topk_kernels.topk_select_pack_bank(flat, k)
             vbank = vals.to(ctx.wire_dtype).to(torch.float32)
             mixed = _mix(
                 lambda w: topk_kernels.topk_scatter_accum(vbank, idx, w, n),

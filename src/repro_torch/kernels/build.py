@@ -106,6 +106,19 @@ def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> N
         raise ValueError(f"{name} must be contiguous")
 
 
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise before a launch whose output would cut the autograd graph: the
+    LM kernels have no backward kernel yet, and their wrappers fill a fresh
+    buffer. Under ``torch.no_grad()`` or ``torch.inference_mode()``, or with
+    no input that requires grad, nothing is refused."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward kernel on CUDA yet (ROADMAP Queue 1 item 16, LM "
+            "training); call it under torch.inference_mode() or torch.no_grad(), or on "
+            "CPU tensors, where its plain version differentiates"
+        )
+
+
 def cuda_stream(device: torch.device) -> ctypes.c_void_p:
     """The current CUDA stream of ``device``, for a kernel launch; a device
     that is neither the CPU nor CUDA raises."""

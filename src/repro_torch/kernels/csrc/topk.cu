@@ -8,26 +8,60 @@
 //
 // select: the Pallas kernel holds the whole leaf in one VMEM block and runs
 // a 64-step bisection on the magnitude threshold, each step a compare and
-// count over the leaf. VGG-11's fc2/w (16,777,216 elements, 64 MiB) fits in
-// no thread block's shared memory, so here the leaf is split over a
-// cooperative grid (as many blocks as can be resident at once), each block
-// owning one contiguous chunk of indices:
-//   1. each block's max |x| goes into one word by atomicMax on the float's
-//      bits (non-negative floats order as their bit patterns); grid sync;
-//      every block forms the same hi0 = max * f32(1 + 1e-6) + f32(1e-30);
-//   2. 64 steps: each block counts |x| >= mid over its chunk and adds the
-//      count into that step's own word; grid sync; every block reads the
-//      total and moves its copy of the bracket the same way. The bracket
-//      never leaves the registers and no step needs the host;
-//   3. each block counts its "sure" (|x| >= hi) and "edge" (lo <= |x| < hi)
-//      entries; grid sync; each block sums the counts of the blocks before
-//      it (exact integer ranks), then walks its chunk in index order with a
-//      block-wide scan, writing every sure entry and the first
-//      k - n_sure edge entries (in ascending index) to their slots.
-// That is the Pallas kernel's selection and slot order exactly. Bound: the
-// function reads x once (4 B per element) and writes 8 B per selected
-// entry; the bisection reads x 64 + 2 times, so the kernel sits far from
-// that bound (a radix or multi-level count could cut the passes).
+// count over the leaf, from lo = 0 and hi = max|x| * f32(1 + 1e-6) +
+// f32(1e-30). Its output is kept bit for bit here, but not its 64 passes:
+// count(|x| >= mid) >= k holds exactly when mid <= T, T the k-th largest
+// |x| counted with multiplicity, so the bisection's whole path is a
+// function of max|x| and T alone. The kernel finds both exactly and then
+// replays the 64 steps in registers without reading x:
+//   1. radix pass 1: a shared-memory histogram of bits 30..20 of the bit
+//      patterns of |x| (non-negative floats, denormals and +inf included,
+//      order as their bit patterns), and the bit-pattern max of |x|: an
+//      integer max, so a NaN (above +inf) propagates as torch.max does;
+//      every block then scans the histogram from the top to the digit that
+//      holds rank k and the rank left inside it;
+//   2. radix pass 2: the same over bits 19..9 of the entries whose top
+//      digit matched; 3. radix pass 3: bits 8..0. T's bits are now exact;
+//   4. one thread replays the 64 steps, mid = 0.5 * (lo + hi), big = mid <=
+//      T, all 64 of them (an early exit at mid == hi would break hi = T =
+//      +inf); with a NaN max, mid is NaN, big never holds, and nothing is
+//      selected, as in the Pallas kernel;
+//   5. the tier pass counts the "sure" (|x| >= hi) and "edge" (lo <= |x| <
+//      hi) entries of each warp's contiguous segment, ranks the segments
+//      (across the grid, after a grid sync), then packs each segment in
+//      index order with warp scans alone: every sure entry at its rank
+//      (slots past k dropped, as the Pallas kernel's padded banks drop
+//      them when more than k entries are +inf), then the first k - n_sure
+//      edge entries. Every slot left unfilled gets value 0 and index 0, as
+//      the Pallas kernel's zeroed banks do.
+// That is 5 reads of x (3 radix passes, the tier count, the pack) against
+// the Pallas algorithm's 66.
+//
+// Two bodies, one launch for all rows of a (rows, n) bank:
+// - rows of at most kSmallRowMax entries: one 1024-thread block per row, a
+//   normal launch (no grid sync, no scratch in device memory: the
+//   histograms live in shared memory). The row is read from device memory
+//   once; the later passes find it in L2. (Staging the row in shared
+//   memory where it fits measured slower on the card, so the kernel does
+//   not.) kSmallRowMax = 90,112 is where the two bodies cross at a (4, n)
+//   bank, the device step's, on an NVIDIA H100 80GB HBM3 at 700 W
+//   (chip_smoke.py's body sweep; PERF.md, section 6). A single row (a
+//   host-path publish) crosses lower, near 12k entries; that path is
+//   host-bound, so one threshold serves both.
+// - longer rows: a cooperative grid (4 resident 256-thread blocks an SM,
+//   registers capped to fit them, each block owning one contiguous chunk
+//   of the row) walks the rows one after another. Each radix pass merges
+//   the blocks' shared-memory histograms into device memory (atomicAdd of
+//   the non-zero bins), and a grid sync separates the passes: 4 grid syncs
+//   per row (after each radix pass and after the tier count). No memset:
+//   each histogram is zeroed inside the kernel before the grid sync that
+//   precedes its pass, and the first pass's histogram and the max word are
+//   zeroed after their last reader, so the scratch is zero again when the
+//   kernel ends (the wrapper allocates it zeroed once per device and
+//   stream).
+// In both, each thread loads two runs of four entries before it uses any,
+// so that enough loads are in flight to cover the memory's latency.
+// Bound: bytes, 4 B per element read plus 8 B per selected entry written.
 //
 // scatter: out = 0, then for p = 0 .. P-1: out[idx[p, j]] += v[p, j] * w[p].
 // Within one peer the select gives distinct indices, so no two threads of
@@ -38,7 +72,8 @@
 // element written.
 //
 // Both use __fmul_rn / __fadd_rn where the reference rounds a product
-// before adding it, so nvcc cannot contract the pair into one FMA.
+// before adding it, so nvcc cannot contract the pair into one FMA. No fast
+// math and no flush to zero: denormal magnitudes compare exactly.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,26 +84,49 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 256;      // a block of the grid body (and of the scatter)
+constexpr int kRowThreads = 1024;  // a block of the one-block body
+constexpr long long kSmallRowMax = 90112;
 constexpr int kBisectSteps = 64;
-// scratch words: [0] max bits, [1, 65) the bisection counts, then the
-// per-block sure counts and the per-block edge counts
-constexpr int kScratchHead = 1 + kBisectSteps;
+constexpr int kUnroll = 2;     // runs of four entries a thread loads per step
+constexpr int kGridBlocksPerSm = 4;  // the grid body's registers are capped for 4 blocks an SM
+// radix digits of the 31-bit pattern of |x|: bits 30..20, 19..9, 8..0
+constexpr int kBins = 2048;  // passes 1 and 2
+constexpr int kBins3 = 512;  // pass 3
+// scratch words of the grid body: the three merged histograms, the max
+// bits, then the per-block sure counts and edge counts
+constexpr int kHist1 = 0;
+constexpr int kHist2 = kHist1 + kBins;
+constexpr int kHist3 = kHist2 + kBins;
+constexpr int kMaxWord = kHist3 + kBins3;
+constexpr int kScratchHead = kMaxWord + 1;
 
-__device__ __forceinline__ unsigned block_sum_u32(unsigned v, unsigned* red) {
+__device__ __forceinline__ unsigned mag_bits(float v) { return __float_as_uint(fabsf(v)); }
+
+template <int NT>
+__device__ __forceinline__ unsigned block_sum(unsigned v, unsigned* red) {
   v = __reduce_add_sync(0xffffffffu, v);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   __syncthreads();  // red may still be read from the previous call
-  if (lane == 0) red[warp] = v;
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
   unsigned total = 0;
-  for (int i = 0; i < kWarps; ++i) total += red[i];
+  for (int i = 0; i < NT / 32; ++i) total += red[i];
   return total;
 }
 
+template <int NT>
+__device__ __forceinline__ unsigned block_max(unsigned v, unsigned* red) {
+  v = __reduce_max_sync(0xffffffffu, v);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  unsigned m = 0;
+  for (int i = 0; i < NT / 32; ++i) m = max(m, red[i]);
+  return m;
+}
+
 // Exclusive scan of v over the block; *total gets the block's sum.
+template <int NT>
 __device__ __forceinline__ unsigned block_exclusive_scan(unsigned v, unsigned* red,
                                                          unsigned* total) {
   const int lane = threadIdx.x & 31;
@@ -82,7 +140,7 @@ __device__ __forceinline__ unsigned block_exclusive_scan(unsigned v, unsigned* r
   if (lane == 31) red[warp] = incl;
   __syncthreads();
   unsigned before = 0, sum = 0;
-  for (int i = 0; i < kWarps; ++i) {
+  for (int i = 0; i < NT / 32; ++i) {
     if (i < warp) before += red[i];
     sum += red[i];
   }
@@ -90,106 +148,410 @@ __device__ __forceinline__ unsigned block_exclusive_scan(unsigned v, unsigned* r
   return before + incl - v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-select_kernel(const float* __restrict__ x, long long n, long long k,
-              float* __restrict__ out_v, int* __restrict__ out_i,
-              unsigned* __restrict__ scratch) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ unsigned red[kWarps];
-  const long long chunk = (n + gridDim.x - 1) / gridDim.x;
-  const long long beg = min(n, chunk * static_cast<long long>(blockIdx.x));
-  const long long end = min(n, beg + chunk);
-  unsigned* counts = scratch + 1;
-  unsigned* sure_cnt = scratch + kScratchHead;
-  unsigned* edge_cnt = sure_cnt + gridDim.x;
+// Entries i .. i + 3 of x, those at or past end read as 0 (one 16-byte load
+// where vec says x + i is 16-byte aligned).
+__device__ __forceinline__ float4 load4(const float* x, long long i, long long end, bool vec) {
+  if (vec && i + 3 < end) return *reinterpret_cast<const float4*>(x + i);
+  float4 v;
+  v.x = i < end ? x[i] : 0.0f;
+  v.y = i + 1 < end ? x[i + 1] : 0.0f;
+  v.z = i + 2 < end ? x[i + 2] : 0.0f;
+  v.w = i + 3 < end ? x[i + 3] : 0.0f;
+  return v;
+}
 
-  // 1. hi0 from the grid's max |x|
-  float mx = 0.0f;
-  for (long long i = beg + threadIdx.x; i < end; i += kThreads) {
-    mx = fmaxf(mx, fabsf(x[i]));
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  }
-  if ((threadIdx.x & 31) == 0) {
-    atomicMax(reinterpret_cast<int*>(scratch), __float_as_int(mx));
-  }
-  grid.sync();
-  const float maxabs = __int_as_float(*reinterpret_cast<volatile int*>(scratch));
-  float lo = 0.0f;
-  float hi = __fadd_rn(__fmul_rn(maxabs, static_cast<float>(1.0 + 1e-6)),
-                       static_cast<float>(1e-30));
-
-  // 2. bisection: count(|x| >= lo) >= k and count(|x| >= hi) < k
-  for (int step = 0; step < kBisectSteps; ++step) {
-    const float mid = 0.5f * (lo + hi);
-    unsigned c = 0;
-    for (long long i = beg + threadIdx.x; i < end; i += kThreads) {
-      c += fabsf(x[i]) >= mid;
+// f(x[i]) for every i in [beg, end): each thread takes kUnroll runs of
+// four consecutive entries per step, all loaded before any is used.
+template <int NT, typename F>
+__device__ __forceinline__ void for_each4(const float* x, long long beg, long long end, F f) {
+  const bool vec = (reinterpret_cast<uintptr_t>(x + beg) & 15) == 0;
+  for (long long t0 = beg; t0 < end; t0 += 4 * NT * kUnroll) {
+    float4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      v[u] = load4(x, t0 + 4 * static_cast<long long>(threadIdx.x + u * NT), end, vec);
     }
-    c = block_sum_u32(c, red);
-    if (threadIdx.x == 0 && c) atomicAdd(&counts[step], c);
-    grid.sync();
-    const bool big = static_cast<long long>(
-                         *reinterpret_cast<volatile unsigned*>(&counts[step])) >= k;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = t0 + 4 * static_cast<long long>(threadIdx.x + u * NT);
+      if (i + 3 < end) {  // the common case, with no test per entry
+        f(v[u].x);
+        f(v[u].y);
+        f(v[u].z);
+        f(v[u].w);
+      } else {
+        if (i < end) f(v[u].x);
+        if (i + 1 < end) f(v[u].y);
+        if (i + 2 < end) f(v[u].z);
+      }
+    }
+  }
+}
+
+// Adds the entries of x[beg, end) whose bits >> match_shift equal match to
+// hist[(bits >> shift) & mask] (hist zeroed by the caller); returns this
+// thread's max of the bits seen.
+template <int NT>
+__device__ __forceinline__ unsigned radix_pass(const float* x, long long beg, long long end,
+                                               unsigned* hist, int match_shift, unsigned match,
+                                               int shift, unsigned mask) {
+  unsigned mx = 0;
+  for_each4<NT>(x, beg, end, [&](float v) {
+    const unsigned b = mag_bits(v);
+    if ((b >> match_shift) == match) atomicAdd(&hist[(b >> shift) & mask], 1u);
+    mx = max(mx, b);
+  });
+  return mx;
+}
+
+// The digit (bin) of hist that holds rank `rank` (1 = the largest) counted
+// from the top, and the rank left inside it: res[0], res[1] for every
+// thread of the block. hist lies in device memory (kGlobal, read from L2,
+// where the blocks' atomics went) or in shared memory.
+template <int NT, int NBINS, bool kGlobal>
+__device__ __forceinline__ void find_digit(const unsigned* hist, unsigned rank, unsigned* red,
+                                           unsigned* res) {
+  constexpr int kPer = (NBINS + NT - 1) / NT;
+  unsigned c[kPer];
+  unsigned s = 0;
+  for (int j = 0; j < kPer; ++j) {
+    const int t = threadIdx.x * kPer + j;  // t-th bin from the top
+    c[j] = 0;
+    if (t < NBINS) {
+      if constexpr (kGlobal) {
+        c[j] = __ldcg(&hist[NBINS - 1 - t]);
+      } else {
+        c[j] = hist[NBINS - 1 - t];
+      }
+    }
+    s += c[j];
+  }
+  unsigned total;
+  unsigned above = block_exclusive_scan<NT>(s, red, &total);
+  if (above < rank && rank <= above + s) {
+    for (int j = 0; j < kPer; ++j) {
+      if (above + c[j] >= rank) {
+        res[0] = NBINS - 1 - (threadIdx.x * kPer + j);
+        res[1] = rank - above;
+        break;
+      }
+      above += c[j];
+    }
+  }
+  __syncthreads();
+}
+
+// The Pallas kernel's 64-step bracket from max|x| and T (as bit patterns).
+__device__ __forceinline__ void replay_bracket(unsigned max_bits, unsigned t_bits, float* lo_out,
+                                               float* hi_out) {
+  const float t = __uint_as_float(t_bits);
+  float lo = 0.0f;
+  float hi = __fadd_rn(__fmul_rn(__uint_as_float(max_bits), static_cast<float>(1.0 + 1e-6)),
+                       static_cast<float>(1e-30));
+  for (int step = 0; step < kBisectSteps; ++step) {
+    const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
+    const bool big = mid <= t;
     lo = big ? mid : lo;
     hi = big ? hi : mid;
   }
+  *lo_out = lo;
+  *hi_out = hi;
+}
 
-  // 3. two tiers, ranked in index order across the grid
-  unsigned ns = 0, ne = 0;
-  for (long long i = beg + threadIdx.x; i < end; i += kThreads) {
-    const float m = fabsf(x[i]);
-    ns += m >= hi;
-    ne += (m >= lo) & (m < hi);
+// Bit j of *sure / *edge: entry i + j (below end) is sure (|x| >= hi) / on
+// the edge (lo <= |x| < hi).
+__device__ __forceinline__ void tier_bits(float4 v, long long i, long long end, float lo,
+                                          float hi, unsigned* sure, unsigned* edge) {
+  const float m[4] = {fabsf(v.x), fabsf(v.y), fabsf(v.z), fabsf(v.w)};
+  unsigned s = 0, e = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const bool in = i + j < end;
+    s |= static_cast<unsigned>(in && m[j] >= hi) << j;
+    e |= static_cast<unsigned>(in && m[j] >= lo && m[j] < hi) << j;
   }
-  ns = block_sum_u32(ns, red);
-  ne = block_sum_u32(ne, red);
-  if (threadIdx.x == 0) {
-    sure_cnt[blockIdx.x] = ns;
-    edge_cnt[blockIdx.x] = ne;
+  *sure = s;
+  *edge = e;
+}
+
+// The tier pass splits the block's range [beg, end) into one contiguous
+// segment per warp (whole steps of 256 entries: two runs of four a lane),
+// so that each warp counts and then packs its own entries in index order
+// with warp shuffles alone, never waiting for the block.
+template <int NT>
+__device__ __forceinline__ void warp_segment(long long beg, long long end, long long* wbeg,
+                                             long long* wend) {
+  constexpr int kWarps = NT / 32;
+  const long long seg = ((end - beg + kWarps - 1) / kWarps + 255) / 256 * 256;
+  *wbeg = min(end, beg + seg * (threadIdx.x >> 5));
+  *wend = min(end, *wbeg + seg);
+}
+
+// Each warp's sure and edge counts over its segment: wsure[w], wedge[w].
+template <int NT>
+__device__ __forceinline__ void tier_count(const float* x, long long beg, long long end, float lo,
+                                           float hi, unsigned* wsure, unsigned* wedge) {
+  long long wbeg, wend;
+  warp_segment<NT>(beg, end, &wbeg, &wend);
+  const bool vec = (reinterpret_cast<uintptr_t>(x + wbeg) & 15) == 0;
+  const int lane = threadIdx.x & 31;
+  unsigned s = 0, e = 0;
+  for (long long t0 = wbeg; t0 < wend; t0 += 256) {
+    const float4 a = load4(x, t0 + 4 * lane, wend, vec);
+    const float4 b = load4(x, t0 + 128 + 4 * lane, wend, vec);
+    unsigned sa, ea, sb, eb;
+    tier_bits(a, t0 + 4 * lane, wend, lo, hi, &sa, &ea);
+    tier_bits(b, t0 + 128 + 4 * lane, wend, lo, hi, &sb, &eb);
+    s += __popc(sa) + __popc(sb);
+    e += __popc(ea) + __popc(eb);
   }
-  grid.sync();
-  unsigned long long s_before = 0, e_before = 0, n_sure = 0;
-  for (unsigned b = threadIdx.x; b < gridDim.x; b += kThreads) {
-    const unsigned sc = *reinterpret_cast<volatile unsigned*>(&sure_cnt[b]);
-    n_sure += sc;
-    if (b < blockIdx.x) {
-      s_before += sc;
-      e_before += *reinterpret_cast<volatile unsigned*>(&edge_cnt[b]);
+  s = __reduce_add_sync(0xffffffffu, s);
+  e = __reduce_add_sync(0xffffffffu, e);
+  if (lane == 0) {
+    wsure[threadIdx.x >> 5] = s;
+    wedge[threadIdx.x >> 5] = e;
+  }
+}
+
+// Packs each warp's segment in index order: the sure entries from rank
+// s_off, the edge entries from rank e_off (slot n_sure + rank while below
+// k), s_off and e_off being the ranks of the block's first entries and
+// wsure, wedge the warps' counts (tier_count).
+template <int NT>
+__device__ __forceinline__ void tier_pack(const float* x, long long beg, long long end, float lo,
+                                          float hi, long long s_off, long long e_off,
+                                          const unsigned* wsure, const unsigned* wedge,
+                                          long long n_sure, long long k, float* out_v,
+                                          int* out_i) {
+  long long wbeg, wend;
+  warp_segment<NT>(beg, end, &wbeg, &wend);
+  const bool vec = (reinterpret_cast<uintptr_t>(x + wbeg) & 15) == 0;
+  const int lane = threadIdx.x & 31;
+  for (int w = 0; w < static_cast<int>(threadIdx.x >> 5); ++w) {
+    s_off += wsure[w];
+    e_off += wedge[w];
+  }
+  const long long fill = k - n_sure;
+  for (long long t0 = wbeg; t0 < wend; t0 += 256) {
+    const float4 run[2] = {load4(x, t0 + 4 * lane, wend, vec),
+                           load4(x, t0 + 128 + 4 * lane, wend, vec)};
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const long long i = t0 + 128 * u + 4 * lane;
+      unsigned sure, edge;
+      tier_bits(run[u], i, wend, lo, hi, &sure, &edge);
+      // one warp scan for both tiers: sure in the low 16 bits, edge in the high
+      const unsigned mine = static_cast<unsigned>(__popc(sure)) |
+                            (static_cast<unsigned>(__popc(edge)) << 16);
+      if (!__any_sync(0xffffffffu, mine)) continue;
+      unsigned incl = mine;
+      for (int off = 1; off < 32; off <<= 1) {
+        const unsigned up = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += up;
+      }
+      const unsigned total = __shfl_sync(0xffffffffu, incl, 31);
+      if (mine) {
+        const float v[4] = {run[u].x, run[u].y, run[u].z, run[u].w};
+        long long rs = s_off + ((incl - mine) & 0xffffu), re = e_off + ((incl - mine) >> 16);
+        for (int j = 0; j < 4; ++j) {
+          long long slot = -1;
+          if (sure >> j & 1) {
+            slot = rs++;
+          } else if (edge >> j & 1) {
+            const long long er = re++;
+            if (er < fill) slot = n_sure + er;
+          }
+          if (slot >= 0 && slot < k) {
+            out_v[slot] = v[j];
+            out_i[slot] = static_cast<int>(i + j);
+          }
+        }
+      }
+      s_off += total & 0xffffu;
+      e_off += total >> 16;
     }
   }
-  // these sums fit in 32 bits: n < 2^31
-  s_before = block_sum_u32(static_cast<unsigned>(s_before), red);
-  e_before = block_sum_u32(static_cast<unsigned>(e_before), red);
-  n_sure = block_sum_u32(static_cast<unsigned>(n_sure), red);
-  const long long fill = k - static_cast<long long>(n_sure);
-  long long s_off = static_cast<long long>(s_before);
-  long long e_off = static_cast<long long>(e_before);
-  for (long long t0 = beg; t0 < end; t0 += kThreads) {
-    const long long i = t0 + threadIdx.x;
-    const bool in = i < end;
-    const float v = in ? x[i] : 0.0f;
-    const float m = fabsf(v);
-    const bool sure = in && m >= hi;
-    const bool edge = in && m >= lo && m < hi;
-    // one scan for both tiers: sure in the low 16 bits, edge in the high
-    unsigned total;
-    const unsigned rank = block_exclusive_scan(
-        static_cast<unsigned>(sure) | (static_cast<unsigned>(edge) << 16), red, &total);
-    long long slot = -1;
-    if (sure) {
-      slot = s_off + (rank & 0xffffu);
-    } else if (edge) {
-      const long long er = e_off + (rank >> 16);
-      if (er < fill) slot = static_cast<long long>(n_sure) + er;
+}
+
+// Slots the pack fills; fewer than k only on a leaf holding a NaN, whose
+// bracket keeps no entry (count(|x| >= lo) >= k holds on any other leaf).
+__device__ __forceinline__ long long packed_slots(long long n_sure, long long n_edge, long long k) {
+  return min(n_sure, k) + max(0LL, min(k - n_sure, n_edge));
+}
+
+// One block per row.
+__global__ void __launch_bounds__(kRowThreads)
+select_row_kernel(const float* __restrict__ x, long long n, long long k, float* __restrict__ out_v,
+                  int* __restrict__ out_i) {
+  __shared__ unsigned hist[kBins];
+  __shared__ unsigned red[kRowThreads / 32];
+  __shared__ unsigned wsure[kRowThreads / 32], wedge[kRowThreads / 32];
+  __shared__ unsigned res[2];
+  __shared__ float bracket[2];
+  const float* xr = x + static_cast<long long>(blockIdx.x) * n;
+  out_v += static_cast<long long>(blockIdx.x) * k;
+  out_i += static_cast<long long>(blockIdx.x) * k;
+
+  // 1. bits 30..20 and the max
+  for (int b = threadIdx.x; b < kBins; b += kRowThreads) hist[b] = 0;
+  __syncthreads();
+  unsigned mx = 0;
+  for_each4<kRowThreads>(xr, 0, n, [&](float v) {
+    const unsigned b = mag_bits(v);
+    atomicAdd(&hist[b >> 20], 1u);
+    mx = max(mx, b);
+  });
+  const unsigned max_bits = block_max<kRowThreads>(mx, red);
+  find_digit<kRowThreads, kBins, false>(hist, static_cast<unsigned>(k), red, res);
+  const unsigned d1 = res[0];
+  // 2. bits 19..9 of the entries in digit d1
+  for (int b = threadIdx.x; b < kBins; b += kRowThreads) hist[b] = 0;
+  __syncthreads();
+  radix_pass<kRowThreads>(xr, 0, n, hist, 20, d1, 9, kBins - 1);
+  __syncthreads();
+  find_digit<kRowThreads, kBins, false>(hist, res[1], red, res);
+  const unsigned p2 = d1 << 11 | res[0];
+  // 3. bits 8..0
+  for (int b = threadIdx.x; b < kBins3; b += kRowThreads) hist[b] = 0;
+  __syncthreads();
+  radix_pass<kRowThreads>(xr, 0, n, hist, 9, p2, 0, kBins3 - 1);
+  __syncthreads();
+  find_digit<kRowThreads, kBins3, false>(hist, res[1], red, res);
+  // 4. the bracket
+  if (threadIdx.x == 0) replay_bracket(max_bits, p2 << 9 | res[0], &bracket[0], &bracket[1]);
+  __syncthreads();
+  const float lo = bracket[0], hi = bracket[1];
+  // 5. the two tiers
+  tier_count<kRowThreads>(xr, 0, n, lo, hi, wsure, wedge);
+  __syncthreads();
+  long long n_sure = 0, n_edge = 0;
+  for (int w = 0; w < kRowThreads / 32; ++w) {
+    n_sure += wsure[w];
+    n_edge += wedge[w];
+  }
+  tier_pack<kRowThreads>(xr, 0, n, lo, hi, 0, 0, wsure, wedge, n_sure, k, out_v, out_i);
+  for (long long s = packed_slots(n_sure, n_edge, k) + threadIdx.x; s < k; s += kRowThreads) {
+    out_v[s] = 0.0f;
+    out_i[s] = 0;
+  }
+}
+
+// Merges a block's shared-memory histogram into device memory.
+template <int NBINS>
+__device__ __forceinline__ void merge_hist(const unsigned* hist, unsigned* g_hist) {
+  __syncthreads();
+  for (int b = threadIdx.x; b < NBINS; b += kThreads) {
+    if (hist[b]) atomicAdd(&g_hist[b], hist[b]);
+  }
+}
+
+// The radix pass of the grid body over this block's chunk.
+template <int NBINS>
+__device__ __forceinline__ unsigned grid_radix_pass(const float* x, long long beg, long long end,
+                                                    unsigned* hist, unsigned* g_hist,
+                                                    int match_shift, unsigned match, int shift) {
+  for (int b = threadIdx.x; b < NBINS; b += kThreads) hist[b] = 0;
+  __syncthreads();
+  const unsigned mx = radix_pass<kThreads>(x, beg, end, hist, match_shift, match, shift, NBINS - 1);
+  merge_hist<NBINS>(hist, g_hist);
+  return mx;
+}
+
+// Long rows: a cooperative grid walks the rows in order.
+__global__ void __launch_bounds__(kThreads, kGridBlocksPerSm)
+select_grid_kernel(const float* __restrict__ x, int rows, long long n, long long k,
+                   float* __restrict__ out_v, int* __restrict__ out_i,
+                   unsigned* __restrict__ scratch) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ unsigned hist[kBins];
+  __shared__ unsigned red[kThreads / 32];
+  __shared__ unsigned wsure[kThreads / 32], wedge[kThreads / 32];
+  __shared__ unsigned res[2];
+  __shared__ float bracket[2];
+  unsigned* g_hist1 = scratch + kHist1;
+  unsigned* g_hist2 = scratch + kHist2;
+  unsigned* g_hist3 = scratch + kHist3;
+  unsigned* g_max = scratch + kMaxWord;
+  unsigned* sure_cnt = scratch + kScratchHead;
+  unsigned* edge_cnt = sure_cnt + gridDim.x;
+  // chunks of a multiple of 4 entries, so that 16-byte loads stay aligned
+  const long long chunk = ((n + gridDim.x - 1) / gridDim.x + 3) / 4 * 4;
+  const long long beg = min(n, chunk * blockIdx.x);
+  const long long end = min(n, beg + chunk);
+  const long long tid = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const long long nthreads = static_cast<long long>(gridDim.x) * kThreads;
+
+  for (int row = 0; row < rows; ++row) {
+    const float* xr = x + static_cast<long long>(row) * n;
+    float* ov = out_v + static_cast<long long>(row) * k;
+    int* oi = out_i + static_cast<long long>(row) * k;
+    // 1. bits 30..20 and the max. Passes 2 and 3 add into hist2 and hist3
+    // only after the next grid sync, and their last readers (the previous
+    // row's) are past the previous row's last grid sync.
+    if (blockIdx.x == 0) {
+      for (int b = threadIdx.x; b < kBins; b += kThreads) g_hist2[b] = 0;
+      for (int b = threadIdx.x; b < kBins3; b += kThreads) g_hist3[b] = 0;
     }
-    if (slot >= 0) {
-      out_v[slot] = v;
-      out_i[slot] = static_cast<int>(i);
+    unsigned mx = grid_radix_pass<kBins>(xr, beg, end, hist, g_hist1, 31, 0, 20);
+    mx = block_max<kThreads>(mx, red);
+    if (threadIdx.x == 0 && mx) atomicMax(g_max, mx);
+    grid.sync();
+    const unsigned max_bits = __ldcg(g_max);
+    find_digit<kThreads, kBins, true>(g_hist1, static_cast<unsigned>(k), red, res);
+    const unsigned d1 = res[0];
+    // 2. bits 19..9
+    grid_radix_pass<kBins>(xr, beg, end, hist, g_hist2, 20, d1, 9);
+    grid.sync();
+    // every block has read hist1 and the max: zero them for the next row
+    // (or launch) before the next grid sync
+    if (blockIdx.x == 0) {
+      for (int b = threadIdx.x; b < kBins; b += kThreads) g_hist1[b] = 0;
+      if (threadIdx.x == 0) *g_max = 0;
     }
-    s_off += total & 0xffffu;
-    e_off += total >> 16;
+    find_digit<kThreads, kBins, true>(g_hist2, res[1], red, res);
+    const unsigned p2 = d1 << 11 | res[0];
+    // 3. bits 8..0
+    grid_radix_pass<kBins3>(xr, beg, end, hist, g_hist3, 9, p2, 0);
+    grid.sync();
+    find_digit<kThreads, kBins3, true>(g_hist3, res[1], red, res);
+    // 4. the bracket, in every block alike
+    if (threadIdx.x == 0) replay_bracket(max_bits, p2 << 9 | res[0], &bracket[0], &bracket[1]);
+    __syncthreads();
+    const float lo = bracket[0], hi = bracket[1];
+    // 5. the two tiers, ranked in index order across the grid
+    tier_count<kThreads>(xr, beg, end, lo, hi, wsure, wedge);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      unsigned ns = 0, ne = 0;
+      for (int w = 0; w < kThreads / 32; ++w) {
+        ns += wsure[w];
+        ne += wedge[w];
+      }
+      sure_cnt[blockIdx.x] = ns;
+      edge_cnt[blockIdx.x] = ne;
+    }
+    grid.sync();
+    unsigned s_before = 0, e_before = 0, s_all = 0, e_all = 0;  // n < 2^31: 32 bits hold them
+    for (unsigned b = threadIdx.x; b < gridDim.x; b += kThreads) {
+      const unsigned sc = __ldcg(&sure_cnt[b]);
+      const unsigned ec = __ldcg(&edge_cnt[b]);
+      s_all += sc;
+      e_all += ec;
+      if (b < blockIdx.x) {
+        s_before += sc;
+        e_before += ec;
+      }
+    }
+    s_before = block_sum<kThreads>(s_before, red);
+    e_before = block_sum<kThreads>(e_before, red);
+    const long long n_sure = block_sum<kThreads>(s_all, red);
+    const long long n_edge = block_sum<kThreads>(e_all, red);
+    tier_pack<kThreads>(xr, beg, end, lo, hi, s_before, e_before, wsure, wedge, n_sure, k, ov,
+                        oi);
+    for (long long s = packed_slots(n_sure, n_edge, k) + tid; s < k; s += nthreads) {
+      ov[s] = 0.0f;
+      oi[s] = 0;
+    }
   }
 }
 
@@ -213,8 +575,8 @@ scatter_kernel(const float* __restrict__ v, const int* __restrict__ idx,
 }
 
 // Blocks of `kernel` that fit on the card at once, capped by `cap` and by
-// the blocks that `work` items need.
-int cooperative_grid(const void* kernel, long long work, int cap, int* grid) {
+// `blocks`.
+int cooperative_grid(const void* kernel, long long blocks, int cap, int* grid) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -223,7 +585,7 @@ int cooperative_grid(const void* kernel, long long work, int cap, int* grid) {
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   long long g = static_cast<long long>(sms) * per_sm;
-  g = std::min(g, (work + kThreads - 1) / kThreads);
+  g = std::min(g, blocks);
   g = std::min(g, static_cast<long long>(cap));
   *grid = static_cast<int>(std::max(g, 1LL));
   return 0;
@@ -233,25 +595,35 @@ int cooperative_grid(const void* kernel, long long work, int cap, int* grid) {
 
 extern "C" {
 
+// Rows of at most this many entries take the one-block body.
+long long topk_select_small_row_max() { return kSmallRowMax; }
+
 // Words of scratch that topk_select_launch needs for a grid of at most
 // `max_grid` blocks.
 int topk_select_scratch_words(int max_grid) { return kScratchHead + 2 * max_grid; }
 
-// x (n,) f32 -> out_v (k,) f32, out_i (k,) int32, 1 <= k <= n < 2^31.
-// scratch: topk_select_scratch_words(max_grid) words of device memory,
-// zeroed here on the stream. Returns a cudaError_t (0 = success).
-int topk_select_launch(const float* x, long long n, long long k, float* out_v,
-                       int* out_i, unsigned* scratch, int max_grid, void* stream) {
+// x (rows, n) f32 -> out_v (rows, k) f32, out_i (rows, k) int32, 1 <= k <=
+// n < 2^31, rows >= 1. scratch: topk_select_scratch_words(max_grid) words
+// of device memory, zero before the first launch; the kernel leaves it
+// zero again. Launches on one stream may share it, launches on two may not.
+// body: 0 by the row length (kSmallRowMax), 1 one block per row, 2 the
+// cooperative grid. Returns a cudaError_t (0 = success).
+int topk_select_launch(const float* x, int rows, long long n, long long k, float* out_v,
+                       int* out_i, unsigned* scratch, int max_grid, int body, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (body == 0) body = n <= kSmallRowMax ? 1 : 2;
+  if (body == 1) {
+    select_row_kernel<<<rows, kRowThreads, 0, st>>>(x, n, k, out_v, out_i);
+    return static_cast<int>(cudaGetLastError());
+  }
   int grid = 0;
-  int err = cooperative_grid(reinterpret_cast<const void*>(select_kernel), n, max_grid, &grid);
+  // at least 16 entries a thread: fewer blocks make cheaper grid syncs
+  int err = cooperative_grid(reinterpret_cast<const void*>(select_grid_kernel),
+                             (n + 16 * kThreads - 1) / (16 * kThreads), max_grid, &grid);
   if (err) return err;
-  err = static_cast<int>(cudaMemsetAsync(
-      scratch, 0, sizeof(unsigned) * topk_select_scratch_words(grid), st));
-  if (err) return err;
-  void* args[] = {&x, &n, &k, &out_v, &out_i, &scratch};
+  void* args[] = {&x, &rows, &n, &k, &out_v, &out_i, &scratch};
   return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(select_kernel), dim3(grid), dim3(kThreads), args, 0, st));
+      reinterpret_cast<const void*>(select_grid_kernel), dim3(grid), dim3(kThreads), args, 0, st));
 }
 
 // v (peers, k) f32, idx (peers, k) int32, w (peers,) f32 -> out (n,) f32.
@@ -260,8 +632,8 @@ int topk_scatter_launch(const float* v, const int* idx, const float* w, float* o
                         int peers, long long k, long long n, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   int grid = 0;
-  int err = cooperative_grid(reinterpret_cast<const void*>(scatter_kernel), std::max(n, k),
-                             1 << 20, &grid);
+  int err = cooperative_grid(reinterpret_cast<const void*>(scatter_kernel),
+                             (std::max(n, k) + kThreads - 1) / kThreads, 1 << 20, &grid);
   if (err) return err;
   void* args[] = {&v, &idx, &w, &out, &peers, &k, &n};
   return static_cast<int>(cudaLaunchCooperativeKernel(

@@ -211,10 +211,15 @@ def flash_attention(
     Sq > Skv + window - 1, never on a model path) gets 0 from the kernel;
     the plain version gives it ``attend``'s uniform weights over the masked
     keys, and the Pallas kernel weight 1 on its first fully masked block.
-    Such rows are outside the parity contract (ROADMAP.md, Queue 3)."""
+    Such rows are outside the parity contract (ROADMAP.md, Queue 3).
+
+    On CUDA tensors there is no backward yet: with grad mode on and an
+    input that requires grad it raises ``RuntimeError`` before any launch
+    (``build.refuse_grad``); the CPU route differentiates."""
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, softcap=softcap, window=window)
+    build.refuse_grad("flash_attention", q, k, v)
     stream = build.cuda_stream(q.device)
     B, Sq, H, D = q.shape
     Skv, K = k.shape[1], k.shape[2]

@@ -190,10 +190,13 @@ def ssd_scan(
     whole number of chunks inside the kernel, where ``ssd_scan_pallas``
     pads it. The inputs may be strided views (the model passes slices of
     the convolution's output) as long as their last dimension is
-    contiguous."""
+    contiguous. On CUDA tensors there is no backward yet: with grad mode on
+    and an input that requires grad it raises ``RuntimeError`` before any
+    launch (``build.refuse_grad``); the CPU route differentiates."""
     _check(x, dt, A, Bm, Cm, chunk)
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    build.refuse_grad("ssd_scan", x, dt, A, Bm, Cm)
     stream = build.cuda_stream(x.device)
     _check_launchable(x, Bm, chunk)
     if not all(t.stride(-1) == 1 for t in (x, Bm, Cm)) or A.stride(0) != 1:

@@ -3,8 +3,11 @@ their plain PyTorch versions.
 
 Replaces the Pallas TPU kernels ``repro/kernels/topk.py:topk_select_pack``
 (``_select_kernel``) and ``topk_scatter_accum`` (``_scatter_kernel``). The
-CUDA source is ``csrc/topk.cu``; its header says how the selection is split
-over a cooperative grid and what bounds each kernel.
+CUDA source is ``csrc/topk.cu``; its header says how the kernel finds the
+bisection's bracket from max|x| and the exact k-th magnitude (three radix
+passes), which rows take one block and which a cooperative grid, and what
+bounds each kernel. ``topk_select_pack_bank`` selects every row of a
+``(P, n)`` bank in one launch.
 
 The select is the Pallas kernel's algorithm, not an exact top-k: a 64-step
 float32 bisection on the magnitude threshold from ``lo = 0`` and
@@ -14,7 +17,10 @@ entries ``lo <= |x| < hi`` in ascending index order, and the output lists
 the kept entries first and then the boundary ones, each in index order.
 So the payload equals the reference kernel's element for element, also
 where the bracket cannot close (a k-th magnitude below about
-``max * 2**-64``, as in a leaf of mostly exact zeros).
+``max * 2**-64``, as in a leaf of mostly exact zeros), on a leaf holding a
+NaN (the max is NaN, so is ``hi``, and no entry is kept: every slot holds
+value 0 and index 0) and on one with more than k entries at +inf (the first
+k of them, by index, as the Pallas kernel's padded banks drop the rest).
 
 A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel, or raises: there is no fallback. Each
@@ -24,7 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -35,29 +41,38 @@ BISECT_STEPS = 64
 MAX_GRID = 4096  # blocks of the select's cooperative grid, at most
 
 
-def select_pack_plain(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch select: (n,) f32 -> (values f32 (k,), indices int32
-    (k,)), the Pallas kernel's bisection and two-tier pack step for step."""
-    n = x.shape[0]
-    mag = x.abs()
-    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=x.device)
+def select_bracket(mag: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Pallas kernel's 64-step float32 bisection on the magnitudes
+    ``mag`` (n,): ``(lo, hi)`` with ``count(mag >= lo) >= k`` and
+    ``count(mag >= hi) < k`` wherever the max is finite."""
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=mag.device)
     lo = f32(0.0)
     hi = mag.max() * f32(1.0 + 1e-6) + f32(1e-30)
     for _ in range(BISECT_STEPS):
         mid = 0.5 * (lo + hi)
         big = (mag >= mid).sum() >= k
         lo, hi = torch.where(big, mid, lo), torch.where(big, hi, mid)
+    return lo, hi
+
+
+def select_pack_plain(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch select: (n,) f32 -> (values f32 (k,), indices int32
+    (k,)), the Pallas kernel's bisection and two-tier pack step for step."""
+    n = x.shape[0]
+    mag = x.abs()
+    lo, hi = select_bracket(mag, k)
     sure = mag >= hi
     edge = (mag >= lo) & (mag < hi)
     n_sure = sure.sum()
     edge_rank = torch.cumsum(edge, 0) - 1
-    take = sure | (edge & (edge_rank < k - n_sure))
-    slot = torch.where(sure, torch.cumsum(sure, 0) - 1, n_sure + edge_rank)[take]
+    slot = torch.where(sure, torch.cumsum(sure, 0) - 1, n_sure + edge_rank)
+    # slots past k exist only where more than k entries are +inf
+    take = (sure | (edge & (edge_rank < k - n_sure))) & (slot < k)
     index = torch.arange(n, device=x.device)[take]
     vals = torch.zeros((k,), dtype=torch.float32, device=x.device)
     idx = torch.zeros((k,), dtype=torch.int32, device=x.device)
-    vals[slot] = x[index]
-    idx[slot] = index.to(torch.int32)
+    vals[slot[take]] = x[index]
+    idx[slot[take]] = index.to(torch.int32)
     return vals, idx
 
 
@@ -77,11 +92,13 @@ def scatter_accum_plain(
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
+    lib.topk_select_small_row_max.argtypes = []
+    lib.topk_select_small_row_max.restype = ctypes.c_longlong
     lib.topk_select_scratch_words.argtypes = [ctypes.c_int]
     lib.topk_select_scratch_words.restype = ctypes.c_int
     lib.topk_select_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.topk_select_launch.restype = ctypes.c_int
     lib.topk_scatter_launch.argtypes = [
@@ -97,34 +114,80 @@ def load_library() -> None:
     _lib()
 
 
+def small_row_max() -> int:
+    """Rows of at most this many entries take the select's one-block body
+    (``csrc/topk.cu``); longer rows take its cooperative grid."""
+    return int(_lib().topk_select_small_row_max())
+
+
+_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _select_scratch(device: torch.device, stream: int) -> torch.Tensor:
+    """The grid body's scratch for ``stream``: zeroed once, and left zero
+    by every launch (``csrc/topk.cu``), so no launch needs a memset. Each
+    stream has its own, since two launches may not share it at once."""
+    key = (device.index, stream)
+    if key not in _scratch:
+        words = _lib().topk_select_scratch_words(MAX_GRID)
+        _scratch[key] = torch.zeros((words,), dtype=torch.int32, device=device)
+    return _scratch[key]
+
+
+def _check_k(n: int, k: int) -> None:
+    if not 1 <= k <= n < 2**31:
+        raise ValueError(f"k={k} out of range for n={n} (1 <= k <= n < 2**31)")
+
+
+def select_launch(x: torch.Tensor, k: int, body: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the select over every row of a CUDA (rows, n) bank ->
+    (values (rows, k), indices (rows, k)). ``body``: 0 by the row length
+    (``small_row_max``), 1 one block per row, 2 the cooperative grid."""
+    rows, n = x.shape
+    stream = build.cuda_stream(x.device)
+    vals = torch.empty((rows, k), dtype=torch.float32, device=x.device)
+    idx = torch.empty((rows, k), dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _lib().topk_select_launch(
+            x.data_ptr(), rows, n, k, vals.data_ptr(), idx.data_ptr(),
+            _select_scratch(x.device, stream.value or 0).data_ptr(), MAX_GRID, body, stream,
+        )
+    if err:
+        raise RuntimeError(f"topk_select_pack kernel launch failed at ({rows}, {n}), k={k}: "
+                           f"cudaError {err}")
+    topk_select_pack.launches += 1
+    return vals, idx
+
+
 def topk_select_pack(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (n,) f32 -> (values f32 (k,), indices int32 (k,)) of the k largest
     |x| by the bisection-threshold rule (module docstring)."""
     build.check_tensor(x, "x", torch.float32, 1)
     n = x.shape[0]
-    if not 1 <= k <= n < 2**31:
-        raise ValueError(f"k={k} out of range for n={n} (1 <= k <= n < 2**31)")
+    _check_k(n, k)
     if x.device.type == "cpu":
         return select_pack_plain(x, k)
-    stream = build.cuda_stream(x.device)
-    vals = torch.empty((k,), dtype=torch.float32, device=x.device)
-    idx = torch.empty((k,), dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
-        lib = _lib()
-        scratch = torch.empty(
-            (lib.topk_select_scratch_words(MAX_GRID),), dtype=torch.int32, device=x.device
-        )
-        err = lib.topk_select_launch(
-            x.data_ptr(), n, k, vals.data_ptr(), idx.data_ptr(), scratch.data_ptr(),
-            MAX_GRID, stream,
-        )
-    if err:
-        raise RuntimeError(f"topk_select_pack kernel launch failed: cudaError {err}")
-    topk_select_pack.launches += 1
-    return vals, idx
+    vals, idx = select_launch(x.view(1, n), k)
+    return vals[0], idx[0]
 
 
 topk_select_pack.launches = 0
+
+
+def topk_select_pack_bank(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (P, n) f32 -> (values f32 (P, k), indices int32 (P, k)); row p is
+    ``topk_select_pack(x[p], k)``. On a CUDA tensor it is one launch for all
+    rows, counted on ``topk_select_pack.launches``; on the CPU it selects the
+    rows one by one through ``topk_select_pack``."""
+    build.check_tensor(x, "x", torch.float32, 2)
+    rows, n = x.shape
+    if rows < 1:
+        raise ValueError("the bank needs at least one row")
+    _check_k(n, k)
+    if x.device.type == "cpu":
+        picks = [topk_select_pack(x[p], k) for p in range(rows)]
+        return torch.stack([v for v, _ in picks]), torch.stack([i for _, i in picks])
+    return select_launch(x, k)
 
 
 def topk_scatter_accum(

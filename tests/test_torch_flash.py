@@ -126,6 +126,20 @@ def test_wrapper_takes_the_plain_version_on_the_cpu_and_counts_no_launch():
     assert torch.equal(out, K.flash_attention_plain(q, k, v, softcap=50.0, window=32))
 
 
+def test_cpu_route_differentiates_like_the_plain_function():
+    """On CPU tensors the wrapper is the plain version, autograd included:
+    its gradients are those of ``flash_attention_plain``."""
+    arrays = _inputs(1, 40, 40, 4, 2, 32, seed=4)
+    grads = []
+    for fn in (K.flash_attention, K.flash_attention_plain):
+        q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in arrays)
+        out = fn(q, k, v, softcap=20.0, window=16)
+        (out * torch.linspace(-1.0, 1.0, out.numel()).view(out.shape)).sum().backward()
+        grads.append([t.grad for t in (q, k, v)])
+    for got, want in zip(*grads):
+        assert got is not None and torch.equal(got, want)
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     q, k, v = map(torch.from_numpy, _inputs(1, 16, 16, 6, 4, 32))
     with pytest.raises(ValueError, match="KV heads must divide"):
@@ -151,6 +165,23 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel runs only there")
+
+
+@pytest.mark.parametrize("needs_grad", ["q", "k", "v"])
+def test_cuda_wrapper_refuses_grad_mode_before_launching(cuda, needs_grad):
+    """No backward kernel yet (ROADMAP Queue 1 item 16): with grad mode on
+    and an input requiring grad the wrapper raises before any launch; under
+    inference_mode the same call launches."""
+    q, k, v = (torch.from_numpy(a).cuda() for a in _inputs(1, 64, 64, 4, 2, 32, seed=6))
+    args = {"q": q, "k": k, "v": v}
+    args[needs_grad] = args[needs_grad].requires_grad_(True)
+    before = K.flash_attention.launches
+    with pytest.raises(RuntimeError, match="Queue 1 item 16"):
+        K.flash_attention(**args)
+    assert K.flash_attention.launches == before
+    with torch.inference_mode():
+        out = K.flash_attention(**args)
+    assert K.flash_attention.launches == before + 1 and bool(torch.isfinite(out).all())
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

@@ -134,6 +134,20 @@ def test_wrapper_takes_the_plain_version_on_the_cpu_and_counts_no_launch():
     assert torch.equal(y, K.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=32))
 
 
+def test_cpu_route_differentiates_like_the_plain_function():
+    """On CPU tensors the wrapper is the plain version, autograd included:
+    its gradients are those of ``ssd_scan_plain``."""
+    arrays = _torch(*_inputs(1, 48, 4, 16, 2, 8, seed=7))
+    grads = []
+    for fn in (K.ssd_scan, K.ssd_scan_plain):
+        args = [t.clone().requires_grad_(True) for t in arrays]
+        y = fn(*args, chunk=16)
+        (y * torch.linspace(-1.0, 1.0, y.numel()).view(y.shape)).sum().backward()
+        grads.append([t.grad for t in args])
+    for got, want in zip(*grads):
+        assert got is not None and torch.equal(got, want)
+
+
 def test_wrapper_refuses_what_the_scan_does_not_take():
     x, dt, A, Bm, Cm = _torch(*_inputs(1, 32, 6, 16, 4, 8))
     with pytest.raises(ValueError, match="groups of B and C must divide"):
@@ -154,6 +168,22 @@ def test_wrapper_refuses_what_the_scan_does_not_take():
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel runs only there")
+
+
+@pytest.mark.parametrize("needs_grad", range(5))
+def test_cuda_wrapper_refuses_grad_mode_before_launching(cuda, needs_grad):
+    """No backward kernel yet (ROADMAP Queue 1 item 16): with grad mode on
+    and any of x, dt, A, B, C requiring grad the wrapper raises before any
+    launch; under inference_mode the same call launches."""
+    args = [t.cuda() for t in _torch(*_inputs(1, 64, 4, 32, 1, 16, seed=8))]
+    args[needs_grad].requires_grad_(True)
+    before = K.ssd_scan.launches
+    with pytest.raises(RuntimeError, match="Queue 1 item 16"):
+        K.ssd_scan(*args, chunk=32)
+    assert K.ssd_scan.launches == before
+    with torch.inference_mode():
+        y = K.ssd_scan(*args, chunk=32)
+    assert K.ssd_scan.launches == before + 1 and bool(torch.isfinite(y).all())
 
 
 @pytest.mark.parametrize("B,S_,H,P,G,N,chunk", SHAPES)

@@ -6,6 +6,12 @@ on the CPU.
   exact ties and leaves of mostly exact zeros, where the bisection bracket
   cannot close and the boundary tier fills by index; on tie-free input it
   selects the index set of ``lax.top_k`` (``kernels/ref.py``).
+* The bisection's bracket is a function of max|x| and the k-th largest
+  magnitude alone (the CUDA select's premise): a float32 replay from the
+  two equals the plain version's bracket on normal, tied, mostly-zero,
+  zero, denormal, +inf, equal-magnitude and NaN leaves, and the plain
+  select on those leaves is the Pallas payload. The bank select's CPU
+  route is the per-row select.
 * The plain scatter equals the Pallas ``topk_scatter_accum`` and
   ``topk_scatter_ref`` bit for bit, peers sharing indices.
 * ``topk`` and ``psum_mean``: host payloads, wire bytes and registry flags
@@ -84,6 +90,136 @@ def test_plain_select_picks_the_top_k_set_on_tie_free_input(n, k):
     rv, ri = kref.topk_select_ref(jnp.asarray(x), k)
     assert set(i.tolist()) == set(np.asarray(ri).tolist())
     np.testing.assert_array_equal(v.numpy(), x[i.numpy()])
+
+
+def _special_leaf(kind, n, seed):
+    """Leaves where the bisection meets its edge cases."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=n).astype(np.float32)
+    if kind == "nan":
+        x[n // 2] = np.nan
+    elif kind == "denormal":  # every magnitude below 2**-126
+        x = (x * np.float32(1e-40)).astype(np.float32)
+    elif kind == "inf":
+        x[0] = np.inf
+    elif kind == "infs":  # +inf and -inf, more of them than k
+        x[[1, n // 3, n // 2, n - 1]] = [np.inf, -np.inf, np.inf, np.inf]
+    elif kind == "equal":
+        x = np.where(x < 0, -0.25, 0.25).astype(np.float32)
+    elif kind == "zeros":
+        x[:] = 0.0
+    elif kind == "ties":
+        x = (np.round(x * 4) / 4).astype(np.float32)
+    elif kind == "mostly_zero":
+        x[rng.random(n) < 0.97] = 0.0
+        x[3], x[11] = 1e-25, -3e-38
+    return x
+
+
+# (kind, n, k): every case where the bisection's bracket is special
+BRACKET_CASES = [
+    ("normal", 1000, 10), ("normal", 1000, 1), ("normal", 1000, 1000), ("ties", 1000, 10),
+    ("ties", 1000, 333), ("mostly_zero", 4097, 41), ("zeros", 301, 3), ("denormal", 500, 5),
+    ("inf", 2, 1), ("inf", 1000, 10), ("infs", 1000, 2), ("infs", 1000, 4), ("equal", 1000, 10),
+    ("nan", 1000, 10), ("normal", 1, 1),
+]
+
+
+def _radix_kth(mag, k):
+    """The k-th largest of ``mag`` (f32 >= 0, counted with multiplicity) as
+    the CUDA select finds it: three digits of the bit pattern (bits 30..20,
+    19..9, 8..0), each the one that holds rank k among the entries that
+    share the digits above it."""
+    bits, rank, prefix = mag.view(np.uint32), k, 0
+    for shift, width, above in ((20, 11, 31), (9, 11, 20), (0, 9, 9)):
+        live = bits[(bits >> np.uint32(above)) == prefix]
+        hist = np.bincount((live >> np.uint32(shift)) & ((1 << width) - 1), minlength=1 << width)
+        from_top = np.cumsum(hist[::-1])
+        d = (1 << width) - 1 - int(np.argmax(from_top >= rank))
+        rank -= int(from_top[(1 << width) - 1 - d] - hist[d])
+        prefix = prefix << width | d
+    return np.uint32(prefix).view(np.float32)
+
+
+@pytest.mark.parametrize("kind,n,k", BRACKET_CASES)
+def test_bracket_is_a_replay_from_the_max_and_the_kth_magnitude(kind, n, k):
+    """count(|x| >= mid) >= k exactly when mid <= T, T the k-th largest |x|:
+    64 float32 steps from (max|x|, T) alone, with no read of x, give the
+    plain version's bracket bit for bit (the premise of the CUDA select),
+    and three radix digits of the bit patterns give T exactly."""
+    x = _special_leaf(kind, n, seed=n + k)
+    mag = np.abs(x)
+    kth = np.sort(mag)[::-1][k - 1]  # NaN sorts last: first from the top
+    if not np.isnan(mag).any():
+        assert _radix_kth(mag, k).view(np.uint32) == kth.view(np.uint32)
+    f = np.float32
+    with np.errstate(invalid="ignore", over="ignore"):
+        lo, hi = f(0.0), np.max(mag) * f(1.0 + 1e-6) + f(1e-30)
+        for _ in range(K.BISECT_STEPS):  # all 64 steps: no exit at mid == hi
+            mid = f(0.5) * (lo + hi)
+            lo, hi = (mid, hi) if mid <= kth else (lo, mid)
+    want_lo, want_hi = K.select_bracket(torch.from_numpy(mag), k)
+    np.testing.assert_array_equal(np.array([lo, hi]), np.array([want_lo.item(), want_hi.item()]))
+    if kind == "inf" and n == 2:
+        assert lo == hi == np.inf
+
+
+@pytest.mark.parametrize("kind,n,k", BRACKET_CASES)
+def test_plain_select_on_special_leaves_is_the_pallas_payload(kind, n, k):
+    """NaN (nothing kept: k zeros at index 0), +inf (also more +inf entries
+    than k), equal magnitudes, one entry. XLA on the CPU flushes denormals
+    to zero, so there the Pallas kernel sees a denormal leaf as all zeros;
+    the port orders denormal magnitudes exactly (ROADMAP Queue 3 item 13):
+    on that leaf its payload is the exact top-k by magnitude."""
+    x = _special_leaf(kind, n, seed=n + k)
+    got_v, got_i = K.topk_select_pack(torch.from_numpy(x), k)
+    if kind == "denormal":  # tie-free: the top-k index set
+        assert set(got_i.tolist()) == set(np.argsort(-np.abs(x))[:k].tolist())
+        np.testing.assert_array_equal(got_v.numpy(), x[got_i.numpy()])
+        return
+    want_v, want_i = pallas_select(jnp.asarray(x), k)  # interpret mode
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    if kind == "nan":
+        assert not got_v.any() and not got_i.any()
+
+
+def test_bank_cpu_route_selects_each_row_through_topk_select_pack(monkeypatch):
+    """Row p of the bank is ``topk_select_pack(x[p], k)``; on the CPU each
+    row goes through that wrapper (so that patches of it, like the flip
+    recorders of the device-step tests, see every select), and no launch
+    is counted."""
+    x = torch.from_numpy(np.stack([_leaf(1000, kind, seed=p) for p, kind in
+                                   enumerate(["normal", "ties", "mostly_zero", "normal"])]))
+    x[3, 7] = float("nan")
+    seen, select = [], K.topk_select_pack
+    monkeypatch.setattr(K, "topk_select_pack", lambda r, k: (seen.append(r), select(r, k))[1])
+    before = select.launches
+    v, i = K.topk_select_pack_bank(x, 10)
+    assert select.launches == before
+    assert v.shape == i.shape == (4, 10) and v.dtype == torch.float32 and i.dtype == torch.int32
+    assert len(seen) == 4
+    for p, r in enumerate(seen):
+        np.testing.assert_array_equal(r.numpy(), x[p].numpy())
+    for p in range(4):
+        pv, pi = K.select_pack_plain(x[p], 10)
+        assert torch.equal(v[p], pv) and torch.equal(i[p], pi)
+
+
+def test_bank_validates_its_inputs():
+    x = torch.zeros(3, 10)
+    with pytest.raises(ValueError, match="out of range"):
+        K.topk_select_pack_bank(x, 11)
+    with pytest.raises(ValueError, match="out of range"):
+        K.topk_select_pack_bank(x, 0)
+    with pytest.raises(ValueError, match="float32"):
+        K.topk_select_pack_bank(x.double(), 1)
+    with pytest.raises(ValueError, match="2-d"):
+        K.topk_select_pack_bank(x[0], 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.topk_select_pack_bank(x.t(), 1)
+    with pytest.raises(ValueError, match="at least one row"):
+        K.topk_select_pack_bank(x[:0], 1)
 
 
 @pytest.mark.parametrize("k,n", [(50, 300), (128, 4097), (7, 7)])
@@ -301,3 +437,27 @@ def test_cuda_kernels_match_plain(cuda, n, kind):
     idx = torch.stack([i] * P)  # every peer shares every index
     w = torch.rand(P, device="cuda")
     assert torch.equal(K.topk_scatter_accum(vals, idx, w, n), K.scatter_accum_plain(vals, idx, w, n))
+
+
+@pytest.mark.parametrize("kind,n,k", BRACKET_CASES)
+def test_cuda_select_on_special_leaves_matches_plain(cuda, kind, n, k):
+    x = torch.from_numpy(_special_leaf(kind, n, seed=n + k)).cuda()
+    v, i = K.topk_select_pack(x, k)
+    pv, pi = K.select_pack_plain(x, k)
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+@pytest.mark.parametrize("step", [-1, 0, 1])
+def test_cuda_bank_is_one_launch_and_row_identical(cuda, step):
+    """Rows at the one-block body's threshold - 1, at it and + 1 (the grid
+    body), each row identical to the plain version, in one launch."""
+    n = K.small_row_max() + step
+    x = torch.from_numpy(np.stack([_leaf(n, kind, seed=n + p) for p, kind in
+                                   enumerate(["normal", "ties", "mostly_zero", "normal"])])).cuda()
+    k = max(1, round(n * 0.01))
+    before = K.topk_select_pack.launches
+    v, i = K.topk_select_pack_bank(x, k)
+    assert K.topk_select_pack.launches == before + 1
+    for p in range(4):
+        pv, pi = K.select_pack_plain(x[p], k)
+        assert torch.equal(v[p], pv) and torch.equal(i[p], pi)
