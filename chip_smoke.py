@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root, no arguments
     python3 chip_smoke.py --select-timing SRC   # the select alone (below)
+    python3 chip_smoke.py --ssd-timing SRC      # the SSD scan alone (below)
 
 Phases, each of which fails the run on a failed check (none catches its own
 failure):
@@ -23,8 +24,10 @@ failure):
              distinct leaf sizes and at fc2/w; the scatter at P = 4 with
              shared indices; the SSD scan at the
              mamba2-370m scoring shape (4, 2048, 32, 64), G = 1, N = 128,
-             chunk 256, in bf16 and f32, at a padded last chunk with 4
-             groups, and at a single chunk; flash attention at gemma2-2b's
+             chunk 256, in bf16 (the tensor-core body) and f32 (the
+             CUDA-core body), at a padded last chunk with 4 groups, and at a
+             single chunk, in both types; in bf16 also at one 32k sequence
+             and at chunk 16 with N = 8; flash attention at gemma2-2b's
              scoring shape (1, 8192, 8 heads over 4, D 256), softcap 50,
              window 4096 and none, in bf16 (the tensor-core body), the same
              at S = 1024 in f32 (the CUDA-core body), and in both types a
@@ -66,17 +69,29 @@ failure):
              the same function where there is one, and the bound, at the
              main path's largest shapes, timed with CUDA events; the select
              also at (4, n) banks, over one mobilenet device step's 180
-             bank selects, and both its bodies over a sweep of row lengths.
+             bank selects, and both its bodies over a sweep of row lengths;
+             the SSD scan also at one 32k sequence, beside the bf16 bound
+             and the fp32-rate bound of earlier rows.
 6. profile — ``torch.profiler`` over one scoring forward and 4 decode
              steps of mamba2-370m and of gemma2-2b: the device's busy and
              idle share and kernel time by kind (SSD or flash kernel,
-             matrix products, the rest), and the flash launches by body:
-             a gemma2-2b forward must launch the bf16 body once per layer
-             and the f32 body never.
+             matrix products, the rest), and the flash and SSD launches by
+             body: a gemma2-2b forward must launch flash's bf16 body once
+             per layer and its f32 body never, a mamba2-370m forward each
+             of the SSD bf16 body's three passes once per layer and its f32
+             body never. Each profile runs its work twice and reads the
+             second run only (the profiler can lose the device records of
+             a session's first launches); a profile that still lost the
+             device record of a launch it recorded on the host is taken
+             again, at most three times in all; the last one is held to the
+             rule.
 
 The last two lines of stdout are a ``{"kernels": [...]}`` JSON line and the
 result ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
 a checkout of the repository, it exits non-zero and prints no result.
+
+``--ssd-timing SRC`` runs only the SSD kernel's timing, likewise with the
+``repro_torch`` under SRC; it prints no result line.
 
 ``--select-timing SRC`` runs only the select's timing and the mobilenet
 top-k + EF device step (with a profile of one step) on the ``repro_torch``
@@ -388,16 +403,22 @@ def ssd_inputs(torch, shape, dtype, seed=0):
 
 
 def ssd_kernel_phase(torch, ks):
-    """The SSD kernel against its plain version on the same inputs. Not
-    bit-identical: the kernel's cumsum and dot products sum in another
-    order. At the small shapes every element within atol 2e-5 + rtol 2e-4
-    (the reference's own Pallas-vs-oracle tolerance); at the full-width
-    scoring shape, where a 128-deep product meets 256-step sums, the max
-    abs error within 2e-5 of max|y|."""
+    """The SSD kernel against its plain version on the same inputs, both
+    bodies: bf16 inputs run the tensor-core body, f32 the CUDA-core one.
+    Not bit-identical: the kernel's cumsum and dot products sum in another
+    order, and the bf16 body's f32 operands enter as bf16 hi + lo. At the
+    small shapes every element within atol 2e-5 + rtol 2e-4 (the
+    reference's own Pallas-vs-oracle tolerance); at the full-width scoring
+    shape and one 32k sequence, where a 128-deep product meets 256-step
+    sums, the max abs error within 2e-5 of max|y|."""
     worst = 0.0
     cases = ((SSD_SCORING, torch.bfloat16), (SSD_SCORING, torch.float32),
              ((1, 80, 8, 32, 4, 16, 32), torch.float32),  # padded last chunk, 4 groups
-             ((2, 64, 4, 64, 1, 32, 64), torch.float32))  # a single chunk
+             ((2, 64, 4, 64, 1, 32, 64), torch.float32),  # a single chunk
+             (SSD_LONG, torch.bfloat16),
+             ((1, 80, 8, 32, 4, 16, 32), torch.bfloat16),
+             ((2, 64, 4, 64, 1, 32, 64), torch.bfloat16),
+             ((1, 32, 2, 16, 1, 8, 16), torch.bfloat16))  # chunk 16 under a 64-row tile, N 8
     for shape, dtype in cases:
         args = ssd_inputs(torch, shape, dtype, seed=shape[1])
         y = ks.ssd_scan(*args, chunk=shape[-1])
@@ -407,7 +428,7 @@ def ssd_kernel_phase(torch, ks):
                 f"ssd_scan output {tuple(y.shape)} {y.dtype} at {shape}")
         err = (y - ref).abs()
         scale = float(ref.abs().max())
-        if shape == SSD_SCORING:
+        if shape in (SSD_SCORING, SSD_LONG):
             require(float(err.max()) <= 2e-5 * scale, f"ssd_scan max abs error {float(err.max()):.3e} "
                     f"> 2e-5 * max|y| ({scale:.3e}) at {shape} {dtype}")
             tol = "max abs <= 2e-5 max|y|"
@@ -897,32 +918,78 @@ def drive_step(torch, mods, arch: str, steps: int, *, exchange: str, selects_per
     return launches
 
 
-def flash_body(name: str):
-    """Which body of the flash kernel a device kernel's name is ("wgmma<D>":
-    bf16 on the tensor cores, "f32": the CUDA cores), or None."""
+def kernel_body(name: str):
+    """Which body of the flash or the SSD kernel a device kernel's name is,
+    or None: flash's "wgmma<D>" (bf16 on the tensor cores) or "f32" (the
+    CUDA cores); the SSD kernel's bf16 passes "ssd states", "ssd carry" and
+    "ssd outputs", or its f32 body "ssd f32"."""
     if "flash_attention_kernel_wgmma<" in name:
         return "wgmma<" + name.split("flash_attention_kernel_wgmma<", 1)[1].split(">", 1)[0] + ">"
-    return "f32" if "flash_attention_kernel<" in name else None
+    if "flash_attention_kernel<" in name:
+        return "f32"
+    found = re.search(r"\bssd_kernel_(states|carry|outputs)\b", name)
+    if found:
+        return "ssd " + found.group(1)
+    return "ssd f32" if "ssd_kernel<" in name else None
 
 
-def device_profile(torch, fn):
+RUN_MARK = "profiled run"  # the record_function around the run that device_profile reads
+
+
+def device_profile(torch, fn, attempts: int = 3):
     """Run ``fn`` under ``torch.profiler`` and read the device's kernels:
     (device window ms from the first kernel's start to the last one's end,
     busy ms in that window, {"ssd_scan" | "flash_attention" | "matmul" |
-    "other": kernel ms},
-    the 5 kernels with the most device time, the number of device
-    activities, {flash body: [launches, ms]}); None when the profiler saw no
-    device activity."""
-    from torch.profiler import ProfilerActivity, profile
+    "other": kernel ms} (every pass of the SSD kernel's bf16 body counts as
+    ssd_scan), the 5 kernels with the most device time, the number of
+    device activities, {flash or SSD body: [launches, ms]}, (the run's
+    kernel launches that the profiler recorded on the host with no device
+    record, the run's kernel launches)); None when the profiler saw no
+    device activity.
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    On the card the profiler can lose the device records of the first
+    kernels launched in a session while it keeps the host's records of the
+    launches (seen after ``torch.compile`` has run in the process). So each
+    session runs ``fn`` twice: a first run, not read, then a spin kernel
+    waited for, then the run that is read: the device activities that start
+    after the spin kernel ends. A session that still lost a record of that
+    run is taken again, up to ``attempts`` in all, and the last one is read
+    whatever it lost."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    device = torch.autograd.DeviceType.CUDA
+    for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            with record_function(RUN_MARK):
+                fn()
+                torch.cuda.synchronize()
+        events = prof.profiler.kineto_results.events()
+        marks = [e.end_ns() for e in events if e.device_type() == device and "spin_kernel" in e.name()]
+        run = [e for e in events if e.device_type() != device and e.name() == RUN_MARK]
+        require(len(run) == 1, f"profile: {len(run)} host records of the run, not 1")
+        launches = [e for e in events if e.device_type() != device
+                    and run[0].start_ns() <= e.start_ns() <= run[0].end_ns()
+                    and re.search(r"[Ll]aunch(Cooperative)?Kernel", e.name())]
+        matched = set()
+        for e in events:
+            if e.device_type() == device:
+                matched.update((e.correlation_id(), e.linked_correlation_id()))
+        lost = sum(e.correlation_id() not in matched for e in launches)
+        if marks and not lost:
+            break
+        print(f"profile attempt {attempt} of {attempts}: the profiler lost the device records of "
+              f"{lost} of the run's {len(launches)} kernel launches"
+              + ("" if marks else " and of the spin kernel before it"))
+    require(len(marks) == 1, f"profile: {len(marks)} device records of the spin kernel, not 1")
+    kernels = [(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3) for e in events
+               if e.device_type() == device and e.start_ns() >= marks[0] and e.name() != RUN_MARK]
     if not kernels:
         return None
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    spans = sorted((start, end) for _, start, end in kernels)
     busy, (lo, hi) = 0.0, spans[0]
     for start, end in spans[1:]:
         if start > hi:
@@ -930,38 +997,42 @@ def device_profile(torch, fn):
         hi = max(hi, end)
     busy += hi - lo
     groups, by_name, bodies = {}, {}, {}
-    for e in kernels:
-        us = e.time_range.end - e.time_range.start
-        low = e.name.lower()
-        body = flash_body(e.name)
+    for name, start, end in kernels:
+        us = end - start
+        low = name.lower()
+        body = kernel_body(name)
         if body:
             count, ms = bodies.get(body, (0, 0.0))
             bodies[body] = [count + 1, ms + us / 1e3]
-        key = "ssd_scan" if "ssd_kernel" in e.name else "flash_attention" if (
-            "flash_attention_kernel" in e.name) else "topk_select" if re.search(
-            r"\bselect_(row_|grid_)?kernel", e.name) else "topk_scatter" if re.search(
-            r"\bscatter_kernel", e.name) else (
+        key = "ssd_scan" if "ssd_kernel" in name else "flash_attention" if (
+            "flash_attention_kernel" in name) else "topk_select" if re.search(
+            r"\bselect_(row_|grid_)?kernel", name) else "topk_scatter" if re.search(
+            r"\bscatter_kernel", name) else (
             "matmul" if any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")) else "other")
         groups[key] = groups.get(key, 0.0) + us / 1e3
-        by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
+        by_name[name] = by_name.get(name, 0.0) + us / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return (spans[-1][1] - spans[0][0]) / 1e3, busy / 1e3, groups, top, len(kernels), bodies
+    return ((spans[-1][1] - spans[0][0]) / 1e3, busy / 1e3, groups, top, len(kernels), bodies,
+            (lost, len(launches)))
 
 
-def print_profile(what: str, prof, flash: dict) -> None:
-    """Print a ``device_profile``; fail unless its flash launches by body
-    are exactly ``flash`` ({body: launches})."""
+def print_profile(what: str, prof, bodies_expected: dict) -> None:
+    """Print a ``device_profile``; fail unless its flash and SSD launches by
+    body are exactly ``bodies_expected`` ({body: launches})."""
     if prof is None:
         print(f"profile {what}: the profiler recorded no device kernels; busy share not measured")
         return
-    window, busy, groups, top, count, bodies = prof
+    window, busy, groups, top, count, bodies, (lost, launched) = prof
     seen = {body: n for body, (n, _) in bodies.items()}
-    require(seen == flash, f"profile {what}: flash launches by body {seen} != {flash}")
-    print(f"profile {what}: {count} device activities (kernels and copies), device window "
+    require(seen == bodies_expected,
+            f"profile {what}: flash and SSD launches by body {seen} != {bodies_expected} "
+            f"(the profiler lost the device records of {lost} of {launched} kernel launches)")
+    print(f"profile {what}: {count} device activities (kernels and copies) for {launched} kernel "
+          f"launches ({lost} device records lost), device window "
           f"{window:.3f} ms, kernels busy {busy:.3f} ms "
           f"(idle share {1 - busy / window:.1%}); by kind "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(groups.items()))
-          + "; flash bodies " + (", ".join(f"{b} {n} launches {ms:.3f} ms" for b, (n, ms)
+          + "; flash and SSD bodies " + (", ".join(f"{b} {n} launches {ms:.3f} ms" for b, (n, ms)
                                            in sorted(bodies.items())) or "none")
           + "; top kernels " + "; ".join(f"{n[:60]} {v:.3f} ms" for n, v in top))
 
@@ -1205,18 +1276,18 @@ def check_flash_on_path(torch, mods, model, cfg, tokens, expect):
     return worst
 
 
-def profile_phase(torch, name, model, cfg, tokens, prompts, flags, flash=None):
+def profile_phase(torch, name, model, cfg, tokens, prompts, flags, bodies):
     """Device busy and idle share and kernel time by kind, from
     ``torch.profiler``, over one scoring forward (with ``flags``; its flash
-    launches by body must be ``flash``) and over 4 decode steps at the
-    prompts' batch after their prefill (no flash launch). Last, because the
-    profiler leaves host-side costs behind that slow later host-bound
-    work."""
+    and SSD launches by body must be ``bodies``) and over 4 decode steps at
+    the prompts' batch after their prefill (no flash or SSD launch). Last,
+    because the profiler leaves host-side costs behind that slow later
+    host-bound work."""
     from repro_torch import models
 
     with torch.inference_mode():
         print_profile(f"{name} scoring forward {tuple(tokens.shape)}", device_profile(
-            torch, lambda: models.forward(model, {"tokens": tokens}, cfg, **flags)), flash or {})
+            torch, lambda: models.forward(model, {"tokens": tokens}, cfg, **flags)), bodies)
         state0 = models.init_decode_state(cfg, prompts.shape[0], prompts.shape[1] + 4, device="cuda")
         logits, state = models.prefill(model, state0, {"tokens": prompts}, cfg)
         tok = logits.argmax(-1)[:, None]
@@ -1402,15 +1473,17 @@ def select_sweep(torch, kt):
 
 def ssd_timing(torch, ks):
     """The SSD kernel and its plain version (plain, kernel, kernel, plain)
-    with bf16 inputs at the scoring shape and at one 32k sequence. Bound:
-    the larger of the bytes (x, B, C in bf16, dt and A in f32 read once, y
-    in f32 written once) at 3.35 TB/s and the fp32 operations that the
-    scan needs at least, at 67 TFLOP/s: those of the per-step recurrence,
-    4 B S H P N (a multiply-add into the state and one out of it per state
-    element and step). The chunked form the kernel runs does more, the
-    causal half of both (Q, Q) products and 4QNP per (batch, head, chunk);
-    that count is printed beside it. No single PyTorch call computes the
-    scan."""
+    with bf16 inputs at the scoring shape and at one 32k sequence. Bound
+    (the row's): the larger of the bytes (x, B, C in bf16, dt and A in f32
+    read once, y in f32 written once) at 3.35 TB/s and the operations that
+    the scan needs at least, those of the per-step recurrence, 4 B S H P N
+    (a multiply-add into the state and one out of it per state element and
+    step), at the bf16 tensor-core rate of 989.4 TFLOP/s, the rule of
+    flash's bf16 row. The same count at the fp32 rate of 67 TFLOP/s (the
+    bound of PRs 13-16, before the bf16 body ran on the tensor cores) is
+    printed beside it, as is the chunked form's count (the causal half of
+    both (Q, Q) products and 4QNP per (batch, head, chunk)). No single
+    PyTorch call computes the scan."""
     out = {}
     for shape in (SSD_SCORING, SSD_LONG):
         Bsz, S_, H, P, G, N, Q = shape
@@ -1426,7 +1499,8 @@ def ssd_timing(torch, ks):
             + 4 * Bsz * S_ * H * P
         ops = 4 * Bsz * S_ * H * P * N
         chunked_ops = Bsz * H * (-(-S_ // Q)) * (Q * (Q + 1) * (N + P) + 4 * Q * N * P)
-        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_FLOPS * 1e3
+        fp32_ms = max(bytes_ms, ops / FP32_FLOPS * 1e3)
         row = {
             "ms": min(t_kern1, t_kern2),
             "plain_ms": min(t_plain1, t_plain2),
@@ -1436,10 +1510,11 @@ def ssd_timing(torch, ks):
         }
         print(f"timing ssd_scan {shape[:4]} G={G} N={N} chunk {Q} bf16: kernel {t_kern1:.4f}/{t_kern2:.4f} ms, "
               f"plain {t_plain1:.4f}/{t_plain2:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
-              f"recurrence {ops / 1e9:.2f} GFLOP at 67 TFLOP/s = {ops_ms:.4f} ms, {nbytes / 1e6:.1f} MB at "
-              f"3.35 TB/s = {bytes_ms:.4f} ms; the chunked form's causal count {chunked_ops / 1e9:.2f} GFLOP "
-              f"= {chunked_ops / FP32_FLOPS * 1e3:.4f} ms; roofline share {row['bound_ms'] / row['ms']:.1%}), host enqueue "
-              f"{min(host1, host2) * 1e3:.1f} us/call, library none: no single PyTorch call computes it")
+              f"{nbytes / 1e6:.1f} MB at 3.35 TB/s = {bytes_ms:.4f} ms, recurrence {ops / 1e9:.2f} GFLOP at "
+              f"989.4 TFLOP/s = {ops_ms:.4f} ms; roofline share {row['bound_ms'] / row['ms']:.1%}); fp32-rate "
+              f"bound {fp32_ms:.4f} ms (at 67 TFLOP/s; share {fp32_ms / row['ms']:.1%}); the chunked form's "
+              f"causal count {chunked_ops / 1e9:.2f} GFLOP; host enqueue {min(host1, host2) * 1e3:.1f} us/call, "
+              f"library none: no single PyTorch call computes it")
         if shape == SSD_SCORING:
             out["ssd_scan"] = row
     return out
@@ -1541,6 +1616,20 @@ def select_timing_only(torch, src: Path) -> int:
     return 0
 
 
+def ssd_timing_only(torch, src: Path) -> int:
+    """``--ssd-timing SRC``: only ``ssd_timing``, with the ``repro_torch``
+    package under SRC (another checkout's ``src``, to time an earlier SSD
+    kernel on the same card); prints no result line."""
+    sys.path.insert(0, str(src.resolve()))
+    from repro_torch.kernels import ssd_scan as ks
+
+    require(Path(ks.__file__).resolve().is_relative_to(src.resolve()), f"ssd_scan from {ks.__file__}")
+    ks.load_library()
+    print(f"nvidia-smi: {card_line()}; SSD scan of {ks.__file__}")
+    ssd_timing(torch, ks)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1549,6 +1638,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--select-timing"]:
         return select_timing_only(torch, Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--ssd-timing"]:
+        return ssd_timing_only(torch, Path(sys.argv[2]))
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import qsgd as kq
@@ -1614,10 +1705,12 @@ def main() -> int:
     times.update(ssd_timing(torch, ks))
     times.update(flash_timing(torch, kf))
     stamp("timing phase")
-    profile_phase(torch, "mamba2-370m", *lm_run, SSD_FLAGS)
+    mamba_cfg = lm_run[1]  # every layer's scan: the three passes of the bf16 body, no f32 body
+    profile_phase(torch, "mamba2-370m", *lm_run, SSD_FLAGS,
+                  {f"ssd {p}": mamba_cfg.num_layers for p in ("states", "carry", "outputs")})
     gemma_cfg = gemma_run[1]  # every layer's scoring attention: the bf16 body at its headdim
     profile_phase(torch, "gemma2-2b", *gemma_run, {},
-                  flash={f"wgmma<{gemma_cfg.resolved_head_dim}>": gemma_cfg.num_layers})
+                  {f"wgmma<{gemma_cfg.resolved_head_dim}>": gemma_cfg.num_layers})
     stamp("profile phase")
     kernels = [
         {

@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` file exposes a plain C interface and compiles on its own
 into ``build/<stem>-<hash>.so`` at the repository root (``.gitignore`` lists
-``build/``). The hash covers the source and the flags, so an edited source
-is rebuilt and a finished build is reused. Several sources build in
+``build/``). The hash covers the source, the headers of ``csrc/`` it
+includes and the flags, so an edited source or header is rebuilt and a
+finished build is reused. Several sources build in
 parallel: one ``nvcc`` each, all started together.
 
 Nothing here runs at import time; the first kernel launch builds what it
@@ -17,16 +18,18 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import sys
 import tempfile
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
 # sm_90a keeps Hopper-only instructions available. No --use_fast_math: the
@@ -51,11 +54,27 @@ def nvcc() -> str:
     return str(path)
 
 
+def headers(source: str) -> List[Path]:
+    """The headers under ``csrc/`` that ``csrc/<source>`` includes with
+    ``#include "..."``, directly or through another such header."""
+    found: List[Path] = []
+    todo = [CSRC / source]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop().read_text()):
+            path = CSRC / name
+            if path.exists() and path not in found:
+                found.append(path)
+                todo.append(path)
+    return found
+
+
 def library_path(source: str) -> Path:
+    """``build/<stem>-<hash>.so``: the hash covers the source, every header
+    of ``csrc/`` it includes and the flags, so an edited header rebuilds
+    each source that includes it."""
     src = CSRC / source
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    parts = [src.read_bytes()] + [h.read_bytes() for h in headers(source)]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 

@@ -3,8 +3,7 @@ PyTorch version.
 
 Replaces the Pallas TPU kernel ``repro/kernels/ssd_scan.py:ssd_scan_pallas``
 (``_ssd_kernel``). The CUDA source is ``csrc/ssd_scan.cu``; its header says
-what bounds the kernel on the card and how it tiles a chunk through shared
-memory.
+what bounds the kernel on the card and how each of its two bodies works.
 
 Per chunk of Q steps, for each (batch, head):
 
@@ -16,11 +15,21 @@ Per chunk of Q steps, for each (batch, head):
 with head h reading group h // (H / G) of B and C. The output is y
 (B, S, H, P) float32; the final state is not returned, as in Pallas.
 
+The kernel has two bodies, chosen by the type of x, B and C. bf16 runs
+three chunk-parallel passes on the tensor cores (the chunks' end states,
+the carry over the chunks, the outputs) through a scratch that the wrapper
+allocates: the chunk states (B, chunks, H, P, N) in f32, their decays, and
+the entering states as bf16 hi and lo halves (B, chunks, H, 2, P, N); f32 runs
+one CUDA-core block per (batch, head) that walks its chunks in order.
+Neither stands in for the other, and each refuses (``ValueError``, before
+any launch) the shapes it does not take.
+
 The plain version is ``ssd_chunked``, the port's copy of the reference's
 ``models/ssm.py:ssd_chunked``; the model's prefill calls it too, for the
 final state. A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel, or raises: there is no fallback. The
-wrapper counts its kernel launches in its ``launches`` attribute.
+wrapper counts its calls that launch the kernel in its ``launches``
+attribute: one per call, though the bf16 body's call is three launches.
 """
 from __future__ import annotations
 
@@ -34,10 +43,14 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 
 SOURCE = "ssd_scan.cu"
-# what the kernel's shared-memory tiling takes (csrc/ssd_scan.cu)
+# what each body's shared-memory tiling takes (csrc/ssd_scan.cu): the f32
+# body (multiples of 4) and the bf16 body (multiples of 8, 16-byte rows)
 MAX_HEADDIM = 128
 MAX_STATE = 128
 MAX_CHUNK = 1024
+BF16_MAX_HEADDIM = 64
+BF16_MAX_STATE = 128
+BF16_MAX_CHUNK = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -127,6 +140,7 @@ def _lib() -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ssd_scan_launch.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,  # x, dt, A, B, C, y
+        ptr, ptr, ptr,  # the bf16 body's scratch: chunk states, decays, split entering states
         i32, i32, i32, i32, i32, i32, i32, i32,  # batch, seq, heads, headdim, groups, state, chunk, bf16
         i64, i64, i64,  # x strides (batch, seq, head)
         i64, i64, i64,  # dt strides
@@ -167,9 +181,26 @@ def _check(x, dt, A, Bm, Cm, chunk: int) -> None:
         raise ValueError("x, dt, A, B and C must lie on one device")
 
 
-def _check_launchable(x, Bm, chunk: int) -> None:
-    """The shapes and layouts the CUDA kernel takes."""
+def _check_launchable(x, Bm, Cm, chunk: int) -> None:
+    """The shapes and layouts the CUDA kernel's body for x's type takes."""
     P, N = x.shape[3], Bm.shape[3]
+    if x.dtype == torch.bfloat16:
+        chunk_ok = chunk % 8 == 0 if chunk <= 64 else chunk % 64 == 0 and chunk <= BF16_MAX_CHUNK
+        if P % 8 or N % 8 or P > BF16_MAX_HEADDIM or N > BF16_MAX_STATE or not chunk_ok:
+            raise ValueError(
+                f"the SSD kernel's bf16 body takes headdim and state that are multiples of 8, "
+                f"at most {BF16_MAX_HEADDIM} and {BF16_MAX_STATE}, and a chunk that is a "
+                f"multiple of 8 up to 64 or of 64 up to {BF16_MAX_CHUNK}; got {P}, {N}, {chunk}"
+            )
+        for name, t in (("x", x), ("B", Bm), ("C", Cm)):
+            strides = [st for st, size in zip(t.stride()[:3], t.shape[:3]) if size > 1]
+            if t.data_ptr() % 16 or any(st % 8 for st in strides):
+                raise ValueError(
+                    f"the SSD kernel's bf16 body loads 16-byte rows: {name}'s address and "
+                    f"strides must be multiples of 16 bytes, got {t.data_ptr() % 16} past "
+                    f"16 and strides {t.stride()}"
+                )
+        return
     if P % 4 or N % 4 or chunk % 4 or P > MAX_HEADDIM or N > MAX_STATE or chunk > MAX_CHUNK:
         raise ValueError(
             f"the SSD kernel takes headdim, state and chunk that are multiples of 4, at most "
@@ -190,15 +221,19 @@ def ssd_scan(
     whole number of chunks inside the kernel, where ``ssd_scan_pallas``
     pads it. The inputs may be strided views (the model passes slices of
     the convolution's output) as long as their last dimension is
-    contiguous. On CUDA tensors there is no backward yet: with grad mode on
-    and an input that requires grad it raises ``RuntimeError`` before any
-    launch (``build.refuse_grad``); the CPU route differentiates."""
+    contiguous. bf16 inputs run the tensor-core body (three launches through
+    a scratch of the chunk states, (B, chunks, H, P, N) in f32 and the same
+    again as bf16 hi and lo halves), f32 inputs the CUDA-core body;
+    ``launches`` counts one per call either way. On CUDA
+    tensors there is no backward yet: with grad mode on and an input that
+    requires grad it raises ``RuntimeError`` before any launch
+    (``build.refuse_grad``); the CPU route differentiates."""
     _check(x, dt, A, Bm, Cm, chunk)
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
     build.refuse_grad("ssd_scan", x, dt, A, Bm, Cm)
     stream = build.cuda_stream(x.device)
-    _check_launchable(x, Bm, chunk)
+    _check_launchable(x, Bm, Cm, chunk)
     if not all(t.stride(-1) == 1 for t in (x, Bm, Cm)) or A.stride(0) != 1:
         raise ValueError("x, B, C and A must be contiguous in their last dimension")
     Bsz, S, H, P = x.shape
@@ -206,10 +241,20 @@ def ssd_scan(
     y = torch.empty((Bsz, S, H, P), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y
+    states = decay = split = None
+    if x.dtype == torch.bfloat16:
+        # one buffer: the chunk states s_c (B, chunks, H, P, N) f32, their
+        # decays (B, chunks, H) f32, the entering states R_c as bf16 hi and
+        # lo (B, chunks, H, 2, P, N), each part 256-byte aligned
+        n_states, n_decay = Bsz * -(-S // chunk) * H * P * N, Bsz * -(-S // chunk) * H
+        split_at = -(-(4 * n_states + 4 * n_decay) // 256) * 256
+        scratch = torch.empty(split_at + 4 * n_states, dtype=torch.uint8, device=x.device)
+        states = scratch.data_ptr()
+        decay, split = states + 4 * n_states, states + split_at
     with torch.cuda.device(x.device):
         err = _lib().ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
-            Bsz, S, H, P, G, N, chunk, _DTYPES[x.dtype],
+            states, decay, split, Bsz, S, H, P, G, N, chunk, _DTYPES[x.dtype],
             *x.stride()[:3], *dt.stride(), *Bm.stride()[:3], *Cm.stride()[:3], stream,
         )
     if err:

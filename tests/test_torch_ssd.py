@@ -14,10 +14,19 @@
 * ``causal_conv`` against the reference's: identical in f32 and bf16 (the
   same products and sums, each rounded in the working type).
 * The wrapper takes the plain version on the CPU and counts no launch.
+* The CUDA kernel's bf16 body, emulated on the CPU (``_emulate_bf16_body``:
+  its three passes and four products, each f32 operand split into bf16
+  hi + lo terms by ``.to(torch.bfloat16)``, products of bf16 values summed
+  in f32), against ``ssd_chunked`` and the Pallas kernel on the same
+  bf16-rounded inputs: atol 2e-5 + rtol 2e-4 at the small shapes, 2e-5 of
+  max|y| at mamba2-370m's widths (S 2048, P 64, N 128, chunk 256, 4 heads),
+  where a single bf16 term per operand misses that limit.
 
 The CUDA kernel is held against the plain version by ``test_cuda_*``
 (which skip without a card) and by ``chip_smoke.py``.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -52,6 +61,75 @@ def _inputs(B, S_, H, P, G, N, seed=0):
 
 def _torch(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def _bf16_rounded(x, dt, A, Bm, Cm):
+    """The inputs with x, B and C rounded to bf16 (kept as f32 values)."""
+    rnd = lambda a: torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+    return rnd(x), dt, A, rnd(Bm), rnd(Cm)
+
+
+def _split(v, terms):
+    """v as the sum of ``terms`` bf16 values: hi = bf16(v), lo = bf16(v - hi), ..."""
+    parts = []
+    for _ in range(terms):
+        part = v.to(torch.bfloat16).float()
+        parts.append(part)
+        v = v - part
+    return parts
+
+
+def _emulate_bf16_body(x, dt, A, Bm, Cm, chunk, terms=2):
+    """The kernel's bf16 body in f32 on the CPU. Pass 1: each chunk's end
+    state s_c = x^T W, W_j = dt_j exp(cum_last - cum_j) B_j, and its decay
+    exp(cum_last); pass 2: R_0 = 0, R_{c+1} = R_c decay_c + s_c; pass 3: y =
+    (C B^T o L o dt_j) x + (C R_c^T) o exp(cum_i). x, B and C hold bf16
+    values; W, S' = C B^T o L o dt_j and R_c enter their products as
+    ``terms`` bf16 terms each. Returns y (B, S, H, P)."""
+    Bsz, S_, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    nc = -(-S_ // chunk)
+    pad = nc * chunk - S_
+    padded = lambda a: np.pad(a, [(0, 0), (0, pad)] + [(0, 0)] * (a.ndim - 2))
+    xt, dtt, Bt, Ct = (torch.from_numpy(padded(a)).float() for a in (x, dt, Bm, Cm))
+    At = torch.from_numpy(A).float()
+    heads = torch.arange(H) // (H // G)
+    xc = xt.reshape(Bsz, nc, chunk, H, P)
+    dtc = dtt.reshape(Bsz, nc, chunk, H)
+    Bc = Bt.reshape(Bsz, nc, chunk, G, N)[:, :, :, heads]  # (B, nc, Q, H, N)
+    Cc = Ct.reshape(Bsz, nc, chunk, G, N)[:, :, :, heads]
+    cum = torch.cumsum(dtc * At, dim=2)
+    # pass 1: s_c (B, nc, H, P, N) and the decays (B, nc, H)
+    W = Bc * (dtc * torch.exp(cum[:, :, -1:] - cum))[..., None]
+    states = sum(torch.einsum("bcqhp,bcqhn->bchpn", xc, w) for w in _split(W, terms))
+    decay = torch.exp(cum[:, :, -1])
+    # pass 2: the entering states
+    R = torch.zeros((Bsz, H, P, N))
+    entering = []
+    for c in range(nc):
+        entering.append(R)
+        R = R * decay[:, c, :, None, None] + states[:, c]
+    entering = torch.stack(entering, dim=1)
+    # pass 3
+    ii = torch.arange(chunk)
+    causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B, nc, i, j, H)
+    L = torch.exp(torch.where(causal, diff, float("-inf")))
+    scores = torch.einsum("bcihn,bcjhn->bcijh", Cc, Bc) * L * dtc[:, :, None, :, :]
+    y = sum(torch.einsum("bcijh,bcjhp->bcihp", sp, xc) for sp in _split(scores, terms))
+    y_off = sum(torch.einsum("bcihn,bchpn->bcihp", Cc, r) for r in _split(entering, terms))
+    y = y + y_off * torch.exp(cum)[..., None]
+    return y.reshape(Bsz, nc * chunk, H, P)[:, :S_].numpy()
+
+
+@functools.lru_cache(maxsize=None)
+def _mamba2_width_case():
+    """One (batch, head group) of mamba2-370m's scoring widths, chip_smoke's
+    input distribution: x, dt, A, B, C (x, B, C bf16-rounded) and the f32
+    reference y of ``ssd_chunked`` on them."""
+    arrays = _bf16_rounded(*_inputs(1, 2048, 4, 64, 1, 128, seed=21))
+    y_ref = K.ssd_chunked(*_torch(*arrays), 256)[0].numpy()
+    return arrays, y_ref
 
 
 @pytest.mark.parametrize("B,S_,H,P,G,N,chunk", SHAPES)
@@ -126,6 +204,60 @@ def test_causal_conv_matches_reference(dtype):
     np.testing.assert_array_equal(S.causal_conv(tx, tw, tb).float().numpy(), ref)
 
 
+@pytest.mark.parametrize("B,S_,H,P,G,N,chunk", SHAPES)
+def test_bf16_body_emulation_matches_chunked_and_pallas(B, S_, H, P, G, N, chunk):
+    """The split premise at the kernel tests' shapes: the bf16 body with hi +
+    lo terms within the Pallas-vs-oracle tolerance of ``ssd_chunked`` and of
+    the Pallas kernel on the same bf16-rounded inputs."""
+    arrays = _bf16_rounded(*_inputs(B, S_, H, P, G, N, seed=S_ + H + N))
+    y = _emulate_bf16_body(*arrays, chunk)
+    y_chunked = K.ssd_chunked(*_torch(*arrays), chunk)[0].numpy()
+    y_pallas = np.asarray(ssd_scan_pallas(*map(jnp.asarray, arrays), chunk=chunk))
+    assert y.shape == (B, S_, H, P)
+    np.testing.assert_allclose(y, y_chunked, atol=2e-5, rtol=2e-4)
+    np.testing.assert_allclose(y, y_pallas, atol=2e-5, rtol=2e-4)
+
+
+def test_bf16_body_emulation_holds_at_mamba2_widths():
+    """At one head group of mamba2-370m's scoring widths the hi + lo body is
+    within 2e-5 of max|y| of ``ssd_chunked`` (the limit ``chip_smoke.py``
+    holds the card to)."""
+    arrays, y_ref = _mamba2_width_case()
+    err = np.abs(_emulate_bf16_body(*arrays, 256) - y_ref).max()
+    assert err <= 2e-5 * np.abs(y_ref).max()
+
+
+def test_single_bf16_term_misses_the_limit_at_mamba2_widths():
+    """The split is needed: with one bf16 term per f32 operand the same
+    case lands outside 2e-5 of max|y|."""
+    arrays, y_ref = _mamba2_width_case()
+    err = np.abs(_emulate_bf16_body(*arrays, 256, terms=1) - y_ref).max()
+    assert err > 2e-5 * np.abs(y_ref).max()
+
+
+def test_bf16_body_refuses_the_shapes_it_does_not_take():
+    """Before any launch, the bf16 body raises for a headdim or state off
+    a multiple of 8 or too wide, a chunk it does not tile, or a row that is
+    not 16-byte aligned; f32 inputs keep the f32 body's rules."""
+    x, dt, A, Bm, Cm = (t.to(torch.bfloat16) if t.dim() == 4 else t
+                        for t in _torch(*_inputs(1, 64, 2, 64, 1, 16)))
+    K._check_launchable(x, Bm, Cm, 64)
+    for chunk in (8, 48, 128, 256):
+        K._check_launchable(x, Bm, Cm, chunk)
+    for chunk in (12, 100, 320):
+        with pytest.raises(ValueError, match="bf16 body"):
+            K._check_launchable(x, Bm, Cm, chunk)
+    for P, N in ((72, 16), (60, 16), (64, 12), (64, 136)):
+        xx = torch.zeros((1, 64, 2, P), dtype=torch.bfloat16)
+        bb = torch.zeros((1, 64, 1, N), dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="bf16 body"):
+            K._check_launchable(xx, bb, bb, 64)
+    wide = torch.zeros((1, 64, 2, 65), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte rows"):
+        K._check_launchable(wide[..., 1:], Bm, Cm, 64)  # a 2-byte offset, 130-byte rows
+    K._check_launchable(x.float(), Bm.float(), Cm.float(), 1024)  # the f32 body's limit
+
+
 def test_wrapper_takes_the_plain_version_on_the_cpu_and_counts_no_launch():
     x, dt, A, Bm, Cm = _torch(*_inputs(1, 80, 8, 32, 4, 16, seed=2))
     before = K.ssd_scan.launches
@@ -195,3 +327,45 @@ def test_cuda_kernel_matches_plain(cuda, B, S_, H, P, G, N, chunk, dtype):
     ref = K.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
     torch.cuda.synchronize()
     np.testing.assert_allclose(y.cpu().numpy(), ref.cpu().numpy(), atol=2e-5, rtol=2e-4)
+
+
+def test_cuda_bf16_body_on_the_models_strided_views(cuda):
+    """bf16 at mamba2-370m's scoring widths on views shaped like the model's
+    slices of the convolution output (seq stride 2304, x at element 0, B at
+    2048, C at 2176): within 2e-5 of max|y| of the plain version."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    conv = (torch.randn((4, 2048, 2304), generator=g, device="cuda") * 0.4).to(torch.bfloat16)
+    x = conv[..., :2048].unflatten(-1, (32, 64))
+    Bm = conv[..., 2048:2176].unflatten(-1, (1, 128))
+    Cm = conv[..., 2176:].unflatten(-1, (1, 128))
+    dt = torch.nn.functional.softplus(torch.randn((4, 2048, 32), generator=g, device="cuda")) * 0.2
+    A = -torch.exp(torch.randn((32,), generator=g, device="cuda") * 0.3)
+    with torch.inference_mode():
+        y = K.ssd_scan(x, dt, A, Bm, Cm, chunk=256)
+        ref = K.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=256)
+    torch.cuda.synchronize()
+    assert float((y - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
+
+
+def test_cuda_bf16_body_ragged_last_chunk_with_groups(cuda):
+    """bf16 with 2 groups of 4 heads and a last chunk of 188 of 256 rows:
+    every element within atol 2e-5 + rtol 2e-4 of the plain version."""
+    x, dt, A, Bm, Cm = (t.cuda() for t in _torch(*_inputs(2, 700, 8, 64, 2, 128, seed=6)))
+    x, Bm, Cm = x.to(torch.bfloat16), Bm.to(torch.bfloat16), Cm.to(torch.bfloat16)
+    y = K.ssd_scan(x, dt, A, Bm, Cm, chunk=256)
+    ref = K.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=256)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(y.cpu().numpy(), ref.cpu().numpy(), atol=2e-5, rtol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_wrapper_counts_one_launch_per_call(cuda, dtype):
+    """One count per wrapper call, whichever body runs (the bf16 body's call
+    is three launches)."""
+    x, dt, A, Bm, Cm = (t.cuda() for t in _torch(*_inputs(1, 512, 4, 64, 1, 128, seed=4)))
+    x, Bm, Cm = x.to(dtype), Bm.to(dtype), Cm.to(dtype)
+    before = K.ssd_scan.launches
+    for _ in range(3):
+        K.ssd_scan(x, dt, A, Bm, Cm, chunk=256)
+    torch.cuda.synchronize()
+    assert K.ssd_scan.launches == before + 3
