@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root, no arguments
     python3 chip_smoke.py --select-timing SRC   # the select alone (below)
+    python3 chip_smoke.py --scatter-timing SRC  # the scatter alone (below)
     python3 chip_smoke.py --ssd-timing SRC      # the SSD scan alone (below)
 
 Phases, each of which fails the run on a failed check (none catches its own
@@ -21,8 +22,14 @@ failure):
              +inf entries than k), equal magnitudes, rows at the one-block
              body's threshold - 1, at it and + 1, and (4, n) banks (one
              launch each, every row identical) at mobilenet-v3-small's 46
-             distinct leaf sizes and at fc2/w; the scatter at P = 4 with
-             shared indices; the SSD scan at the
+             distinct leaf sizes and at fc2/w; the scatter, every row bit
+             for bit (NaN at the same positions), at P = 4 with shared
+             indices (both bodies), as (1 mix + 4 own rows) banks in one
+             launch each at the 46 leaf sizes and at fc2/w (both bodies),
+             at the tile body's limit - 1, at it and + 1, with ring mixing
+             at P = 1, 3 and 4, and on special payloads (-0.0, +inf, NaN,
+             a NaN leaf's payload, indices below 0 and past n); the SSD
+             scan at the
              mamba2-370m scoring shape (4, 2048, 32, 64), G = 1, N = 128,
              chunk 256, in bf16 (the tensor-core body) and f32 (the
              CUDA-core body), at a padded last chunk with 4 groups, and at a
@@ -50,7 +57,9 @@ failure):
              1 epoch). ``build_p2p_train_step`` at full width: vgg11 with
              qsgd(127, 2048) + EF and mobilenet-v3-small with topk(0.01) +
              EF, 4 peers x batch 32 on CIFAR-shaped 32x32 data, 4 steps
-             each (one bank select of all 4 peers per leaf and step). mamba2-370m at full width (48 layers, bf16): the scoring
+             each (one bank select of all 4 peers per leaf and step, and
+             one bank scatter into the mix and the 4 own images).
+             mamba2-370m at full width (48 layers, bf16): the scoring
              ``forward(..., use_ssd_kernel=True)`` on 4 x 2048 tokens (48
              SSD launches each) and the serve twin's prefill of 4 x 512
              and 32 greedy tokens (no SSD launch, as in the reference).
@@ -70,6 +79,9 @@ failure):
              main path's largest shapes, timed with CUDA events; the select
              also at (4, n) banks, over one mobilenet device step's 180
              bank selects, and both its bodies over a sweep of row lengths;
+             the scatter beside ``index_add_`` at fc2/w, at the device
+             step's (1 mix + 4 own rows) banks, over one step's 180 bank
+             scatters, and both its bodies over a sweep of row lengths;
              the SSD scan also at one 32k sequence, beside the bf16 bound
              and the fp32-rate bound of earlier rows.
 6. profile — ``torch.profiler`` over one scoring forward and 4 decode
@@ -92,6 +104,11 @@ a checkout of the repository, it exits non-zero and prints no result.
 
 ``--ssd-timing SRC`` runs only the SSD kernel's timing, likewise with the
 ``repro_torch`` under SRC; it prints no result line.
+
+``--scatter-timing SRC`` runs only the scatter's timing and the mobilenet
+top-k + EF device step (with a profile of one step) on the ``repro_torch``
+under SRC, making two scatter launches a leaf where that has no bank
+scatter (as its device step did); it prints no result line.
 
 ``--select-timing SRC`` runs only the select's timing and the mobilenet
 top-k + EF device step (with a profile of one step) on the ``repro_torch``
@@ -339,9 +356,158 @@ def topk_k(n: int) -> int:
     return max(1, min(n, round(n * TOPK_FRAC)))
 
 
+def same_bits(torch, a, b) -> bool:
+    """a and b hold NaN at the same positions and the same bit pattern
+    everywhere else (so +0.0 and -0.0 differ)."""
+    nan = a.isnan()
+    return a.shape == b.shape and torch.equal(nan, b.isnan()) and torch.equal(
+        a.view(torch.int32)[~nan], b.view(torch.int32)[~nan])
+
+
+def scatter_rows_plain(kt, vbank, vals, idx, W, n):
+    """The bank's rows one by one through the plain version: the mixes,
+    then (with ``vals``) each peer's own image, 0 + vals[p] * 1."""
+    rows = [kt.scatter_accum_plain(vbank, idx, w, n) for w in W]
+    one = W.new_ones((1,))
+    if vals is not None:
+        rows += [kt.scatter_accum_plain(vals[p:p + 1], idx[p:p + 1], one, n) for p in range(vals.shape[0])]
+    return rows
+
+
+def check_scatter_bank(torch, kt, vbank, vals, idx, W, n, what, body=0):
+    """One launch over the bank (``body`` 0: the body the wrapper picks, else
+    that body forced), every row bit-identical to the plain version (NaN at
+    the same positions). Returns the largest abs error off the NaNs."""
+    before = kt.topk_scatter_accum.launches
+    if body:
+        out = kt.scatter_launch(vbank, vals, idx, W, n, body)
+        rows = list(out)
+    else:
+        mixed, own = kt.topk_scatter_accum_bank(vbank, vals, idx, W, n)
+        rows = list(mixed) + ([] if own is None else list(own))
+        body = kt.scatter_body(W.shape[0], *vbank.shape, n, vals is not None)
+    require(kt.topk_scatter_accum.launches == before + 1,
+            f"scatter bank {what} took {kt.topk_scatter_accum.launches - before} launches, not one")
+    plain = scatter_rows_plain(kt, vbank, vals, idx, W, n)
+    torch.cuda.synchronize()
+    require(len(rows) == len(plain), f"scatter bank {what}: {len(rows)} rows, not {len(plain)}")
+    err = 0.0
+    for r, (got, want) in enumerate(zip(rows, plain)):
+        require(same_bits(torch, got, want), f"scatter bank {what} body {body}: row {r} differs "
+                f"from the plain version")
+        live = ~want.isnan()
+        if bool(live.any()):
+            err = max(err, float((got[live] - want[live]).abs().max()))
+    return err, body
+
+
+def select_payload(torch, kt, n, peers, seed, k=None):
+    """A bank as the device step hands it to the scatter: the select of a
+    (peers, n) leaf ~ 0.01 N at k (default: the main path's), as (the
+    values rounded through bf16, as a bf16 wire rounds them; the values
+    unrounded; the indices)."""
+    x = topk_leaf(torch, n, "normal", seed=seed, rows=peers)
+    vals, idx = kt.topk_select_pack_bank(x, k or topk_k(n))
+    return vals.to(torch.bfloat16).float(), vals, idx
+
+
+def special_payload(torch, n, k, peers, seed):
+    """A bank of ``peers`` x k pairs (k >= 9) at n where peer 0 holds -0.0,
+    +inf, NaN and -inf values and indices below 0 and at or past n, peer 1
+    a NaN leaf's payload (every slot value 0 at index 0), and the others
+    random pairs, two of them at peer 0's -0.0 and +inf indices."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    idx = torch.stack([torch.randperm(n, generator=g, device="cuda")[:k] for _ in range(peers)])
+    vals = torch.randn((peers, k), generator=g, device="cuda")
+    vals[0, :5] = torch.tensor([-0.0, float("inf"), float("nan"), float("-inf"), -0.0])
+    idx[0, 5:9] = torch.tensor([-1, -7, n, n + 100])
+    if peers > 1:
+        vals[1], idx[1] = 0.0, 0
+    for p in range(2, peers):  # distinct within the peer: peer 0's two indices, then others
+        rest = idx[p][(idx[p] != idx[0, 0]) & (idx[p] != idx[0, 1])][: k - 2]
+        idx[p] = torch.cat([idx[0, :2], rest])
+        vals[p, 0] = -0.0
+    idx = idx.to(torch.int32).contiguous()
+    return vals.to(torch.bfloat16).float(), vals, idx
+
+
+def mixing_rows(torch, graph: str, peers: int):
+    """The exchange's mixing weights (M, P) f32 on the card: one row of 1/P
+    on the full graph, the ring's Metropolis-Hastings rows otherwise."""
+    if graph == "full":
+        return torch.full((1, peers), 1.0 / peers, device="cuda")
+    from repro_torch.core.graph import get_graph
+
+    return torch.as_tensor(get_graph(graph, peers).mixing_matrix(), dtype=torch.float32, device="cuda")
+
+
+def scatter_phase(torch, kt):
+    """The scatter, every case bit-identical to the plain version row for
+    row: the wrapper at P = 4 with shared indices (and both bodies forced);
+    (1 mix + 4 own rows) banks, one launch each, at mobilenet-v3-small's
+    distinct leaf sizes and at fc2/w (both bodies there); the body
+    threshold - 1, at it and + 1 (the body the wrapper picks); ring mixing
+    at P = 1, 3 and 4 with own rows; the special payloads at one tile and
+    at a row of several ragged tiles, both bodies."""
+    err = 0.0
+    for n, k in ((FC2, FC2_K), (4097, 41), (7, 7)):
+        err = max(err, check_scatter(torch, kt, n, k))
+    sizes = sorted(set(mobilenet_leaf_sizes(torch)))
+    bodies = {1: 0, 2: 0}
+    for n in sizes:
+        e, body = check_scatter_bank(torch, kt, *select_payload(torch, kt, n, PEERS, seed=n),
+                                     mixing_rows(torch, "full", PEERS), n, f"({PEERS}, {n})")
+        err, bodies[body] = max(err, e), bodies[body] + 1
+    payload = select_payload(torch, kt, FC2, PEERS, seed=5)
+    for body in (0, 1, 2):
+        err = max(err, check_scatter_bank(torch, kt, *payload, mixing_rows(torch, "full", PEERS), FC2,
+                                          f"fc2/w ({PEERS}, {FC2})", body)[0])
+    print(f"kernel check scatter banks (1 mix + {PEERS} own rows), one launch each, every row "
+          f"identical to the plain version: mobilenet-v3-small's {len(sizes)} distinct leaf sizes "
+          f"(tile body {bodies[1]}, long-row body {bodies[2]}) and fc2/w (both bodies)")
+    thr, tile = kt.scatter_tile_pairs_max(), kt.scatter_tile()
+    # the limit on a block's pairs at 5 and 3 ragged tiles; the limit on all
+    # blocks' reads at tiles x 2 x k (1 mix + 1 own row), k below thr
+    tiles = 2
+    while kt.scatter_tile_reads_max(2, tiles * tile) // (2 * tiles) >= thr:
+        tiles += 1
+    k0 = kt.scatter_tile_reads_max(2, tiles * tile) // (2 * tiles)
+    cases = [(1, k, 4 * tile + 1) for k in (thr - 1, thr, thr + 1)]
+    cases += [(PEERS, k, 3 * tile - 5) for k in (thr // PEERS, thr // PEERS + 1)]
+    cases += [(1, k, tiles * tile) for k in (k0 - 1, k0, k0 + 1)]
+    for peers, k, n in cases:
+        e, body = check_scatter_bank(torch, kt, *select_payload(torch, kt, n, peers, seed=k, k=k),
+                                     mixing_rows(torch, "full", peers), n, f"({peers}, {n}) k={k}")
+        reads, reads_max = -(-n // tile) * 2 * peers * k, kt.scatter_tile_reads_max(1 + peers, n)
+        want = 1 if peers * k <= thr and reads <= reads_max else 2
+        require(body == want, f"scatter at {peers} x {k} pairs into {n}: body {body}, not {want}")
+        err = max(err, e)
+        print(f"kernel check scatter at the body limits ({thr} pairs a block, {reads_max} pairs all "
+              f"blocks): {peers} x {k} pairs into n={n} ({reads} reads): body {body}, identical")
+    for peers in (1, 3, PEERS):
+        for n in (4097, 589824):
+            payload = select_payload(torch, kt, n, peers, seed=peers + n)
+            for body in (1, 2):
+                err = max(err, check_scatter_bank(torch, kt, *payload, mixing_rows(torch, "ring", peers), n,
+                                                  f"ring P={peers} ({peers}, {n})", body)[0])
+        for n in (4097, 100003):
+            for graph in ("full", "ring"):
+                payload = special_payload(torch, n, 64, peers, seed=n + peers)
+                for body in (1, 2):
+                    err = max(err, check_scatter_bank(torch, kt, *payload, mixing_rows(torch, graph, peers),
+                                                      n, f"special {graph} P={peers} n={n}", body)[0])
+    print("kernel check scatter banks with ring mixing (P = 1, 3, 4; n = 4097, 589824) and special "
+          "payloads (-0.0, +inf, NaN, -inf values, indices below 0 and past n, a NaN leaf's "
+          "payload; full and ring mixing; n = 4097, 100003), own rows, both bodies: every row "
+          "identical, NaN at the same positions")
+    return err
+
+
 def check_scatter(torch, kt, n, k, peers=PEERS):
     """Bit-identical to the plain version: peers added in order p = 0..P-1,
-    every product rounded before its add."""
+    every product rounded before its add; both bodies, peers sharing
+    indices."""
     g = torch.Generator(device="cuda")
     g.manual_seed(k)
     pool = torch.randperm(n, generator=g, device="cuda")[: min(n, 2 * k)]
@@ -352,9 +518,13 @@ def check_scatter(torch, kt, n, k, peers=PEERS):
     out_k = kt.topk_scatter_accum(vals, idx, w, n)
     out_p = kt.scatter_accum_plain(vals, idx, w, n)
     torch.cuda.synchronize()
-    require(torch.equal(out_k, out_p), f"scatter not bit-identical at P={peers} k={k} n={n}")
+    require(same_bits(torch, out_k, out_p), f"scatter not bit-identical at P={peers} k={k} n={n}")
     err = float((out_k - out_p).abs().max())
-    print(f"kernel check scatter P={peers} k={k} n={n} (shared indices): max_abs_err={err:.3e}")
+    for body in (1, 2):
+        err = max(err, check_scatter_bank(torch, kt, vals, None, idx, w[None], n,
+                                          f"P={peers} k={k} n={n} shared indices", body)[0])
+    print(f"kernel check scatter P={peers} k={k} n={n} (shared indices), the wrapper's body "
+          f"{kt.scatter_body(1, peers, k, n, False)} and both forced: max_abs_err={err:.3e}")
     return err
 
 
@@ -384,8 +554,7 @@ def new_kernel_phase(torch, kq, kt):
     print(f"kernel check select banks, one launch each, every row identical to the plain version "
           f"and to its own select: mobilenet-v3-small's {len(sizes)} distinct leaf sizes and "
           f"fc2/w: {', '.join(banks)}")
-    for n, k in ((FC2, FC2_K), (4097, 41), (7, 7)):
-        errs["topk_scatter_accum"] = max(errs["topk_scatter_accum"], check_scatter(torch, kt, n, k))
+    errs["topk_scatter_accum"] = scatter_phase(torch, kt)
     return errs
 
 
@@ -842,12 +1011,14 @@ def drive(torch, mods, arch: str, epochs: int, *, exchange: str = "qsgd", graph:
 
 
 def drive_step(torch, mods, arch: str, steps: int, *, exchange: str, selects_per_leaf: int = 1,
-               profile: bool = False):
+               scatters_per_leaf: int = 1, profile: bool = False):
     """``build_p2p_train_step`` at full width: 4 peers x batch 32 on
     CIFAR-shaped data, SGD with momentum, lr 0.01, EF on; the first step is
     timed apart (cuDNN plans, first launches). The top-k exchange selects
-    each leaf's (P, n) bank in one launch (``selects_per_leaf`` = P for
-    an earlier checkout that selected peer by peer). ``profile``: one more
+    each leaf's (P, n) bank in one launch and scatters it into the mix and
+    the P own images in one more (``selects_per_leaf`` = P and
+    ``scatters_per_leaf`` = 2 for earlier checkouts that selected peer by
+    peer or scattered the own images apart). ``profile``: one more
     step under ``torch.profiler``, its device busy share and kernel time
     by kind printed (after the launches are read)."""
     import dataclasses
@@ -898,7 +1069,7 @@ def drive_step(torch, mods, arch: str, steps: int, *, exchange: str, selects_per
                       qsgd_dequantize=steps * leaves)
     else:
         expect.update(topk_select_pack=steps * selects_per_leaf * leaves,
-                      topk_scatter_accum=steps * 2 * leaves)
+                      topk_scatter_accum=steps * scatters_per_leaf * leaves)
     tag = f"step {arch} {exchange} + EF"
     require(launches == expect, f"{tag}: launches {launches} != expected {expect}")
     require(all(math.isfinite(x) for x in losses), f"{tag}: non-finite loss {losses}")
@@ -1007,7 +1178,7 @@ def device_profile(torch, fn, attempts: int = 3):
         key = "ssd_scan" if "ssd_kernel" in name else "flash_attention" if (
             "flash_attention_kernel" in name) else "topk_select" if re.search(
             r"\bselect_(row_|grid_)?kernel", name) else "topk_scatter" if re.search(
-            r"\bscatter_kernel", name) else (
+            r"\bscatter_(tile_|bucket_|gather_)?kernel", name) else (
             "matmul" if any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")) else "other")
         groups[key] = groups.get(key, 0.0) + us / 1e3
         by_name[name] = by_name.get(name, 0.0) + us / 1e3
@@ -1329,12 +1500,13 @@ def time_ms(torch, fn, iters: int = 50):
     return start.elapsed_time(end) / iters, host_ms
 
 
-def timing_phase(torch, kq, kt):
+def timing_phase(torch, kq, kt, only=None):
     """Each kernel at the main path's largest shape, in turns with its plain
     version (plain, kernel, kernel, plain), and the one PyTorch call that
     computes the same function where there is one. Bounds count each input
     byte read once and each output byte written once, at 3.35 TB/s, and the
-    function's fp32 operations at 67 TFLOP/s; the larger bounds it."""
+    function's fp32 operations at 67 TFLOP/s; the larger bounds it.
+    ``only``: time that kernel alone."""
     g = torch.Generator(device="cuda")
     g.manual_seed(2)
     x = torch.randn((FC2_ROWS, BUCKET), generator=g, device="cuda") * 0.01
@@ -1349,6 +1521,7 @@ def timing_phase(torch, kq, kt):
     sel_v, sel_i = kt.select_pack_plain(flat, FC2_K)
     vals4 = torch.stack([sel_v * (p + 1) for p in range(PEERS)])
     idx4 = torch.stack([sel_i] * PEERS)  # the peers share every index
+    idx64 = idx4.reshape(-1).long()
     k = FC2_K
     cases = (
         # name, kernel, plain, library call, bytes, fp32 operations
@@ -1359,12 +1532,16 @@ def timing_phase(torch, kq, kt):
         ("qsgd_dequant_reduce", lambda: kq.qsgd_dequant_reduce(lev4, nrm4, w4, S),
          lambda: kq.dequant_reduce_plain(lev4, nrm4, w4, S), None,
          PEERS * n + 4 * PEERS * rows + 4 * PEERS + 4 * n, 2 * PEERS * n + 2 * PEERS * rows),
+        # library: the same function at uniform weights, up to the atomics' summation order
         ("topk_scatter_accum", lambda: kt.topk_scatter_accum(vals4, idx4, w4, n),
-         lambda: kt.scatter_accum_plain(vals4, idx4, w4, n), None,
+         lambda: kt.scatter_accum_plain(vals4, idx4, w4, n),
+         lambda: torch.zeros((n,), device="cuda").index_add_(0, idx64, vals4.view(-1), alpha=1 / PEERS),
          8 * PEERS * k + 4 * PEERS + 4 * n, 2 * PEERS * k),
     )
     out = {}
     for name, kern, plain, library, nbytes, ops in cases:
+        if only and name != only:
+            continue
         iters = 50
         t_plain1, _ = time_ms(torch, plain, iters)
         t_kern1, host1 = time_ms(torch, kern, iters)
@@ -1386,7 +1563,8 @@ def timing_phase(torch, kq, kt):
             f"({nbytes / 1e6:.1f} MB at 3.35 TB/s, {ops / 1e9:.3f} GFLOP at 67 TFLOP/s; roofline "
             f"share {out[name]['bound_ms'] / out[name]['ms']:.1%}), host enqueue "
             f"{min(host1, host2) * 1e3:.1f} us/call, library "
-            + ("none: no single PyTorch call computes it" if t_lib is None else f"{t_lib:.4f} ms")
+            + ("none: no single PyTorch call computes it" if t_lib is None else f"{t_lib:.4f} ms "
+               f"({t_lib / out[name]['ms']:.2f}x the kernel)")
         )
     return out
 
@@ -1469,6 +1647,114 @@ def select_sweep(torch, kt):
             line.append(f"{n}: {one:.4f}/{grid:.4f}")
         print(f"timing topk_select_pack body sweep, ({rows}, n), ms one-block/grid: {', '.join(line)}; "
               f"threshold in use {kt.small_row_max()}")
+
+
+def bank_scatter(torch, kt):
+    """``fn(vbank, vals, idx, W, n)`` -> (mixes, own images): the bank
+    scatter, one launch; for ``kt`` without one (an earlier checkout's),
+    what its device step did: one launch per mix and one P = 1 launch over
+    a (P * n) buffer for the own images."""
+    if hasattr(kt, "topk_scatter_accum_bank"):
+        return kt.topk_scatter_accum_bank
+
+    def two_launches(vbank, vals, idx, W, n):
+        mixed = torch.stack([kt.topk_scatter_accum(vbank, idx, w, n) for w in W])
+        peers = idx.shape[0]
+        offset = torch.arange(peers, dtype=torch.int32, device=idx.device)[:, None] * n
+        own = kt.topk_scatter_accum(vals.reshape(1, -1), (idx + offset).reshape(1, -1),
+                                    torch.ones((1,), device=idx.device), peers * n)
+        return mixed, own.view(peers, n)
+
+    return two_launches
+
+
+def bank_bytes(peers, k, mixes, n, own=True):
+    """The bytes a bank scatter must move: vbank and idx (and vals) read,
+    W read, every row written once."""
+    return 8 * peers * k + (4 * peers * k if own else 0) + 4 * mixes * peers + 4 * (
+        mixes + (peers if own else 0)) * n
+
+
+def scatter_timing(torch, kt):
+    """The bank scatter as the mobilenet top-k + EF device step calls it (1
+    mix + 4 own rows, the select's payload) at 240 (the median leaf),
+    82,944 and 589,824 entries and at fc2/w, then one device step's 180
+    bank scatters together; beside the plain version and the bound (bytes:
+    ``bank_bytes``). ``kt`` without a bank scatter (an earlier checkout's)
+    makes two launches a leaf, as its device step did. With both bodies
+    (``scatter_launch``): each body forced over a sweep of row lengths, P
+    = 4 banks and P = 1 rows (the cluster's decodes), the main path's k."""
+    bank = bank_scatter(torch, kt)
+    W = mixing_rows(torch, "full", PEERS)
+    for n in (240, 82944, 589824, FC2):
+        vbank, vals, idx = select_payload(torch, kt, n, PEERS, seed=n)
+        k = idx.shape[1]
+        iters = 10 if n == FC2 else 50
+        plain = lambda: scatter_rows_plain(kt, vbank, vals, idx, W, n)
+        t_plain1, _ = time_ms(torch, plain, iters)
+        t_kern1, host1 = time_ms(torch, lambda: bank(vbank, vals, idx, W, n), iters)
+        t_kern2, host2 = time_ms(torch, lambda: bank(vbank, vals, idx, W, n), iters)
+        t_plain2, _ = time_ms(torch, plain, iters)
+        nbytes = bank_bytes(PEERS, k, 1, n)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"timing topk_scatter_accum bank ({PEERS}, {n}), k {k}, 1 mix + {PEERS} own rows: kernel "
+              f"{t_kern1:.4f}/{t_kern2:.4f} ms, plain {t_plain1:.4f}/{t_plain2:.4f} ms, bound {bound:.4f} ms "
+              f"({nbytes / 1e6:.2f} MB at 3.35 TB/s; roofline share {bound / min(t_kern1, t_kern2):.1%}), "
+              f"host enqueue {min(host1, host2) * 1e3:.1f} us/call")
+    leaves = [select_payload(torch, kt, n, PEERS, seed=i) + (n,)
+              for i, n in enumerate(mobilenet_leaf_sizes(torch))]
+    step = lambda: [bank(vb, v, i, W, n) for vb, v, i, n in leaves]
+    # one step: an earlier checkout's took ~70 ms to enqueue, and two would
+    # outlast the spin kernel that keeps the device busy meanwhile
+    t_step, host_step = time_ms(torch, step, 1)
+    nbytes = sum(bank_bytes(PEERS, i.shape[1], 1, n) for _, _, i, n in leaves)
+    print(f"timing topk_scatter_accum, one mobilenet-v3-small device step's {len(leaves)} bank scatters "
+          f"({PEERS} peers, 1 mix + {PEERS} own rows, "
+          f"{len(leaves) * (1 if bank is getattr(kt, 'topk_scatter_accum_bank', None) else 2)} "
+          f"launches): device {t_step:.4f} ms, host enqueue {host_step:.4f} ms, bound "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes / 1e6:.2f} MB)")
+    if hasattr(kt, "scatter_launch"):
+        scatter_sweep(torch, kt)
+
+
+SWEEP = {  # k as a fraction of n -> row lengths n of the body sweep
+    1e-2: (8192, 32768, 82944, 131072, 262144, 409600, 589824, 786432, 1048576, 1572864, 2097152,
+           3145728, 4194304),
+    1e-3: (262144, 1048576, 2097152, 3145728, 4194304, 6291456, 8388608, 12582912, FC2),
+    1e-4: (1048576, 4194304, 8388608, FC2),
+}
+
+
+def scatter_sweep(torch, kt):
+    """Both bodies of the scatter (tiles, the long-row grid) at rows of n
+    entries, k = 1 % of n (the main path's), 0.1 % (the benchmarks' lower
+    fraction) and 0.01 %: (4, n) banks of 1 mix + 4 own rows, and P = 1
+    rows of one mix (the cluster's decodes), and (4, n) banks of 4 ring
+    mixes + 4 own rows. Each point gives both times, the tile body's reads
+    (tiles x (M + 1 with own rows) x P x k pairs) and the body
+    that ``scatter_body`` picks (T or L); the tile body's limits
+    (``scatter_tile_pairs_max``, ``scatter_tile_reads_max``) are where it
+    stops being the faster."""
+    tile = kt.scatter_tile()
+    for frac, sizes in SWEEP.items():
+        for peers, own, graph in ((PEERS, True, "full"), (1, False, "full"), (PEERS, True, "ring")):
+            W = mixing_rows(torch, graph, peers)
+            mixes = W.shape[0]
+            line, lost = [], 0.0
+            for n in sizes:
+                k = max(1, round(n * frac))
+                vbank, vals, idx = select_payload(torch, kt, n, peers, seed=n, k=k)
+                vals = vals if own else None
+                times = [time_ms(torch, lambda b=b: kt.scatter_launch(vbank, vals, idx, W, n, b), 20)[0]
+                         for b in (1, 2)]
+                body = kt.scatter_body(mixes, peers, k, n, own)
+                lost += times[body - 1] - min(times)
+                reads = -(-n // tile) * (mixes + own) * peers * k
+                line.append(f"{n} (k {k}, reads {reads}): {times[0]:.4f}/{times[1]:.4f} {'TL'[body - 1]}")
+            print(f"timing topk_scatter_accum body sweep, k = {frac:g} n, ({peers}, n) {mixes} {graph} "
+                  f"mix{'es' if mixes > 1 else ''}{' + own rows' if own else ''}, ms tile/long-row and "
+                  f"the body picked: {', '.join(line)}; the pick loses {lost:.4f} ms over the sweep; "
+                  f"tile {tile}, tile body up to {kt.scatter_tile_pairs_max()} pairs a block")
 
 
 def ssd_timing(torch, ks):
@@ -1616,6 +1902,33 @@ def select_timing_only(torch, src: Path) -> int:
     return 0
 
 
+def scatter_timing_only(torch, src: Path) -> int:
+    """``--scatter-timing SRC``: only the scatter's row of ``timing_phase``
+    (with its ``index_add_`` yardstick), ``scatter_timing`` and the
+    mobilenet top-k + EF device step (with a profile of one step), with the
+    ``repro_torch`` under SRC (another checkout's ``src``, to time an
+    earlier scatter on the same card); prints no result line."""
+    sys.path.insert(0, str(src.resolve()))
+    from repro_torch.kernels import topk as kt
+
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import qsgd as kq
+    from repro_torch.kernels import ssd_scan as ks
+
+    require(Path(kt.__file__).resolve().is_relative_to(src.resolve()), f"topk from {kt.__file__}")
+    for mod in (kq, kt):
+        mod.load_library()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"nvidia-smi: {card_line()}; scatter of {kt.__file__}")
+    timing_phase(torch, kq, kt, only="topk_scatter_accum")
+    scatter_timing(torch, kt)
+    bank = hasattr(kt, "topk_scatter_accum_bank")
+    drive_step(torch, {"kq": kq, "kt": kt, "ks": ks, "kf": kf}, "mobilenet-v3-small", 4,
+               exchange="topk", scatters_per_leaf=1 if bank else 2, profile=True)
+    return 0
+
+
 def ssd_timing_only(torch, src: Path) -> int:
     """``--ssd-timing SRC``: only ``ssd_timing``, with the ``repro_torch``
     package under SRC (another checkout's ``src``, to time an earlier SSD
@@ -1640,6 +1953,8 @@ def main() -> int:
         return select_timing_only(torch, Path(sys.argv[2]))
     if sys.argv[1:2] == ["--ssd-timing"]:
         return ssd_timing_only(torch, Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--scatter-timing"]:
+        return scatter_timing_only(torch, Path(sys.argv[2]))
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import qsgd as kq
@@ -1702,6 +2017,7 @@ def main() -> int:
 
     times = timing_phase(torch, kq, kt)
     times.update(select_timing(torch, kt))
+    scatter_timing(torch, kt)
     times.update(ssd_timing(torch, ks))
     times.update(flash_timing(torch, kf))
     stamp("timing phase")

@@ -80,15 +80,19 @@ class ExchangeContext:
         return float(max(self.num_peers - 1, 0))
 
 
+def _mixing(ctx: ExchangeContext, peers: int, device) -> torch.Tensor:
+    """The distinct mixes' weights ``(M, P)`` f32: on the full graph one
+    row, ``1/P`` each, which every peer shares; else ``W``'s P rows."""
+    if ctx.mixing is None:
+        return torch.full((1, peers), 1.0 / peers, dtype=torch.float32, device=device)
+    return torch.as_tensor(np.asarray(ctx.mixing, np.float32), device=device)
+
+
 def _mix(reduce: Callable[[torch.Tensor], torch.Tensor], ctx: ExchangeContext,
          peers: int, device) -> torch.Tensor:
-    """The distinct mixes ``reduce(w)``, stacked: on the full graph one row,
-    ``w = 1/P``, which every peer shares; else one row per row of ``W``."""
-    if ctx.mixing is None:
-        w = torch.full((peers,), 1.0 / peers, dtype=torch.float32, device=device)
-        return reduce(w)[None]
-    mixing = torch.as_tensor(np.asarray(ctx.mixing, np.float32), device=device)
-    return torch.stack([reduce(mixing[r]) for r in range(peers)])
+    """The distinct mixes ``reduce(w)``, stacked, one per row of
+    ``_mixing``."""
+    return torch.stack([reduce(w) for w in _mixing(ctx, peers, device)])
 
 
 def _flat_banks(grads: Grads):
@@ -399,30 +403,22 @@ class TopKExchange(ExchangeProtocol):
 
     def _combine(self, grads, ctx, *, want_local: bool):
         """Shared device path: per leaf, one select over the peers' (P, n)
-        bank, the peers' values rounded through the wire dtype, one fused
-        scatter-accumulate per distinct mix and (EF) one scatter of all P
-        peers' own entries, unrounded as the reference keeps them, into a
-        (P * n) buffer."""
-        avg, local = {}, {}
+        bank, the peers' values rounded through the wire dtype, and one
+        scatter of the bank into every distinct mix and (EF) every peer's
+        own image, its entries unrounded as the reference keeps them."""
+        avg, local, mixing = {}, {}, None
         for name, flat, jshape in _flat_banks(grads):
             peers, n = flat.shape
+            if mixing is None:
+                mixing = _mixing(ctx, peers, flat.device)
             k = self._k(n, ctx.topk_frac)
             vals, idx = topk_kernels.topk_select_pack_bank(flat, k)
             vbank = vals.to(ctx.wire_dtype).to(torch.float32)
-            mixed = _mix(
-                lambda w: topk_kernels.topk_scatter_accum(vbank, idx, w, n),
-                ctx, peers, flat.device,
-            )
+            mixed, own = topk_kernels.topk_scatter_accum_bank(
+                vbank, vals if want_local else None, idx, mixing, n)
             avg[name] = _leaf(mixed, jshape, 1).expand(grads[name].shape)
             if want_local:
-                # peer p's entries land at p * n + idx: distinct, so one
-                # P = 1 scatter with weight 1 gives every peer's own image
-                offset = torch.arange(peers, dtype=torch.int32, device=idx.device)[:, None] * n
-                dense = topk_kernels.topk_scatter_accum(
-                    vals.reshape(1, -1), (idx + offset).reshape(1, -1),
-                    torch.ones((1,), dtype=torch.float32, device=vals.device), peers * n,
-                )
-                local[name] = _leaf(dense.view(peers, n), jshape, 1)
+                local[name] = _leaf(own, jshape, 1)
         return avg, (local if want_local else None)
 
     def combine(self, grads, ctx, *, generator=None, state=None):

@@ -63,13 +63,46 @@
 // so that enough loads are in flight to cover the memory's latency.
 // Bound: bytes, 4 B per element read plus 8 B per selected entry written.
 //
-// scatter: out = 0, then for p = 0 .. P-1: out[idx[p, j]] += v[p, j] * w[p].
-// Within one peer the select gives distinct indices, so no two threads of
-// one peer touch the same element; a grid sync between peers keeps the
-// reference's peer order, so the sum is the reference's bit for bit with no
-// atomics. Indices outside [0, n) are dropped, as in the Pallas kernel.
-// Bound: bytes, (4 + 4) B per (value, index) read plus 4 B per output
-// element written.
+// scatter: one launch computes every row of a leaf's bank: the mixes,
+// row r = sum_p w[r, p] * scatter(vbank[p], idx[p]), and (EF) each peer's
+// own image, 0 + scatter(vals[p], idx[p]) * 1. Each output element is
+// 0 + c_p0 + c_p1 + ... over the peers that hit it, in peer order, every
+// product rounded before its add: the reference's sequence bit for bit,
+// with no atomics on the output and no read of it. Within one peer the
+// select gives distinct indices, so no two threads add into one element
+// (a NaN leaf's payload, k slots of value 0 at index 0, adds +0 or NaN k
+// times, which any interleaving leaves as one add). Indices outside [0, n)
+// are dropped, as in the Pallas kernel. Two bodies, both writing each
+// output tile of kTile = 8192 floats once from shared memory:
+// - the tile body (a normal launch): one block per (tile, row) zeroes its
+//   tile, streams the row's pairs peer by peer (a barrier between peers)
+//   adding those that fall in the tile, and writes it with 16-byte stores.
+//   Every block reads all of its row's pairs, so it serves rows where that
+//   stays cheap (scatter_body): a row of one tile, or one where a block
+//   reads peers x k <= kTilePairsMax = 24,576 pairs (past that its
+//   dependent loads outlast the long-row body) and all blocks together
+//   read tiles x (mixes + (own rows ? 1 : 0)) x peers x k <= 2^23 + a
+//   quarter of the output elements (past that the reads, from L2, outlast
+//   the long-row body's fixed cost of about 0.012 ms and its slower
+//   write). Both limits are measured on an NVIDIA H100 80GB HBM3 at 700 W
+//   (chip_smoke.py's body sweep; PERF.md, section 6): over k = 1 %, 0.1 %
+//   and 0.01 % of n, n from 8,192 to 16,777,216, (1 mix + 4 own rows)
+//   banks, P = 1 rows and (4 ring mixes + 4 own rows) banks, the rule picks
+//   the faster body at every point but one, where it is 10 % slower. The
+//   main path's rows all take the tile body.
+// - the long-row body: a cooperative grid sends each pair to its bucket
+//   (tile, peer): a count (warp-aggregated atomics), a grid sync, an
+//   exclusive scan of the counts, a grid sync, the pairs placed; then a
+//   second, normal launch runs one block per (tile, row) as the tile body,
+//   reading only that tile's buckets. Its counters are zeroed inside the
+//   launches that read them last, so no memset runs.
+// The earlier cooperative kernel (zero all n, then a grid sync and a
+// read-modify-write of out through L2 per peer) spent at fc2/w, P = 4,
+// 0.0252 of its 0.0558 ms on the zero pass and about 0.007 ms on each
+// peer; for the device step's small leaves, two launches a leaf (the mix
+// and a P = 1 scatter of the own images) of 4-17 us each.
+// Bound: bytes, (4 + 4) B per (wire value, index) read, 4 B per unrounded
+// value read for own rows, 4 B per weight, 4 B per output element written.
 //
 // Both use __fmul_rn / __fadd_rn where the reference rounds a product
 // before adding it, so nvcc cannot contract the pair into one FMA. No fast
@@ -79,14 +112,24 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <atomic>
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;      // a block of the grid body (and of the scatter)
+constexpr int kThreads = 256;      // a block of the select's grid body and of the scatter
 constexpr int kRowThreads = 1024;  // a block of the one-block body
 constexpr long long kSmallRowMax = 90112;
+constexpr int kMaxDevices = 64;
+// the scatter
+constexpr int kTile = 8192;  // outputs of one tile, in shared memory
+// the tile body's limits (scatter_body): the pairs one block reads, and
+// the pairs all blocks read beyond a quarter of the output elements
+constexpr long long kTilePairsMax = 3LL * kTile;
+constexpr long long kTileReadsBase = 1LL << 23;
+constexpr int kScatterUnroll = 4;  // pairs a thread loads before it adds any
+constexpr int kMaxLongGrid = 1024;  // blocks of the long-row body, at most
 constexpr int kBisectSteps = 64;
 constexpr int kUnroll = 2;     // runs of four entries a thread loads per step
 constexpr int kGridBlocksPerSm = 4;  // the grid body's registers are capped for 4 blocks an SM
@@ -555,40 +598,333 @@ select_grid_kernel(const float* __restrict__ x, int rows, long long n, long long
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-scatter_kernel(const float* __restrict__ v, const int* __restrict__ idx,
-               const float* __restrict__ w, float* __restrict__ out, int peers,
-               long long k, long long n) {
-  cg::grid_group grid = cg::this_grid();
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  const long long tid = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  for (long long i = tid; i < n; i += stride) out[i] = 0.0f;
-  for (int p = 0; p < peers; ++p) {
-    grid.sync();  // the previous peer's adds (or the zeroing) are done
-    const float wp = w[p];
-    for (long long j = tid; j < k; j += stride) {
-      const long long t = idx[p * k + j];
-      // __ldcg reads L2, where the previous peer's writes from other SMs are
-      if (t >= 0 && t < n) out[t] = __fadd_rn(__ldcg(&out[t]), __fmul_rn(v[p * k + j], wp));
+// ---------------------------------------------------------------------------
+// scatter
+// ---------------------------------------------------------------------------
+
+// A bank of output rows, each a sum over peers of scatter(values, idx[p]) *
+// weight: rows 0 .. mixes-1 are mixes (values vbank, weights w[r, p], every
+// peer); rows mixes .. mixes+peers-1, when vals is set, are the peers' own
+// images (row mixes + p: vals[p] alone, weight 1).
+struct ScatterBank {
+  const float* vbank;  // (peers, k): the values the mixes add
+  const float* vals;   // (peers, k): the values of the own rows, or null (no own rows)
+  const int* idx;      // (peers, k)
+  const float* w;      // (mixes, peers)
+  float* out;          // (rows, n)
+  int mixes;
+  int peers;
+  long long k;
+  long long n;
+};
+
+__device__ __forceinline__ int bank_rows(const ScatterBank& b) {
+  return b.mixes + (b.vals ? b.peers : 0);
+}
+
+// The peers [*p0, *p1) that row r adds, in order.
+__device__ __forceinline__ void row_peers(const ScatterBank& b, int r, int* p0, int* p1) {
+  *p0 = r < b.mixes ? 0 : r - b.mixes;
+  *p1 = r < b.mixes ? b.peers : *p0 + 1;
+}
+
+__device__ __forceinline__ float row_weight(const ScatterBank& b, int r, int p) {
+  return r < b.mixes ? b.w[static_cast<long long>(r) * b.peers + p] : 1.0f;
+}
+
+// acc[0 .. len) = 0 (acc 16-byte aligned, kTile floats).
+__device__ __forceinline__ void zero_tile(float* acc, int len) {
+  float4* a4 = reinterpret_cast<float4*>(acc);
+  for (int i = threadIdx.x; i < (len + 3) / 4; i += kThreads) a4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// o[0 .. len) = acc[0 .. len): 16-byte stores from the first 16-byte
+// aligned element of o on (the rows of an (rows, n) output with n % 4 != 0
+// start at other alignments).
+__device__ __forceinline__ void store_tile(const float* acc, float* o, int len) {
+  const int peel = min(len, static_cast<int>((16 - (reinterpret_cast<uintptr_t>(o) & 15)) & 15) / 4);
+  const int n4 = (len - peel) / 4;
+  for (int i = threadIdx.x; i < peel; i += kThreads) o[i] = acc[i];
+  float4* o4 = reinterpret_cast<float4*>(o + peel);
+  for (int i = threadIdx.x; i < n4; i += kThreads) {
+    const float* a = acc + peel + 4 * i;
+    o4[i] = make_float4(a[0], a[1], a[2], a[3]);
+  }
+  for (int i = peel + 4 * n4 + threadIdx.x; i < len; i += kThreads) o[i] = acc[i];
+}
+
+// acc[t - lo] += val[e] * w for the entries e in [e0, e1) whose index t =
+// idx[e] lies in [lo, lo + len) (indices outside [0, n) fall outside every
+// tile), each thread loading kScatterUnroll entries before it adds any.
+// The entries' indices are distinct (one peer's), so no two threads add
+// into one element.
+__device__ __forceinline__ void add_entries(float* acc, const int* idx, const float* val,
+                                            long long e0, long long e1, long long lo, int len,
+                                            float w) {
+  for (long long j0 = e0; j0 < e1; j0 += kThreads * kScatterUnroll) {
+    int t[kScatterUnroll];
+    float v[kScatterUnroll];
+#pragma unroll
+    for (int u = 0; u < kScatterUnroll; ++u) {
+      const long long j = j0 + threadIdx.x + u * kThreads;
+      t[u] = j < e1 ? __ldg(idx + j) : -1;
+      v[u] = j < e1 ? __ldg(val + j) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kScatterUnroll; ++u) {
+      const long long d = t[u] - lo;
+      if (d >= 0 && d < len) acc[d] = __fadd_rn(acc[d], __fmul_rn(v[u], w));
     }
   }
 }
 
-// Blocks of `kernel` that fit on the card at once, capped by `cap` and by
-// `blocks`.
-int cooperative_grid(const void* kernel, long long blocks, int cap, int* grid) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+// The tile body: one block per (tile of kTile outputs, row). The block
+// zeroes its tile in shared memory, streams each of the row's peers' k
+// pairs in the reference's peer order (a barrier between peers) and adds
+// those whose index falls in the tile, then writes the tile once.
+__global__ void __launch_bounds__(kThreads)
+scatter_tile_kernel(ScatterBank b) {
+  __shared__ __align__(16) float acc[kTile];
+  const long long lo = static_cast<long long>(blockIdx.x) * kTile;
+  const int len = static_cast<int>(min(static_cast<long long>(kTile), b.n - lo));
+  const int r = blockIdx.y;
+  int p0, p1;
+  row_peers(b, r, &p0, &p1);
+  zero_tile(acc, len);
+  __syncthreads();
+  for (int p = p0; p < p1; ++p) {
+    add_entries(acc, b.idx, r < b.mixes ? b.vbank : b.vals, p * b.k, (p + 1) * b.k, lo, len,
+                row_weight(b, r, p));
+    __syncthreads();  // this peer's adds land before the next peer's
   }
+  store_tile(acc, b.out + static_cast<long long>(r) * b.n + lo, len);
+}
+
+// Exclusive prefix sums of src[0 .. count) into dst, each src entry set to
+// zero once read when `clear`; returns the total. Every thread of the block
+// calls it.
+__device__ __forceinline__ unsigned block_scan_into(unsigned* src, unsigned* dst, unsigned count,
+                                                    bool clear, unsigned* red) {
+  unsigned carry = 0;
+  for (unsigned c = 0; c < count; c += kThreads) {
+    const unsigned i = c + threadIdx.x;
+    const unsigned x = i < count ? __ldcg(&src[i]) : 0u;
+    if (clear && i < count) src[i] = 0;
+    unsigned total;
+    const unsigned before = block_exclusive_scan<kThreads>(x, red, &total);
+    if (i < count) dst[i] = carry + before;
+    carry += total;
+  }
+  return carry;
+}
+
+// The pairs of one warp step of the long-row body: lane l's kScatterUnroll
+// pairs e = e0 + l + 32 u of the flattened (peers, k) bank, their indices
+// and buckets (tile, peer); live where the index lies in [0, n) (and e
+// below peers x k).
+struct PairRun {
+  unsigned e[kScatterUnroll];
+  int t[kScatterUnroll];
+  unsigned key[kScatterUnroll];
+  bool live[kScatterUnroll];
+};
+
+__device__ __forceinline__ PairRun load_pairs(const ScatterBank& b, unsigned e0) {
+  const unsigned pk = static_cast<unsigned>(b.peers * b.k);
+  PairRun run;
+#pragma unroll
+  for (int u = 0; u < kScatterUnroll; ++u) {
+    run.e[u] = e0 + (threadIdx.x & 31) + 32 * u;
+    run.t[u] = run.e[u] < pk ? __ldg(b.idx + run.e[u]) : -1;
+  }
+#pragma unroll
+  for (int u = 0; u < kScatterUnroll; ++u) {
+    run.live[u] = run.t[u] >= 0 && run.t[u] < b.n;
+    const unsigned p = run.e[u] / static_cast<unsigned>(b.k);
+    run.key[u] = run.live[u] ? static_cast<unsigned>(run.t[u] / kTile) * b.peers + p : 0u;
+  }
+  return run;
+}
+
+// f(run) for every warp step over the bank's pairs (warp-uniform trip
+// counts: every lane of a warp calls f together).
+template <typename F>
+__device__ __forceinline__ void for_each_run(const ScatterBank& b, F f) {
+  constexpr unsigned kStep = 32 * kScatterUnroll;
+  const unsigned pk = static_cast<unsigned>(b.peers * b.k);
+  const unsigned warp = (blockIdx.x * kThreads + threadIdx.x) / 32;
+  const unsigned warps = gridDim.x * kThreads / 32;
+  for (unsigned e0 = warp * kStep; e0 < pk; e0 += warps * kStep) f(load_pairs(b, e0));
+}
+
+// The leader of each group of lanes that share a live key; `same` the
+// group's lanes.
+__device__ __forceinline__ bool group_leader(unsigned key, bool live, unsigned* same) {
+  *same = __match_any_sync(0xffffffffu, live ? key : 0xffffffffu);
+  return live && (threadIdx.x & 31) == __ffs(*same) - 1;
+}
+
+// The long-row body's scratch: `counters` (2 nb words, zero at entry and
+// left zero) and `work` (no initial value), nb = tiles x peers buckets.
+struct Buckets {
+  unsigned* cnt;     // nb: pairs a bucket holds
+  unsigned* fill;    // nb: pairs placed so far
+  unsigned* off;     // nb: a bucket's first entry within its slice
+  unsigned* part;    // kMaxLongGrid: a slice's pairs
+  unsigned* starts;  // nb + 1: a bucket's first entry; starts[nb] = every pair
+  int* idx;          // peers x k: the entries, bucket after bucket
+  float* v;          // their wire values
+  float* u;          // their unrounded values (own rows only)
+};
+
+__device__ __forceinline__ Buckets buckets(const ScatterBank& b, unsigned* counters,
+                                          unsigned* work) {
+  const unsigned nb = static_cast<unsigned>((b.n + kTile - 1) / kTile) * b.peers;
+  const long long pk = b.peers * b.k;
+  Buckets s;
+  s.cnt = counters;
+  s.fill = counters + nb;
+  s.off = work;
+  s.part = s.off + nb;
+  s.starts = s.part + kMaxLongGrid;
+  s.idx = reinterpret_cast<int*>(s.starts + nb + 1);
+  s.v = reinterpret_cast<float*>(s.idx + pk);
+  s.u = s.v + pk;
+  return s;
+}
+
+// Steps 1-3 of the long-row body, a cooperative grid:
+//   1. count the pairs of each bucket (tile, peer), one atomic per bucket
+//      a warp step meets;
+//   2. grid sync; each block scans its slice of the counts (offsets within
+//      the slice, the slice's total) and zeroes them;
+//   3. grid sync; each block scans the slices' totals, writes its slice's
+//      bucket starts, and sends each pair to its bucket (index, wire value
+//      and, with own rows, unrounded value), its slot from a second
+//      counter.
+__global__ void __launch_bounds__(kThreads)
+scatter_bucket_kernel(ScatterBank b, unsigned* __restrict__ counters, unsigned* __restrict__ work) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ unsigned base[kMaxLongGrid];  // the slices' offsets
+  __shared__ unsigned red[kThreads / 32];
+  const Buckets s = buckets(b, counters, work);
+  const unsigned nb = static_cast<unsigned>((b.n + kTile - 1) / kTile) * b.peers;
+  const unsigned slice = (nb + gridDim.x - 1) / gridDim.x;
+  const unsigned s0 = min(nb, blockIdx.x * slice), s1 = min(nb, s0 + slice);
+  // 1.
+  for_each_run(b, [&](const PairRun& run) {
+#pragma unroll
+    for (int u = 0; u < kScatterUnroll; ++u) {
+      unsigned same;
+      if (group_leader(run.key[u], run.live[u], &same)) atomicAdd(&s.cnt[run.key[u]], __popc(same));
+    }
+  });
+  grid.sync();
+  // 2.
+  const unsigned slice_total = block_scan_into(s.cnt + s0, s.off + s0, s1 - s0, true, red);
+  if (threadIdx.x == 0) s.part[blockIdx.x] = slice_total;
+  grid.sync();
+  // 3.
+  const unsigned total = block_scan_into(s.part, base, gridDim.x, false, red);
+  __syncthreads();
+  for (unsigned i = s0 + threadIdx.x; i < s1; i += kThreads) {
+    s.starts[i] = __ldcg(&s.off[i]) + base[blockIdx.x];
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) s.starts[nb] = total;
+  for_each_run(b, [&](const PairRun& run) {
+    unsigned same[kScatterUnroll], slot[kScatterUnroll];
+#pragma unroll
+    for (int u = 0; u < kScatterUnroll; ++u) {
+      slot[u] = 0;
+      if (group_leader(run.key[u], run.live[u], &same[u])) {
+        slot[u] = atomicAdd(&s.fill[run.key[u]], __popc(same[u]));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kScatterUnroll; ++u) {
+      slot[u] = __shfl_sync(0xffffffffu, slot[u], __ffs(same[u]) - 1) +
+                __popc(same[u] & ((1u << (threadIdx.x & 31)) - 1));
+    }
+#pragma unroll
+    for (int u = 0; u < kScatterUnroll; ++u) {
+      if (run.live[u]) {
+        const unsigned key = run.key[u];
+        const unsigned pos = __ldcg(&s.off[key]) + base[key / slice] + slot[u];
+        s.idx[pos] = run.t[u];
+        s.v[pos] = __ldg(b.vbank + run.e[u]);
+        if (b.vals) s.u[pos] = __ldg(b.vals + run.e[u]);
+      }
+    }
+  });
+}
+
+// Step 4 of the long-row body, a normal launch after steps 1-3: one block
+// per (tile, row), as the tile body, but reading only the tile's buckets;
+// the blocks of row 0 zero their tile's second counters for the next
+// launch.
+__global__ void __launch_bounds__(kThreads)
+scatter_gather_kernel(ScatterBank b, unsigned* __restrict__ counters, unsigned* __restrict__ work) {
+  __shared__ __align__(16) float acc[kTile];
+  const Buckets s = buckets(b, counters, work);
+  const long long lo = static_cast<long long>(blockIdx.x) * kTile;
+  const int len = static_cast<int>(min(static_cast<long long>(kTile), b.n - lo));
+  const int r = blockIdx.y;
+  const unsigned key0 = blockIdx.x * b.peers;
+  if (r == 0) {
+    for (int p = threadIdx.x; p < b.peers; p += kThreads) s.fill[key0 + p] = 0;
+  }
+  int p0, p1;
+  row_peers(b, r, &p0, &p1);
+  zero_tile(acc, len);
+  __syncthreads();
+  for (int p = p0; p < p1; ++p) {
+    add_entries(acc, s.idx, r < b.mixes ? s.v : s.u, s.starts[key0 + p], s.starts[key0 + p + 1],
+                lo, len, row_weight(b, r, p));
+    __syncthreads();  // this peer's adds land before the next peer's
+  }
+  store_tile(acc, b.out + static_cast<long long>(r) * b.n + lo, len);
+}
+
+// Blocks of `kernel` that fit on the current device at once, capped by
+// `cap` and by `blocks`. The SM count and the occupancy are queried once
+// per device and kernel (`which`) and kept.
+int cooperative_grid(const void* kernel, int which, long long blocks, int cap, int* grid) {
+  static std::atomic<int> resident[kMaxDevices][2];  // 0: not queried yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  long long g = static_cast<long long>(sms) * per_sm;
-  g = std::min(g, blocks);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  int fit = resident[dev][which].load(std::memory_order_relaxed);
+  if (fit == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fit = sms * per_sm;
+    resident[dev][which].store(fit, std::memory_order_relaxed);
+  }
+  long long g = std::min(static_cast<long long>(fit), blocks);
   g = std::min(g, static_cast<long long>(cap));
   *grid = static_cast<int>(std::max(g, 1LL));
   return 0;
+}
+
+// The pairs all blocks of the tile body may read, for `rows` output rows
+// of n.
+long long tile_reads_max(int rows, long long n) { return kTileReadsBase + rows * n / 4; }
+
+// The body of a launch of `mixes` mixes of `peers` x k pairs into rows of
+// n, with or without the own rows: 1 the tile body, 2 the long-row body.
+// Each block of the tile body reads its row's pairs: peers x k for a mix,
+// k for an own row, so peers x k a tile for the own rows together.
+int scatter_body(int mixes, int peers, long long k, long long n, int own) {
+  const long long ntiles = (n + kTile - 1) / kTile;
+  const long long pairs = peers * k;
+  const long long reads = ntiles * (mixes + (own ? 1 : 0)) * pairs;
+  const int rows = mixes + (own ? peers : 0);
+  return ntiles == 1 || (pairs <= kTilePairsMax && reads <= tile_reads_max(rows, n)) ? 1 : 2;
 }
 
 }  // namespace
@@ -618,7 +954,7 @@ int topk_select_launch(const float* x, int rows, long long n, long long k, float
   }
   int grid = 0;
   // at least 16 entries a thread: fewer blocks make cheaper grid syncs
-  int err = cooperative_grid(reinterpret_cast<const void*>(select_grid_kernel),
+  int err = cooperative_grid(reinterpret_cast<const void*>(select_grid_kernel), 0,
                              (n + 16 * kThreads - 1) / (16 * kThreads), max_grid, &grid);
   if (err) return err;
   void* args[] = {&x, &rows, &n, &k, &out_v, &out_i, &scratch};
@@ -626,18 +962,71 @@ int topk_select_launch(const float* x, int rows, long long n, long long k, float
       reinterpret_cast<const void*>(select_grid_kernel), dim3(grid), dim3(kThreads), args, 0, st));
 }
 
-// v (peers, k) f32, idx (peers, k) int32, w (peers,) f32 -> out (n,) f32.
-// Indices within one peer must be distinct. Returns a cudaError_t.
-int topk_scatter_launch(const float* v, const int* idx, const float* w, float* out,
-                        int peers, long long k, long long n, void* stream) {
+// Entries of an output tile: the tile body's blocks and the long-row
+// body's buckets cover kTile outputs each.
+int topk_scatter_tile() { return kTile; }
+
+// The tile body's limits for launches of more than one tile a row: the
+// pairs one block reads (peers x k) and the pairs all blocks read (tiles x
+// (mixes + (own rows ? 1 : 0)) x peers x k) for `rows` output rows of n;
+// above either, the long-row body.
+long long topk_scatter_tile_pairs_max() { return kTilePairsMax; }
+long long topk_scatter_tile_reads_max(int rows, long long n) { return tile_reads_max(rows, n); }
+
+// 1 (the tile body) or 2 (the long-row body): the body that body = 0
+// takes for `mixes` mixes of peers x k pairs into rows of n, own rows or
+// not.
+int topk_scatter_body(int mixes, int peers, long long k, long long n, int own) {
+  return scatter_body(mixes, peers, k, n, own);
+}
+
+// Words of the long-row body's counters (zero before its first launch; it
+// leaves them zero) and of its work buffer (no initial value), for rows of
+// n, peers x k pairs, own rows or not.
+long long topk_scatter_counter_words(int peers, long long n) {
+  return 2 * ((n + kTile - 1) / kTile) * peers;
+}
+long long topk_scatter_work_words(int peers, long long k, long long n, int own) {
+  return 2 * ((n + kTile - 1) / kTile) * peers + 1 + kMaxLongGrid + (own ? 3 : 2) * peers * k;
+}
+
+// vbank (peers, k) f32, vals (peers, k) f32 or null, idx (peers, k) int32,
+// w (mixes, peers) f32 -> out (mixes + (vals ? peers : 0), n) f32: row r <
+// mixes is sum_p w[r, p] * scatter(vbank[p], idx[p]), peers added in order;
+// row mixes + p is 0 + scatter(vals[p], idx[p]) * 1. Indices within one
+// peer must be distinct; those outside [0, n) are dropped. n >= 1, peers x
+// k < 2^31, mixes + (vals ? peers : 0) < 65536. counters and work: the long
+// body's (topk_scatter_counter_words, topk_scatter_work_words; null for the
+// tile body); launches on one stream may share counters, launches on two
+// may not. body: 0 by topk_scatter_body, 1 the tile body, 2 the long-row
+// body. Returns a cudaError_t (0 = success).
+int topk_scatter_launch(const float* vbank, const float* vals, const int* idx, const float* w,
+                        float* out, int mixes, int peers, long long k, long long n,
+                        unsigned* counters, unsigned* work, int body, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  ScatterBank b{vbank, vals, idx, w, out, mixes, peers, k, n};
+  const long long ntiles = (n + kTile - 1) / kTile;
+  if (body == 0) body = scatter_body(mixes, peers, k, n, vals != nullptr);
+  const unsigned rows = static_cast<unsigned>(mixes + (vals ? peers : 0));
+  if (body == 1) {
+    scatter_tile_kernel<<<dim3(static_cast<unsigned>(ntiles), rows), kThreads, 0, st>>>(b);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (!counters || !work) return static_cast<int>(cudaErrorInvalidValue);
   int grid = 0;
-  int err = cooperative_grid(reinterpret_cast<const void*>(scatter_kernel),
-                             (std::max(n, k) + kThreads - 1) / kThreads, 1 << 20, &grid);
+  constexpr long long kPairsPerBlock = kThreads * kScatterUnroll;  // one warp step each
+  int err = cooperative_grid(reinterpret_cast<const void*>(scatter_bucket_kernel), 1,
+                             (peers * k + kPairsPerBlock - 1) / kPairsPerBlock, kMaxLongGrid,
+                             &grid);
   if (err) return err;
-  void* args[] = {&v, &idx, &w, &out, &peers, &k, &n};
-  return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(scatter_kernel), dim3(grid), dim3(kThreads), args, 0, st));
+  void* args[] = {&b, &counters, &work};
+  err = static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(scatter_bucket_kernel), dim3(grid), dim3(kThreads), args, 0,
+      st));
+  if (err) return err;
+  scatter_gather_kernel<<<dim3(static_cast<unsigned>(ntiles), rows), kThreads, 0, st>>>(
+      b, counters, work);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

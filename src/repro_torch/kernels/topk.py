@@ -3,11 +3,14 @@ their plain PyTorch versions.
 
 Replaces the Pallas TPU kernels ``repro/kernels/topk.py:topk_select_pack``
 (``_select_kernel``) and ``topk_scatter_accum`` (``_scatter_kernel``). The
-CUDA source is ``csrc/topk.cu``; its header says how the kernel finds the
+CUDA source is ``csrc/topk.cu``; its header says how the select finds the
 bisection's bracket from max|x| and the exact k-th magnitude (three radix
-passes), which rows take one block and which a cooperative grid, and what
-bounds each kernel. ``topk_select_pack_bank`` selects every row of a
-``(P, n)`` bank in one launch.
+passes), which rows take one block and which a cooperative grid, how the
+scatter's two bodies (tiles in shared memory; pairs bucketed by tile for
+long rows) keep the reference's peer order, and what bounds each kernel.
+``topk_select_pack_bank`` selects every row of a ``(P, n)`` bank in one
+launch; ``topk_scatter_accum_bank`` scatters a leaf's bank into every mix
+and every peer's own image in one.
 
 The select is the Pallas kernel's algorithm, not an exact top-k: a 64-step
 float32 bisection on the magnitude threshold from ``lo = 0`` and
@@ -30,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -101,9 +104,21 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.topk_select_launch.restype = ctypes.c_int
+    for name, args, res in (
+        ("topk_scatter_tile", [], ctypes.c_int),
+        ("topk_scatter_tile_pairs_max", [], ctypes.c_longlong),
+        ("topk_scatter_tile_reads_max", [ctypes.c_int, ctypes.c_longlong], ctypes.c_longlong),
+        ("topk_scatter_body",
+         [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int], ctypes.c_int),
+        ("topk_scatter_counter_words", [ctypes.c_int, ctypes.c_longlong], ctypes.c_longlong),
+        ("topk_scatter_work_words",
+         [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int], ctypes.c_longlong),
+    ):
+        getattr(lib, name).argtypes, getattr(lib, name).restype = args, res
     lib.topk_scatter_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.topk_scatter_launch.restype = ctypes.c_int
     return lib
@@ -118,6 +133,32 @@ def small_row_max() -> int:
     """Rows of at most this many entries take the select's one-block body
     (``csrc/topk.cu``); longer rows take its cooperative grid."""
     return int(_lib().topk_select_small_row_max())
+
+
+def scatter_tile() -> int:
+    """Entries of one output tile of the scatter (``csrc/topk.cu``)."""
+    return int(_lib().topk_scatter_tile())
+
+
+def scatter_tile_pairs_max() -> int:
+    """Scatter launches whose rows span more than one tile take the long-row
+    body when their P x k pairs exceed this (the pairs one block of the
+    tile body reads)."""
+    return int(_lib().topk_scatter_tile_pairs_max())
+
+
+def scatter_tile_reads_max(rows: int, n: int) -> int:
+    """Scatter launches of ``rows`` rows of ``n`` that span more than one
+    tile take the long-row body when tiles x (M + 1 with own rows, else M)
+    x P x k exceeds this (the pairs all blocks of the tile body read)."""
+    return int(_lib().topk_scatter_tile_reads_max(rows, n))
+
+
+def scatter_body(mixes: int, peers: int, k: int, n: int, own: bool) -> int:
+    """The scatter body a launch of ``mixes`` mixes of ``peers`` x ``k``
+    pairs into rows of ``n``, with or without own rows, takes: 1 the tile
+    body, 2 the long-row body."""
+    return int(_lib().topk_scatter_body(mixes, peers, k, n, int(own)))
 
 
 _scratch: Dict[Tuple[int, int], torch.Tensor] = {}
@@ -190,12 +231,110 @@ def topk_select_pack_bank(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.
     return select_launch(x, k)
 
 
+def _check_sizes(peers: int, k: int, rows: int, n: int) -> None:
+    if not 0 <= n < 2**31 or peers * k >= 2**31 or rows >= 2**16:
+        raise ValueError(f"n={n}, {peers} x {k} pairs, {rows} rows: out of range (n and pairs "
+                         "below 2**31, rows below 2**16)")
+
+
+def _check_scatter(vbank: torch.Tensor, vals, idx: torch.Tensor, W: torch.Tensor, n: int) -> None:
+    build.check_tensor(vbank, "vbank", torch.float32, 2)
+    build.check_tensor(idx, "idx", torch.int32, 2)
+    build.check_tensor(W, "W", torch.float32, 2)
+    peers, k = vbank.shape
+    if vals is not None:
+        build.check_tensor(vals, "vals", torch.float32, 2)
+    same = [t for t in (vals, idx) if t is not None]
+    if any(t.shape != vbank.shape for t in same) or W.shape[1] != peers or W.shape[0] < 1 or any(
+        t.device != vbank.device for t in (*same, W)
+    ):
+        raise ValueError(
+            f"idx {tuple(idx.shape)}, vals {None if vals is None else tuple(vals.shape)} and W "
+            f"{tuple(W.shape)} must be ({peers}, {k}), ({peers}, {k}) and (M >= 1, {peers}) on "
+            f"{vbank.device}"
+        )
+    _check_sizes(peers, k, W.shape[0] + (peers if vals is not None else 0), n)
+
+
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _scatter_counters(device: torch.device, stream: int, words: int) -> torch.Tensor:
+    """The long-row body's counters for ``stream``: zeroed when allocated
+    and left zero by every launch (``csrc/topk.cu``); reallocated, zeroed,
+    only when a launch needs more words than the stream's hold."""
+    key = (device.index, stream)
+    if key not in _counters or _counters[key].numel() < words:
+        _counters[key] = torch.zeros((max(words, 1),), dtype=torch.int32, device=device)
+    return _counters[key]
+
+
+def scatter_launch(vbank: torch.Tensor, vals, idx: torch.Tensor, W: torch.Tensor, n: int,
+                   body: int = 0) -> torch.Tensor:
+    """One launch of the scatter over a CUDA bank -> (M + P, n) f32 with own
+    rows, else (M, n): the M mixes, then the P own images (the arguments
+    of ``topk_scatter_accum_bank``). ``body``: 0 by ``csrc/topk.cu``'s
+    rule, 1 the tile body, 2 the long-row body (two kernels, one count)."""
+    (peers, k), mixes = vbank.shape, W.shape[0]
+    own = vals is not None
+    stream = build.cuda_stream(vbank.device)
+    out = torch.empty((mixes + (peers if own else 0), n), dtype=torch.float32, device=vbank.device)
+    if n == 0:
+        return out
+    lib = _lib()
+    counters = work = None
+    with torch.cuda.device(vbank.device):
+        if (body or lib.topk_scatter_body(mixes, peers, k, n, int(own))) == 2:
+            counters = _scatter_counters(vbank.device, stream.value or 0,
+                                         lib.topk_scatter_counter_words(peers, n))
+            work = torch.empty((lib.topk_scatter_work_words(peers, k, n, own),), dtype=torch.int32,
+                               device=vbank.device)
+        err = lib.topk_scatter_launch(
+            vbank.data_ptr(), vals.data_ptr() if own else None, idx.data_ptr(), W.data_ptr(),
+            out.data_ptr(), mixes, peers, k, n, None if counters is None else counters.data_ptr(),
+            None if work is None else work.data_ptr(), body, stream,
+        )
+    if err:
+        if counters is not None:  # a launch cut short may leave them non-zero
+            _counters.pop((vbank.device.index, stream.value or 0), None)
+        raise RuntimeError(f"topk_scatter_accum kernel launch failed at {mixes} mixes, "
+                           f"({peers}, {k}) pairs, n={n}, own rows {own}: cudaError {err}")
+    topk_scatter_accum.launches += 1
+    return out
+
+
+def topk_scatter_accum_bank(
+    vbank: torch.Tensor, vals: Optional[torch.Tensor], idx: torch.Tensor, W: torch.Tensor, n: int
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Every mix and own image of one leaf. vbank (P, k) f32 (the values as
+    the wire rounds them), vals (P, k) f32 (unrounded) or None, idx (P, k)
+    int32, mixing weights W (M, P) f32 -> (mixes (M, n) f32, own images (P,
+    n) f32 or None). Mix r is ``topk_scatter_accum(vbank, idx, W[r], n)``;
+    own image p is peer p's entries alone with weight 1, ``0 + vals[p] * 1``
+    (not a mix with zero weights, where 0 * inf would make a NaN). On a CUDA
+    tensor it is one launch for all rows, counted on
+    ``topk_scatter_accum.launches``; on the CPU it computes the rows one by
+    one through ``scatter_accum_plain``."""
+    _check_scatter(vbank, vals, idx, W, n)
+    if vbank.device.type != "cpu":
+        out = scatter_launch(vbank, vals, idx, W, n)
+        mixes = W.shape[0]
+        return out[:mixes], None if vals is None else out[mixes:]
+    mixed = torch.stack([scatter_accum_plain(vbank, idx, w, n) for w in W])
+    if vals is None:
+        return mixed, None
+    one = torch.ones((1,), dtype=torch.float32)
+    return mixed, torch.stack([scatter_accum_plain(vals[p:p + 1], idx[p:p + 1], one, n)
+                               for p in range(vals.shape[0])])
+
+
 def topk_scatter_accum(
     vals: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, n: int
 ) -> torch.Tensor:
     """vals (P, k) f32, idx (P, k) int32, mixing weights w (P,) f32 -> dense
-    (n,) f32 = sum_p w[p] * scatter(vals[p], idx[p]). Indices within one
-    peer must be distinct, as the select gives them."""
+    (n,) f32 = sum_p w[p] * scatter(vals[p], idx[p]): the bank with one mix
+    and no own rows. Indices within one peer must be distinct, as the
+    select gives them."""
     build.check_tensor(vals, "vals", torch.float32, 2)
     build.check_tensor(idx, "idx", torch.int32, 2)
     build.check_tensor(w, "w", torch.float32, 1)
@@ -207,23 +346,10 @@ def topk_scatter_accum(
             f"idx {tuple(idx.shape)} on {idx.device} and w {tuple(w.shape)} on "
             f"{w.device} must be ({peers}, {k}) and ({peers},) on {vals.device}"
         )
-    if not 0 <= n < 2**31:
-        raise ValueError(f"n={n} out of range [0, 2**31)")
+    _check_sizes(peers, k, 1, n)
     if vals.device.type == "cpu":
         return scatter_accum_plain(vals, idx, w, n)
-    stream = build.cuda_stream(vals.device)
-    out = torch.empty((n,), dtype=torch.float32, device=vals.device)
-    if n == 0:
-        return out
-    with torch.cuda.device(vals.device):
-        err = _lib().topk_scatter_launch(
-            vals.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(), peers, k, n,
-            stream,
-        )
-    if err:
-        raise RuntimeError(f"topk_scatter_accum kernel launch failed: cudaError {err}")
-    topk_scatter_accum.launches += 1
-    return out
+    return scatter_launch(vals, None, idx, w.view(1, peers), n)[0]
 
 
 topk_scatter_accum.launches = 0

@@ -13,7 +13,11 @@ on the CPU.
   select on those leaves is the Pallas payload. The bank select's CPU
   route is the per-row select.
 * The plain scatter equals the Pallas ``topk_scatter_accum`` and
-  ``topk_scatter_ref`` bit for bit, peers sharing indices.
+  ``topk_scatter_ref`` bit for bit, peers sharing indices; so does every
+  row of the bank scatter's CPU route (each mix of the full graph's and
+  the ring's weights, each own row, which is also the offset P = 1
+  scatter it replaced), on special payloads too; and the CUDA bodies'
+  orders of adds, emulated in numpy, equal the plain scatter.
 * ``topk`` and ``psum_mean``: host payloads, wire bytes and registry flags
   are the reference's; each device ``combine`` / ``combine_ef`` on the
   stacked ``(P, ...)`` bank matches the reference's under
@@ -237,6 +241,199 @@ def test_plain_scatter_is_bit_identical_to_the_reference(k, n):
     np.testing.assert_array_equal(got, np.asarray(kref.topk_scatter_ref(*args)))
 
 
+def _bank_payload(P, k, n, seed, wire="bfloat16"):
+    """A bank as the device step hands it to the scatter: each peer's k
+    distinct indices in [0, n), its values unrounded (vals) and rounded
+    through the wire dtype (vbank)."""
+    rng = np.random.default_rng(seed)
+    idx = np.stack([rng.choice(n, size=k, replace=False) for _ in range(P)]).astype(np.int32)
+    vals = rng.normal(size=(P, k)).astype(np.float32)
+    vbank = torch.from_numpy(vals).to(getattr(torch, wire)).float().numpy()
+    return vbank, vals, idx
+
+
+def _mixing(graph, P):
+    """The exchange's (M, P) mixing weights: one row of 1/P on the full
+    graph, the Metropolis-Hastings matrix's P rows otherwise."""
+    if graph == "full":
+        return np.full((1, P), 1.0 / P, np.float32)
+    return get_graph(graph, P).mixing_matrix().astype(np.float32)
+
+
+def _same_bits(a, b):
+    """NaN at the same positions, the same bit pattern elsewhere."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    assert a.shape == b.shape
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+    live = ~np.isnan(a)
+    np.testing.assert_array_equal(a[live].view(np.uint32), b[live].view(np.uint32))
+
+
+def _pallas_rows(vbank, vals, idx, W, n):
+    """The bank's rows through the Pallas kernel (interpret mode) and
+    ``topk_scatter_ref``: each mix, then each own row as a P = 1 scatter
+    with weight 1."""
+    rows = [(vbank, idx, w) for w in W]
+    if vals is not None:
+        rows += [(vals[p:p + 1], idx[p:p + 1], np.ones(1, np.float32)) for p in range(len(vals))]
+    args = [(jnp.asarray(v), jnp.asarray(i), jnp.asarray(w), n) for v, i, w in rows]
+    return [np.asarray(pallas_scatter(*a)) for a in args], [np.asarray(kref.topk_scatter_ref(*a)) for a in args]
+
+
+@pytest.mark.parametrize("own", [False, True])
+@pytest.mark.parametrize("graph", ["full", "ring"])
+@pytest.mark.parametrize("P", [1, 3, 4])
+def test_bank_rows_are_the_pallas_scatter(P, graph, own):
+    """Every row of the bank's CPU route equals the Pallas scatter and
+    ``topk_scatter_ref`` bit for bit: the M mixes (M = 1 on the full graph,
+    P under the ring's W) and, with ``vals``, each peer's own image."""
+    n, k = 1000, 37
+    vbank, vals, idx = _bank_payload(P, k, n, seed=P * 10 + own)
+    W = _mixing(graph, P)
+    before = K.topk_scatter_accum.launches
+    mixed, own_rows = K.topk_scatter_accum_bank(
+        torch.from_numpy(vbank), torch.from_numpy(vals) if own else None, torch.from_numpy(idx),
+        torch.from_numpy(W), n)
+    assert K.topk_scatter_accum.launches == before  # the CPU route launches nothing
+    assert mixed.shape == (len(W), n) and mixed.dtype == torch.float32
+    assert (own_rows is None) == (not own)
+    got = list(mixed.numpy()) + ([] if own_rows is None else list(own_rows.numpy()))
+    pallas, ref = _pallas_rows(vbank, vals if own else None, idx, W, n)
+    assert len(got) == len(pallas) == len(W) + (P if own else 0)
+    for g, a, b in zip(got, pallas, ref):
+        _same_bits(g, a)
+        _same_bits(g, b)
+
+
+@pytest.mark.parametrize("P", [1, 3, 4])
+def test_own_rows_are_the_offset_scatter(P):
+    """Own row p equals what the exchange computed before the bank: one P = 1
+    scatter of every peer's entries at p * n + idx into a (P * n) buffer,
+    weight 1."""
+    n, k = 700, 21
+    vbank, vals, idx = _bank_payload(P, k, n, seed=P)
+    _, own = K.topk_scatter_accum_bank(torch.from_numpy(vbank), torch.from_numpy(vals),
+                                       torch.from_numpy(idx), torch.from_numpy(_mixing("full", P)), n)
+    offset = (np.arange(P, dtype=np.int32)[:, None] * n).astype(np.int32)
+    dense = K.topk_scatter_accum(torch.from_numpy(vals.reshape(1, -1)),
+                                 torch.from_numpy((idx + offset).reshape(1, -1)), torch.ones(1), P * n)
+    _same_bits(own.numpy(), dense.view(P, n).numpy())
+
+
+def _special_payload(P, k, n, seed):
+    """Peer 0: values -0.0, +inf, NaN, -inf and indices below 0 and at or
+    past n; peer 1: a NaN leaf's payload (k slots of value 0 at index 0);
+    the others random pairs, two of them at peer 0's -0.0 and +inf
+    indices (the indices within a peer distinct but for the NaN payload)."""
+    vbank, vals, idx = _bank_payload(P, k, n, seed, wire="float32")
+    vals[0, :5] = [-0.0, np.inf, np.nan, -np.inf, -0.0]
+    idx[0, 5:9] = [-1, -7, n, n + 100]
+    if P > 1:
+        vals[1], idx[1] = 0.0, 0
+    for p in range(2, P):
+        rest = [t for t in idx[p] if t not in idx[0, :2]][: k - 2]
+        idx[p] = np.concatenate([idx[0, :2], rest])
+        vals[p, 0] = -0.0
+    return vals.copy(), vals, idx
+
+
+@pytest.mark.parametrize("graph", ["full", "ring"])
+@pytest.mark.parametrize("P", [1, 3, 4])
+def test_bank_on_special_payloads_is_the_reference(P, graph):
+    """-0.0, +inf, NaN and -inf values, a NaN leaf's payload (index 0 k
+    times, value 0) and indices outside [0, n), with own rows: every row
+    equals the Pallas scatter (n % 128 != 0, where the Pallas kernel drops
+    negative indices in its padding) and ``topk_scatter_ref`` on the
+    indices at or past n (it wraps negative ones, Python style; the port
+    and the Pallas kernel drop them); under the ring's zero weights, +inf
+    x 0 makes NaN in both."""
+    n, k = 300, 16
+    vbank, vals, idx = _special_payload(P, k, n, seed=P)
+    W = _mixing(graph, P)
+    mixed, own = K.topk_scatter_accum_bank(torch.from_numpy(vbank), torch.from_numpy(vals),
+                                           torch.from_numpy(idx), torch.from_numpy(W), n)
+    got = list(mixed.numpy()) + list(own.numpy())
+    pallas, _ = _pallas_rows(vbank, vals, idx, W, n)
+    _, ref = _pallas_rows(vbank, vals, np.where(idx < 0, n + 1, idx).astype(np.int32), W, n)
+    for g, a, b in zip(got, pallas, ref):
+        _same_bits(g, a)
+        _same_bits(g, b)
+    assert np.isnan(got[len(W)]).any()  # peer 0's own image keeps its NaN
+
+
+def _emulate(vals, idx, w, n, tile, body, rng):
+    """The CUDA scatter's order in numpy float32, one mix row: the tile
+    body (each tile zeroed, every peer's pairs streamed in turn, those in
+    the tile added) or the long-row body (pairs sent to buckets (tile,
+    peer) in a shuffled order, as its atomics may place them, then each
+    tile's buckets added peer by peer)."""
+    out = np.zeros(n, np.float32)
+    P = len(vals)
+    live = (idx >= 0) & (idx < n)
+    buckets = {}
+    if body == "long":
+        for p in range(P):
+            for j in rng.permutation(idx.shape[1]):
+                if live[p, j]:
+                    buckets.setdefault((idx[p, j] // tile, p), []).append((idx[p, j], vals[p, j]))
+    for lo in range(0, n, tile):
+        acc = np.zeros(min(tile, n - lo), np.float32)
+        for p in range(P):
+            if body == "tile":
+                sel = live[p] & (idx[p] >= lo) & (idx[p] < lo + tile)
+                pairs = zip(idx[p][sel], vals[p][sel])
+            else:
+                pairs = buckets.get((lo // tile, p), [])
+            for t, v in pairs:
+                acc[t - lo] = np.float32(acc[t - lo] + np.float32(v * w[p]))
+        out[lo:lo + len(acc)] = acc
+    return out
+
+
+@pytest.mark.parametrize("body", ["tile", "long"])
+@pytest.mark.parametrize("n", [1000, 1003])
+def test_kernel_order_emulation_is_the_plain_scatter(body, n):
+    """The tile body's and the long-row body's order of adds, emulated in
+    numpy float32 at a small tile (64, tile edges falling between a peer's
+    entries, n not a multiple of it), equals ``scatter_accum_plain`` bit
+    for bit: peers sharing indices, out-of-range indices, -0.0 and +inf."""
+    P, k, tile = 4, 120, 64
+    rng = np.random.default_rng(n)
+    pool = rng.choice(n, size=2 * k, replace=False)
+    idx = np.stack([rng.choice(pool, size=k, replace=False) for _ in range(P)]).astype(np.int32)
+    idx[0, :2] = [-3, n + 5]
+    vals = rng.normal(size=(P, k)).astype(np.float32)
+    vals[1, :2] = [-0.0, np.inf]
+    w = rng.random(P).astype(np.float32)
+    want = K.scatter_accum_plain(torch.from_numpy(vals), torch.from_numpy(idx), torch.from_numpy(w), n)
+    _same_bits(_emulate(vals, idx, w, n, tile, body, rng), want.numpy())
+
+
+def test_bank_validates_and_the_exchange_scatters_once_per_leaf(monkeypatch):
+    """Shapes, dtypes and devices are checked; the top-k exchange's device
+    combine makes one bank scatter per leaf, with the unrounded values
+    (own rows) under EF only."""
+    v, i, W = torch.zeros(2, 3), torch.zeros(2, 3, dtype=torch.int32), torch.ones(1, 2)
+    with pytest.raises(ValueError, match=r"must be \(2, 3\), \(2, 3\) and \(M >= 1, 2\)"):
+        K.topk_scatter_accum_bank(v, None, i, torch.ones(1, 3), 5)
+    with pytest.raises(ValueError, match=r"must be \(2, 3\)"):
+        K.topk_scatter_accum_bank(v, v[:1].contiguous(), i, W, 5)
+    with pytest.raises(ValueError, match="out of range"):
+        K.topk_scatter_accum_bank(v, None, i, W, 2**31)
+    with pytest.raises(ValueError, match="int32"):
+        K.topk_scatter_accum_bank(v, None, i.long(), W, 5)
+    calls, bank = [], K.topk_scatter_accum_bank
+    monkeypatch.setattr(K, "topk_scatter_accum_bank",
+                        lambda vb, vl, ix, w, n: (calls.append((vl is not None, tuple(w.shape))),
+                                                  bank(vb, vl, ix, w, n))[1])
+    grads = _leaf_tree(2, peers=P)
+    ring = get_graph("ring", P)
+    ctx = X.ExchangeContext(num_peers=P, topk_frac=0.1, graph=ring, mixing=ring.mixing_matrix())
+    X.get_exchange("topk").combine_ef(grads, ctx)
+    X.get_exchange("topk").combine(grads, X.ExchangeContext(num_peers=P, topk_frac=0.1))
+    assert calls == [(True, (P, P))] * len(grads) + [(False, (1, P))] * len(grads)
+
+
 def test_wrappers_validate_inputs_and_count_no_cpu_launch():
     x = torch.zeros(10)
     with pytest.raises(ValueError, match="out of range"):
@@ -437,6 +634,29 @@ def test_cuda_kernels_match_plain(cuda, n, kind):
     idx = torch.stack([i] * P)  # every peer shares every index
     w = torch.rand(P, device="cuda")
     assert torch.equal(K.topk_scatter_accum(vals, idx, w, n), K.scatter_accum_plain(vals, idx, w, n))
+
+
+@pytest.mark.parametrize("body", [0, 1, 2])
+@pytest.mark.parametrize("graph", ["full", "ring"])
+def test_cuda_scatter_bank_matches_plain(cuda, graph, body):
+    """The bank scatter on the card, in one launch, the wrapper's body (0)
+    and each body forced: every mix and own row bit-identical to the
+    plain version (NaN at the same positions), on a select-like payload
+    over ragged tiles and on the special payloads."""
+    W = _mixing(graph, P)
+    for n, payload in ((100003, _bank_payload(P, 1000, 100003, seed=1)),
+                       (300, _special_payload(P, 16, 300, seed=2))):
+        args = [torch.from_numpy(a).cuda() for a in payload]
+        before = K.topk_scatter_accum.launches
+        if body:
+            rows = K.scatter_launch(*args, torch.from_numpy(W).cuda(), n, body)
+        else:
+            mixed, own = K.topk_scatter_accum_bank(*args, torch.from_numpy(W).cuda(), n)
+            rows = torch.cat([mixed, own])
+        assert K.topk_scatter_accum.launches == before + 1
+        mixed, own = K.topk_scatter_accum_bank(*(torch.from_numpy(a) for a in payload),
+                                               torch.from_numpy(W), n)
+        _same_bits(rows.cpu().numpy(), torch.cat([mixed, own]).numpy())
 
 
 @pytest.mark.parametrize("kind,n,k", BRACKET_CASES)
