@@ -47,9 +47,12 @@ failure):
 3. reference — small runs on the card against the same runs on the CPU
              (plain versions), same init and uniforms: a 4-peer squeezenet
              QSGD cluster epoch, one device train step with qsgd + EF and
-             with topk + EF, a 3-layer reduced mamba2 and a 3-layer
-             reduced gemma2 (S 160 over its window of 64) in f32 (forward,
-             prefill logits and states or caches, 8 greedy decode steps).
+             with topk + EF, the reference's churned async cluster scenario
+             (2 squeezenet peers, churn 0.3, ``sim_compute_s`` pinned, 2
+             epochs: equal trace digests, params within 1e-5), a 3-layer
+             reduced mamba2 and a 3-layer reduced gemma2 (S 160 over its
+             window of 64) in f32 (forward, prefill logits and states or
+             caches, 8 greedy decode steps).
 4. path    — the main paths. ``LocalP2PCluster(...).run`` with the QSGD
              exchange: mobilenet-v3-small (full graph, 3 epochs), vgg11
              (full graph, 2 epochs), mobilenet-v3-small (ring, EF, 1 epoch);
@@ -59,6 +62,17 @@ failure):
              EF, 4 peers x batch 32 on CIFAR-shaped 32x32 data, 4 steps
              each (one bank select of all 4 peers per leaf and step, and
              one bank scatter into the mix and the 4 own images).
+             The accounting runs: mobilenet-v3-small with qsgd(127, 2048)
+             through a ``ServerlessExecutor`` (AWS-default runtime,
+             latency-driven memory), 16 batches per peer and epoch, 2
+             epochs: every batch timed with the card synchronised, each
+             report's simulated Lambda wall and dollars printed beside the
+             same batch times priced on a t2.large (simulated accounting,
+             not a measurement of Lambda); an async mobilenet-v3-small
+             cluster with topk(0.01) + EF, peer speeds 1 / 1.25 / 1.5 / 2,
+             churn 0.2, 2 epochs, a trace recorder attached (scatter
+             launches = the trace's consumes + publishes, per leaf; no
+             trace error).
              mamba2-370m at full width (48 layers, bf16): the scoring
              ``forward(..., use_ssd_kernel=True)`` on 4 x 2048 tokens (48
              SSD launches each) and the serve twin's prefill of 4 x 512
@@ -901,6 +915,40 @@ def reference_step_phase(torch):
                   f"coordinates beyond 1e-5: {n_far} of {gaps.numel()}")
 
 
+def reference_async_phase(torch):
+    """The reference's churned async scenario (``analysis.trace``'s
+    ``_run_cluster``: squeezenet1.1, MNIST-shaped 8x8, 2 peers, churn 0.3,
+    ``sim_compute_s`` pinned, seed 11, 2 async epochs) on the card and on
+    the CPU from the same init params: the trace digests are equal (same
+    events, times and order), and params agree within 1e-5 (the allgather
+    exchange has no boundary to flip)."""
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.analysis import TraceRecorder
+    from repro_torch.analysis.trace import _run_cluster
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("squeezenet1.1"), image_size=8, image_channels=1,
+                              num_classes=10)
+    model = models.init_model(cfg, generator=torch.Generator().manual_seed(11), device="cpu")
+    init = {k: v.detach().clone() for k, v in model.named_parameters()}
+    runs = {}
+    for device in ("cpu", "cuda"):
+        tracer = TraceRecorder()
+        runs[device] = (tracer, _run_cluster(tracer, device=device, init_params=init))
+    (tc, cc), (tg, cg) = runs["cpu"], runs["cuda"]
+    require(tg.digest() == tc.digest(),
+            f"async scenario: card trace {tg.digest()[:12]} != CPU trace {tc.digest()[:12]}")
+    worst = max(float((pg.params[k].cpu() - pc.params[k]).abs().max())
+                for pc, pg in zip(cc.peers, cg.peers) for k in pc.params)
+    require(worst <= 1e-5, f"async scenario: card vs CPU params gap {worst:.3e} > 1e-5")
+    print(f"reference check (squeezenet1.1 async cluster, 2 peers, churn 0.3, 2 epochs, card vs "
+          f"CPU): trace digest {tg.digest()[:16]} on both ({len(tg)} events), drops "
+          f"{[p.drops for p in cg.peers]}, clocks {[round(p.clock, 4) for p in cg.peers]} s, "
+          f"params max_abs_err={worst:.3e}")
+
+
 def reference_lm_phase(torch, arch: str, seq: int, flags: dict):
     """A 3-layer reduced ``arch`` in f32, the same weights (one CPU
     generator seed) on the card and on the CPU: the forward with ``flags``
@@ -953,20 +1001,27 @@ def reference_lm_phase(torch, arch: str, seq: int, flags: dict):
 
 
 def drive(torch, mods, arch: str, epochs: int, *, exchange: str = "qsgd", graph: str = "full",
-          ef: bool = False):
+          ef: bool = False, batches: int = 2, priced: bool = False):
+    """``LocalP2PCluster.run`` at full width; ``priced``: through a
+    ``ServerlessExecutor`` on the AWS-default runtime with latency-driven
+    memory, which times every batch with the card synchronised and prices
+    the Lambda fan-out (accounting, not a measurement of Lambda)."""
     from repro_torch.configs import get_config
-    from repro_torch.core import LocalP2PCluster, QSGDConfig
+    from repro_torch.core import (InstanceConfig, LocalP2PCluster, QSGDConfig, RuntimeConfig,
+                                  ServerlessExecutor, compare_backends)
     from repro_torch.data import make_dataset
     from repro_torch.optim import sgd
 
+    executor = ServerlessExecutor(backend="serverless", runtime=RuntimeConfig.aws_default(),
+                                  allocation="latency") if priced else None
     reset_counters(mods)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     cluster = LocalP2PCluster(
         get_config(arch), make_dataset("cifar"), num_peers=PEERS, batch_size=32,
-        batches_per_epoch=2, optimizer=sgd(momentum=0.9), lr=0.01,  # table1_resource_stages.py
+        batches_per_epoch=batches, optimizer=sgd(momentum=0.9), lr=0.01,  # table1_resource_stages.py
         exchange=exchange, qsgd=QSGDConfig(levels=S, bucket=BUCKET), topk_frac=TOPK_FRAC,
-        graph=graph, ef=ef, seed=0,
+        graph=graph, ef=ef, seed=0, executor=executor,
     )
     t1 = time.perf_counter()
     history = cluster.run(epochs)
@@ -981,7 +1036,8 @@ def drive(torch, mods, arch: str, epochs: int, *, exchange: str = "qsgd", graph:
         expect.update(qsgd_quantize=epochs * PEERS * leaves, qsgd_dequantize=decodes)
     else:
         expect.update(topk_select_pack=epochs * PEERS * leaves, topk_scatter_accum=decodes)
-    tag = f"cluster {arch} {exchange} graph={graph} ef={ef}"
+    tag = f"cluster {arch} {exchange} graph={graph} ef={ef}" + (
+        f" priced ({batches} batches/epoch)" if priced else "")
     require(launches == expect, f"{tag}: launches {launches} != expected {expect}")
     require(len(history) == epochs, f"{tag}: ran {len(history)} of {epochs} epochs")
     for h in history:
@@ -1007,6 +1063,91 @@ def drive(torch, mods, arch: str, epochs: int, *, exchange: str = "qsgd", graph:
     print("  peer 0 stage means (Table I): " + ", ".join(
         f"{k}={table[k]['time_s']:.4f}s" for k in cluster.peers[0].metrics.STAGES
     ))
+    if priced:
+        for peer in cluster.peers:
+            require(len(peer.reports) == epochs, f"{tag}: peer {peer.rank} has "
+                    f"{len(peer.reports)} reports, not {epochs}")
+            for rep in peer.reports:
+                require(rep.num_batches == batches and len(rep.per_batch_s) == batches,
+                        f"{tag}: peer {peer.rank} epoch {rep.epoch} priced {rep.num_batches} batches")
+                require(rep.measured_compute_s == sum(rep.per_batch_s)
+                        and min(rep.per_batch_s) > 0,
+                        f"{tag}: peer {peer.rank} epoch {rep.epoch} batch times {rep.per_batch_s}")
+                # the quickstart's comparison: the same batch times priced
+                # sequentially on a steady-state t2.large
+                irep = ServerlessExecutor(
+                    backend="instance", instance="t2.large", instance_config=InstanceConfig.ideal(),
+                ).simulate_instance(rep.per_batch_s)
+                cmp = compare_backends(rep.cost_report(), irep.cost_report())
+                rel = "faster" if cmp["speedup_pct"] >= 0 else "slower"
+                print(
+                    f"  peer {peer.rank} epoch {rep.epoch}: batches measured on the card "
+                    f"{sum(rep.per_batch_s):.4f} s (max {max(rep.per_batch_s):.4f} s); simulated "
+                    f"accounting of those times: {rep.num_batches} lambdas x "
+                    f"{rep.lambda_memory_mb} MB, wall {rep.wall_time_s:.4f} s, cold starts "
+                    f"{rep.num_cold_starts}, retries {rep.num_retries}, "
+                    f"${rep.cost_usd:.8f}/peer/epoch; against a t2.large (ideal) "
+                    f"{abs(cmp['speedup_pct']):.2f} % {rel} at {cmp['cost_multiple']:.2f}x the cost"
+                )
+    return launches
+
+
+def drive_async(torch, mods, arch: str, epochs: int):
+    """An async ``LocalP2PCluster.run`` at full width: top-k (1 %) with EF,
+    the full graph, peer speeds 1 / 1.25 / 1.5 / 2, churn 0.2 with 0.5 s
+    downtime, the measured compute times driving the event order, a
+    ``TraceRecorder`` attached. Under async a consume can find nothing yet,
+    so the scatter's launches follow the trace: one decode (a launch per
+    leaf) per consume event, plus one own-image decode per publish (EF)."""
+    from repro_torch.analysis import TraceRecorder, check_trace
+    from repro_torch.configs import get_config
+    from repro_torch.core import LocalP2PCluster
+    from repro_torch.data import make_dataset
+    from repro_torch.optim import sgd
+
+    tracer = TraceRecorder()
+    reset_counters(mods)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cluster = LocalP2PCluster(
+        get_config(arch), make_dataset("cifar"), num_peers=PEERS, batch_size=32,
+        batches_per_epoch=2, optimizer=sgd(momentum=0.9), lr=0.01, exchange="topk",
+        topk_frac=TOPK_FRAC, ef=True, sync=False, peer_speeds=(1.0, 1.25, 1.5, 2.0),
+        churn_prob=0.2, churn_downtime_s=0.5, tracer=tracer, seed=0,
+    )
+    t1 = time.perf_counter()
+    history = cluster.run(epochs)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = read_counters(mods)
+
+    leaves = len(cluster.peers[0].params)
+    kinds = [ev[0] for ev in tracer.events]
+    consumes, publishes = kinds.count("consume"), kinds.count("publish")
+    expect = dict.fromkeys(KERNELS, 0)
+    expect.update(topk_select_pack=epochs * PEERS * leaves,
+                  topk_scatter_accum=(consumes + publishes) * leaves)
+    tag = f"cluster {arch} topk graph=full ef=True async churn=0.2"
+    require(publishes == epochs * PEERS, f"{tag}: {publishes} publishes, not {epochs * PEERS}")
+    require(launches == expect, f"{tag}: launches {launches} != expected {expect}")
+    require(all(p.steps_done == epochs for p in cluster.peers),
+            f"{tag}: steps done {[p.steps_done for p in cluster.peers]}")
+    errors = [f.render() for f in check_trace(tracer.events) if f.severity == "error"]
+    require(not errors, f"{tag}: trace errors {errors}")
+    for h in history:
+        require(all(math.isfinite(h[k]) for k in ("loss", "val_loss")), f"{tag}: non-finite loss {h}")
+    for peer in cluster.peers:
+        require(all(bool(torch.isfinite(v).all()) for v in peer.params.values()),
+                f"{tag}: non-finite params on peer {peer.rank}")
+    print(
+        f"path {tag}: {leaves} leaves, setup {t1 - t0:.3f} s, {epochs} epochs in {t2 - t1:.3f} s "
+        f"({(t2 - t1) / epochs:.3f} s/epoch), {len(tracer)} trace events ({consumes} consumes, "
+        f"{kinds.count('miss')} misses, {publishes} publishes), last epoch's order "
+        f"{cluster.last_event_order}, virtual clocks "
+        f"{[round(p.clock, 4) for p in cluster.peers]} s, drops {[p.drops for p in cluster.peers]}, "
+        f"downtime {[round(p.downtime_s, 4) for p in cluster.peers]} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}"
+    )
     return launches
 
 
@@ -1987,6 +2128,7 @@ def main() -> int:
     stamp("kernels phase")
     reference_phase(torch)
     reference_step_phase(torch)
+    reference_async_phase(torch)
     reference_lm_phase(torch, "mamba2-370m", 40, SSD_FLAGS)
     reference_lm_phase(torch, "gemma2-2b", 160, {})  # 160 > the window of 64
     stamp("reference phase")
@@ -1999,6 +2141,8 @@ def main() -> int:
         (drive, "mobilenet-v3-small", 1, dict(exchange="topk", ef=True)),
         (drive_step, "vgg11", 4, dict(exchange="qsgd")),
         (drive_step, "mobilenet-v3-small", 4, dict(exchange="topk")),
+        (drive, "mobilenet-v3-small", 2, dict(batches=16, priced=True)),
+        (drive_async, "mobilenet-v3-small", 2, {}),
     )
     for fn, arch, length, kw in runs:
         for name, count in fn(torch, mods, arch, length, **kw).items():

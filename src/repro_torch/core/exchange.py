@@ -6,12 +6,13 @@ wire-byte accounting:
 
 * **device path** — :meth:`~ExchangeProtocol.combine` and
   :meth:`~ExchangeProtocol.combine_ef` run in the device train step
-  (``core/p2p.py``). On one card the P peers are a stacked leading
+  (``core/p2p.py``), carrying the state :meth:`~ExchangeProtocol.init_state`
+  makes (the ``async`` mailbox ring; None for sync protocols). On one card the P peers are a stacked leading
   dimension: gradients are a ``{name: (P, *shape)}`` bank, the reference's
   ``all_gather`` over the peer axis is that bank itself and its ``pmean`` a
   reduction over dim 0. Each returns the mixed gradient of every peer,
-  ``{name: (P, *shape)}`` f32; on the full graph the P rows are one tensor
-  expanded, since every peer's mix is the same.
+  ``{name: (P, *shape)}`` f32; on the full graph the P rows of a sync
+  protocol are one tensor expanded, since every peer's mix is the same.
 * **host path** — :meth:`~ExchangeProtocol.host_encode` /
   :meth:`~ExchangeProtocol.host_decode` serialize one peer's gradient for
   the :class:`~repro_torch.core.mailbox.HostMailbox`.
@@ -59,6 +60,7 @@ class ExchangeContext:
     wire_dtype: torch.dtype = torch.float32
     qsgd: Optional[C.QSGDConfig] = None
     topk_frac: float = 0.01
+    staleness: int = 1  # async: consume banks published K steps ago
     graph: Any = None
     mixing: Any = None
 
@@ -126,6 +128,10 @@ class ExchangeProtocol(abc.ABC):
         so stage timings measure work, not compilation."""
 
     # -- device path ---------------------------------------------------------
+    def init_state(self, grads_like: Grads, ctx: ExchangeContext):
+        """Per-protocol carried state (the async mailbox ring); None if none."""
+        return None
+
     @abc.abstractmethod
     def combine(self, grads: Grads, ctx: ExchangeContext, *, generator=None, state=None):
         """``{name: (P, *shape)}`` bank -> (every peer's mixed gradient
@@ -184,7 +190,6 @@ _REGISTRY: Dict[str, Type[ExchangeProtocol]] = {}
 
 # Protocols of the reference that the port does not have yet -> ROADMAP item.
 _UNPORTED = {
-    "async": "Serverless and instance accounting",
     "reduce_scatter": "Robust, sharded and tree exchange",
     "tree": "Robust, sharded and tree exchange",
     "trimmed_mean": "Robust, sharded and tree exchange",
@@ -465,3 +470,50 @@ class TopKExchange(ExchangeProtocol):
             self._k(int(np.prod(x.shape)), ctx.topk_frac) * (itemsize + 4)
             for x in grads_like.values()
         )
+
+
+@register_exchange("async")
+class StalenessMailbox(ExchangeProtocol):
+    """Asynchronous staleness-K mailbox exchange (paper's "latest available
+    gradient", generalized). The carried state is a ring of the last K
+    published register banks, leaves shaped ``(K, P, *grad)`` f32; peers
+    consume the bank published K steps ago (K=1 == the paper's staleness-1)
+    while their own contribution is always fresh.
+
+    On the stacked bank: the fresh bank rounds through the wire dtype into
+    the ring; peer r mixes the oldest bank's other rows (the plain mean, or
+    ``W[r]``) with its own fresh gradient; the ring rolls by one. The host
+    path ships the dense gradient (the base class's codec).
+    """
+
+    is_async = True
+
+    def init_state(self, grads_like, ctx):
+        K = max(1, int(ctx.staleness))
+        return {
+            k: torch.zeros((K, ctx.num_peers, *g.shape), dtype=torch.float32, device=g.device)
+            for k, g in grads_like.items()
+        }
+
+    def combine(self, grads, ctx, *, generator=None, state=None):
+        if state is None:
+            raise ValueError(
+                "async exchange requires mailbox state; initialize the train "
+                "state with init_mailbox(...) or ExchangeProtocol.init_state(...)"
+            )
+        avg, new_state = {}, {}
+        for k, g in grads.items():
+            ring, own = state[k], g.to(torch.float32)
+            oldest = ring[0]  # the bank published K steps ago, (P, *shape)
+            peers = oldest.shape[0]
+            if ctx.mixing is None:
+                others = oldest.sum(0) - oldest  # row r: every row but r
+                avg[k] = (others + own) / peers
+            else:
+                w = _mixing(ctx, peers, g.device)
+                diag = torch.diagonal(w).reshape(peers, *([1] * (g.dim() - 1)))
+                mixed = torch.tensordot(w, oldest, dims=([1], [0]))
+                avg[k] = (mixed - diag * oldest) + diag * own
+            fresh = g.to(ctx.wire_dtype).to(torch.float32)
+            new_state[k] = torch.cat([ring[1:], fresh[None]], dim=0)
+        return avg, new_state

@@ -9,11 +9,11 @@ model two ways:
   models the paper's 100 MB message cap (large payloads are "stored in S3
   and referenced by UUID": we count the indirection but deliver the payload
   either way).
-* device-level — a register bank inside the device train step, which the
-  port does not have yet.
+* device-level — the ``async`` protocol's ring of register banks carried
+  in the device train step's state (``core/exchange.py``).
 
-A numpy copy of the reference's ``repro/core/mailbox.py``, without its
-trace-recorder hooks.
+A numpy copy of the reference's ``repro/core/mailbox.py``, its
+trace-recorder hooks included.
 """
 from __future__ import annotations
 
@@ -88,10 +88,15 @@ class HostMailbox:
 
     def __init__(
         self, num_peers: int, *, s3_rtt_s: float = S3_ROUND_TRIP_S, graph=None,
+        tracer=None,
     ):
         self.num_peers = num_peers
         self.s3_rtt_s = s3_rtt_s
         self.graph = graph
+        # Optional repro_torch.analysis.trace.TraceRecorder: every publish/consume
+        # is recorded for the happens-before race checker and the same-seed
+        # determinism differ. None keeps the broker overhead-free.
+        self.tracer = tracer
         # shard tag -> preallocated register bank over all peers;
         # shard=None is the classic whole-gradient register
         self._shards: Dict[Any, _Registers] = {}
@@ -122,8 +127,10 @@ class HostMailbox:
         regs = self._shards.get(shard)
         if regs is None:
             regs = self._shards[shard] = _Registers(self.num_peers)
+        replaced_epoch: Optional[int] = None
         if regs.filled[peer]:
-            if int(regs.epoch[peer]) == epoch:
+            replaced_epoch = int(regs.epoch[peer])
+            if replaced_epoch == epoch:
                 # latest-wins compaction within the (peer, epoch) cell
                 self.stats["compacted"] += 1
         else:
@@ -139,6 +146,11 @@ class HostMailbox:
         self.stats["publishes"] += 1
         if via_s3:
             self.stats["s3_indirections"] += 1
+        if self.tracer is not None:
+            self.tracer.record(
+                "publish", time=time, actor=peer, epoch=epoch, shard=shard,
+                nbytes=nbytes, replaced_epoch=replaced_epoch,
+            )
 
     @property
     def live_messages(self) -> int:
@@ -186,6 +198,11 @@ class HostMailbox:
             and not self.graph.has_edge(consumer, peer)
         ):
             self.stats["blocked"] += 1
+            if self.tracer is not None:
+                self.tracer.record(
+                    "blocked", time=at_time, actor=consumer, peer=peer,
+                    shard=shard,
+                )
             return None
         regs = self._shards.get(shard)
         self.stats["consumes"] += 1
@@ -196,6 +213,10 @@ class HostMailbox:
         ):
             # nothing in the register, or not yet published at this
             # simulated time — either way the consumer sees a miss
+            if self.tracer is not None:
+                self.tracer.record(
+                    "miss", time=at_time, actor=consumer, peer=peer, shard=shard,
+                )
             return None
         msg = Message(
             regs.payload[peer],
@@ -207,6 +228,11 @@ class HostMailbox:
         )
         if consumer is not None:
             self.delivered_edges.add((consumer, peer))
+        if self.tracer is not None:
+            self.tracer.record(
+                "consume", time=at_time, actor=consumer, peer=peer, shard=shard,
+                epoch=msg.epoch, published=msg.publish_time,
+            )
         return msg
 
     # -- synchronization barrier (paper §III-B.6) ---------------------------

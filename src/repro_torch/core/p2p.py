@@ -12,12 +12,18 @@ On the full graph every peer's mix is the same, so the updated params and
 optimizer state are held once, as the reference's replicated ``out_specs``
 hold them. A sparse overlay, where each peer's mix differs, needs a
 per-peer param bank and is refused (the reference keeps one copy there
-too, which the port must not copy: ROADMAP.md, Queue 3 item 1).
+too, which the port must not copy: ROADMAP.md, Queue 3 item 1). The
+``async`` protocol is refused on this step for the same reason: its peers'
+mixes differ on the full graph too, each peer's own gradient fresh and the
+others' stale (Queue 3, reference behaviour 14). Its combine runs on the
+stacked bank through :func:`exchange_gradients`, with the ring that
+:func:`init_mailbox` makes.
 
 Not ported yet, each refused with ``NotImplementedError`` naming its
-ROADMAP item: a sparse overlay on this step, ``cast_params_once``, the
-adversary model, and the ``async``, robust, ``reduce_scatter`` and ``tree``
-protocols (from :func:`~repro_torch.core.exchange.get_exchange`).
+ROADMAP item: a sparse overlay or the ``async`` protocol on this step,
+``cast_params_once``, the adversary model, and the robust,
+``reduce_scatter`` and ``tree`` protocols (from
+:func:`~repro_torch.core.exchange.get_exchange`).
 """
 from __future__ import annotations
 
@@ -54,6 +60,7 @@ class Topology:
     graph: Any = "full"  # peer overlay: name in graph.available_graphs() or a PeerGraph
     graph_seed: int = 0  # seeds stochastic overlays (gossip)
     qsgd: Optional[C.QSGDConfig] = None
+    staleness: int = 1  # async: consume banks published K steps ago
     topk_frac: float = 0.01  # topk: fraction of entries shipped
     # Error feedback (EF-SGD): accumulate the compression residual
     # r <- (g + r) - decode(encode(g + r)) per peer and re-inject it next
@@ -89,7 +96,7 @@ def exchange_context(topo: Topology, *, num_peers: int) -> ExchangeContext:
         raise ValueError(f"exchange_dtype {topo.exchange_dtype!r} is not a torch dtype")
     return ExchangeContext(
         num_peers=num_peers, wire_dtype=wire, qsgd=topo.qsgd,
-        topk_frac=topo.topk_frac, graph=graph, mixing=mixing,
+        topk_frac=topo.topk_frac, staleness=topo.staleness, graph=graph, mixing=mixing,
     )
 
 
@@ -169,6 +176,15 @@ def as_train_state(state) -> TrainState:
     raise TypeError(f"expected TrainState or mapping, got {type(state)!r}")
 
 
+def init_mailbox(grads_like: Mapping[str, torch.Tensor], num_peers: int, *,
+                 staleness: int = 1) -> Params:
+    """Zero staleness-K mailbox ring of the ``async`` protocol:
+    ``{name: (K, P, *shape)}`` f32 on the leaves' device."""
+    return get_exchange("async").init_state(
+        grads_like, ExchangeContext(num_peers=num_peers, staleness=staleness)
+    )
+
+
 def init_ef(grads_like: Mapping[str, torch.Tensor], num_peers: int) -> Params:
     """Zero EF-SGD residual bank: ``{name: (P, *shape)}`` f32."""
     return {
@@ -236,6 +252,11 @@ def build_p2p_train_step(
         raise unported(
             f"a sparse overlay ({ctx.graph.describe()}) on the device step, "
             f"which needs a per-peer param bank,", SPARSE_STEP,
+        )
+    if protocol.is_async:
+        raise unported(
+            f"the {topo.exchange!r} protocol on the device step, where each peer "
+            f"mixes its own fresh gradient and needs a per-peer param bank,", SPARSE_STEP,
         )
     if topo.accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {topo.accum_steps}")

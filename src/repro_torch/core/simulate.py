@@ -1,11 +1,21 @@
 """Local P2P cluster — a literal, runnable Algorithm 1, on the card.
 
-The port of the reference's ``repro/core/simulate.py`` sync path. P peers
-run in one process with real per-peer models, optimizers, data partitions
-and gradient mailboxes: each peer computes per-batch gradients with
-autograd, averages them, publishes them through an ``ExchangeProtocol``,
-waits at the barrier, consumes its overlay neighbours' gradients, mixes
-them and steps its optimizer.
+The port of the reference's ``repro/core/simulate.py``. P peers run in one
+process with real per-peer models, optimizers, data partitions and
+gradient mailboxes: each peer computes per-batch gradients with autograd
+(optionally through a :class:`~repro_torch.core.serverless.ServerlessExecutor`,
+which times each batch and prices the fan-out), averages them, publishes
+them through an ``ExchangeProtocol``, consumes its overlay neighbours'
+gradients, mixes them and steps its optimizer.
+
+Synchronous epochs run in lockstep behind the mailbox barrier.
+Asynchronous epochs run on the :class:`~repro_torch.core.events.EventEngine`:
+each peer advances its own virtual clock by its compute time x speed,
+publishes at completion instants and consumes whatever its neighbours have
+published by its own clock; with churn a peer can drop mid-step, lose its
+partial work and rejoin after a downtime. Churn draws from one seeded
+numpy stream, as the reference's does, so a run with ``sim_compute_s``
+pinned repeats the reference's event trace exactly.
 
 Everything runs on ``device``, by default ``"cuda"``; without a card the
 cluster raises unless the caller passes ``device="cpu"``. Stage timings
@@ -13,15 +23,14 @@ synchronise the card where the reference waits for JAX's asynchronous
 dispatch, so a stage's time includes the device work it queued.
 
 Not ported yet, each refused with ``NotImplementedError`` naming its
-ROADMAP item: async epochs, the serverless or instance executor, the
-adversary model, ``reject_nonfinite`` and the trace recorder.
+ROADMAP item: the adversary model and ``reject_nonfinite``.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from dataclasses import dataclass
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,7 +42,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import jax_order
 from repro_torch.core import compression as C
 from repro_torch.core.convergence import ConvergenceDetector
-from repro_torch.core.events import LinkModel
+from repro_torch.core.cost import CommCost
+from repro_torch.core.events import EventEngine, LinkModel
 from repro_torch.core.exchange import (
     ExchangeContext,
     ExchangeProtocol,
@@ -42,13 +52,13 @@ from repro_torch.core.exchange import (
 )
 from repro_torch.core.graph import PeerGraph, get_graph
 from repro_torch.core.mailbox import HostMailbox
+from repro_torch.core.serverless import ExecutionReport, ServerlessExecutor
 from repro_torch.data import BatchKey, DataLoader, Dataset, Partitioner
 from repro_torch.metrics import StageMetrics
 from repro_torch.optim import Optimizer, apply_updates
 
 Params = Dict[str, torch.Tensor]
 
-_ACCOUNTING = "Serverless and instance accounting"
 ROBUST = "Robust, sharded and tree exchange"
 
 
@@ -84,16 +94,21 @@ class PeerState:
     opt_state: Any
     loader: DataLoader
     metrics: StageMetrics
+    clock: float = 0.0  # virtual time (async mode)
+    speed: float = 1.0  # relative compute speed
     steps_done: int = 0
     comm_bytes_sent: int = 0
     send_time_s: float = 0.0
     recv_time_s: float = 0.0
     compute_time_s: float = 0.0
+    drops: int = 0  # churn events survived (async mode)
+    downtime_s: float = 0.0  # simulated time lost to churn
+    reports: List[ExecutionReport] = field(default_factory=list)
     ef: Optional[Params] = None  # EF-SGD residual (lazily zero-init on first publish)
 
 
 class LocalP2PCluster:
-    """P peers, real compute, mailbox exchange, sync epochs on ``device``."""
+    """P peers, real compute, mailbox exchange, sync or async, on ``device``."""
 
     def __init__(
         self,
@@ -106,7 +121,7 @@ class LocalP2PCluster:
         optimizer: Optimizer,
         lr: float = 0.001,
         sync: bool = True,
-        executor: Any = None,
+        executor: Optional[ServerlessExecutor] = None,
         exchange: Optional[str] = None,  # registered protocol name
         graph: Any = "full",  # peer overlay: registered name or PeerGraph
         graph_seed: Optional[int] = None,  # defaults to `seed`
@@ -114,19 +129,17 @@ class LocalP2PCluster:
         topk_frac: float = 0.01,
         ef: bool = False,  # EF-SGD residual feedback for lossy codecs
         network_bandwidth_bps: float = 1e9,  # simulated inter-peer link
+        peer_speeds: Optional[Sequence[float]] = None,
+        churn_prob: float = 0.0,  # async: P(peer drops mid-step), per attempt
+        churn_downtime_s: float = 1.0,  # async: rejoin delay after a drop
         adversary: Any = None,
         reject_nonfinite: bool = False,
-        tracer: Any = None,
+        sim_compute_s: Optional[Any] = None,  # float | callable(rank, epoch)
+        tracer: Any = None,  # repro_torch.analysis.trace.TraceRecorder, optional
         init_params: Optional[Mapping[str, torch.Tensor]] = None,  # e.g. convert.from_jax(...)
         seed: int = 0,
         device: Any = "cuda",
     ):
-        if not sync:
-            raise unported("async epochs (sync=False)", _ACCOUNTING)
-        if executor is not None:
-            raise unported("the serverless / instance executor", _ACCOUNTING)
-        if tracer is not None:
-            raise unported("the trace recorder", _ACCOUNTING)
         if adversary is not None:
             raise unported("the adversary model", ROBUST)
         if reject_nonfinite:
@@ -145,6 +158,8 @@ class LocalP2PCluster:
         self.num_peers = num_peers
         self.batches_per_epoch = batches_per_epoch
         self.optimizer = optimizer
+        self.sync = sync
+        self.executor = executor
         if exchange is None:
             exchange = "qsgd" if qsgd is not None else "allgather_mean"
         self.protocol: ExchangeProtocol = get_exchange(exchange)
@@ -162,8 +177,20 @@ class LocalP2PCluster:
             mixing=self._mixing,
         )
         self.link = LinkModel(bandwidth_bps=network_bandwidth_bps)
-        self.mailbox = HostMailbox(num_peers, graph=self.graph)
+        # Deterministic virtual compute time: the async clock advances by
+        # the measured compute time x speed, which varies run to run;
+        # sim_compute_s (a constant, or callable(rank, epoch) -> seconds)
+        # replaces the measurement so same-seed traces are identical.
+        self.sim_compute_s = sim_compute_s
+        self.tracer = tracer
+        self.mailbox = HostMailbox(num_peers, graph=self.graph, tracer=tracer)
         self.detector = ConvergenceDetector(lr, mode="max", max_epochs=10_000)
+        self.churn_prob = churn_prob
+        self.churn_downtime_s = churn_downtime_s
+        # one numpy stream for every async-epoch draw (churn), shared by the
+        # engine each epoch builds: a fixed seed fixes the whole trajectory
+        self._rng = np.random.default_rng(seed)
+        self.last_event_order: List[int] = []  # rank processing order, last async epoch
         # One generator on the device for all of the cluster's randomness:
         # the model's init (replaced by init_params when given), then the
         # QSGD uniforms.
@@ -179,6 +206,7 @@ class LocalP2PCluster:
         self.names = jax_order(init_params)
         init_params = {k: init_params[k].to(self.device, torch.float32) for k in self.names}
         self.peers: List[PeerState] = []
+        speeds = list(peer_speeds or [1.0] * num_peers)
         for r in range(num_peers):
             params = {k: init_params[k].clone() for k in self.names}
             self.peers.append(
@@ -188,8 +216,10 @@ class LocalP2PCluster:
                     opt_state=optimizer.init(params),
                     loader=DataLoader(part, r, batch_size),
                     metrics=StageMetrics(),
+                    speed=speeds[r],
                 )
             )
+        self._model_bytes = sum(init_params[k].numel() * 4 for k in self.names)
 
         # Warm up (cuDNN plans, the codec's kernels) so stage timings measure
         # compute, not set-up.
@@ -228,20 +258,71 @@ class LocalP2PCluster:
             loss, acc = cnn_loss(self.model, params, *batch)
         return loss, acc
 
-    def _compute_peer_gradient(self, peer: PeerState, epoch: int):
-        """ComputeBatchGradients + AverageBatchesGradients (Algorithm 1)."""
-        batches = [
-            self._to_device(peer.loader.load(BatchKey(peer.rank, epoch, i % peer.loader.num_batches)))
+    def _batch_thunks(self, peer: PeerState, epoch: int):
+        """One gradient thunk per batch of the peer's epoch, and the mean
+        bytes of a host batch (the executor sizes Lambda memory from it)."""
+        host = [
+            peer.loader.load(BatchKey(peer.rank, epoch, i % peer.loader.num_batches))
             for i in range(self.batches_per_epoch)
         ]
-        t0 = time.perf_counter()
-        outs = [self._grad(peer.params, b) for b in batches]
+        batch_bytes = sum(
+            sum(b[k].nbytes for k in sorted(b)) for b in host
+        ) // max(len(host), 1)
+        batches = [self._to_device(b) for b in host]
+
+        def mk(b):
+            return lambda: self._grad(peer.params, b)
+
+        return [mk(b) for b in batches], batch_bytes
+
+    def _combine(self, outs):
+        """AverageBatchesGradients: the f32 mean of the batches' gradients
+        (summed in batch order), and the mean loss and accuracy."""
         gs = [o[0] for o in outs]
         with torch.no_grad():
             g = {k: sum(x[k].to(torch.float32) for x in gs) / len(gs) for k in self.names}
         loss = float(np.mean([float(o[1]) for o in outs]))
         acc = float(np.mean([float(o[2]) for o in outs]))
-        compute_wall = time.perf_counter() - t0
+        return g, loss, acc
+
+    def _compute_peer_gradient(self, peer: PeerState, epoch: int):
+        """ComputeBatchGradients + AverageBatchesGradients (Algorithm 1).
+
+        With an executor, it runs the thunks (the same gradients, in the
+        same order), times each batch with the device synchronised, and
+        prices the epoch: the report's wall time is the peer's compute
+        time, its simulated stages go into the peer's metrics."""
+        thunks, batch_bytes = self._batch_thunks(peer, epoch)
+        if self.executor is not None:
+            (g, loss, acc), report = self.executor.run(
+                thunks,
+                model_bytes=self._model_bytes,
+                batch_bytes=batch_bytes,
+                combine=self._combine,
+                epoch=epoch,
+                peer=peer.rank,
+            )
+            peer.reports.append(report)
+            if report.backend == "serverless":
+                # engine-simulated per-invocation stages, Table-I style
+                peer.metrics.add_simulated("cold_start", report.cold_start_s)
+                peer.metrics.add_simulated("queue_wait", report.queue_wait_s)
+                peer.metrics.add_simulated("retry", report.retry_s)
+            else:
+                # instance baseline: VM provisioning + churn gaps (the
+                # cluster's own link charges exchange wire separately)
+                peer.metrics.add_simulated("boot", report.boot_s)
+                peer.metrics.add_simulated("churn_downtime", report.downtime_s)
+            compute_wall = report.wall_time_s
+        else:
+            t0 = time.perf_counter()
+            g, loss, acc = self._combine([t() for t in thunks])
+            compute_wall = time.perf_counter() - t0
+        if self.sim_compute_s is not None:
+            compute_wall = float(
+                self.sim_compute_s(peer.rank, epoch)
+                if callable(self.sim_compute_s) else self.sim_compute_s
+            )
         peer.compute_time_s += compute_wall
         return g, loss, acc, compute_wall
 
@@ -275,23 +356,29 @@ class LocalP2PCluster:
         peer.send_time_s += wire_s
         return own
 
-    def _consume_all(self, peer: PeerState, own_grads: Params):
+    def _consume_all(self, peer: PeerState, own_grads: Params, at_time: Optional[float]):
         """ConsumeGradientsFromQueue along the peer's overlay edges.
 
-        Returns ``[(rank, gradient), ...]``: the peer's own contribution
-        first, then each neighbour's decoded gradient in ascending rank, the
-        order in which the reference sums them."""
+        Returns ``(contribs, recv_wire_s)``: ``[(rank, gradient), ...]``,
+        the peer's own contribution first, then each neighbour's decoded
+        gradient in ascending rank, the order in which the reference sums
+        them; and the receive-side wire time (payload download plus the S3
+        round trip of indirected messages), which async epochs add to the
+        peer's clock. ``at_time`` (async) hides what is published later."""
         contribs = [(peer.rank, own_grads)]
+        recv_wire_s = 0.0
         with peer.metrics.stage("receive_gradients"):
             for other in self.graph.neighbors(peer.rank):
-                msg = self.mailbox.consume(other, consumer=peer.rank)
+                msg = self.mailbox.consume(other, at_time=at_time, consumer=peer.rank)
                 if msg is None:
-                    continue
+                    continue  # async: nothing published yet -> skip
                 _, payload = msg.payload
                 decoded = self.protocol.host_decode(payload, own_grads, self.xctx)
-                peer.recv_time_s += self.mailbox.download_time_s(msg, link=self.link)
+                wire_s = self.mailbox.download_time_s(msg, link=self.link)
+                peer.recv_time_s += wire_s
+                recv_wire_s += wire_s
                 contribs.append((other, decoded))
-        return contribs
+        return contribs, recv_wire_s
 
     def _update(self, peer: PeerState, contribs, lr: float):
         """Mix the consumed gradients and step the peer's optimizer.
@@ -319,6 +406,22 @@ class LocalP2PCluster:
         peer.params, peer.opt_state = self._apply(peer.params, peer.opt_state, avg, lr)
         self._sync()
         peer.steps_done += 1
+
+    def comm_cost(self, *, usd_per_gb: float = 0.0) -> CommCost:
+        """Per-step wire cost of one peer under protocol + overlay graph:
+        one publish's payload per edge times the peer's mean degree, O(P)
+        on the full mesh and O(degree) on sparse overlays. (The simulated
+        link also charges one publish per step, ``_publish``, on top of the
+        degree-many downloads counted here.)"""
+        per_edge = self.protocol.host_wire_bytes(self.peers[0].params, self.xctx)
+        return CommCost(
+            wire_bytes_per_step=int(round(per_edge * self.xctx.degree)),
+            bandwidth_bps=self.link.bandwidth_bps,
+            usd_per_gb_egress=usd_per_gb,
+            bytes_per_edge=per_edge,
+            degree=self.xctx.degree,
+            graph_name=self.graph.name,
+        )
 
     def evaluate(self, peer_rank: int = 0, *, num_batches: int = 2, epoch: int = 10_000):
         peer = self.peers[peer_rank]
@@ -350,8 +453,63 @@ class LocalP2PCluster:
             )
         self.mailbox.barrier_reset(epoch)
         for peer in self.peers:
-            contribs = self._consume_all(peer, grads[peer.rank])
+            contribs, _ = self._consume_all(peer, grads[peer.rank], at_time=None)
             self._update(peer, contribs, self.detector.lr)
+        loss = float(np.mean([s[0] for s in stats]))
+        acc = float(np.mean([s[1] for s in stats]))
+        return {"loss": loss, "acc": acc}
+
+    def run_epoch_async(self, epoch: int) -> Dict[str, float]:
+        """Async epoch on the event engine: no barrier, stale gradients allowed.
+
+        Events fire in ``(virtual time, rank)`` order. With ``churn_prob >
+        0`` a peer may drop mid-step (SPIRT-style): the partial work is
+        lost, the peer rejoins ``churn_downtime_s`` later and redoes the
+        step (at most 5 drops a step), while other peers keep consuming its
+        last published (stale) gradient.
+        """
+        engine = EventEngine(rng=self._rng, tracer=self.tracer)
+        engine.now = min((p.clock for p in self.peers), default=0.0)
+        stats = []
+        order = self.last_event_order = []
+
+        def schedule_peer(peer: PeerState):
+            cache: Dict[str, Any] = {}
+
+            def compute_fire():
+                order.append(peer.rank)
+                with peer.metrics.stage("compute_gradients"):
+                    g, loss, acc, wall = self._compute_peer_gradient(peer, epoch)
+                cache.update(g=g, loss=loss, acc=acc, wall=wall, attempts=0)
+                attempt_fire()
+
+            def attempt_fire():
+                sim_wall = cache["wall"] * peer.speed
+                cache["attempts"] += 1
+                if (
+                    self.churn_prob > 0.0
+                    and cache["attempts"] <= 5  # then forcibly stay up
+                    and engine.rng.random() < self.churn_prob
+                ):
+                    # dropped mid-compute: partial work lost, rejoin later
+                    lost = sim_wall * engine.rng.random() + self.churn_downtime_s
+                    peer.clock += lost
+                    peer.drops += 1
+                    peer.downtime_s += lost
+                    engine.schedule_at(peer.clock, attempt_fire, priority=peer.rank)
+                    return
+                peer.clock += sim_wall
+                own = self._publish(peer, cache["g"], epoch, at_time=peer.clock)
+                contribs, recv_wire_s = self._consume_all(peer, own, at_time=peer.clock)
+                peer.clock += recv_wire_s
+                self._update(peer, contribs, self.detector.lr)
+                stats.append((cache["loss"], cache["acc"]))
+
+            engine.schedule_at(peer.clock, compute_fire, priority=peer.rank)
+
+        for peer in self.peers:
+            schedule_peer(peer)
+        engine.run()
         loss = float(np.mean([s[0] for s in stats]))
         acc = float(np.mean([s[1] for s in stats]))
         return {"loss": loss, "acc": acc}
@@ -359,7 +517,7 @@ class LocalP2PCluster:
     def run(self, epochs: int, *, eval_every: int = 1) -> List[Dict[str, float]]:
         history = []
         for e in range(epochs):
-            rec = self.run_epoch_sync(e)
+            rec = self.run_epoch_sync(e) if self.sync else self.run_epoch_async(e)
             if (e + 1) % eval_every == 0:
                 vloss, vacc = self.evaluate(epoch=10_000 + e)
                 rec.update(val_loss=vloss, val_acc=vacc)

@@ -1,7 +1,8 @@
 """A 4-peer synchronous Algorithm-1 epoch of the port against the reference,
 on the CPU: squeezenet1.1 on MNIST-shaped 8x8 data from the same init (the
 reference's, converted), with the ``allgather_mean`` exchange on the full
-and the ring graph. ``test_torch_cluster_qsgd.py`` runs the QSGD exchange.
+and the ring graph. ``test_torch_cluster_qsgd.py`` runs the QSGD exchange,
+``test_torch_cluster_async.py`` async epochs, the executor and the tracer.
 
 Tolerances: params within 1e-5 absolute (convolution gradients are summed
 in another order by XLA and oneDNN); wire bytes and mailbox statistics
@@ -70,15 +71,11 @@ def test_allgather_mean_epoch_matches_reference(graph):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(sync=False), "Serverless and instance accounting"),
-    (dict(executor=object()), "Serverless and instance accounting"),
-    (dict(tracer=object()), "Serverless and instance accounting"),
     (dict(adversary=object()), "Robust, sharded and tree exchange"),
     (dict(reject_nonfinite=True), "Robust, sharded and tree exchange"),
     (dict(exchange="median"), "Robust, sharded and tree exchange"),
     (dict(exchange="trimmed_mean"), "Robust, sharded and tree exchange"),
     (dict(exchange="reduce_scatter"), "Robust, sharded and tree exchange"),
-    (dict(exchange="async"), "Serverless and instance accounting"),
 ])
 def test_unported_options_raise_naming_their_roadmap_item(kwargs, item):
     args = dict(COMMON, **kwargs)

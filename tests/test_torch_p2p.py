@@ -285,7 +285,7 @@ def _build(topo, **kw):
     (p2p.Topology(exchange="qsgd", graph="gossip:2"), {}, "Sparse-overlay device step"),
     (p2p.Topology(cast_params_once=True), {}, "bf16 compute params"),
     (p2p.Topology(), dict(adversary=object()), "Robust, sharded and tree exchange"),
-    (p2p.Topology(exchange="async"), {}, "Serverless and instance accounting"),
+    (p2p.Topology(exchange="async"), {}, "Sparse-overlay device step"),
     (p2p.Topology(exchange="trimmed_mean"), {}, "Robust, sharded and tree exchange"),
     (p2p.Topology(exchange="median"), {}, "Robust, sharded and tree exchange"),
     (p2p.Topology(exchange="krum"), {}, "Robust, sharded and tree exchange"),
@@ -295,6 +295,36 @@ def _build(topo, **kw):
 def test_unported_options_raise_naming_their_roadmap_item(topo, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         _build(topo, **kw)
+
+
+def test_async_ring_rolls_through_exchange_gradients():
+    """``init_mailbox`` is the reference's zero ring, ``(K, P, *shape)`` f32;
+    ``exchange_gradients`` with the ``async`` protocol mixes the bank
+    published K steps ago (zeros for the first K) with each peer's fresh
+    gradient and rolls the ring by one."""
+    from repro.core.p2p import init_mailbox as jinit_mailbox
+
+    K = 2
+    rng = np.random.default_rng(0)
+    like = {"a": np.zeros((3, 2), np.float32), "b": np.zeros((5,), np.float32)}
+    ring = p2p.init_mailbox({k: torch.from_numpy(v) for k, v in like.items()}, PEERS,
+                            staleness=K)
+    theirs = jinit_mailbox({k: jnp.asarray(v) for k, v in like.items()}, PEERS, staleness=K)
+    for k, v in ring.items():
+        assert v.dtype == torch.float32 and v.shape == theirs[k].shape == (K, PEERS, *like[k].shape)
+        assert not v.any()
+    topo = p2p.Topology(exchange="async", staleness=K)
+    banks = [{k: torch.from_numpy(rng.normal(size=(PEERS, *v.shape)).astype(np.float32))
+              for k, v in like.items()} for _ in range(K + 2)]
+    for t, bank in enumerate(banks):
+        mixed, ring = p2p.exchange_gradients(bank, topo, mailbox=ring)
+        stale = banks[t - K] if t >= K else {k: torch.zeros_like(v) for k, v in bank.items()}
+        for k, g in bank.items():
+            others = stale[k].sum(0) - stale[k]
+            torch.testing.assert_close(mixed[k], (others + g) / PEERS, rtol=0, atol=1e-6)
+            torch.testing.assert_close(ring[k][-1], g, rtol=0, atol=0)
+            torch.testing.assert_close(ring[k][0], banks[t - 1][k] if t >= 1 else
+                                       torch.zeros_like(g), rtol=0, atol=0)
 
 
 def test_step_refuses_what_it_cannot_run():
