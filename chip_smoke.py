@@ -49,7 +49,10 @@ failure):
              QSGD cluster epoch, one device train step with qsgd + EF and
              with topk + EF, the reference's churned async cluster scenario
              (2 squeezenet peers, churn 0.3, ``sim_compute_s`` pinned, 2
-             epochs: equal trace digests, params within 1e-5), a 3-layer
+             epochs: equal trace digests, params within 1e-5), 2 epochs
+             of 4 squeezenet peers with ``trimmed_mean:0.25`` and a
+             sign_flip attacker and with ``reduce_scatter`` (params within
+             1e-5, 1e-4 where the trim keeps the attacker's row), a 3-layer
              reduced mamba2 and a 3-layer reduced gemma2 (S 160 over its
              window of 64) in f32 (forward, prefill logits and states or
              caches, 8 greedy decode steps).
@@ -73,6 +76,23 @@ failure):
              churn 0.2, 2 epochs, a trace recorder attached (scatter
              launches = the trace's consumes + publishes, per leaf; no
              trace error).
+             The robust, sharded and tree runs, 2 epochs each:
+             mobilenet-v3-small with ``trimmed_mean:0.25`` and a sign_flip
+             attacker, with ``median`` on the ring, a scaled_noise attacker
+             and ``reject_nonfinite``; vgg11 with ``krum`` and a
+             scaled_noise attacker (Krum over the last epoch's published
+             bank must not pick the attacker); vgg11 ``reduce_scatter`` and
+             mobilenet-v3-small ``tree:2`` through the priced executor (one
+             wave of 4 aggregators, or one per hub level, an epoch, each
+             printed; reduce_scatter's aggregators sized from shard bytes;
+             params within 1e-6 of an ``allgather_mean`` run); the
+             mobilenet QSGD cluster with a stale_replay attacker (one
+             poisoned publish; its QSGD launches count in the kernels
+             line). Device steps of vgg11, 4 each: ``reduce_scatter`` and
+             ``tree`` (step 1 within 1e-6 of an ``allgather_mean`` step),
+             ``trimmed_mean:0.25`` with a sign_flip attacker (profiled:
+             the device's idle share) and ``krum`` with a scaled_noise
+             attacker; these launch none of the kernels.
              mamba2-370m at full width (48 layers, bf16): the scoring
              ``forward(..., use_ssd_kernel=True)`` on 4 x 2048 tokens (48
              SSD launches each) and the serve twin's prefill of 4 x 512
@@ -97,7 +117,10 @@ failure):
              step's (1 mix + 4 own rows) banks, over one step's 180 bank
              scatters, and both its bodies over a sweep of row lengths;
              the SSD scan also at one 32k sequence, beside the bf16 bound
-             and the fp32-rate bound of earlier rows.
+             and the fp32-rate bound of earlier rows; the robust
+             estimators (trimmed mean, median, Krum's Gram matrix and
+             selection) and the ``reduce_scatter`` and ``tree:2`` combines
+             on a (4, vgg11's 28.1 M) f32 bank beside their byte bounds.
 6. profile — ``torch.profiler`` over one scoring forward and 4 decode
              steps of mamba2-370m and of gemma2-2b: the device's busy and
              idle share and kernel time by kind (SSD or flash kernel,
@@ -1001,14 +1024,19 @@ def reference_lm_phase(torch, arch: str, seq: int, flags: dict):
 
 
 def drive(torch, mods, arch: str, epochs: int, *, exchange: str = "qsgd", graph: str = "full",
-          ef: bool = False, batches: int = 2, priced: bool = False):
+          ef: bool = False, batches: int = 2, priced: bool = False, adversary: dict = None,
+          reject_nonfinite: bool = False, check=None):
     """``LocalP2PCluster.run`` at full width; ``priced``: through a
     ``ServerlessExecutor`` on the AWS-default runtime with latency-driven
     memory, which times every batch with the card synchronised and prices
-    the Lambda fan-out (accounting, not a measurement of Lambda)."""
+    the Lambda fan-out (accounting, not a measurement of Lambda), and the
+    aggregators of a sharded protocol. ``adversary``: an ``AdversarySpec``'s
+    fields. ``check(cluster, tag)`` runs the run's own checks after the
+    launches are read; the peers' params after epoch 0 are kept for it as
+    ``cluster.first_epoch_params``."""
     from repro_torch.configs import get_config
-    from repro_torch.core import (InstanceConfig, LocalP2PCluster, QSGDConfig, RuntimeConfig,
-                                  ServerlessExecutor, compare_backends)
+    from repro_torch.core import (AdversarySpec, InstanceConfig, LocalP2PCluster, QSGDConfig,
+                                  RuntimeConfig, ServerlessExecutor, compare_backends)
     from repro_torch.data import make_dataset
     from repro_torch.optim import sgd
 
@@ -1021,8 +1049,19 @@ def drive(torch, mods, arch: str, epochs: int, *, exchange: str = "qsgd", graph:
         get_config(arch), make_dataset("cifar"), num_peers=PEERS, batch_size=32,
         batches_per_epoch=batches, optimizer=sgd(momentum=0.9), lr=0.01,  # table1_resource_stages.py
         exchange=exchange, qsgd=QSGDConfig(levels=S, bucket=BUCKET), topk_frac=TOPK_FRAC,
-        graph=graph, ef=ef, seed=0, executor=executor,
+        graph=graph, ef=ef, seed=0, executor=executor, reject_nonfinite=reject_nonfinite,
+        adversary=None if adversary is None else AdversarySpec(**adversary),
     )
+    if check is not None:
+        run_epoch = cluster.run_epoch_sync
+
+        def keep_first(epoch):
+            out = run_epoch(epoch)
+            if epoch == 0:
+                cluster.first_epoch_params = [dict(p.params) for p in cluster.peers]
+            return out
+
+        cluster.run_epoch_sync = keep_first
     t1 = time.perf_counter()
     history = cluster.run(epochs)
     torch.cuda.synchronize()
@@ -1034,10 +1073,12 @@ def drive(torch, mods, arch: str, epochs: int, *, exchange: str = "qsgd", graph:
     expect = dict.fromkeys(KERNELS, 0)
     if exchange == "qsgd":
         expect.update(qsgd_quantize=epochs * PEERS * leaves, qsgd_dequantize=decodes)
-    else:
+    elif exchange == "topk":
         expect.update(topk_select_pack=epochs * PEERS * leaves, topk_scatter_accum=decodes)
     tag = f"cluster {arch} {exchange} graph={graph} ef={ef}" + (
-        f" priced ({batches} batches/epoch)" if priced else "")
+        f" priced ({batches} batches/epoch)" if priced else "") + (
+        f" {cluster.adversary.describe()} on peers {cluster.adversary.attackers(PEERS)}"
+        if adversary else "") + (" reject_nonfinite" if reject_nonfinite else "")
     require(launches == expect, f"{tag}: launches {launches} != expected {expect}")
     require(len(history) == epochs, f"{tag}: ran {len(history)} of {epochs} epochs")
     for h in history:
@@ -1063,6 +1104,9 @@ def drive(torch, mods, arch: str, epochs: int, *, exchange: str = "qsgd", graph:
     print("  peer 0 stage means (Table I): " + ", ".join(
         f"{k}={table[k]['time_s']:.4f}s" for k in cluster.peers[0].metrics.STAGES
     ))
+    print(f"  mailbox: {dict(sorted(cluster.mailbox.stats.items()))}")
+    if check is not None:
+        check(cluster, tag)
     if priced:
         for peer in cluster.peers:
             require(len(peer.reports) == epochs, f"{tag}: peer {peer.rank} has "
@@ -1228,6 +1272,288 @@ def drive_step(torch, mods, arch: str, steps: int, *, exchange: str, selects_per
     if profile:
         print_profile(f"{tag} step", device_profile(torch, lambda: step(state, batches[-1])), {})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Robust, sharded and tree exchange
+# ---------------------------------------------------------------------------
+
+ADV_SIGN = dict(num=1, attack="sign_flip", scale=10.0, seed=1)  # AdversarySpec fields
+ADV_NOISE = dict(num=1, attack="scaled_noise", scale=10.0, seed=2)
+ADV_STALE = dict(num=1, attack="stale_replay", seed=2)
+
+
+def params_gap(a, b) -> float:
+    """The largest |a - b| over two lists of every peer's params."""
+    return max(float((p[k] - q[k]).abs().max()) for p, q in zip(a, b) for k in p)
+
+
+def poisoned(count: int):
+    """A ``drive`` check: the mailbox counted ``count`` poisoned publishes."""
+    def check(cluster, tag):
+        got = cluster.mailbox.stats["poisoned_publishes"]
+        require(got == count, f"{tag}: {got} poisoned publishes, not {count}")
+    return check
+
+
+def krum_excludes_the_attacker(torch):
+    """A ``drive`` check: Krum over the bank of the last epoch's published
+    gradients (each peer's mailbox register, decoded, in rank order) does
+    not select the attacker's row."""
+    from repro_torch.core import krum_scores, krum_select
+    from repro_torch.core.robust import flatten_bank
+
+    def check(cluster, tag):
+        rows = []
+        for r in range(PEERS):
+            _, payload = cluster.mailbox.consume(r).payload
+            rows.append(cluster.protocol.host_decode(payload, cluster.peers[r].params, cluster.xctx))
+        flat, _ = flatten_bank({k: torch.stack([g[k] for g in rows]) for k in cluster.names})
+        _, sel = krum_select(flat, m=1)
+        (attacker,) = cluster.adversary.attackers(PEERS)
+        scores = [f"{x:.4g}" for x in krum_scores(flat).tolist()]
+        require(int(sel[0]) != attacker, f"{tag}: krum selected the attacker's row {attacker}")
+        print(f"  krum over the last epoch's published bank {tuple(flat.shape)}: scores {scores}, "
+              f"selects peer {int(sel[0])}, not the attacker {attacker}")
+    return check
+
+
+def sharded_checks(torch, arch: str, epochs: int, waves: int, shard_memory: bool):
+    """A ``drive`` check of a priced sharded run: ``waves`` aggregation
+    reports per epoch, each printed (the simulated aggregators' memory,
+    wall and dollars: accounting of the reduce times measured on the card,
+    not a measurement of Lambda); with ``shard_memory`` every aggregator's
+    memory planned from shard bytes (the first epoch's is the planner's
+    figure for a shard, the later ones never below it, and a model-sized
+    plan would be larger); and params after epoch 0 within 1e-6 of an
+    ``allgather_mean`` epoch from the same seed on the card. One epoch,
+    because the card's backward is not bit-reproducible from run to run
+    (some of PyTorch's CUDA backward kernels add with atomics), and later
+    epochs compound that drift: the check prints the gap after the last
+    epoch beside the gap between two ``allgather_mean`` runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import LocalP2PCluster
+    from repro_torch.data import make_dataset
+    from repro_torch.optim import sgd
+
+    def check(cluster, tag):
+        reps = cluster.aggregation_reports
+        require(len(reps) == epochs * waves,
+                f"{tag}: {len(reps)} aggregation reports, not {epochs} x {waves}")
+        plan = cluster.shard_plan
+        shard_bytes = plan.shard_bytes(cluster.xctx.wire_dtype)
+        planner = cluster.executor.planner
+        from_shard = planner.lambda_memory_mb(model_bytes=shard_bytes, batch_bytes=shard_bytes)
+        from_model = planner.lambda_memory_mb(model_bytes=cluster._model_bytes,
+                                              batch_bytes=shard_bytes)
+        print(f"  {plan.describe()}")
+        for rep in reps:
+            print(f"  aggregation wave, epoch {rep.epoch}: {rep.num_batches} aggregators, reduce "
+                  f"times measured on the card {[round(t, 6) for t in rep.per_batch_s]} s; simulated "
+                  f"accounting: {rep.lambda_memory_mb} MB each, wall {rep.wall_time_s:.4f} s, "
+                  f"cold starts {rep.num_cold_starts}, ${rep.cost_usd:.8f}")
+        if shard_memory:
+            print(f"  aggregator memory planned from a shard: {from_shard} MB (from the model: "
+                  f"{from_model} MB)")
+            require(all(r.num_batches == PEERS for r in reps),
+                    f"{tag}: aggregators per wave {[r.num_batches for r in reps]}, not {PEERS}")
+            require(reps[0].lambda_memory_mb == math.ceil(from_shard / 64) * 64
+                    and all(r.lambda_memory_mb >= from_shard for r in reps)
+                    and from_model > from_shard,
+                    f"{tag}: aggregator memory {[r.lambda_memory_mb for r in reps]} MB is not "
+                    f"planned from shard bytes ({from_shard} MB; model {from_model} MB)")
+        base = LocalP2PCluster(
+            get_config(arch), make_dataset("cifar"), num_peers=PEERS, batch_size=32,
+            batches_per_epoch=2, optimizer=sgd(momentum=0.9), lr=0.01,
+            exchange="allgather_mean", seed=0,
+        )
+        base.run_epoch_sync(0)
+        gap = params_gap(cluster.first_epoch_params, [p.params for p in base.peers])
+        require(gap <= 1e-6, f"{tag}: epoch-0 params {gap:.3e} from allgather_mean's, above 1e-6")
+        print(f"  epoch-0 params within {gap:.3e} of an allgather_mean epoch from the same seed "
+              f"(rail 1e-6)")
+        again = LocalP2PCluster(
+            get_config(arch), make_dataset("cifar"), num_peers=PEERS, batch_size=32,
+            batches_per_epoch=2, optimizer=sgd(momentum=0.9), lr=0.01,
+            exchange="allgather_mean", seed=0,
+        )
+        for e in range(epochs):
+            again.run_epoch_sync(e)
+            if e:
+                base.run_epoch_sync(e)
+        final = [p.params for p in cluster.peers]
+        print(f"  after {epochs} epochs (not held): {params_gap(final, [p.params for p in base.peers]):.3e} "
+              f"from allgather_mean's; two allgather_mean runs "
+              f"{params_gap([p.params for p in again.peers], [p.params for p in base.peers]):.3e} apart")
+    return check
+
+
+def drive_robust_step(torch, mods, arch: str, steps: int, *, exchange: str,
+                      adversary: dict = None, rail: bool = False, profile: bool = False):
+    """``build_p2p_train_step`` at full width with a robust or sharded
+    protocol, no EF: 4 peers x batch 32 on CIFAR-shaped data, SGD with
+    momentum, lr 0.01, the state's generator seeded (the scaled_noise
+    attacker draws from it). These paths launch none of the port's kernels.
+    ``rail``: after step 1, params within 1e-6 of an ``allgather_mean`` step
+    from the same state and batch. ``profile``: one more step under
+    ``torch.profiler``, its device idle share printed."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.core import AdversarySpec, Topology, TrainState, build_p2p_train_step
+    from repro_torch.core.simulate import cnn_loss
+    from repro_torch.data import BatchKey, DataLoader, Partitioner, make_dataset
+    from repro_torch.optim import sgd
+
+    ds = make_dataset("cifar")
+    cfg = dataclasses.replace(get_config(arch), image_size=ds.image_hw,
+                              image_channels=ds.channels, num_classes=ds.num_classes)
+    loader = DataLoader(Partitioner(ds, 1, shuffle_seed=0), 0, PEERS * 32)
+    adv = None if adversary is None else AdversarySpec(**adversary)
+    reset_counters(mods)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = models.init_model(cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+                              device="cuda").requires_grad_(False)
+    params = {k: v.clone() for k, v in model.named_parameters()}
+    loss_fn = lambda p, b: cnn_loss(model, p, b["images"], b["labels"])
+    opt = sgd(momentum=0.9)
+    step = build_p2p_train_step(loss_fn, opt, Topology(exchange=exchange), PEERS,
+                                lambda s: 0.01, adversary=adv)
+    state = TrainState(params, opt.init(params), 0, torch.Generator(device="cuda").manual_seed(0))
+    batches = []
+    for i in range(steps):
+        b = loader.load(BatchKey(0, 0, i))
+        batches.append({"images": models.images_to_device(b["images"], "cuda"),
+                        "labels": torch.from_numpy(b["labels"].astype(np.int64)).cuda()})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    losses, marks, first = [], [], None
+    for b in batches:
+        state, metrics = step(state, b)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        marks.append(time.perf_counter())
+        first = first or state.params
+    torch.cuda.synchronize()
+    launches = read_counters(mods)
+
+    tag = f"step {arch} {exchange}" + (f" {adv.describe()} on peers {adv.attackers(PEERS)}"
+                                       if adv else "")
+    require(launches == dict.fromkeys(KERNELS, 0), f"{tag}: launches {launches}, expected none")
+    require(all(math.isfinite(x) for x in losses), f"{tag}: non-finite loss {losses}")
+    require(all(bool(torch.isfinite(v).all()) for v in state.params.values()), f"{tag}: non-finite params")
+    steady = (marks[-1] - marks[0]) / (steps - 1)
+    print(
+        f"path {tag}: {len(params)} leaves, {sum(v.numel() for v in params.values())} params, "
+        f"{PEERS} peers x batch 32, setup {t1 - t0:.3f} s, first step {marks[0] - t1:.3f} s, "
+        f"then {steady:.4f} s/step over {steps - 1} steps, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, losses {[round(x, 4) for x in losses]}"
+    )
+    if rail:
+        base = build_p2p_train_step(loss_fn, opt, Topology(), PEERS, lambda s: 0.01)
+        ref, _ = base(TrainState(params, opt.init(params), 0, None), batches[0])
+        gap = max(float((first[k] - ref.params[k]).abs().max()) for k in params)
+        require(gap <= 1e-6, f"{tag}: step 1 params {gap:.3e} from allgather_mean's, above 1e-6")
+        print(f"  step 1 params within {gap:.3e} of an allgather_mean step from the same state "
+              f"(rail 1e-6)")
+    if profile:
+        print_profile(f"{tag} step", device_profile(torch, lambda: step(state, batches[-1])), {})
+    return launches
+
+
+def robust_reference_phase(torch):
+    """A reduced scenario on the card and on the CPU from the same init:
+    squeezenet1.1 on MNIST-shaped 8x8, 4 peers x batch 8, SGD with
+    momentum, 2 sync epochs, with ``trimmed_mean:0.25`` and a sign_flip
+    attacker (scale 10), and with ``reduce_scatter``. cuDNN and oneDNN sum
+    convolution gradients in other orders, so params agree within 1e-5,
+    except where the trim keeps the attacker's row, which is 10 x a
+    gradient and carries 10 x its gap: there within 1e-4, and beyond 1e-5
+    on at most 1e-4 of the coordinates (reference behaviour 4). An order
+    statistic that swaps two contributions closer than the gap moves the
+    estimate by less than their difference, so it needs no bound of its
+    own. Mailbox statistics and bytes sent are equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import AdversarySpec, LocalP2PCluster
+    from repro_torch.data import make_dataset
+    from repro_torch.optim import sgd
+
+    for exchange, adversary in (("trimmed_mean:0.25", ADV_SIGN), ("reduce_scatter", None)):
+        runs, params0 = {}, None
+        for device in ("cpu", "cuda"):
+            cl = LocalP2PCluster(
+                get_config("squeezenet1.1"), make_dataset("mnist", size=128, image_hw=8, channels=1),
+                num_peers=PEERS, batch_size=8, batches_per_epoch=1, optimizer=sgd(momentum=0.9),
+                lr=0.05, exchange=exchange, seed=0, device=device, init_params=params0,
+                adversary=None if adversary is None else AdversarySpec(**adversary),
+            )
+            params0 = params0 or {k: v.cpu() for k, v in cl.peers[0].params.items()}
+            cl.run(2)
+            runs[device] = cl
+        tag = f"squeezenet1.1, 4 peers, {exchange}" + (
+            f" {runs['cpu'].adversary.describe()}" if adversary else "") + ", 2 epochs, card vs CPU"
+        require(runs["cpu"].mailbox.stats == runs["cuda"].mailbox.stats
+                and [p.comm_bytes_sent for p in runs["cpu"].peers]
+                == [p.comm_bytes_sent for p in runs["cuda"].peers],
+                f"{tag}: wire accounting differs")
+        gaps = torch.cat([(pg.params[k].cpu() - pc.params[k]).abs().reshape(-1)
+                          for pc, pg in zip(runs["cpu"].peers, runs["cuda"].peers) for k in pc.params])
+        worst, n_far = float(gaps.max()), int((gaps > 1e-5).sum())
+        bound = 10 * 1e-5 if adversary else 1e-5
+        require(worst <= bound, f"{tag}: params gap {worst:.3e} > {bound:.0e}")
+        require(n_far <= 1e-4 * gaps.numel(), f"{tag}: {n_far} of {gaps.numel()} beyond 1e-5")
+        print(f"reference check ({tag}): params max_abs_err={worst:.3e} (bound {bound:.0e}), "
+              f"coordinates beyond 1e-5: {n_far} of {gaps.numel()}, poisoned publishes "
+              f"{runs['cuda'].mailbox.stats['poisoned_publishes']}")
+
+
+def estimator_timing(torch):
+    """The robust estimators and the sharded combines alone, on a bank of 4
+    peers x vgg11's parameter count (at 32 px) in f32, timed with CUDA
+    events beside a byte bound at 3.35 TB/s: the trimmed mean and the
+    median sort the bank (read it, write it sorted) and write the estimate;
+    Krum's Gram matrix and selection read the bank and write the selected
+    row; the ``reduce_scatter`` combine reads the bank and writes one mean
+    (its P rows are one tensor); the ``tree:2`` combine reads the bank and
+    writes each peer's row."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.core import exchange as X
+    from repro_torch.core import robust as R
+    from repro_torch.data import make_dataset
+
+    ds = make_dataset("cifar")
+    cfg = dataclasses.replace(get_config("vgg11"), image_size=ds.image_hw,
+                              image_channels=ds.channels, num_classes=ds.num_classes)
+    model = models.init_model(cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+                              device="cuda")
+    D = sum(p.numel() for p in model.parameters())
+    del model
+    bank = torch.randn((PEERS, D), generator=torch.Generator(device="cuda").manual_seed(0),
+                       device="cuda")
+    grads, ctx, mask = {"w": bank}, X.ExchangeContext(num_peers=PEERS), np.ones(PEERS, bool)
+    row = D * 4
+    cases = (
+        ("trimmed_mean:0.25", lambda: R.masked_trimmed_mean(bank, mask, 0.25), (2 * PEERS + 1) * row),
+        ("median", lambda: R.masked_median(bank, mask), (2 * PEERS + 1) * row),
+        ("krum gram + select", lambda: R.krum_select(bank, m=1), (PEERS + 1) * row),
+        ("reduce_scatter combine", lambda: X.get_exchange("reduce_scatter").combine(grads, ctx),
+         (PEERS + 1) * row),
+        ("tree:2 combine", lambda: X.get_exchange("tree:2").combine(grads, ctx), 2 * PEERS * row),
+    )
+    for name, fn, nbytes in cases:
+        ms, host_ms = time_ms(torch, fn, iters=10)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"estimator {name} on a ({PEERS}, {D}) f32 bank: {ms:.4f} ms on the card "
+              f"({host_ms:.4f} ms host per call), byte bound {bound:.4f} ms at 3.35 TB/s "
+              f"({nbytes} B; {bound / ms:.1%} of the bound)")
 
 
 def kernel_body(name: str):
@@ -2129,6 +2455,7 @@ def main() -> int:
     reference_phase(torch)
     reference_step_phase(torch)
     reference_async_phase(torch)
+    robust_reference_phase(torch)
     reference_lm_phase(torch, "mamba2-370m", 40, SSD_FLAGS)
     reference_lm_phase(torch, "gemma2-2b", 160, {})  # 160 > the window of 64
     stamp("reference phase")
@@ -2143,6 +2470,24 @@ def main() -> int:
         (drive_step, "mobilenet-v3-small", 4, dict(exchange="topk")),
         (drive, "mobilenet-v3-small", 2, dict(batches=16, priced=True)),
         (drive_async, "mobilenet-v3-small", 2, {}),
+        # robust, sharded and tree exchange
+        (drive, "mobilenet-v3-small", 2, dict(exchange="trimmed_mean:0.25", adversary=ADV_SIGN,
+                                              check=poisoned(2))),
+        (drive, "mobilenet-v3-small", 2, dict(exchange="median", graph="ring", adversary=ADV_NOISE,
+                                              reject_nonfinite=True, check=poisoned(2))),
+        (drive, "vgg11", 2, dict(exchange="krum", adversary=ADV_NOISE,
+                                 check=krum_excludes_the_attacker(torch))),
+        (drive, "vgg11", 2, dict(exchange="reduce_scatter", priced=True,
+                                 check=sharded_checks(torch, "vgg11", 2, 1, True))),
+        (drive, "mobilenet-v3-small", 2, dict(exchange="tree:2", priced=True,
+                                              check=sharded_checks(torch, "mobilenet-v3-small", 2,
+                                                                   2, False))),
+        (drive, "mobilenet-v3-small", 2, dict(adversary=ADV_STALE, check=poisoned(1))),
+        (drive_robust_step, "vgg11", 4, dict(exchange="reduce_scatter", rail=True)),
+        (drive_robust_step, "vgg11", 4, dict(exchange="tree", rail=True)),
+        (drive_robust_step, "vgg11", 4, dict(exchange="trimmed_mean:0.25", adversary=ADV_SIGN,
+                                             profile=True)),
+        (drive_robust_step, "vgg11", 4, dict(exchange="krum", adversary=ADV_NOISE)),
     )
     for fn, arch, length, kw in runs:
         for name, count in fn(torch, mods, arch, length, **kw).items():
@@ -2164,6 +2509,7 @@ def main() -> int:
     scatter_timing(torch, kt)
     times.update(ssd_timing(torch, ks))
     times.update(flash_timing(torch, kf))
+    estimator_timing(torch)
     stamp("timing phase")
     mamba_cfg = lm_run[1]  # every layer's scan: the three passes of the bf16 body, no f32 body
     profile_phase(torch, "mamba2-370m", *lm_run, SSD_FLAGS,

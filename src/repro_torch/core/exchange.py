@@ -23,9 +23,17 @@ Gradients are ``{name: tensor}`` dicts in the port's layout. The lossy
 codecs permute each leaf to the reference's layout
 (``convert.to_jax_layout``) and flatten it before they quantize or select,
 and visit the leaves in JAX's flatten order (``convert.jax_order``), so
-their payloads are the reference's. The protocols of the reference that
-are not ported yet raise ``NotImplementedError`` from :func:`get_exchange`
-naming their ROADMAP item.
+their payloads are the reference's.
+
+The sharded protocols (``reduce_scatter`` here, ``tree`` in
+:mod:`repro_torch.core.tree`) move a :class:`~repro_torch.core.shard.ShardPlan`
+buffer, and their combines repeat the reference's collectives on the
+stacked bank in the reference's order: the ring's hops and the tree's
+(level, child slot) sweeps, each partial rounded through the wire dtype
+where the reference sends it, so in f32 they are the reference's bit for
+bit. The robust protocols (``trimmed_mean``, ``median``, ``krum``) run the
+estimators of :mod:`repro_torch.core.robust` on the bank rounded through
+the wire dtype, over each peer's closed neighbourhood on a sparse overlay.
 """
 from __future__ import annotations
 
@@ -39,6 +47,8 @@ import torch.nn.functional as F
 
 from repro_torch.convert import jax_order, to_jax_layout, to_torch_layout
 from repro_torch.core import compression as C
+from repro_torch.core import robust as R
+from repro_torch.core.shard import ShardPlan
 from repro_torch.kernels import qsgd as qsgd_kernels
 from repro_torch.kernels import topk as topk_kernels
 
@@ -63,6 +73,12 @@ class ExchangeContext:
     staleness: int = 1  # async: consume banks published K steps ago
     graph: Any = None
     mixing: Any = None
+    # robust-aggregation knobs (see repro_torch.core.robust); a parameterized
+    # protocol spec ("trimmed_mean:0.25", "krum:3") overrides these
+    trim_frac: float = 0.0  # trimmed_mean: fraction dropped from EACH end
+    krum_m: int = 1  # krum: multi-Krum selection count
+    krum_f: Optional[int] = None  # krum: assumed attackers (None = max tolerable)
+    robust_clip: float = 0.0  # >0: per-peer norm clip before robust combine
 
     def __post_init__(self):
         gp = getattr(self.graph, "num_peers", None)
@@ -159,6 +175,16 @@ class ExchangeProtocol(abc.ABC):
         """Wire payload -> this peer's dense fp32 gradient contribution."""
         return {k: g.to(torch.float32) for k, g in payload.items()}
 
+    def host_combine(self, contribs, rank: int, ctx: ExchangeContext):
+        """Protocol-specific host-path aggregation, or ``None`` for the
+        default (graph-weighted mean) arithmetic.
+
+        ``contribs`` is ``[(rank, decoded f32 gradient), ...]``, always
+        including ``rank``'s own. Protocols whose estimator is not a
+        weighted mean (the robust family) override this; the cluster's
+        ``_update`` dispatches here first."""
+        return None
+
     # -- accounting ----------------------------------------------------------
     def wire_bytes_per_edge(self, grads_like: Grads, ctx: ExchangeContext) -> int:
         """Payload bytes crossing ONE graph edge (one peer -> one neighbor)."""
@@ -188,22 +214,21 @@ def _tree_bytes(tree: Grads) -> int:
 
 _REGISTRY: Dict[str, Type[ExchangeProtocol]] = {}
 
-# Protocols of the reference that the port does not have yet -> ROADMAP item.
-_UNPORTED = {
-    "reduce_scatter": "Robust, sharded and tree exchange",
-    "tree": "Robust, sharded and tree exchange",
-    "trimmed_mean": "Robust, sharded and tree exchange",
-    "median": "Robust, sharded and tree exchange",
-    "krum": "Robust, sharded and tree exchange",
-}
-
 
 def check_overlay(protocol: ExchangeProtocol, graph) -> None:
     """Refuse a sparse overlay for a protocol that is one fused global
-    collective (it does not decompose into per-edge messages)."""
-    if not graph.is_full and graph.num_peers > 1 and not protocol.decomposes_per_edge:
+    collective (it does not decompose into per-edge messages) or that
+    aggregates over all peers (``requires_full_graph``)."""
+    if graph.is_full or graph.num_peers <= 1:
+        return
+    if not protocol.decomposes_per_edge or protocol.requires_full_graph:
+        kind = (
+            "a sharded global reduce-scatter"
+            if protocol.requires_full_graph and protocol.decomposes_per_edge
+            else "a fused global collective"
+        )
         raise ValueError(
-            f"exchange protocol {protocol.name!r} is a fused global collective "
+            f"exchange protocol {protocol.name!r} is {kind} "
             f"and only supports graph='full'; got {graph.describe()}"
         )
 
@@ -226,13 +251,11 @@ def available_exchanges() -> Tuple[str, ...]:
 
 
 def get_exchange(spec: str) -> ExchangeProtocol:
-    """Resolve a registered protocol name."""
+    """Resolve a protocol spec: a registered name with an optional
+    parameter suffix — ``"allgather_mean"``, ``"trimmed_mean:0.25"``,
+    ``"krum:3"``, ``"tree:4"``. The parameter overrides the matching
+    :class:`ExchangeContext` knob for this instance."""
     name, _, arg = str(spec).partition(":")
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"exchange protocol {name!r} is not ported yet: ROADMAP.md, "
-            f"Queue 1, '{_UNPORTED[name]}'"
-        )
     try:
         cls = _REGISTRY[name]
     except KeyError:
@@ -240,12 +263,15 @@ def get_exchange(spec: str) -> ExchangeProtocol:
             f"unknown exchange protocol {spec!r}; registered protocols: "
             f"{', '.join(available_exchanges())}"
         ) from None
-    if arg:
+    if not arg:
+        return cls()
+    try:
+        return cls(param=arg)
+    except TypeError:
         raise ValueError(
             f"exchange protocol {name!r} does not take a ':' parameter "
             f"(got {spec!r})"
-        )
-    return cls()
+        ) from None
 
 
 # ---------------------------------------------------------------------------
@@ -517,3 +543,226 @@ class StalenessMailbox(ExchangeProtocol):
             fresh = g.to(ctx.wire_dtype).to(torch.float32)
             new_state[k] = torch.cat([ring[1:], fresh[None]], dim=0)
         return avg, new_state
+
+
+def _round_trip(x: torch.Tensor, wire: torch.dtype) -> torch.Tensor:
+    """``x`` f32 rounded through the wire dtype, as a send of it arrives."""
+    return x.to(wire).to(torch.float32)
+
+
+@register_exchange("reduce_scatter")
+class ReduceScatterMean(ExchangeProtocol):
+    """Sharded mean: ring reduce-scatter + allgather over contiguous shards.
+
+    The LambdaML/SPIRT pattern: the gradient dict flattens into one buffer
+    (:class:`ShardPlan`), peer ``r`` ends up owning the fully-reduced shard
+    ``r`` after ``P - 1`` ring hops, divides by ``P``, and an allgather of
+    the owned shards reconstructs the global mean everywhere. Shards — not
+    whole gradients — are the unit of exchange, so the per-edge payload is
+    ``model / P``.
+
+    On the stacked bank, shard ``j`` is summed as the ring sums it: peer
+    ``j + 1``'s piece first, then each next peer's round the ring to peer
+    ``j``, the partial rounded through the wire dtype before each hop; the
+    mean shard is rounded once more for the allgather. The shard layout is
+    global (shard ``r`` aggregates over all peers), so sparse overlays are
+    refused.
+
+    Host image: peers publish shard-addressed pieces to the mailbox, each
+    owner aggregates only its shard and re-broadcasts it — P aggregators
+    that run as parallel serverless invocations
+    (``ServerlessExecutor.simulate_aggregation``), with Lambda memory sized
+    from shard bytes instead of model bytes.
+    """
+
+    requires_full_graph = True
+    sharded = True
+
+    def plan(self, grads_like: Grads, ctx: ExchangeContext, *, lead: int = 0) -> ShardPlan:
+        """The shard layout for this peer count — one shard per peer."""
+        return ShardPlan.for_tree(grads_like, max(int(ctx.num_peers), 1), lead=lead)
+
+    def _check_full(self, ctx: ExchangeContext):
+        if ctx.mixing is not None:
+            raise ValueError(
+                "reduce_scatter shards are aggregated over ALL peers and "
+                "the protocol only supports graph='full'; use "
+                "allgather_mean (or qsgd/topk) for sparse overlays"
+            )
+
+    def _bank_buffer(self, grads: Grads, ctx: ExchangeContext):
+        """The plan and every peer's padded f32 buffer ``(P, padded)``."""
+        peers = next(iter(grads.values())).shape[0]
+        if peers != int(ctx.num_peers):
+            raise ValueError(
+                f"the gradient bank stacks {peers} peers, the context "
+                f"expects {ctx.num_peers}"
+            )
+        plan = self.plan(grads, ctx, lead=1)
+        return plan, plan.flatten(grads, lead=1).to(torch.float32)
+
+    # -- device path ---------------------------------------------------------
+    def combine(self, grads, ctx, *, generator=None, state=None):
+        self._check_full(ctx)
+        plan, flat = self._bank_buffer(grads, ctx)
+        P = flat.shape[0]
+        if P == 1:
+            return plan.unflatten(flat, lead=1), state
+        buf = flat.reshape(P, P, plan.shard_size)  # (peer, shard, S)
+        owners = torch.arange(P, device=flat.device)
+        # the partial of shard j starts at peer j + 1 and gains one peer's
+        # piece per hop, rounded through the wire dtype as it is sent
+        acc = buf[(owners + 1) % P, owners]
+        for s in range(1, P):
+            acc = _round_trip(acc, ctx.wire_dtype) + buf[(owners + 1 + s) % P, owners]
+        mean = plan.unflatten(_round_trip(acc / P, ctx.wire_dtype).reshape(-1))  # the allgather
+        return {k: mean[k].expand(grads[k].shape) for k in grads}, state
+
+    # -- host path (shard-addressed) -----------------------------------------
+    def host_encode_shard(self, shard_values: torch.Tensor, ctx: ExchangeContext, *,
+                          generator=None):
+        """One shard row -> (wire payload, wire bytes)."""
+        wire = shard_values.to(ctx.wire_dtype)
+        return wire, wire.numel() * wire.element_size()
+
+    def host_decode_shard(self, payload: torch.Tensor, ctx: ExchangeContext) -> torch.Tensor:
+        """Wire shard payload -> f32 shard row."""
+        return payload.to(torch.float32)
+
+    # -- accounting ----------------------------------------------------------
+    def wire_bytes_per_edge(self, grads_like, ctx) -> int:
+        """One shard crosses one edge: ``model / P`` bytes."""
+        return self.plan(grads_like, ctx).shard_bytes(ctx.wire_dtype)
+
+    def wire_bytes(self, grads_like, ctx) -> int:
+        """Ring reduce-scatter + allgather: (P-1) shard sends per phase."""
+        P_ = max(int(ctx.num_peers), 1)
+        return 2 * (P_ - 1) * self.wire_bytes_per_edge(grads_like, ctx)
+
+    def host_wire_bytes(self, grads_like, ctx) -> int:
+        """Mailbox publishes per step: P-1 shard pieces (one per other
+        owner) + this peer's re-broadcast aggregated shard."""
+        P_ = max(int(ctx.num_peers), 1)
+        return P_ * self.wire_bytes_per_edge(grads_like, ctx)
+
+
+# ---------------------------------------------------------------------------
+# Byzantine-robust protocols (estimators in repro_torch.core.robust)
+# ---------------------------------------------------------------------------
+
+
+class _RobustExchange(ExchangeProtocol):
+    """Shared machinery of the robust family: the dense bank rounded through
+    the wire dtype (the reference's ``all_gather`` of the wire-cast
+    gradients), optionally norm-clipped per peer row (``ctx.robust_clip``),
+    handed to the subclass estimator.
+
+    Wire accounting is the dense ``allgather_mean``'s: order statistics and
+    distance scores need every neighbour's dense gradient."""
+
+    def _masks(self, ctx: ExchangeContext):
+        """``(P, P)`` closed-neighbourhood rows, or None on the full graph
+        (every peer is a member and every peer's aggregate is the same)."""
+        if ctx.mixing is None:
+            return None
+        return np.asarray(ctx.graph.adjacency, dtype=bool) | np.eye(ctx.num_peers, dtype=bool)
+
+    def _prepare(self, bank, ctx: ExchangeContext):
+        if ctx.robust_clip > 0.0:
+            return R.clip_bank_to_norm(bank, ctx.robust_clip)
+        return bank
+
+    def _aggregate(self, bank, mask, ctx: ExchangeContext):
+        """``{name: (P, ...)}`` bank + membership mask (None: all rows) ->
+        ``{name: leaf}`` aggregate."""
+        raise NotImplementedError
+
+    def combine(self, grads, ctx, *, generator=None, state=None):
+        if self.requires_full_graph and ctx.graph is not None:
+            check_overlay(self, ctx.graph)
+        bank = self._prepare({k: _round_trip(g, ctx.wire_dtype) for k, g in grads.items()}, ctx)
+        masks = self._masks(ctx)
+        if masks is None:
+            agg = self._aggregate(bank, None, ctx)
+            return {k: agg[k].expand(grads[k].shape) for k in grads}, state
+        rows = [self._aggregate(bank, m, ctx) for m in masks]
+        return {k: torch.stack([row[k] for row in rows]) for k in grads}, state
+
+    def host_combine(self, contribs, rank: int, ctx: ExchangeContext):
+        """Robust aggregate over the contributions that arrived (the mailbox
+        restricted consumption to graph edges, so the arrived set is the
+        closed neighbourhood — possibly smaller under churn or rejected
+        contributions), stacked in ascending rank."""
+        ranked = sorted(contribs, key=lambda c: c[0])
+        names = list(ranked[0][1])
+        bank = {k: torch.stack([g[k].to(torch.float32) for _, g in ranked]) for k in names}
+        return self._aggregate(self._prepare(bank, ctx), None, ctx)
+
+
+@register_exchange("trimmed_mean")
+class TrimmedMeanExchange(_RobustExchange):
+    """Coordinate-wise trimmed mean: drop the ``f`` fraction of values from
+    each end of every coordinate, mean the rest. ``trimmed_mean:f`` sets the
+    trim; bare ``trimmed_mean`` reads ``ctx.trim_frac``. Survives up to
+    ``f`` Byzantine peers per coordinate; ``f=0`` is the plain mean. On a
+    sparse overlay each peer trims over its closed neighbourhood."""
+
+    def __init__(self, param: Optional[str] = None):
+        self.frac: Optional[float] = None
+        if param is not None:
+            self.frac = float(param)
+            if not 0.0 <= self.frac < 0.5:
+                raise ValueError(
+                    f"trimmed_mean trim fraction must be in [0, 0.5), got {self.frac}"
+                )
+
+    def _trim(self, ctx) -> float:
+        return ctx.trim_frac if self.frac is None else self.frac
+
+    def _aggregate(self, bank, mask, ctx):
+        frac = self._trim(ctx)
+        return {
+            k: R.masked_trimmed_mean(b, np.ones(b.shape[0], bool) if mask is None else mask, frac)
+            for k, b in bank.items()
+        }
+
+
+@register_exchange("median")
+class CoordinateMedianExchange(_RobustExchange):
+    """Coordinate-wise median — the no-hyperparameter robust baseline with
+    breakdown point 1/2 per coordinate; over the closed neighbourhood on a
+    sparse overlay."""
+
+    def _aggregate(self, bank, mask, ctx):
+        return {
+            k: R.masked_median(b, np.ones(b.shape[0], bool) if mask is None else mask)
+            for k, b in bank.items()
+        }
+
+
+@register_exchange("krum")
+class KrumExchange(_RobustExchange):
+    """Krum / multi-Krum (Blanchard et al., 2017): score every contribution
+    by its summed squared distance to its ``P - f - 2`` nearest peers,
+    average the ``m`` lowest-scored gradients. ``krum`` selects 1;
+    ``krum:m`` averages the top m. The distances need all contributions,
+    so sparse overlays are refused (``requires_full_graph``)."""
+
+    requires_full_graph = True
+
+    def __init__(self, param: Optional[str] = None):
+        self.m: Optional[int] = None
+        if param is not None:
+            self.m = int(param)
+            if self.m < 1:
+                raise ValueError(f"krum selection count must be >= 1, got {self.m}")
+
+    def _select_count(self, ctx) -> int:
+        return ctx.krum_m if self.m is None else self.m
+
+    def _aggregate(self, bank, mask, ctx):
+        flat, unflatten = R.flatten_bank(bank)
+        m = min(self._select_count(ctx), int(flat.shape[0]))
+        agg, _ = R.krum_select(flat, m=m, f=ctx.krum_f)
+        out = unflatten(agg)
+        return {k: out[k] for k in bank}

@@ -19,11 +19,18 @@ others' stale (Queue 3, reference behaviour 14). Its combine runs on the
 stacked bank through :func:`exchange_gradients`, with the ring that
 :func:`init_mailbox` makes.
 
+Every registered protocol but ``async`` runs on this step on the full
+graph, the robust (``trimmed_mean``, ``median``, ``krum``) and sharded
+(``reduce_scatter``, ``tree``) ones included. An
+:class:`~repro_torch.core.robust.AdversarySpec` replaces its attackers'
+rows of the gradient bank before the exchange (``sign_flip``,
+``scaled_noise``; ``stale_replay`` exists on the host cluster only and is
+refused with the reference's ``ValueError``).
+
 Not ported yet, each refused with ``NotImplementedError`` naming its
-ROADMAP item: a sparse overlay or the ``async`` protocol on this step,
-``cast_params_once``, the adversary model, and the robust,
-``reduce_scatter`` and ``tree`` protocols (from
-:func:`~repro_torch.core.exchange.get_exchange`).
+ROADMAP item: a sparse overlay or the ``async`` protocol on this step
+(robust protocols on a sparse overlay included: their peers' mixes differ
+too) and ``cast_params_once``.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import compression as C
+from repro_torch.core import robust as R
 from repro_torch.core.exchange import (
     ExchangeContext,
     ExchangeProtocol,
@@ -42,7 +50,7 @@ from repro_torch.core.exchange import (
     get_exchange,
 )
 from repro_torch.core.graph import PeerGraph, get_graph
-from repro_torch.core.simulate import ROBUST, resolve_device, unported
+from repro_torch.core.simulate import resolve_device, unported
 from repro_torch.optim import Optimizer, apply_updates, clip_by_global_norm
 
 Params = Dict[str, torch.Tensor]
@@ -66,6 +74,12 @@ class Topology:
     # r <- (g + r) - decode(encode(g + r)) per peer and re-inject it next
     # step. No-op (residual identically zero) for lossless protocols.
     ef: bool = False
+    # robust-aggregation knobs (see repro_torch.core.robust); a parameterized
+    # spec (exchange="trimmed_mean:0.25" / "krum:3") overrides these
+    trim_frac: float = 0.0  # trimmed_mean: fraction dropped from EACH end
+    krum_m: int = 1  # krum: multi-Krum selection count
+    krum_f: Optional[int] = None  # krum: assumed attackers (None = max)
+    robust_clip: float = 0.0  # >0: per-peer norm clip before robust combine
     grad_clip: float = 0.0  # > 0: clip each peer's gradient to this global norm
     exchange_dtype: str = "float32"  # bfloat16 halves exchange wire bytes
     cast_params_once: bool = False  # one bf16 cast per step (not ported yet)
@@ -97,6 +111,8 @@ def exchange_context(topo: Topology, *, num_peers: int) -> ExchangeContext:
     return ExchangeContext(
         num_peers=num_peers, wire_dtype=wire, qsgd=topo.qsgd,
         topk_frac=topo.topk_frac, staleness=topo.staleness, graph=graph, mixing=mixing,
+        trim_frac=topo.trim_frac, krum_m=topo.krum_m, krum_f=topo.krum_f,
+        robust_clip=topo.robust_clip,
     )
 
 
@@ -220,7 +236,7 @@ def build_p2p_train_step(
     num_peers: int,
     schedule: Callable[[int], float],
     *,
-    adversary: Any = None,
+    adversary: Optional[R.AdversarySpec] = None,
     device: Any = "cuda",
 ):
     """Returns ``step(train_state, batch) -> (train_state, metrics)``.
@@ -231,7 +247,11 @@ def build_p2p_train_step(
     ``grad_clip`` global-norm clip, EF re-injection (when ``topo.ef`` or the
     state carries a residual bank; a missing bank starts at zero), then the
     protocol's ``combine`` / ``combine_ef`` over the stacked bank, the
-    schedule's rate at ``state.step`` and the optimizer. ``metrics`` holds
+    schedule's rate at ``state.step`` and the optimizer. ``adversary``
+    replaces the seeded attacker ranks' rows of the bank (after the clip,
+    before EF and the exchange) with their poisoned gradients, so every
+    consumer and the protocol's estimator see them; ``scaled_noise`` draws
+    from ``state.key``. ``metrics`` holds
     the loss averaged over peers, each peer's gradient norm before the clip
     (0 when off) and aux, as ``(P,)`` tensors, and the rate.
 
@@ -242,8 +262,6 @@ def build_p2p_train_step(
     device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())  # as tensors report it
-    if adversary is not None:
-        raise unported("the adversary model", ROBUST)
     if topo.cast_params_once:
         raise unported("cast_params_once", BF16_PARAMS)
     protocol = topo.protocol()
@@ -260,6 +278,16 @@ def build_p2p_train_step(
         )
     if topo.accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {topo.accum_steps}")
+    attackers = None
+    if adversary is not None and adversary.active:
+        if adversary.attack == "stale_replay":
+            raise ValueError(
+                "stale_replay replays a previous epoch's wire payload and "
+                "only exists on the host mailbox path (LocalP2PCluster); "
+                "use sign_flip or scaled_noise on the device path"
+            )
+        attackers = torch.as_tensor(adversary.attackers(num_peers), dtype=torch.long,
+                                    device=device)
     grad_fn = torch.func.grad_and_value(loss_fn, has_aux=True)
     rounds = topo.accum_steps
 
@@ -301,6 +329,13 @@ def build_p2p_train_step(
             split[k] = v.reshape(num_peers, v.shape[0] // num_peers, *v.shape[1:])
         grads, loss, aux, gnorm = per_peer(state.params, split)
         with torch.no_grad():
+            if attackers is not None:
+                # Byzantine ranks publish a poisoned contribution: their
+                # rows of the bank are replaced before the exchange
+                poisoned = R.poison_gradients({k: g[attackers] for k, g in grads.items()},
+                                              adversary, state.key, lead=1)
+                grads = {k: g.to(torch.float32).index_copy(0, attackers, poisoned[k])
+                         for k, g in grads.items()}
             ef = state.ef
             if topo.ef and ef is None:
                 ef = init_ef(state.params, num_peers)

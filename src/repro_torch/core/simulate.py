@@ -17,13 +17,21 @@ partial work and rejoin after a downtime. Churn draws from one seeded
 numpy stream, as the reference's does, so a run with ``sim_compute_s``
 pinned repeats the reference's event trace exactly.
 
+Robust aggregation and the adversary model ride the same publish and
+consume path: a seeded :class:`~repro_torch.core.robust.AdversarySpec`
+poisons its attackers' publishes (``sign_flip``, ``scaled_noise``) or
+replays their previous epoch's payload (``stale_replay``),
+``reject_nonfinite`` drops non-finite contributions at consume, and the
+robust protocols take over the mix through ``host_combine``. The sharded
+protocols (``reduce_scatter``, ``tree[:k]``) run their own barriered
+exchanges of shard-addressed messages, whose aggregators a serverless
+executor prices (``aggregation_reports``).
+
 Everything runs on ``device``, by default ``"cuda"``; without a card the
 cluster raises unless the caller passes ``device="cpu"``. Stage timings
 synchronise the card where the reference waits for JAX's asynchronous
-dispatch, so a stage's time includes the device work it queued.
-
-Not ported yet, each refused with ``NotImplementedError`` naming its
-ROADMAP item: the adversary model and ``reject_nonfinite``.
+dispatch, so a stage's time includes the device work it queued, and the
+sharded aggregators' reduce times are read with the card synchronised.
 """
 from __future__ import annotations
 
@@ -52,14 +60,13 @@ from repro_torch.core.exchange import (
 )
 from repro_torch.core.graph import PeerGraph, get_graph
 from repro_torch.core.mailbox import HostMailbox
+from repro_torch.core.robust import AdversarySpec, poison_gradients, tree_all_finite
 from repro_torch.core.serverless import ExecutionReport, ServerlessExecutor
 from repro_torch.data import BatchKey, DataLoader, Dataset, Partitioner
 from repro_torch.metrics import StageMetrics
 from repro_torch.optim import Optimizer, apply_updates
 
 Params = Dict[str, torch.Tensor]
-
-ROBUST = "Robust, sharded and tree exchange"
 
 
 def unported(what: str, item: str) -> NotImplementedError:
@@ -77,6 +84,20 @@ def resolve_device(device) -> torch.device:
             "default — pass device='cpu' to run on the CPU"
         )
     return device
+
+
+def _copy_payload(payload):
+    """A copy of a wire payload that no later encode can write into: its
+    tensors cloned, its numpy arrays copied, its containers rebuilt."""
+    if torch.is_tensor(payload):
+        return payload.clone()
+    if isinstance(payload, np.ndarray):
+        return payload.copy()
+    if isinstance(payload, dict):
+        return {k: _copy_payload(payload[k]) for k in list(payload)}
+    if isinstance(payload, (list, tuple)):
+        return type(payload)(_copy_payload(v) for v in payload)
+    return payload
 
 
 def cnn_loss(model, params: Params, images: torch.Tensor, labels: torch.Tensor):
@@ -132,18 +153,18 @@ class LocalP2PCluster:
         peer_speeds: Optional[Sequence[float]] = None,
         churn_prob: float = 0.0,  # async: P(peer drops mid-step), per attempt
         churn_downtime_s: float = 1.0,  # async: rejoin delay after a drop
-        adversary: Any = None,
-        reject_nonfinite: bool = False,
+        adversary: Optional[AdversarySpec] = None,  # Byzantine attacker model
+        reject_nonfinite: bool = False,  # drop NaN/Inf contributions at consume
+        trim_frac: float = 0.0,  # trimmed_mean default (spec param overrides)
+        krum_m: int = 1,  # multi-Krum default (spec param overrides)
+        krum_f: Optional[int] = None,  # Krum's assumed Byzantine count
+        robust_clip: float = 0.0,  # per-contribution norm clip, 0 = off
         sim_compute_s: Optional[Any] = None,  # float | callable(rank, epoch)
         tracer: Any = None,  # repro_torch.analysis.trace.TraceRecorder, optional
         init_params: Optional[Mapping[str, torch.Tensor]] = None,  # e.g. convert.from_jax(...)
         seed: int = 0,
         device: Any = "cuda",
     ):
-        if adversary is not None:
-            raise unported("the adversary model", ROBUST)
-        if reject_nonfinite:
-            raise unported("reject_nonfinite", ROBUST)
         self.device = resolve_device(device)
 
         if cfg.family == "cnn" and dataset.kind == "image":
@@ -171,10 +192,41 @@ class LocalP2PCluster:
             else self.graph.mixing_matrix()
         )
         check_overlay(self.protocol, self.graph)
+        if self.protocol.sharded and not sync:
+            raise ValueError(
+                f"exchange protocol {self.protocol.name!r} is a barriered "
+                "sharded exchange (scatter -> aggregate -> re-broadcast) and "
+                "only runs in sync mode; use exchange='async' for "
+                "asynchronous epochs"
+            )
+        # Adversary model: a seeded subset of peers publishes poisoned (or
+        # stale-replayed) payloads through the same publish path honest
+        # peers use.
+        self.adversary = adversary
+        self._attackers = (
+            frozenset(adversary.attackers(num_peers)) if adversary is not None else frozenset()
+        )
+        if self._attackers and self.protocol.sharded:
+            raise ValueError(
+                f"exchange protocol {self.protocol.name!r} exchanges "
+                "shard pieces, not whole-gradient payloads; the adversary "
+                "model poisons whole-gradient publishes — use a dense "
+                "protocol (allgather_mean / trimmed_mean / median / krum)"
+            )
+        # stale_replay: each attacker's last (payload, nbytes), a copy
+        self._replay_cache: List[Optional[Tuple[Any, int]]] = [None] * num_peers
+        self.reject_nonfinite = reject_nonfinite
         self.ef = bool(ef)
+        if self.ef and self.protocol.sharded:
+            raise ValueError(
+                f"exchange protocol {self.protocol.name!r} exchanges shard "
+                "pieces and bypasses the per-peer publish path; error "
+                "feedback applies to lossy whole-gradient codecs (qsgd/topk)"
+            )
         self.xctx = ExchangeContext(
             num_peers=num_peers, qsgd=qsgd, topk_frac=topk_frac, graph=self.graph,
-            mixing=self._mixing,
+            mixing=self._mixing, trim_frac=trim_frac, krum_m=krum_m, krum_f=krum_f,
+            robust_clip=robust_clip,
         )
         self.link = LinkModel(bandwidth_bps=network_bandwidth_bps)
         # Deterministic virtual compute time: the async clock advances by
@@ -196,6 +248,10 @@ class LocalP2PCluster:
         # QSGD uniforms.
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
+        # The attackers' scaled_noise draws: a stream of its own, seeded from
+        # the adversary, as the reference keys them apart from the codec's.
+        self.poison_generator = torch.Generator(device=self.device)
+        self.poison_generator.manual_seed(adversary.seed if adversary is not None else 0)
 
         part = Partitioner(dataset, num_peers, shuffle_seed=seed)
         self.model = models.init_model(cfg, generator=self.generator, device=self.device)
@@ -220,6 +276,13 @@ class LocalP2PCluster:
                 )
             )
         self._model_bytes = sum(init_params[k].numel() * 4 for k in self.names)
+        # Sharded exchange: one contiguous shard per peer (gradients share
+        # the params' structure), plus the per-epoch parallel-aggregation
+        # reports when a serverless executor prices the aggregators.
+        self.shard_plan = (
+            self.protocol.plan(init_params, self.xctx) if self.protocol.sharded else None
+        )
+        self.aggregation_reports: List[ExecutionReport] = []
 
         # Warm up (cuDNN plans, the codec's kernels) so stage timings measure
         # compute, not set-up.
@@ -329,11 +392,25 @@ class LocalP2PCluster:
     def _publish(self, peer: PeerState, grads: Params, epoch: int, at_time: float):
         """SendGradientsToMyQueue via the exchange protocol's wire format.
 
+        Byzantine peers poison here. ``sign_flip`` / ``scaled_noise``
+        transform the gradient before encoding (composes with any codec);
+        ``stale_replay`` re-publishes the attacker's previous epoch's encoded
+        payload, cached as a copy. As in the reference's code (not its
+        docstring), the attacker's own contribution is the poisoned gradient
+        too, and under EF the poison enters its residual (ROADMAP.md, Queue
+        3, reference behaviour 15).
+
         Returns this peer's OWN contribution for the consume/update phase:
-        the raw gradient normally, or — under error feedback — the decoded
-        image of the encoded payload, with the residual (what the codec
-        dropped) accumulated into ``peer.ef`` for re-injection next step.
+        the (poisoned) gradient normally, or — under error feedback — the
+        decoded image of the encoded payload, with the residual (what the
+        codec dropped) accumulated into ``peer.ef`` for re-injection next
+        step.
         """
+        poisoned = False
+        attacker = peer.rank in self._attackers
+        if attacker and self.adversary.attack != "stale_replay":
+            grads = poison_gradients(grads, self.adversary, self.poison_generator)
+            poisoned = True
         if self.ef:
             if peer.ef is None:
                 peer.ef = {k: torch.zeros_like(grads[k], dtype=torch.float32) for k in self.names}
@@ -346,11 +423,18 @@ class LocalP2PCluster:
                 image = self.protocol.host_decode(payload, grads, self.xctx)
                 peer.ef = {k: grads[k] - image[k].to(torch.float32) for k in self.names}
                 own = image
+            if attacker and self.adversary.attack == "stale_replay":
+                replayed = self._replay_cache[peer.rank]
+                self._replay_cache[peer.rank] = (_copy_payload(payload), nbytes)
+                if replayed is not None:
+                    payload, nbytes = replayed  # epoch e ships epoch e-1's wire
+                    poisoned = True
             msg = (self.protocol.name, payload)
             self._sync()
             wire_s = self.link.transfer_s(nbytes)
             self.mailbox.publish(
                 peer.rank, msg, nbytes=nbytes, time=at_time + wire_s, epoch=epoch,
+                poisoned=poisoned,
             )
         peer.comm_bytes_sent += nbytes
         peer.send_time_s += wire_s
@@ -364,7 +448,9 @@ class LocalP2PCluster:
         gradient in ascending rank, the order in which the reference sums
         them; and the receive-side wire time (payload download plus the S3
         round trip of indirected messages), which async epochs add to the
-        peer's clock. ``at_time`` (async) hides what is published later."""
+        peer's clock. ``at_time`` (async) hides what is published later.
+        With ``reject_nonfinite`` a contribution holding NaN or Inf is
+        dropped after its download is charged."""
         contribs = [(peer.rank, own_grads)]
         recv_wire_s = 0.0
         with peer.metrics.stage("receive_gradients"):
@@ -377,18 +463,28 @@ class LocalP2PCluster:
                 wire_s = self.mailbox.download_time_s(msg, link=self.link)
                 peer.recv_time_s += wire_s
                 recv_wire_s += wire_s
+                if self.reject_nonfinite and not tree_all_finite(decoded):
+                    # the bytes crossed the wire (charged above); the
+                    # contribution is dropped at the trust boundary
+                    self.mailbox.stats["rejected_nonfinite"] += 1
+                    continue
                 contribs.append((other, decoded))
         return contribs, recv_wire_s
 
     def _update(self, peer: PeerState, contribs, lr: float):
         """Mix the consumed gradients and step the peer's optimizer.
 
-        Full graph: plain mean over contributions. Sparse graph:
-        Metropolis–Hastings weights ``W[r]``, renormalized over the
+        Robust protocols (trimmed mean / median / Krum) take over the whole
+        combine via :meth:`ExchangeProtocol.host_combine`; otherwise, on the
+        full graph, the plain mean over contributions, and on a sparse
+        graph Metropolis–Hastings weights ``W[r]``, renormalized over the
         contributions that arrived.
         """
         with peer.metrics.stage("model_update"), torch.no_grad():
-            if self._mixing is None:
+            robust = self.protocol.host_combine(contribs, peer.rank, self.xctx)
+            if robust is not None:
+                avg = robust
+            elif self._mixing is None:
                 n = len(contribs)
                 avg = {k: sum(g[k].to(torch.float32) for _, g in contribs) / n for k in self.names}
             else:
@@ -407,12 +503,167 @@ class LocalP2PCluster:
         self._sync()
         peer.steps_done += 1
 
+    def _shard_publish(self, peer: PeerState, values: torch.Tensor, epoch: int, shard) -> None:
+        """Publish one shard-addressed buffer through the shard wire codec."""
+        payload, nbytes = self.protocol.host_encode_shard(values, self.xctx)
+        wire_s = self.link.transfer_s(nbytes)
+        self.mailbox.publish(peer.rank, payload, nbytes=nbytes, time=wire_s, epoch=epoch,
+                             shard=shard)
+        peer.comm_bytes_sent += nbytes
+        peer.send_time_s += wire_s
+
+    def _shard_consume(self, peer: PeerState, other: int, shard) -> torch.Tensor:
+        """Consume one shard-addressed buffer, charge its download, decode it."""
+        msg = self.mailbox.consume(other, consumer=peer.rank, shard=shard)
+        peer.recv_time_s += self.mailbox.download_time_s(msg, link=self.link)
+        return self.protocol.host_decode_shard(msg.payload, self.xctx)
+
+    def _price_aggregation(self, per_agg_s: List[float], shard_bytes: int,
+                           num_contributions: int, epoch: int) -> None:
+        """One parallel wave of aggregator invocations on the serverless
+        executor, when one is attached."""
+        if self.executor is not None and self.executor.backend == "serverless":
+            self.aggregation_reports.append(self.executor.simulate_aggregation(
+                per_agg_s, shard_bytes=shard_bytes, num_contributions=num_contributions,
+                epoch=epoch, link=self.link,
+            ))
+
+    def _sharded_exchange_sync(self, grads: Dict[int, Params], epoch: int):
+        """Shard-addressed exchange (the ``reduce_scatter`` host image).
+
+        Three phases over the mailbox, shards — not whole gradients — on the
+        wire:
+
+        1. **scatter** — each peer splits its gradient into P contiguous
+           shards (:class:`~repro_torch.core.shard.ShardPlan`) and publishes
+           one piece per foreign shard owner (``shard=("piece", j)``).
+        2. **aggregate** — owner ``j`` consumes only the pieces of its
+           shard, sums them after its own piece (``model / P`` elements per
+           contribution), divides by P and re-broadcasts the mean shard
+           (``shard=("agg",)``). Each reduce is timed with the card
+           synchronised before and after; with a serverless executor the P
+           concurrent aggregators are priced with memory sized from shard
+           bytes.
+        3. **gather** — every peer consumes the P-1 foreign mean shards,
+           reassembles the buffer in shard order, unflattens it to the
+           global mean, and steps its optimizer.
+        """
+        plan, P = self.shard_plan, self.num_peers
+        rows: List[Optional[torch.Tensor]] = [None] * P
+        for peer in self.peers:
+            r = peer.rank
+            with peer.metrics.stage("send_gradients"), torch.no_grad():
+                rows[r] = plan.shards(grads[r])  # (P, S)
+                self._sync()
+                for j in range(P):
+                    if j != r:  # own piece never leaves the peer
+                        self._shard_publish(peer, rows[r][j], epoch, ("piece", j))
+        agg_rows: List[Optional[torch.Tensor]] = [None] * P
+        per_shard_s: List[float] = []
+        for peer in self.peers:
+            r = peer.rank
+            with peer.metrics.stage("receive_gradients"):
+                pieces = [rows[r][r].to(torch.float32)]
+                pieces.extend(self._shard_consume(peer, other, ("piece", r))
+                              for other in range(P) if other != r)
+            self._sync()
+            t0 = time.perf_counter()
+            agg = sum(pieces[1:], pieces[0]) / P
+            self._sync()
+            per_shard_s.append(time.perf_counter() - t0)
+            agg_rows[r] = agg
+            with peer.metrics.stage("send_gradients"):
+                self._shard_publish(peer, agg, epoch, ("agg",))
+        self._price_aggregation(per_shard_s, plan.shard_bytes(self.xctx.wire_dtype), P, epoch)
+        for peer in self.peers:
+            r = peer.rank
+            with peer.metrics.stage("receive_gradients"):
+                bank = [agg_rows[r] if j == r else self._shard_consume(peer, j, ("agg",))
+                        for j in range(P)]
+            with peer.metrics.stage("model_update"):
+                self._apply_avg(peer, plan.unflatten(torch.stack(bank)), self.detector.lr)
+
+    def _tree_exchange_sync(self, grads: Dict[int, Params], epoch: int):
+        """Hierarchical tree exchange (the ``tree[:fanout]`` host image).
+
+        Peers form the protocol's k-ary :class:`~repro_torch.core.tree.TreePlan`
+        and run two sweeps over the mailbox, whole flattened buffers on the
+        wire:
+
+        1. **up-sweep** — deepest level first: every non-root peer publishes
+           its partial sum (own buffer + its children's partials, in child
+           order) to its ``shard=("up",)`` register. The root divides the
+           global sum by ``P``.
+        2. **down-sweep** — root to leaves: each hub publishes the mean once
+           to its ``shard=("down",)`` register and its children read it.
+
+        Each hub's fan-in is timed with the card synchronised before and
+        after; with a serverless executor each level's hubs are priced as
+        one parallel wave with memory sized from buffer bytes.
+        """
+        plan, P = self.shard_plan, self.num_peers
+        tp = self.protocol.tree_plan(P)
+        itemsize = torch.empty((), dtype=self.xctx.wire_dtype).element_size()
+        partial: List[Optional[torch.Tensor]] = [None] * P
+        for level in range(tp.depth - 1, -1, -1):
+            start, stop = tp.level_bounds(level)
+            per_hub_s: List[float] = []
+            for r in range(start, stop):
+                peer = self.peers[r]
+                kids = tp.children(r)
+                self._sync()
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    acc = plan.flatten(grads[r]).to(torch.float32)
+                with peer.metrics.stage("receive_gradients"):
+                    for c in kids:
+                        acc = acc + self._shard_consume(peer, c, ("up",))
+                self._sync()
+                if kids:
+                    per_hub_s.append(time.perf_counter() - t0)
+                partial[r] = acc
+                if r != 0:
+                    with peer.metrics.stage("send_gradients"):
+                        self._shard_publish(peer, acc, epoch, ("up",))
+            if per_hub_s:  # one parallel aggregation wave per hub level
+                self._price_aggregation(per_hub_s, plan.padded_size * itemsize,
+                                        tp.fanout + 1, epoch)
+        down: List[Optional[torch.Tensor]] = [None] * P
+        down[0] = partial[0] / P
+        for level in range(tp.depth):
+            start, stop = tp.level_bounds(level)
+            for r in range(start, stop):
+                peer = self.peers[r]
+                if r != 0:
+                    with peer.metrics.stage("receive_gradients"):
+                        down[r] = self._shard_consume(peer, tp.parent(r), ("down",))
+                if tp.children(r):
+                    with peer.metrics.stage("send_gradients"):
+                        self._shard_publish(peer, down[r], epoch, ("down",))
+        for peer in self.peers:
+            with peer.metrics.stage("model_update"):
+                self._apply_avg(peer, plan.unflatten(down[peer.rank]), self.detector.lr)
+
     def comm_cost(self, *, usd_per_gb: float = 0.0) -> CommCost:
         """Per-step wire cost of one peer under protocol + overlay graph:
         one publish's payload per edge times the peer's mean degree, O(P)
         on the full mesh and O(degree) on sparse overlays. (The simulated
         link also charges one publish per step, ``_publish``, on top of the
-        degree-many downloads counted here.)"""
+        degree-many downloads counted here.) A sharded protocol's per-edge
+        payload is one shard and its per-step total the protocol's own
+        accounting, ``2 (P - 1)`` shards (the peer's downloads)."""
+        if self.protocol.sharded:
+            like = self.peers[0].params
+            return CommCost(
+                wire_bytes_per_step=self.protocol.wire_bytes(like, self.xctx),
+                bandwidth_bps=self.link.bandwidth_bps,
+                usd_per_gb_egress=usd_per_gb,
+                bytes_per_edge=self.protocol.wire_bytes_per_edge(like, self.xctx),
+                degree=self.xctx.degree,
+                graph_name=self.graph.name,
+                num_shards=self.shard_plan.num_shards,
+                shard_bytes=self.shard_plan.shard_bytes(self.xctx.wire_dtype),
+            )
         per_edge = self.protocol.host_wire_bytes(self.peers[0].params, self.xctx)
         return CommCost(
             wire_bytes_per_step=int(round(per_edge * self.xctx.degree)),
@@ -438,13 +689,15 @@ class LocalP2PCluster:
     def run_epoch_sync(self, epoch: int) -> Dict[str, float]:
         """One synchronous epoch: compute -> publish -> barrier -> consume -> update."""
         grads, stats = {}, []
+        sharded = self.protocol.sharded
         for peer in self.peers:
             with peer.metrics.stage("compute_gradients"):
                 g, loss, acc, _ = self._compute_peer_gradient(peer, epoch)
             stats.append((loss, acc))
             # own contribution for the update phase: the decoded image of
-            # the published payload under EF, the raw gradient else
-            grads[peer.rank] = self._publish(peer, g, epoch, at_time=0.0)
+            # the published payload under EF, the raw gradient else; the
+            # sharded protocols publish in their own exchange below
+            grads[peer.rank] = g if sharded else self._publish(peer, g, epoch, at_time=0.0)
             self.mailbox.barrier_signal(peer.rank, epoch)
         if not self.mailbox.barrier_complete(epoch):  # SynchronisationBarrier
             raise RuntimeError(
@@ -452,9 +705,14 @@ class LocalP2PCluster:
                 f"every peer signalled completion before the consume phase"
             )
         self.mailbox.barrier_reset(epoch)
-        for peer in self.peers:
-            contribs, _ = self._consume_all(peer, grads[peer.rank], at_time=None)
-            self._update(peer, contribs, self.detector.lr)
+        if sharded and self.protocol.hierarchical:
+            self._tree_exchange_sync(grads, epoch)
+        elif sharded:
+            self._sharded_exchange_sync(grads, epoch)
+        else:
+            for peer in self.peers:
+                contribs, _ = self._consume_all(peer, grads[peer.rank], at_time=None)
+                self._update(peer, contribs, self.detector.lr)
         loss = float(np.mean([s[0] for s in stats]))
         acc = float(np.mean([s[1] for s in stats]))
         return {"loss": loss, "acc": acc}

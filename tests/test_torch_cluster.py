@@ -4,6 +4,11 @@ reference's, converted), with the ``allgather_mean`` exchange on the full
 and the ring graph. ``test_torch_cluster_qsgd.py`` runs the QSGD exchange,
 ``test_torch_cluster_async.py`` async epochs, the executor and the tracer.
 
+Also here: the reference's refusals (a full-graph protocol on a sparse
+overlay; a sharded protocol with ``sync=False``, an adversary or EF; a bad
+``trimmed_mean``, ``krum`` or ``tree`` parameter), the same ``ValueError``
+on both sides.
+
 Tolerances: params within 1e-5 absolute (convolution gradients are summed
 in another order by XLA and oneDNN); wire bytes and mailbox statistics
 identical.
@@ -70,17 +75,33 @@ def test_allgather_mean_epoch_matches_reference(graph):
     _same_accounting(ref, port)
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(adversary=object()), "Robust, sharded and tree exchange"),
-    (dict(reject_nonfinite=True), "Robust, sharded and tree exchange"),
-    (dict(exchange="median"), "Robust, sharded and tree exchange"),
-    (dict(exchange="trimmed_mean"), "Robust, sharded and tree exchange"),
-    (dict(exchange="reduce_scatter"), "Robust, sharded and tree exchange"),
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(exchange="krum", graph="ring"), "sharded global reduce-scatter .* graph='full'"),
+    (dict(exchange="reduce_scatter", graph="ring"), "graph='full'"),
+    (dict(exchange="tree", graph="gossip:2"), "graph='full'"),
+    (dict(exchange="reduce_scatter", sync=False), "only runs in sync mode"),
+    (dict(exchange="tree:3", sync=False), "only runs in sync mode"),
+    (dict(exchange="reduce_scatter", adversary="spec"), "whole-gradient"),
+    (dict(exchange="tree", ef=True), "error feedback"),
+    (dict(exchange="trimmed_mean:0.5"), r"trim fraction must be in \[0, 0.5\)"),
+    (dict(exchange="trimmed_mean:-0.1"), r"trim fraction must be in \[0, 0.5\)"),
+    (dict(exchange="krum:0"), "selection count must be >= 1"),
+    (dict(exchange="tree:1"), "fanout must be >= 2"),
 ])
-def test_unported_options_raise_naming_their_roadmap_item(kwargs, item):
-    args = dict(COMMON, **kwargs)
-    with pytest.raises(NotImplementedError, match=item):
-        LocalP2PCluster(
-            get_config("squeezenet1.1"), make_dataset("mnist", size=128, image_hw=8, channels=1),
-            optimizer=sgd(momentum=0.9), device="cpu", **args,
-        )
+def test_the_references_refusals_are_kept(kwargs, match):
+    """What the reference's cluster refuses, the port refuses with the same
+    ``ValueError``, and so does the reference."""
+    from repro.core.robust import AdversarySpec as JAdversarySpec
+    from repro_torch.core import AdversarySpec
+
+    for make, spec, mk_cfg, mk_ds, opt in (
+        (LocalP2PCluster, AdversarySpec, get_config, make_dataset, sgd),
+        (JCluster, JAdversarySpec, jget_config, jmake_dataset, joptim.sgd),
+    ):
+        args = dict(COMMON, **kwargs)
+        if "adversary" in args:
+            args["adversary"] = spec(num=1)
+        extra = dict(device="cpu") if make is LocalP2PCluster else {}
+        with pytest.raises(ValueError, match=match):
+            make(mk_cfg("squeezenet1.1"), mk_ds("mnist", size=128, image_hw=8, channels=1),
+                 optimizer=opt(momentum=0.9), **args, **extra)

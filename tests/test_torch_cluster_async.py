@@ -14,7 +14,8 @@ and its ``async`` exchange protocol against the reference, on the CPU.
 * An executor (serverless or instance) leaves the params bit-identical to
   the same run without one, and fills the reports and simulated stages.
 * ``comm_cost`` equals the reference's for every ported protocol on the
-  full and the ring graph.
+  full and the ring graph (the sharded ones with the shard plan a cluster
+  built for them holds).
 * The ``async`` device combine on the stacked bank equals the reference's
   ``StalenessMailbox.combine`` under ``jax.vmap(axis_name="data")``
   within 1e-6 for K = 1, 2, 3 on both graphs, ring state included.
@@ -197,6 +198,9 @@ def test_comm_cost_is_the_reference_for_every_ported_protocol(graph):
     assert "async" in names and "qsgd" in names and "topk" in names
     for name in names:
         ref.protocol, port.protocol = jget_exchange(name), X.get_exchange(name)
+        if port.protocol.sharded:  # the plan a cluster built for it would hold
+            ref.shard_plan = ref.protocol.plan(ref.peers[0].params, ref.xctx)
+            port.shard_plan = port.protocol.plan(port.peers[0].params, port.xctx)
         for usd in (0.0, 0.09):
             a, b = port.comm_cost(usd_per_gb=usd), ref.comm_cost(usd_per_gb=usd)
             assert dataclasses.asdict(a) == dataclasses.asdict(b), name

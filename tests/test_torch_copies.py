@@ -76,7 +76,12 @@ def test_graphs_equal_reference(spec):
         assert g.neighbors(r) == jg.neighbors(r)
         np.testing.assert_array_equal(g.mixing_row(r), jg.mixing_row(r))
     assert g.spectral_gap() == jg.spectral_gap()
-    assert graph.available_graphs() == jgraph.available_graphs()
+    # the reference's own graphs: tests/test_graph.py registers a test graph
+    # in the reference's registry, which shows here when the two files share
+    # a worker
+    theirs = tuple(n for n in jgraph.available_graphs()
+                   if jgraph._REGISTRY[n].__module__ == jgraph.__name__)
+    assert graph.available_graphs() == theirs
 
 
 def test_mailbox_equal_reference():

@@ -131,7 +131,11 @@ def test_fanout_timeout_leaves_the_reference_records(batched):
     ("aimd", {}),
 ])
 def test_allocation_policies_size_memory_as_the_reference(name, kw):
-    assert E.available_allocations() == J.available_allocations()
+    # the reference's own policies: tests/test_events.py registers test
+    # policies in the reference's registry, which show here when the two
+    # files share a worker
+    assert E.available_allocations() == tuple(
+        n for n in J.available_allocations() if J._ALLOC_REGISTRY[n].__module__ == J.__name__)
 
     def sizes(module):
         policy = module.get_allocation(name, **kw)

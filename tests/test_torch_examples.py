@@ -2,8 +2,8 @@
 ``examples/cost_explorer.py``, on the CPU.
 
 * ``cost_explorer``: every line equals the reference script's, except the
-  wire-cost lines of protocols the port has not ported and the reference's
-  TPU chip-second section, which the twin leaves out. The reference runs
+  wire-cost lines of protocols the port has not ported (none now) and the
+  reference's TPU chip-second section, which the twin leaves out. The reference runs
   with its own allocation policies only: ``tests/test_events.py`` registers
   test policies in the reference's registry, which the script lists when
   the two files share a worker.

@@ -46,6 +46,7 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.launch.serve\n"
         "import repro_torch.core.events, repro_torch.core.cost, repro_torch.core.instance\n"
         "import repro_torch.core.serverless, repro_torch.core.scheduler, repro_torch.core.mailbox\n"
+        "import repro_torch.core.robust, repro_torch.core.shard, repro_torch.core.tree\n"
         "import repro_torch.analysis.trace, repro_torch.examples.quickstart\n"
         "import repro_torch.examples.cost_explorer\n"
         "assert not any(m == 'repro' or m.startswith('repro.') for m in sys.modules)\n"
