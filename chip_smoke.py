@@ -5,6 +5,7 @@
     python3 chip_smoke.py --select-timing SRC   # the select alone (below)
     python3 chip_smoke.py --scatter-timing SRC  # the scatter alone (below)
     python3 chip_smoke.py --ssd-timing SRC      # the SSD scan alone (below)
+    python3 chip_smoke.py --p2p-timing SRC      # the P2P paths holding params once (below)
 
 Phases, each of which fails the run on a failed check (none catches its own
 failure):
@@ -55,7 +56,17 @@ failure):
              1e-5, 1e-4 where the trim keeps the attacker's row), a 3-layer
              reduced mamba2 and a 3-layer reduced gemma2 (S 160 over its
              window of 64) in f32 (forward, prefill logits and states or
-             caches, 8 greedy decode steps).
+             caches, 8 greedy decode steps); per-peer bank steps of
+             squeezenet (``allgather_mean`` and ``async`` K = 2 on the ring
+             over 3 steps, ``qsgd(7, 256)`` + EF on the ring for 1), each
+             card step from the CPU's state, bounded by the two sides'
+             gradient gap at those params; a determinism phase under
+             PyTorch's default global flags (two seeded mobilenet QSGD
+             clusters bit-identical, a vgg11 gradient bit-identical with
+             global TF32 on and off, the CNN paths under
+             ``torch.use_deterministic_algorithms(True)``). The script
+             sets none of PyTorch's global flags: the port runs its CNNs
+             in ``models.cnn.f32_numerics``.
 4. path    — the main paths. ``LocalP2PCluster(...).run`` with the QSGD
              exchange: mobilenet-v3-small (full graph, 3 epochs), vgg11
              (full graph, 2 epochs), mobilenet-v3-small (ring, EF, 1 epoch);
@@ -92,7 +103,13 @@ failure):
              ``tree`` (step 1 within 1e-6 of an ``allgather_mean`` step),
              ``trimmed_mean:0.25`` with a sign_flip attacker (profiled:
              the device's idle share) and ``krum`` with a scaled_noise
-             attacker; these launch none of the kernels.
+             attacker; these launch none of the kernels. Per-peer bank
+             steps (``peer_bank``), 4 each: vgg11 qsgd(127, 2048) + EF on
+             the ring (one ``dequant_reduce`` per peer's mix and leaf),
+             mobilenet-v3-small topk(0.01) + EF on ``hierarchical:2``,
+             vgg11 ``async`` with staleness 2, vgg11 ``trimmed_mean:0.34``
+             with a sign_flip attacker on the ring; each prints the
+             largest gap between bank rows, which must be above 0.
              mamba2-370m at full width (48 layers, bf16): the scoring
              ``forward(..., use_ssd_kernel=True)`` on 4 x 2048 tokens (48
              SSD launches each) and the serve twin's prefill of 4 x 512
@@ -120,7 +137,11 @@ failure):
              and the fp32-rate bound of earlier rows; the robust
              estimators (trimmed mean, median, Krum's Gram matrix and
              selection) and the ``reduce_scatter`` and ``tree:2`` combines
-             on a (4, vgg11's 28.1 M) f32 bank beside their byte bounds.
+             on a (4, vgg11's 28.1 M) f32 bank beside their byte bounds;
+             the per-peer gradients of vgg11 and mobilenet at 4 x 32,
+             banked (vmap over the bank), looped over the peers and held
+             once, with deterministic cuDNN and with non-deterministic
+             algorithms allowed.
 6. profile — ``torch.profiler`` over one scoring forward and 4 decode
              steps of mamba2-370m and of gemma2-2b: the device's busy and
              idle share and kernel time by kind (SSD or flash kernel,
@@ -141,6 +162,12 @@ a checkout of the repository, it exits non-zero and prints no result.
 
 ``--ssd-timing SRC`` runs only the SSD kernel's timing, likewise with the
 ``repro_torch`` under SRC; it prints no result line.
+
+``--p2p-timing SRC`` runs only the P2P paths that hold params once
+(clusters and device steps, their checks left out), with the
+``repro_torch`` under SRC and cuDNN TF32 off globally, as the script set
+it before the port chose its own CNN numerics: run it for an earlier
+checkout and this one in one call. It prints no result line.
 
 ``--scatter-timing SRC`` runs only the scatter's timing and the mobilenet
 top-k + EF device step (with a profile of one step) on the ``repro_torch``
@@ -873,9 +900,11 @@ def reference_step_phase(torch):
     residual changes its bucket's norm (QSGD) or re-enters the next select
     (top-k), and the moved params shift every later gradient onto other
     near-ties. Card runs of 3 steps moved 104 (qsgd + EF) and 5,872 (topk
-    + EF) of 726,474 params beyond 1e-5, and 0 in another run of the same
-    topk steps. ``tests/test_torch_p2p.py`` holds 3 steps of both to the
-    reference on the CPU, where the two sides' gradients are closer."""
+    + EF) of 726,474 params beyond 1e-5 (and 0 in a second run of the same
+    topk steps, while the card's cuDNN algorithms were not yet pinned to
+    deterministic ones). ``tests/test_torch_p2p.py`` holds 3 steps of both
+    to the reference on the CPU, where the two sides' gradients are
+    closer."""
     import dataclasses
 
     import numpy as np
@@ -1032,8 +1061,7 @@ def drive(torch, mods, arch: str, epochs: int, *, exchange: str = "qsgd", graph:
     the Lambda fan-out (accounting, not a measurement of Lambda), and the
     aggregators of a sharded protocol. ``adversary``: an ``AdversarySpec``'s
     fields. ``check(cluster, tag)`` runs the run's own checks after the
-    launches are read; the peers' params after epoch 0 are kept for it as
-    ``cluster.first_epoch_params``."""
+    launches are read."""
     from repro_torch.configs import get_config
     from repro_torch.core import (AdversarySpec, InstanceConfig, LocalP2PCluster, QSGDConfig,
                                   RuntimeConfig, ServerlessExecutor, compare_backends)
@@ -1052,16 +1080,6 @@ def drive(torch, mods, arch: str, epochs: int, *, exchange: str = "qsgd", graph:
         graph=graph, ef=ef, seed=0, executor=executor, reject_nonfinite=reject_nonfinite,
         adversary=None if adversary is None else AdversarySpec(**adversary),
     )
-    if check is not None:
-        run_epoch = cluster.run_epoch_sync
-
-        def keep_first(epoch):
-            out = run_epoch(epoch)
-            if epoch == 0:
-                cluster.first_epoch_params = [dict(p.params) for p in cluster.peers]
-            return out
-
-        cluster.run_epoch_sync = keep_first
     t1 = time.perf_counter()
     history = cluster.run(epochs)
     torch.cuda.synchronize()
@@ -1195,6 +1213,48 @@ def drive_async(torch, mods, arch: str, epochs: int):
     return launches
 
 
+def cifar_steps(torch, arch: str, steps: int):
+    """A seeded ``arch`` on the card at CIFAR shape (frozen: the step
+    differentiates its params dict), one copy of its params, the loss a
+    step takes, and ``steps`` global batches of 4 peers x 32."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.core.simulate import cnn_loss
+    from repro_torch.data import BatchKey, DataLoader, Partitioner, make_dataset
+
+    ds = make_dataset("cifar")
+    cfg = dataclasses.replace(get_config(arch), image_size=ds.image_hw,
+                              image_channels=ds.channels, num_classes=ds.num_classes)
+    loader = DataLoader(Partitioner(ds, 1, shuffle_seed=0), 0, PEERS * 32)
+    model = models.init_model(cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+                              device="cuda").requires_grad_(False)
+    params = {k: v.clone() for k, v in model.named_parameters()}
+    batches = []
+    for i in range(steps):
+        b = loader.load(BatchKey(0, 0, i))
+        batches.append({"images": models.images_to_device(b["images"], "cuda"),
+                        "labels": torch.from_numpy(b["labels"].astype(np.int64)).cuda()})
+    return params, lambda p, b: cnn_loss(model, p, b["images"], b["labels"]), batches
+
+
+def run_steps(torch, step, state, batches):
+    """Every batch through ``step`` -> (the last state, the losses, the host
+    clock after each step, which the loss's read waits for, the state after
+    the first step)."""
+    losses, marks, first = [], [], None
+    for b in batches:
+        state, metrics = step(state, b)
+        losses.append(float(metrics["loss"]))
+        marks.append(time.perf_counter())
+        first = first or state
+    torch.cuda.synchronize()
+    return state, losses, marks, first
+
+
 def drive_step(torch, mods, arch: str, steps: int, *, exchange: str, selects_per_leaf: int = 1,
                scatters_per_leaf: int = 1, profile: bool = False):
     """``build_p2p_train_step`` at full width: 4 peers x batch 32 on
@@ -1206,45 +1266,20 @@ def drive_step(torch, mods, arch: str, steps: int, *, exchange: str, selects_per
     peer or scattered the own images apart). ``profile``: one more
     step under ``torch.profiler``, its device busy share and kernel time
     by kind printed (after the launches are read)."""
-    import dataclasses
-
-    import numpy as np
-
-    from repro_torch import models
-    from repro_torch.configs import get_config
     from repro_torch.core import QSGDConfig, Topology, TrainState, build_p2p_train_step
-    from repro_torch.core.simulate import cnn_loss
-    from repro_torch.data import BatchKey, DataLoader, Partitioner, make_dataset
     from repro_torch.optim import sgd
 
-    ds = make_dataset("cifar")
-    cfg = dataclasses.replace(get_config(arch), image_size=ds.image_hw,
-                              image_channels=ds.channels, num_classes=ds.num_classes)
     topo = Topology(exchange=exchange, qsgd=QSGDConfig(S, BUCKET), topk_frac=TOPK_FRAC, ef=True)
-    loader = DataLoader(Partitioner(ds, 1, shuffle_seed=0), 0, PEERS * 32)
     reset_counters(mods)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = models.init_model(cfg, generator=torch.Generator(device="cuda").manual_seed(0),
-                              device="cuda").requires_grad_(False)
-    params = {k: v.clone() for k, v in model.named_parameters()}
+    params, loss_fn, batches = cifar_steps(torch, arch, steps)
     opt = sgd(momentum=0.9)
-    step = build_p2p_train_step(lambda p, b: cnn_loss(model, p, b["images"], b["labels"]),
-                                opt, topo, PEERS, lambda s: 0.01)
+    step = build_p2p_train_step(loss_fn, opt, topo, PEERS, lambda s: 0.01)
     state = TrainState(params, opt.init(params), 0, torch.Generator(device="cuda").manual_seed(0))
-    batches = []
-    for i in range(steps):
-        b = loader.load(BatchKey(0, 0, i))
-        batches.append({"images": models.images_to_device(b["images"], "cuda"),
-                        "labels": torch.from_numpy(b["labels"].astype(np.int64)).cuda()})
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    losses, marks = [], []
-    for b in batches:
-        state, metrics = step(state, b)
-        losses.append(float(metrics["loss"]))  # waits for the step
-        marks.append(time.perf_counter())
-    torch.cuda.synchronize()
+    state, losses, marks, _ = run_steps(torch, step, state, batches)
     launches = read_counters(mods)
 
     leaves = len(params)
@@ -1325,12 +1360,11 @@ def sharded_checks(torch, arch: str, epochs: int, waves: int, shard_memory: bool
     not a measurement of Lambda); with ``shard_memory`` every aggregator's
     memory planned from shard bytes (the first epoch's is the planner's
     figure for a shard, the later ones never below it, and a model-sized
-    plan would be larger); and params after epoch 0 within 1e-6 of an
-    ``allgather_mean`` epoch from the same seed on the card. One epoch,
-    because the card's backward is not bit-reproducible from run to run
-    (some of PyTorch's CUDA backward kernels add with atomics), and later
-    epochs compound that drift: the check prints the gap after the last
-    epoch beside the gap between two ``allgather_mean`` runs."""
+    plan would be larger); and params after the run's last epoch within
+    1e-6 of an ``allgather_mean`` run of as many epochs from the same seed
+    on the card (the port's CNN
+    backward runs on deterministic cuDNN algorithms, so a run repeats
+    itself bit for bit and the rail sees only the exchanges' sums)."""
     from repro_torch.configs import get_config
     from repro_torch.core import LocalP2PCluster
     from repro_torch.data import make_dataset
@@ -1367,24 +1401,12 @@ def sharded_checks(torch, arch: str, epochs: int, waves: int, shard_memory: bool
             batches_per_epoch=2, optimizer=sgd(momentum=0.9), lr=0.01,
             exchange="allgather_mean", seed=0,
         )
-        base.run_epoch_sync(0)
-        gap = params_gap(cluster.first_epoch_params, [p.params for p in base.peers])
-        require(gap <= 1e-6, f"{tag}: epoch-0 params {gap:.3e} from allgather_mean's, above 1e-6")
-        print(f"  epoch-0 params within {gap:.3e} of an allgather_mean epoch from the same seed "
-              f"(rail 1e-6)")
-        again = LocalP2PCluster(
-            get_config(arch), make_dataset("cifar"), num_peers=PEERS, batch_size=32,
-            batches_per_epoch=2, optimizer=sgd(momentum=0.9), lr=0.01,
-            exchange="allgather_mean", seed=0,
-        )
-        for e in range(epochs):
-            again.run_epoch_sync(e)
-            if e:
-                base.run_epoch_sync(e)
-        final = [p.params for p in cluster.peers]
-        print(f"  after {epochs} epochs (not held): {params_gap(final, [p.params for p in base.peers]):.3e} "
-              f"from allgather_mean's; two allgather_mean runs "
-              f"{params_gap([p.params for p in again.peers], [p.params for p in base.peers]):.3e} apart")
+        base.run(epochs)
+        gap = params_gap([p.params for p in cluster.peers], [p.params for p in base.peers])
+        require(gap <= 1e-6, f"{tag}: params after {epochs} epochs {gap:.3e} from "
+                f"allgather_mean's, above 1e-6")
+        print(f"  params after {epochs} epochs within {gap:.3e} of an allgather_mean run from the "
+              f"same seed (rail 1e-6)")
     return check
 
 
@@ -1397,47 +1419,21 @@ def drive_robust_step(torch, mods, arch: str, steps: int, *, exchange: str,
     ``rail``: after step 1, params within 1e-6 of an ``allgather_mean`` step
     from the same state and batch. ``profile``: one more step under
     ``torch.profiler``, its device idle share printed."""
-    import dataclasses
-
-    import numpy as np
-
-    from repro_torch import models
-    from repro_torch.configs import get_config
     from repro_torch.core import AdversarySpec, Topology, TrainState, build_p2p_train_step
-    from repro_torch.core.simulate import cnn_loss
-    from repro_torch.data import BatchKey, DataLoader, Partitioner, make_dataset
     from repro_torch.optim import sgd
 
-    ds = make_dataset("cifar")
-    cfg = dataclasses.replace(get_config(arch), image_size=ds.image_hw,
-                              image_channels=ds.channels, num_classes=ds.num_classes)
-    loader = DataLoader(Partitioner(ds, 1, shuffle_seed=0), 0, PEERS * 32)
     adv = None if adversary is None else AdversarySpec(**adversary)
     reset_counters(mods)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = models.init_model(cfg, generator=torch.Generator(device="cuda").manual_seed(0),
-                              device="cuda").requires_grad_(False)
-    params = {k: v.clone() for k, v in model.named_parameters()}
-    loss_fn = lambda p, b: cnn_loss(model, p, b["images"], b["labels"])
+    params, loss_fn, batches = cifar_steps(torch, arch, steps)
     opt = sgd(momentum=0.9)
     step = build_p2p_train_step(loss_fn, opt, Topology(exchange=exchange), PEERS,
                                 lambda s: 0.01, adversary=adv)
     state = TrainState(params, opt.init(params), 0, torch.Generator(device="cuda").manual_seed(0))
-    batches = []
-    for i in range(steps):
-        b = loader.load(BatchKey(0, 0, i))
-        batches.append({"images": models.images_to_device(b["images"], "cuda"),
-                        "labels": torch.from_numpy(b["labels"].astype(np.int64)).cuda()})
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    losses, marks, first = [], [], None
-    for b in batches:
-        state, metrics = step(state, b)
-        losses.append(float(metrics["loss"]))  # waits for the step
-        marks.append(time.perf_counter())
-        first = first or state.params
-    torch.cuda.synchronize()
+    state, losses, marks, first = run_steps(torch, step, state, batches)
     launches = read_counters(mods)
 
     tag = f"step {arch} {exchange}" + (f" {adv.describe()} on peers {adv.attackers(PEERS)}"
@@ -1455,7 +1451,7 @@ def drive_robust_step(torch, mods, arch: str, steps: int, *, exchange: str,
     if rail:
         base = build_p2p_train_step(loss_fn, opt, Topology(), PEERS, lambda s: 0.01)
         ref, _ = base(TrainState(params, opt.init(params), 0, None), batches[0])
-        gap = max(float((first[k] - ref.params[k]).abs().max()) for k in params)
+        gap = max(float((first.params[k] - ref.params[k]).abs().max()) for k in params)
         require(gap <= 1e-6, f"{tag}: step 1 params {gap:.3e} from allgather_mean's, above 1e-6")
         print(f"  step 1 params within {gap:.3e} of an allgather_mean step from the same state "
               f"(rail 1e-6)")
@@ -1508,6 +1504,331 @@ def robust_reference_phase(torch):
         print(f"reference check ({tag}): params max_abs_err={worst:.3e} (bound {bound:.0e}), "
               f"coordinates beyond 1e-5: {n_far} of {gaps.numel()}, poisoned publishes "
               f"{runs['cuda'].mailbox.stats['poisoned_publishes']}")
+
+
+# ---------------------------------------------------------------------------
+# The per-peer device step and the CNN numerics
+# ---------------------------------------------------------------------------
+
+
+def drive_bank_step(torch, mods, arch: str, steps: int, *, exchange: str, graph: str = "full",
+                    ef: bool = False, staleness: int = 1, adversary: dict = None):
+    """``build_p2p_train_step`` with a per-peer bank at full width: 4 peers
+    x batch 32 on CIFAR-shaped data, SGD with momentum, lr 0.01, the first
+    step timed apart; params and momentum made by ``peer_bank`` from one
+    seeded copy, the async mailbox by ``init_mailbox``. Launches per step
+    and leaf: QSGD one quantize, one ``dequant_reduce`` per distinct mix (P
+    on a sparse overlay) and, with EF, one dequantize; top-k one bank select
+    and one bank scatter (every mix and own image); async and the robust
+    protocols none. Prints s/step, peak memory, the losses and the largest
+    gap between two rows of the bank after the last step, which must be
+    above 0: each peer follows its own trajectory."""
+    from repro_torch.core import (AdversarySpec, PeerBank, QSGDConfig, Topology, TrainState,
+                                  build_p2p_train_step, init_mailbox, peer_bank)
+    from repro_torch.optim import sgd
+
+    topo = Topology(exchange=exchange, graph=graph, qsgd=QSGDConfig(S, BUCKET),
+                    topk_frac=TOPK_FRAC, ef=ef, staleness=staleness)
+    adv = None if adversary is None else AdversarySpec(**adversary)
+    reset_counters(mods)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    one, loss_fn, batches = cifar_steps(torch, arch, steps)
+    opt = sgd(momentum=0.9)
+    step = build_p2p_train_step(loss_fn, opt, topo, PEERS, lambda s: 0.01, adversary=adv)
+    bank, opt_state = peer_bank(one, opt.init(one), PEERS)
+    mailbox = init_mailbox(one, PEERS, staleness=staleness) if exchange == "async" else None
+    state = TrainState(bank, opt_state, 0, torch.Generator(device="cuda").manual_seed(0),
+                       mailbox=mailbox)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, losses, marks, _ = run_steps(torch, step, state, batches)
+    launches = read_counters(mods)
+
+    leaves, mixes = len(one), (1 if graph == "full" else PEERS)
+    expect = dict.fromkeys(KERNELS, 0)
+    if exchange == "qsgd":
+        expect.update(qsgd_quantize=steps * leaves, qsgd_dequant_reduce=steps * mixes * leaves,
+                      qsgd_dequantize=steps * leaves if ef else 0)
+    elif exchange == "topk":
+        expect.update(topk_select_pack=steps * leaves, topk_scatter_accum=steps * leaves)
+    tag = f"bank step {arch} {exchange} graph={graph}" + (" + EF" if ef else "") + (
+        f" staleness={staleness}" if exchange == "async" else "") + (
+        f" {adv.describe()} on peers {adv.attackers(PEERS)}" if adv else "")
+    require(launches == expect, f"{tag}: launches {launches} != expected {expect}")
+    require(all(math.isfinite(x) for x in losses), f"{tag}: non-finite loss {losses}")
+    for what, tree in (("params", state.params), ("momentum", state.opt_state)):
+        require(isinstance(tree, PeerBank)
+                and all(v.shape == (PEERS, *one[k].shape) for k, v in tree.items()),
+                f"{tag}: {what} is not a ({PEERS}, ...) bank")
+        require(all(bool(torch.isfinite(v).all()) for v in tree.values()), f"{tag}: non-finite {what}")
+    spread = max(float((v - v[0]).abs().max()) for v in state.params.values())
+    require(spread > 0, f"{tag}: every row of the bank is the same")
+    steady = (marks[-1] - marks[0]) / (steps - 1)
+    print(
+        f"path {tag}: {leaves} leaves, {sum(v.numel() for v in one.values())} params per peer, "
+        f"{PEERS} peers x batch 32, setup {t1 - t0:.3f} s, first step {marks[0] - t1:.3f} s, "
+        f"then {steady:.4f} s/step over {steps - 1} steps, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, losses {[round(x, 4) for x in losses]}, "
+        f"largest gap between bank rows {spread:.4e}, launches {launches}"
+    )
+    return launches
+
+
+def reference_bank_phase(torch):
+    """The per-peer step on the card against the same step on the CPU:
+    squeezenet1.1 on MNIST-shaped 8x8, 4 peers x batch 8, SGD with momentum,
+    lr 0.05, from the same init: ``allgather_mean`` on the ring and
+    ``async`` with staleness 2 on the ring over 3 steps (K + 1, so a
+    non-zero stale bank is read), ``qsgd(7, 256)`` + EF on the ring for 1
+    step with the CPU's uniforms. The CPU runs its trajectory; each card
+    step starts from the CPU's state before it, so every step is held on
+    its own. Both sides' gradients of each peer are taken at the CPU's
+    params before the step: they differ by ``g`` (about 1e-7; far more where
+    a ReLU input lies within cuDNN's and oneDNN's rounding noise of 0 and
+    the sides take opposite branches). Momentum, the EF residual and the
+    mailbox agree within ``g + f`` + 1e-5, params within ``lr (g + f)`` +
+    1e-5, with ``f`` the most one QSGD rounding flip moves a decoded
+    element (max norm / s); where ``g <= 1e-5`` and no codec runs, at
+    most 1e-4 of the coordinates lie beyond 1e-5."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.core import (PeerBank, QSGDConfig, Topology, TrainState,
+                                  build_p2p_train_step, init_mailbox, peer_bank, peer_row)
+    from repro_torch.core import compression as C
+    from repro_torch.core.simulate import cnn_loss
+    from repro_torch.data import BatchKey, DataLoader, Partitioner, make_dataset
+    from repro_torch.models.cnn import f32_numerics
+    from repro_torch.optim import sgd
+
+    lr = 0.05
+    ds = make_dataset("mnist", size=128, image_hw=8, channels=1)
+    cfg = dataclasses.replace(get_config("squeezenet1.1"), image_size=8, image_channels=1,
+                              num_classes=ds.num_classes)
+    loader = DataLoader(Partitioner(ds, 1, shuffle_seed=0), 0, PEERS * 8)
+    raw = [loader.load(BatchKey(0, 0, i)) for i in range(3)]
+    cpu_model = models.init_model(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    model = {"cpu": cpu_model.requires_grad_(False),
+             "cuda": copy.deepcopy(cpu_model).to("cuda").requires_grad_(False)}
+    one = {k: v.clone() for k, v in cpu_model.named_parameters()}
+    to = lambda tree, dev: (PeerBank({k: v.to(dev) for k, v in tree.items()}) if isinstance(tree, PeerBank)
+                            else None if tree is None else {k: v.to(dev) for k, v in tree.items()})
+
+    def batch(i, dev):
+        return {"images": models.images_to_device(raw[i]["images"], dev),
+                "labels": torch.from_numpy(raw[i]["labels"].astype(np.int64)).to(dev)}
+
+    def gradient_gap(bank, i):
+        # each peer's gradient on both sides at the CPU's params
+        grads = {dev: torch.func.grad(lambda p, b, m=model[dev]: cnn_loss(
+            m, p, b["images"], b["labels"]), has_aux=True) for dev in ("cpu", "cuda")}
+        gap = 0.0
+        for r in range(PEERS):
+            rows = slice(8 * r, 8 * r + 8)
+            row = peer_row(bank, r)
+            b = batch(i, "cpu")
+            b = {k: v[rows] for k, v in b.items()}
+            g_cpu = grads["cpu"](row, b)[0]
+            with f32_numerics():
+                g_card = grads["cuda"](to(row, "cuda"), {k: v.cuda() for k, v in b.items()})[0]
+            gap = max(gap, max(float((g_card[k].cpu() - g_cpu[k]).abs().max()) for k in row))
+        return gap
+
+    cases = (
+        (Topology(graph="ring"), 3),
+        (Topology(exchange="async", graph="ring", staleness=2), 3),
+        (Topology(exchange="qsgd", qsgd=QSGDConfig(7, 256), graph="ring", ef=True), 1),
+    )
+    draw, reduce = C.draw_uniforms, C.dequant_reduce
+    for topo, steps in cases:
+        opt = sgd(momentum=0.9)
+        step = {dev: build_p2p_train_step(lambda p, b, m=model[dev]: cnn_loss(
+            m, p, b["images"], b["labels"]), opt, topo, PEERS, lambda s: lr, device=dev)
+            for dev in ("cpu", "cuda")}
+        bank, mom = peer_bank(one, opt.init(one), PEERS)
+        state = TrainState(bank, mom, 0, torch.Generator().manual_seed(0),
+                           mailbox=init_mailbox(one, PEERS, staleness=topo.staleness)
+                           if topo.exchange == "async" else None)
+        tag = f"squeezenet1.1 bank step, 4 peers, {topo.exchange} graph={topo.graph}" + (
+            " + EF" if topo.ef else "") + f", {steps} step{'s' * (steps > 1)}, card vs CPU"
+        report = []
+        for i in range(steps):
+            uniforms, flips = [], [0.0]
+            cpu_gen = torch.Generator().manual_seed(i + 1)
+            C.draw_uniforms = lambda shape, generator: uniforms.append(
+                torch.rand(shape, generator=cpu_gen)) or uniforms[-1].to(generator.device)
+            C.dequant_reduce = lambda lev, nrm, w, q: (
+                flips.append(float(nrm.max()) / q.levels), reduce(lev, nrm, w, q))[1]
+            try:
+                g = gradient_gap(state.params, i)
+                after, m_cpu = step["cpu"](state, batch(i, "cpu"))
+                C.dequant_reduce = reduce
+                replay = iter(list(uniforms))
+                C.draw_uniforms = lambda shape, generator: next(replay).to(generator.device)
+                card_state = state.replace(
+                    params=to(state.params, "cuda"), opt_state=to(state.opt_state, "cuda"),
+                    mailbox=to(state.mailbox, "cuda"), ef=to(state.ef, "cuda"),
+                    key=torch.Generator(device="cuda").manual_seed(0))
+                card, m_card = step["cuda"](card_state, batch(i, "cuda"))
+            finally:
+                C.draw_uniforms, C.dequant_reduce = draw, reduce
+            f = max(flips)
+            require(abs(float(m_card["loss"]) - float(m_cpu["loss"])) <= 1e-5 * abs(float(m_cpu["loss"])),
+                    f"{tag}: step {i} loss {float(m_card['loss'])} vs {float(m_cpu['loss'])}")
+            pairs = [("params", card.params, after.params, lr * (g + f)),
+                     ("momentum", card.opt_state, after.opt_state, g + f)]
+            if after.ef is not None:
+                pairs.append(("ef", card.ef, after.ef, g + f))
+            if after.mailbox is not None:
+                pairs.append(("mailbox", card.mailbox, after.mailbox, g))
+            for what, ours, theirs, bound in pairs:
+                gaps = torch.cat([(ours[k].cpu() - theirs[k]).abs().reshape(-1) for k in theirs])
+                worst, n_far = float(gaps.max()), int((gaps > 1e-5).sum())
+                require(worst <= bound + 1e-5,
+                        f"{tag}: step {i} {what} gap {worst:.3e} > {bound + 1e-5:.3e}")
+                if g <= 1e-5 and not f:
+                    require(n_far <= 1e-4 * gaps.numel(),
+                            f"{tag}: step {i} {n_far} of {gaps.numel()} {what} beyond 1e-5")
+                report.append(f"step {i} {what} {worst:.3e} (bound {bound + 1e-5:.3e}, {n_far} beyond 1e-5)")
+            report.append(f"step {i} gradient gap {g:.3e}")
+            state = after
+        print(f"reference check ({tag}, each card step from the CPU's state): " + "; ".join(report))
+
+
+def determinism_phase(torch, mods):
+    """Under PyTorch's default global flags (cuDNN TF32 allowed,
+    non-deterministic algorithms allowed, as ``main`` leaves them): a seeded
+    mobilenet-v3-small ``qsgd(127, 2048)`` cluster, 4 peers x batch 32, 2
+    batches an epoch, 2 epochs, run twice, gives bit-identical params; a
+    vgg11 gradient through the cluster is bit-identical with the global
+    cuDNN TF32 flag on and off; and the CNN paths of the slice (the
+    cluster's gradient and evaluation on the three CNNs, the per-peer step
+    on squeezenet with a sign_flip attacker on the ring) run under
+    ``torch.use_deterministic_algorithms(True)``, which raises at any op
+    without a deterministic implementation. These runs' launches stay out
+    of the kernels line."""
+    import os
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import (AdversarySpec, LocalP2PCluster, QSGDConfig, Topology,
+                                  TrainState, build_p2p_train_step, peer_bank)
+    from repro_torch.data import BatchKey, make_dataset
+    from repro_torch.optim import sgd
+
+    def cluster(arch, **kw):
+        return LocalP2PCluster(get_config(arch), make_dataset("cifar"), num_peers=PEERS,
+                               batch_size=32, batches_per_epoch=2, optimizer=sgd(momentum=0.9),
+                               lr=0.01, seed=0, **kw)
+
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark, torch.backends.cuda.matmul.allow_tf32)
+    runs = []
+    for _ in range(2):
+        cl = cluster("mobilenet-v3-small", exchange="qsgd", qsgd=QSGDConfig(S, BUCKET))
+        cl.run(2)
+        runs.append([{k: v.clone() for k, v in p.params.items()} for p in cl.peers])
+    same = all(torch.equal(a[k], b[k]) for a, b in zip(*runs) for k in a)
+    require(same, "mobilenet qsgd cluster: two seeded runs differ")
+    grads = []
+    cl = cluster("vgg11")
+    b = cl._to_device(cl.peers[0].loader.load(BatchKey(0, 0, 0)))
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        for tf32 in (True, False):
+            torch.backends.cudnn.allow_tf32 = tf32
+            grads.append(cl._grad(cl.peers[0].params, b)[0])
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    require(all(torch.equal(grads[0][k], grads[1][k]) for k in grads[0]),
+            "vgg11 gradient differs between the global TF32 flag on and off")
+
+    probe = []
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"  # cuBLAS's deterministic workspace
+    torch.use_deterministic_algorithms(True)
+    try:
+        for arch in ("squeezenet1.1", "vgg11", "mobilenet-v3-small"):
+            cl = cluster(arch)
+            b = cl._to_device(cl.peers[0].loader.load(BatchKey(0, 0, 0)))
+            cl._grad(cl.peers[0].params, b)
+            cl._eval(cl.peers[0].params, b)
+            probe.append(f"{arch} gradient and evaluation")
+        one, loss_fn, (batch,) = cifar_steps(torch, "squeezenet1.1", 1)
+        step = build_p2p_train_step(loss_fn, sgd(momentum=0.9),
+                                    Topology(exchange="trimmed_mean:0.34", graph="ring"),
+                                    PEERS, lambda s: 0.01, adversary=AdversarySpec(**ADV_SIGN))
+        bank, mom = peer_bank(one, sgd(momentum=0.9).init(one), PEERS)
+        step(TrainState(bank, mom, 0, None), batch)
+        torch.cuda.synchronize()
+        probe.append("squeezenet per-peer step, trimmed mean on the ring, sign_flip attacker")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    now = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark, torch.backends.cuda.matmul.allow_tf32)
+    require(now == flags, f"the global flags changed from {flags} to {now}")
+    print(f"determinism check (global cudnn.allow_tf32, deterministic, benchmark, "
+          f"matmul.allow_tf32 = {flags}): two seeded mobilenet qsgd clusters, 2 epochs, "
+          f"bit-identical params; a vgg11 gradient bit-identical with the global TF32 flag on and "
+          f"off; under use_deterministic_algorithms(True) no op refused: {'; '.join(probe)}")
+
+
+def bank_grad_timing(torch):
+    """The per-peer gradients of the device step at full width (4 peers x
+    batch 32, CIFAR-shaped), inside ``f32_numerics``: ``torch.func.vmap``
+    over a bank of params (what the per-peer step runs: each convolution
+    one grouped convolution over the peers), a loop over the peers (one
+    convolution each), and ``vmap`` over params held once (the full graph's
+    step), each the mean of 5 calls after a warm-up, timed on the host
+    clock with the card synchronised; beside them the largest gap between
+    the banked and the looped gradients, and the two vmaps again under the
+    earlier settings (cuDNN TF32 off, but non-deterministic algorithms
+    allowed): what the deterministic algorithms cost."""
+    from repro_torch.models.cnn import f32_numerics
+
+    def wall(fn, n=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n
+
+    for arch in ("vgg11", "mobilenet-v3-small"):
+        one, loss_fn, (batch,) = cifar_steps(torch, arch, 1)
+        split = {k: v.reshape(PEERS, 32, *v.shape[1:]) for k, v in batch.items()}
+        bank = {k: v.expand(PEERS, *v.shape).clone() for k, v in one.items()}
+        grad = torch.func.grad(loss_fn, has_aux=True)
+        banked = torch.func.vmap(grad, in_dims=(0, 0))
+        shared = torch.func.vmap(grad, in_dims=(None, 0))
+
+        def loop():
+            rows = [grad({k: v[r] for k, v in bank.items()}, {k: v[r] for k, v in split.items()})[0]
+                    for r in range(PEERS)]
+            return {k: torch.stack([g[k] for g in rows]) for k in bank}
+
+        with f32_numerics():
+            times = {"vmap over the bank": wall(lambda: banked(bank, split)),
+                     "loop over the peers": wall(loop),
+                     "vmap, params held once": wall(lambda: shared(one, split))}
+            a, c = banked(bank, split)[0], loop()
+            torch.backends.cudnn.deterministic = False  # restored as the scope exits
+            earlier = {"vmap over the bank": wall(lambda: banked(bank, split)),
+                       "vmap, params held once": wall(lambda: shared(one, split))}
+        gap = max(float((a[k] - c[k]).abs().max()) for k in a)
+        print(f"timing per-peer gradients {arch}, {PEERS} peers x batch 32, deterministic cuDNN: "
+              + ", ".join(f"{k} {v:.4f} s" for k, v in times.items())
+              + f"; banked vs looped gradients max_abs_err={gap:.3e}; non-deterministic "
+              f"algorithms allowed: " + ", ".join(f"{k} {v:.4f} s" for k, v in earlier.items()))
 
 
 def estimator_timing(torch):
@@ -2410,58 +2731,10 @@ def ssd_timing_only(torch, src: Path) -> int:
     return 0
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
-        return 1
-    if sys.argv[1:2] == ["--select-timing"]:
-        return select_timing_only(torch, Path(sys.argv[2]))
-    if sys.argv[1:2] == ["--ssd-timing"]:
-        return ssd_timing_only(torch, Path(sys.argv[2]))
-    if sys.argv[1:2] == ["--scatter-timing"]:
-        return scatter_timing_only(torch, Path(sys.argv[2]))
-    from repro_torch.kernels import build
-    from repro_torch.kernels import flash_attention as kf
-    from repro_torch.kernels import qsgd as kq
-    from repro_torch.kernels import ssd_scan as ks
-    from repro_torch.kernels import topk as kt
-
-    mods = {"kq": kq, "kt": kt, "ks": ks, "kf": kf}
-    start = time.perf_counter()
-    stamp = lambda what: print(f"[{time.perf_counter() - start:.1f} s] {what} done", flush=True)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
-    print(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
-          f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
-    card = card_line()
-    print(f"nvidia-smi: {card}")
-
-    t0 = time.perf_counter()
-    libs = build.build_all([kq.SOURCE, kt.SOURCE, ks.SOURCE, kf.SOURCE])
-    for mod in (kq, kt, ks, kf):
-        mod.load_library()
-    print(f"build: {', '.join(str(p.relative_to(ROOT)) for p in libs.values())} in {time.perf_counter() - t0:.2f} s")
-
-    checks = kernel_phase(torch, kq)
-    errs = {name: checks[name][0] for name in checks}
-    errs.update(new_kernel_phase(torch, kq, kt))
-    errs["ssd_scan"] = ssd_kernel_phase(torch, ks)
-    errs["flash_attention"] = flash_kernel_phase(torch, kf)
-    grad_guard_phase(torch, kf, ks)
-    stamp("kernels phase")
-    reference_phase(torch)
-    reference_step_phase(torch)
-    reference_async_phase(torch)
-    robust_reference_phase(torch)
-    reference_lm_phase(torch, "mamba2-370m", 40, SSD_FLAGS)
-    reference_lm_phase(torch, "gemma2-2b", 160, {})  # 160 > the window of 64
-    stamp("reference phase")
-
-    total = dict.fromkeys(KERNELS, 0)
-    runs = (
+def p2p_runs(torch):
+    """The P2P paths that hold params once (clusters and device steps), as
+    ``(drive function, arch, epochs or steps, options)``."""
+    return (
         (drive, "mobilenet-v3-small", 3, dict(graph="full")),
         (drive, "vgg11", 2, dict(graph="full")),
         (drive, "mobilenet-v3-small", 1, dict(graph="ring", ef=True)),
@@ -2489,6 +2762,99 @@ def main() -> int:
                                              profile=True)),
         (drive_robust_step, "vgg11", 4, dict(exchange="krum", adversary=ADV_NOISE)),
     )
+
+
+def p2p_timing_only(torch, src: Path) -> int:
+    """``--p2p-timing SRC``: only the paths of ``p2p_runs`` (without their
+    checks: an earlier checkout's card runs do not repeat themselves), with
+    the ``repro_torch`` under SRC and cuDNN TF32 off globally, as the
+    script set it before the port chose its own CNN numerics; run it for
+    an earlier checkout and this one in one call to compare their epochs
+    and steps on one card. Prints no result line."""
+    sys.path.insert(0, str(src.resolve()))
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import qsgd as kq
+    from repro_torch.kernels import ssd_scan as ks
+    from repro_torch.kernels import topk as kt
+
+    require(Path(kq.__file__).resolve().is_relative_to(src.resolve()), f"qsgd from {kq.__file__}")
+    for mod in (kq, kt):
+        mod.load_library()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"nvidia-smi: {card_line()}; P2P paths of {Path(kq.__file__).parents[2]}")
+    mods = {"kq": kq, "kt": kt, "ks": ks, "kf": kf}
+    start = time.perf_counter()
+    for fn, arch, length, kw in p2p_runs(torch):
+        fn(torch, mods, arch, length, **{k: v for k, v in kw.items() if k != "check"})
+    print(f"P2P paths of {src}: {time.perf_counter() - start:.1f} s")
+    return 0
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
+        return 1
+    if sys.argv[1:2] == ["--select-timing"]:
+        return select_timing_only(torch, Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--ssd-timing"]:
+        return ssd_timing_only(torch, Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--scatter-timing"]:
+        return scatter_timing_only(torch, Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--p2p-timing"]:
+        return p2p_timing_only(torch, Path(sys.argv[2]))
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import qsgd as kq
+    from repro_torch.kernels import ssd_scan as ks
+    from repro_torch.kernels import topk as kt
+
+    mods = {"kq": kq, "kt": kt, "ks": ks, "kf": kf}
+    start = time.perf_counter()
+    stamp = lambda what: print(f"[{time.perf_counter() - start:.1f} s] {what} done", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
+    print(f"PyTorch's global flags, left as they are: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+          f"cudnn.deterministic={torch.backends.cudnn.deterministic} "
+          f"cudnn.benchmark={torch.backends.cudnn.benchmark} "
+          f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    card = card_line()
+    print(f"nvidia-smi: {card}")
+
+    t0 = time.perf_counter()
+    libs = build.build_all([kq.SOURCE, kt.SOURCE, ks.SOURCE, kf.SOURCE])
+    for mod in (kq, kt, ks, kf):
+        mod.load_library()
+    print(f"build: {', '.join(str(p.relative_to(ROOT)) for p in libs.values())} in {time.perf_counter() - t0:.2f} s")
+
+    checks = kernel_phase(torch, kq)
+    errs = {name: checks[name][0] for name in checks}
+    errs.update(new_kernel_phase(torch, kq, kt))
+    errs["ssd_scan"] = ssd_kernel_phase(torch, ks)
+    errs["flash_attention"] = flash_kernel_phase(torch, kf)
+    grad_guard_phase(torch, kf, ks)
+    stamp("kernels phase")
+    reference_phase(torch)
+    reference_step_phase(torch)
+    reference_async_phase(torch)
+    robust_reference_phase(torch)
+    reference_bank_phase(torch)
+    determinism_phase(torch, mods)
+    reference_lm_phase(torch, "mamba2-370m", 40, SSD_FLAGS)
+    reference_lm_phase(torch, "gemma2-2b", 160, {})  # 160 > the window of 64
+    stamp("reference phase")
+
+    total = dict.fromkeys(KERNELS, 0)
+    runs = p2p_runs(torch) + (
+        # the per-peer bank (sparse overlays, async)
+        (drive_bank_step, "vgg11", 4, dict(exchange="qsgd", graph="ring", ef=True)),
+        (drive_bank_step, "mobilenet-v3-small", 4, dict(exchange="topk", graph="hierarchical:2",
+                                                        ef=True)),
+        (drive_bank_step, "vgg11", 4, dict(exchange="async", staleness=2)),
+        (drive_bank_step, "vgg11", 4, dict(exchange="trimmed_mean:0.34", graph="ring",
+                                           adversary=ADV_SIGN)),
+    )
     for fn, arch, length, kw in runs:
         for name, count in fn(torch, mods, arch, length, **kw).items():
             total[name] += count
@@ -2510,6 +2876,7 @@ def main() -> int:
     times.update(ssd_timing(torch, ks))
     times.update(flash_timing(torch, kf))
     estimator_timing(torch)
+    bank_grad_timing(torch)
     stamp("timing phase")
     mamba_cfg = lm_run[1]  # every layer's scan: the three passes of the bf16 body, no f32 body
     profile_phase(torch, "mamba2-370m", *lm_run, SSD_FLAGS,

@@ -51,6 +51,7 @@ from repro_torch.core import robust as R
 from repro_torch.core.shard import ShardPlan
 from repro_torch.kernels import qsgd as qsgd_kernels
 from repro_torch.kernels import topk as topk_kernels
+from repro_torch.models.cnn import f32_numerics
 
 Grads = Mapping[str, torch.Tensor]
 
@@ -296,7 +297,8 @@ class AllGatherMean(ExchangeProtocol):
                 avg[k] = bank.mean(dim=0).expand(bank.shape)
             else:
                 w = torch.as_tensor(np.asarray(ctx.mixing, np.float32), device=g.device)
-                avg[k] = torch.tensordot(w, bank, dims=([1], [0]))
+                with f32_numerics():  # no TF32 in the f32 mix
+                    avg[k] = torch.tensordot(w, bank, dims=([1], [0]))
         return avg, state
 
 
@@ -538,7 +540,8 @@ class StalenessMailbox(ExchangeProtocol):
             else:
                 w = _mixing(ctx, peers, g.device)
                 diag = torch.diagonal(w).reshape(peers, *([1] * (g.dim() - 1)))
-                mixed = torch.tensordot(w, oldest, dims=([1], [0]))
+                with f32_numerics():  # no TF32 in the f32 mix
+                    mixed = torch.tensordot(w, oldest, dims=([1], [0]))
                 avg[k] = (mixed - diag * oldest) + diag * own
             fresh = g.to(ctx.wire_dtype).to(torch.float32)
             new_state[k] = torch.cat([ring[1:], fresh[None]], dim=0)

@@ -4,33 +4,48 @@ The port of the reference's ``repro/core/p2p.py``. The reference runs each
 peer in a ``shard_map`` slice of a TPU mesh; here the P peers are a stacked
 leading dimension on one device. The global batch ``(P * b, ...)`` splits
 into ``(P, b, ...)`` as ``P("data")`` splits it there, per-peer gradients
-come from ``torch.func.vmap`` over ``grad(loss_fn)`` with the params
-shared, and the exchange protocol's ``combine`` takes the ``(P, *shape)``
-gradient bank, where the reference all-gathers over the peer axis.
+come from ``torch.func.vmap`` over ``grad(loss_fn)``, and the exchange
+protocol's ``combine`` takes the ``(P, *shape)`` gradient bank, where the
+reference all-gathers over the peer axis.
 
-On the full graph every peer's mix is the same, so the updated params and
-optimizer state are held once, as the reference's replicated ``out_specs``
-hold them. A sparse overlay, where each peer's mix differs, needs a
-per-peer param bank and is refused (the reference keeps one copy there
-too, which the port must not copy: ROADMAP.md, Queue 3 item 1). The
-``async`` protocol is refused on this step for the same reason: its peers'
-mixes differ on the full graph too, each peer's own gradient fresh and the
-others' stale (Queue 3, reference behaviour 14). Its combine runs on the
-stacked bank through :func:`exchange_gradients`, with the ring that
-:func:`init_mailbox` makes.
+Two kinds of state, chosen by what the peers' mixes are:
 
-Every registered protocol but ``async`` runs on this step on the full
-graph, the robust (``trimmed_mean``, ``median``, ``krum``) and sharded
-(``reduce_scatter``, ``tree``) ones included. An
+* **Held once.** A sync protocol on the full graph gives every peer the
+  same mix, so params and optimizer state are one copy, as the reference's
+  replicated ``out_specs`` hold them; the per-peer gradients share it
+  (``vmap`` with ``in_dims=(None, 0)``).
+* **A per-peer bank** (:class:`PeerBank`, ``{name: (P, *shape)}``). On a
+  sparse overlay (ring, gossip, hierarchical, static) each peer's mix is
+  its own row of the Metropolis–Hastings matrix, and under ``async`` each
+  peer mixes its own fresh gradient with the others' stale ones, on any
+  graph. The reference keeps each peer's params and optimizer state in its
+  own mesh device's buffer there (its replicated ``out_specs`` return
+  device 0's copy, but every device's next step reads its own); the bank's
+  row r is mesh device r's copy, made explicit. :func:`peer_bank` makes a
+  bank from one copy (what the reference's replicated ``in_specs`` hand
+  every device) and :func:`peer_row` reads a peer's row back. Adam's step
+  count stays one scalar: the peers step together.
+
+Every registered protocol runs on this step on the full graph, and every
+one that decomposes into per-edge messages (``allgather_mean``, ``qsgd``,
+``topk``, ``trimmed_mean``, ``median``, ``async``) on a sparse overlay;
+``psum_mean``, ``krum``, ``reduce_scatter`` and ``tree`` refuse a sparse
+overlay with the reference's ``ValueError``. An
 :class:`~repro_torch.core.robust.AdversarySpec` replaces its attackers'
-rows of the gradient bank before the exchange (``sign_flip``,
+rows of the gradient bank before EF and the exchange (``sign_flip``,
 ``scaled_noise``; ``stale_replay`` exists on the host cluster only and is
 refused with the reference's ``ValueError``).
 
-Not ported yet, each refused with ``NotImplementedError`` naming its
-ROADMAP item: a sparse overlay or the ``async`` protocol on this step
-(robust protocols on a sparse overlay included: their peers' mixes differ
-too) and ``cast_params_once``.
+``Topology(cast_params_once=True)`` computes the forward and backward on a
+bf16 copy of every f32 leaf with two or more dimensions, made once per
+step, as the reference does; the gradients come back in bf16 and the
+master params, the optimizer state and the 1-d leaves stay f32. The
+reference's CNNs refuse it (a bf16 kernel against f32 images), and so do
+the port's: it serves losses whose layers cast their input to the weight's
+dtype.
+
+The loss runs inside :func:`~repro_torch.models.cnn.f32_numerics`: no
+TF32, deterministic cuDNN algorithms, whatever the caller's global flags.
 """
 from __future__ import annotations
 
@@ -50,13 +65,11 @@ from repro_torch.core.exchange import (
     get_exchange,
 )
 from repro_torch.core.graph import PeerGraph, get_graph
-from repro_torch.core.simulate import resolve_device, unported
+from repro_torch.core.simulate import resolve_device
+from repro_torch.models.cnn import f32_numerics
 from repro_torch.optim import Optimizer, apply_updates, clip_by_global_norm
 
 Params = Dict[str, torch.Tensor]
-
-SPARSE_STEP = "Sparse-overlay device step"
-BF16_PARAMS = "bf16 compute params"
 
 
 @dataclass(frozen=True)
@@ -82,7 +95,7 @@ class Topology:
     robust_clip: float = 0.0  # >0: per-peer norm clip before robust combine
     grad_clip: float = 0.0  # > 0: clip each peer's gradient to this global norm
     exchange_dtype: str = "float32"  # bfloat16 halves exchange wire bytes
-    cast_params_once: bool = False  # one bf16 cast per step (not ported yet)
+    cast_params_once: bool = False  # one bf16 cast per step of every f32 leaf with ndim >= 2
     # Gradient accumulation: split each peer's batch into `accum_steps`
     # sequential micro-rounds and average their gradients.
     accum_steps: int = 1
@@ -123,11 +136,13 @@ def exchange_context(topo: Topology, *, num_peers: int) -> ExchangeContext:
 
 @dataclass
 class TrainState:
-    """The train-step carry: ``params`` and ``opt_state`` held once (full
-    graph), ``step`` an int, ``key`` the ``torch.Generator`` the stochastic
-    codecs draw from (None when the protocol needs none), ``mailbox`` the
-    protocol's carried state (None for sync protocols), ``ef`` the per-peer
-    EF-SGD residual bank ``{name: (P, *shape)}`` or None.
+    """The train-step carry: ``params`` and ``opt_state`` held once (a sync
+    protocol on the full graph) or as per-peer banks (:class:`PeerBank`,
+    made by :func:`peer_bank`), ``step`` an int, ``key`` the
+    ``torch.Generator`` the stochastic codecs draw from (None when the
+    protocol needs none), ``mailbox`` the protocol's carried state (None
+    for sync protocols), ``ef`` the per-peer EF-SGD residual bank
+    ``{name: (P, *shape)}`` or None.
 
     ``state["params"]``, ``state.get("ef")`` and ``dict(state)`` work as on
     the reference's; the optional fields are present only when set."""
@@ -209,6 +224,78 @@ def init_ef(grads_like: Mapping[str, torch.Tensor], num_peers: int) -> Params:
     }
 
 
+class PeerBank(dict):
+    """Every peer's copy of a params-shaped dict: ``{name: (P, *shape)}``,
+    row r peer r's (the buffer the reference's mesh device r holds).
+
+    A plain dict whose leaves happen to have P rows is one copy; only this
+    type says that the first dimension is the peer's. The per-peer step
+    refuses params or optimizer moments that are not a ``PeerBank``, and
+    the step that holds params once refuses a ``PeerBank``."""
+
+    @property
+    def num_peers(self) -> int:
+        return int(next(iter(self.values())).shape[0])
+
+
+def _map_leaf_dicts(tree, names, fn):
+    """``tree`` with every mapping keyed by ``names`` (params, SGD momentum,
+    Adam's moments) replaced by ``fn(mapping)``; other leaves unchanged."""
+    if not isinstance(tree, Mapping):
+        return tree
+    if set(tree) == names:
+        return fn(tree)
+    return {k: _map_leaf_dicts(v, names, fn) for k, v in tree.items()}
+
+
+def peer_bank(params: Mapping[str, torch.Tensor], opt_state, num_peers: int):
+    """One copy of params and optimizer state -> ``(PeerBank, opt_state)``
+    for the per-peer step: every params-shaped dict of both (the params, SGD
+    momentum, Adam's ``mu`` and ``nu``) becomes a :class:`PeerBank` of
+    ``num_peers`` identical rows; other leaves (Adam's step count) stay as
+    they are. The rows are copies, not views of the single copy."""
+    if isinstance(params, PeerBank):
+        raise ValueError("peer_bank takes one copy of the params; these are already a PeerBank")
+    names = set(params)
+    bank = lambda d: PeerBank(
+        {k: v.unsqueeze(0).expand(num_peers, *v.shape).clone() for k, v in d.items()})
+    return bank(params), _map_leaf_dicts(opt_state, names, bank)
+
+
+def peer_row(tree, rank: int):
+    """Peer ``rank``'s copy out of a :class:`PeerBank`, or of an optimizer
+    state holding banks (its other leaves as they are)."""
+    if isinstance(tree, PeerBank):
+        return {k: v[rank] for k, v in tree.items()}
+    if isinstance(tree, Mapping):
+        return {k: peer_row(v, rank) for k, v in tree.items()}
+    return tree
+
+
+def _check_banks(params, opt_state, num_peers: int, banked: bool) -> None:
+    """Params and the optimizer's params-shaped dicts are all banks of
+    ``num_peers`` rows (``banked``) or none is."""
+    names = set(params)
+    found = [params]
+    _map_leaf_dicts(opt_state, names, found.append)
+    if not banked:
+        if any(isinstance(d, PeerBank) for d in found):
+            raise ValueError(
+                "this step holds params and optimizer state once (a sync protocol "
+                "on the full graph); it got a PeerBank"
+            )
+        return
+    for d in found:
+        if not isinstance(d, PeerBank):
+            raise ValueError(
+                "this step keeps a per-peer bank of params and optimizer state (a "
+                "sparse overlay or the async protocol); make one from a single copy "
+                "with peer_bank(params, opt_state, num_peers)"
+            )
+        if d and d.num_peers != num_peers:
+            raise ValueError(f"a PeerBank of {d.num_peers} rows for a {num_peers}-peer step")
+
+
 def exchange_gradients(grads, topo: Topology, generator=None, mailbox=None, *,
                        num_peers: Optional[int] = None):
     """``{name: (P, *shape)}`` bank -> (every peer's mixed gradient, new
@@ -243,17 +330,24 @@ def build_p2p_train_step(
 
     ``batch`` is a dict of tensors with a leading global batch of
     ``num_peers * b`` rows; peer r takes rows ``[r*b, (r+1)*b)``. Per peer:
-    ``accum_steps`` micro-rounds of ``grad(loss_fn)`` averaged in f32, the
-    ``grad_clip`` global-norm clip, EF re-injection (when ``topo.ef`` or the
-    state carries a residual bank; a missing bank starts at zero), then the
+    ``accum_steps`` micro-rounds of ``grad(loss_fn)`` averaged in f32 (on
+    bf16 compute params under ``cast_params_once``), the ``grad_clip``
+    global-norm clip, EF re-injection (when ``topo.ef`` or the state
+    carries a residual bank; a missing bank starts at zero), then the
     protocol's ``combine`` / ``combine_ef`` over the stacked bank, the
     schedule's rate at ``state.step`` and the optimizer. ``adversary``
     replaces the seeded attacker ranks' rows of the bank (after the clip,
     before EF and the exchange) with their poisoned gradients, so every
     consumer and the protocol's estimator see them; ``scaled_noise`` draws
-    from ``state.key``. ``metrics`` holds
-    the loss averaged over peers, each peer's gradient norm before the clip
-    (0 when off) and aux, as ``(P,)`` tensors, and the rate.
+    from ``state.key``. ``metrics`` holds the loss averaged over peers,
+    each peer's gradient norm before the clip (0 when off) and aux, as
+    ``(P,)`` tensors, and the rate.
+
+    On a sparse overlay and under ``async`` the state's params and
+    optimizer moments are :class:`PeerBank` banks (:func:`peer_bank`), and each
+    peer steps its own row with its own mix; a single copy raises
+    ``ValueError``, as a ``PeerBank`` does on the full graph's sync step.
+    ``async`` needs the state's mailbox (:func:`init_mailbox`).
 
     Runs on ``device``, by default ``"cuda"``; without a card it raises
     unless the caller passes ``device="cpu"``. The state's params must lie
@@ -262,20 +356,9 @@ def build_p2p_train_step(
     device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())  # as tensors report it
-    if topo.cast_params_once:
-        raise unported("cast_params_once", BF16_PARAMS)
     protocol = topo.protocol()
     ctx = exchange_context(topo, num_peers=num_peers)
-    if ctx.mixing is not None:
-        raise unported(
-            f"a sparse overlay ({ctx.graph.describe()}) on the device step, "
-            f"which needs a per-peer param bank,", SPARSE_STEP,
-        )
-    if protocol.is_async:
-        raise unported(
-            f"the {topo.exchange!r} protocol on the device step, where each peer "
-            f"mixes its own fresh gradient and needs a per-peer param bank,", SPARSE_STEP,
-        )
+    banked = protocol.is_async or ctx.mixing is not None  # each peer's mix differs
     if topo.accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {topo.accum_steps}")
     attackers = None
@@ -290,6 +373,15 @@ def build_p2p_train_step(
                                     device=device)
     grad_fn = torch.func.grad_and_value(loss_fn, has_aux=True)
     rounds = topo.accum_steps
+    lead = 1 if banked else 0
+
+    def compute_params(params):
+        """The params the loss sees: under ``cast_params_once`` a bf16 copy
+        of every f32 leaf with two or more dimensions (per peer)."""
+        if not topo.cast_params_once:
+            return dict(params)  # vmap's pytree takes a dict subclass for a leaf
+        return {k: p.to(torch.bfloat16) if p.dtype == torch.float32 and p.dim() - lead >= 2
+                else p for k, p in params.items()}
 
     def peer_grads(params, batch):
         """One peer's (grads, loss, aux, grad norm); vmapped over the peers."""
@@ -311,13 +403,14 @@ def build_p2p_train_step(
             gnorm = loss.new_zeros(())
         return grads, loss, aux, gnorm
 
-    per_peer = torch.func.vmap(peer_grads, in_dims=(None, 0))
+    per_peer = torch.func.vmap(peer_grads, in_dims=(0 if banked else None, 0))
 
     def step(state, batch):
         state = as_train_state(state)
         off = [k for k, p in state.params.items() if p.device != device]
         if off:
             raise ValueError(f"params {off[:3]} are not on the step's device {device}")
+        _check_banks(state.params, state.opt_state, num_peers, banked)
         split = {}
         for k, v in batch.items():
             v = torch.as_tensor(v).to(device)
@@ -327,7 +420,8 @@ def build_p2p_train_step(
                     f"{num_peers} peers"
                 )
             split[k] = v.reshape(num_peers, v.shape[0] // num_peers, *v.shape[1:])
-        grads, loss, aux, gnorm = per_peer(state.params, split)
+        with f32_numerics():
+            grads, loss, aux, gnorm = per_peer(compute_params(state.params), split)
         with torch.no_grad():
             if attackers is not None:
                 # Byzantine ranks publish a poisoned contribution: their
@@ -338,7 +432,7 @@ def build_p2p_train_step(
                          for k, g in grads.items()}
             ef = state.ef
             if topo.ef and ef is None:
-                ef = init_ef(state.params, num_peers)
+                ef = init_ef({k: g[0] for k, g in grads.items()}, num_peers)
             if ef is not None:
                 corrected = {k: g.to(torch.float32) + ef[k] for k, g in grads.items()}
                 avg, local, mailbox = protocol.combine_ef(
@@ -349,11 +443,15 @@ def build_p2p_train_step(
                 avg, mailbox = protocol.combine(
                     grads, ctx, generator=state.key, state=state.mailbox
                 )
-            # full graph: every row of the bank is the same mix
-            avg = {k: v[0] for k, v in avg.items()}
+            if not banked:  # full graph: every row of the bank is the same mix
+                avg = {k: v[0] for k, v in avg.items()}
             lr = schedule(state.step)
             updates, opt_state = optimizer.update(avg, state.opt_state, state.params, lr)
             params = apply_updates(state.params, updates)
+        if banked:
+            names = set(params)
+            params = PeerBank(params)
+            opt_state = _map_leaf_dicts(opt_state, names, PeerBank)
         metrics = {"loss": loss.mean(), "grad_norm": gnorm, "lr": lr, "aux": aux}
         new_state = state.replace(
             params=params, opt_state=opt_state, step=state.step + 1, mailbox=mailbox, ef=ef,

@@ -64,15 +64,10 @@ from repro_torch.core.robust import AdversarySpec, poison_gradients, tree_all_fi
 from repro_torch.core.serverless import ExecutionReport, ServerlessExecutor
 from repro_torch.data import BatchKey, DataLoader, Dataset, Partitioner
 from repro_torch.metrics import StageMetrics
+from repro_torch.models.cnn import f32_numerics
 from repro_torch.optim import Optimizer, apply_updates
 
 Params = Dict[str, torch.Tensor]
-
-
-def unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md, Queue 1, '{item}'"
-    )
 
 
 def resolve_device(device) -> torch.device:
@@ -306,7 +301,7 @@ class LocalP2PCluster:
 
     def _grad(self, params: Params, batch):
         leaves = {k: params[k].detach().requires_grad_(True) for k in self.names}
-        with torch.enable_grad():
+        with torch.enable_grad(), f32_numerics():
             loss, acc = cnn_loss(self.model, leaves, *batch)
             grads = torch.autograd.grad(loss, [leaves[k] for k in self.names])
         return dict(zip(self.names, grads)), loss.detach(), acc
@@ -317,7 +312,7 @@ class LocalP2PCluster:
             return apply_updates(params, upd), opt_state
 
     def _eval(self, params: Params, batch):
-        with torch.no_grad():
+        with torch.no_grad(), f32_numerics():
             loss, acc = cnn_loss(self.model, params, *batch)
         return loss, acc
 

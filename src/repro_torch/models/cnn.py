@@ -16,15 +16,46 @@ Parity with the reference:
 * BatchNorm normalizes with the batch's own moments (biased variance) and
   keeps no running statistics.
 * Pools use VALID windows.
+
+:func:`f32_numerics` is the scope in which the port runs the CNNs'
+forward and backward and the f32 mixing products: cuDNN without TF32, with
+deterministic algorithms and no autotuning, and f32 matrix products at full
+precision, whatever the caller's global flags, so that a seeded run repeats
+itself bit for bit on the card.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import List
+from typing import Iterator, List
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+_F32_FLAGS = (  # (backend module, flag, value inside f32_numerics)
+    (torch.backends.cudnn, "allow_tf32", False),
+    (torch.backends.cudnn, "deterministic", True),
+    (torch.backends.cudnn, "benchmark", False),
+    (torch.backends.cuda.matmul, "allow_tf32", False),
+)
+
+
+@contextlib.contextmanager
+def f32_numerics() -> Iterator[None]:
+    """For its duration: cuDNN convolutions in full f32 (no TF32), on
+    deterministic algorithms, without autotuning; f32 matrix products at
+    full precision. The caller's settings come back on exit, also when the
+    body raises. The flags are process-wide, as PyTorch's are."""
+    saved = [getattr(mod, name) for mod, name, _ in _F32_FLAGS]
+    try:
+        for mod, name, value in _F32_FLAGS:
+            setattr(mod, name, value)
+        yield
+    finally:
+        for (mod, name, _), value in zip(_F32_FLAGS, saved):
+            setattr(mod, name, value)
 
 
 def _randn(shape, std: float, generator: torch.Generator, device) -> torch.Tensor:

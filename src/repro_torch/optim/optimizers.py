@@ -37,7 +37,9 @@ def global_norm(tree: Params) -> torch.Tensor:
 def clip_by_global_norm(tree: Params, max_norm: float) -> Tuple[Params, torch.Tensor]:
     norm = global_norm(tree)
     scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
-    return {k: g * scale for k, g in tree.items()}, norm
+    # bf16 leaves come back f32, as the reference's jnp promotion makes them
+    return {k: g.to(torch.promote_types(g.dtype, scale.dtype)) * scale
+            for k, g in tree.items()}, norm
 
 
 def apply_updates(params: Params, updates: Params) -> Params:

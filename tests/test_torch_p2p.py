@@ -30,9 +30,8 @@ k-th magnitude of the run. The reference selects top-k with
 Pallas kernel's) bisection picks.
 
 Also here: the conversion of optimizer states, the train state's dict
-access, ``exchange_gradients`` and every refusal of the step (the
-reference's ``ValueError``s, and the ``NotImplementedError`` of what the
-port does not run yet, robust protocols on a sparse overlay among them).
+access, ``exchange_gradients`` and the reference's ``ValueError`` refusals
+of the step.
 """
 import dataclasses
 import os
@@ -280,20 +279,6 @@ def test_exchange_gradients_is_the_protocols_combine():
 def _build(topo, **kw):
     return p2p.build_p2p_train_step(lambda p, b: None, sgd(), topo, PEERS, lambda s: LR,
                                     device=kw.pop("device", "cpu"), **kw)
-
-
-@pytest.mark.parametrize("topo,kw,item", [
-    (p2p.Topology(graph="ring"), {}, "Sparse-overlay device step"),
-    (p2p.Topology(exchange="qsgd", graph="gossip:2"), {}, "Sparse-overlay device step"),
-    (p2p.Topology(cast_params_once=True), {}, "bf16 compute params"),
-    (p2p.Topology(exchange="async"), {}, "Sparse-overlay device step"),
-    (p2p.Topology(exchange="median", graph="ring"), {}, "Sparse-overlay device step"),
-    (p2p.Topology(exchange="trimmed_mean:0.25", graph="gossip:2"), {},
-     "Sparse-overlay device step"),
-])
-def test_unported_options_raise_naming_their_roadmap_item(topo, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _build(topo, **kw)
 
 
 @pytest.mark.parametrize("topo,kw,match", [
