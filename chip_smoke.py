@@ -42,9 +42,18 @@ failure):
              ragged S = 1000, Sq 300 against Skv 500 without causal
              masking, D 32, 64 and 128, and MHA (32 heads, D 64); in bf16
              also Sq 200 with a window of 40, D 96, 160, 192 and 224, and q,
-             k, v as strided views of one fused projection. The flash and
-             SSD wrappers refuse grad mode (an input requiring grad) with
-             no launch, and launch under ``torch.inference_mode()``.
+             k, v as strided views of one fused projection. The flash
+             backward kernel against autograd of the plain version in f32,
+             in f32 and bf16: gemma2-2b's heads at S = 8192 with softcap
+             50, global and windowed (4096), where planted faults (a
+             dropped softcap derivative, an ignored window, a skipped key
+             tile) must fall outside the limit; qwen2.5-3b's heads (16 over
+             2, D 128) at a ragged S = 1000; Sq 300 against Skv 500 without
+             causal masking; D 32 and 64. With an input requiring grad the
+             flash wrapper launches its forward and backward kernels once
+             each; the SSD wrapper, which has no backward (reference
+             behaviour 18), refuses grad mode with no launch, and launches
+             under ``torch.inference_mode()``.
 3. reference — small runs on the card against the same runs on the CPU
              (plain versions), same init and uniforms: a 4-peer squeezenet
              QSGD cluster epoch, one device train step with qsgd + EF and
@@ -66,7 +75,11 @@ failure):
              global TF32 on and off, the CNN paths under
              ``torch.use_deterministic_algorithms(True)``). The script
              sets none of PyTorch's global flags: the port runs its CNNs
-             in ``models.cnn.f32_numerics``.
+             in ``models.cnn.f32_numerics``. One train step of a 3-layer
+             reduced gemma2-2b in f32 (2 peers, S 160 over its window of
+             64) from one state on the card (flash kernels forward and
+             backward) and on the CPU: plain SGD at rate 1, each leaf's
+             update within 1e-4 of its largest magnitude.
 4. path    — the main paths. ``LocalP2PCluster(...).run`` with the QSGD
              exchange: mobilenet-v3-small (full graph, 3 epochs), vgg11
              (full graph, 2 epochs), mobilenet-v3-small (ring, EF, 1 epoch);
@@ -125,6 +138,19 @@ failure):
              from a scoring forward, and the flash kernel on a global and
              a local layer's; those forwards' launches, and those of the
              prefill-vs-forward checks, stay out of the kernels line.
+             LM training (run after the profile phase, once the serving
+             models are freed): gemma2-2b at full width through
+             ``train.build_train_step`` (``allgather_mean``, Adam at 3e-3
+             under ``warmup_cosine``), 2 peers x batch 1 x 2048 tokens, 4
+             steps on one fixed batch, the bytes reckoned first and the
+             sequence, then the peers, cut where they do not fit (each cut
+             printed): 26 flash forward and 26 backward launches a step,
+             the peers folded into the batch, a finite loss that falls; the
+             backward kernel then held to the plain backward on a local and
+             a global layer's own inputs from one more step (kept out of the
+             kernels line); one mamba2-370m step at full width through
+             ``ssd_chunked`` (no launch), and the same step with
+             ``use_ssd_kernel=True`` refused before any launch.
 5. timing  — each kernel, its plain version, the PyTorch call that computes
              the same function where there is one, and the bound, at the
              main path's largest shapes, timed with CUDA events; the select
@@ -133,7 +159,10 @@ failure):
              the scatter beside ``index_add_`` at fc2/w, at the device
              step's (1 mix + 4 own rows) banks, over one step's 180 bank
              scatters, and both its bodies over a sweep of row lengths;
-             the SSD scan also at one 32k sequence, beside the bf16 bound
+             the flash backward kernel at gemma2-2b's scoring shape beside
+             its bound and the backward of ``flex_attention`` under
+             ``torch.compile``; the SSD scan also at one 32k sequence,
+             beside the bf16 bound
              and the fp32-rate bound of earlier rows; the robust
              estimators (trimmed mean, median, Krum's Gram matrix and
              selection) and the ``reduce_scatter`` and ``tree:2`` combines
@@ -184,6 +213,7 @@ result line.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import re
@@ -213,6 +243,8 @@ KERNELS = {  # name -> (module attribute, CUDA source, TPU kernel it replaces)
     "topk_scatter_accum": ("kt", "topk.cu", "src/repro/kernels/topk.py:122"),
     "ssd_scan": ("ks", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:31"),
     "flash_attention": ("kf", "flash_attention.cu", "src/repro/kernels/flash_attention.py:26"),
+    # the gradient of the forward's function: the reference differentiates attend
+    "flash_attention_backward": ("kf", "flash_attention_bwd.cu", "src/repro/models/layers.py:188"),
 }
 SSD_SCORING = (4, 2048, 32, 64, 1, 128, 256)  # B, S, H, P, G, N, chunk of mamba2-370m scoring
 SSD_LONG = (1, 32768, 32, 64, 1, 128, 256)  # one 32k sequence
@@ -221,6 +253,8 @@ FLASH_SCORING = (1, 8192, 8, 4, 256)  # B, S, H, K, D of gemma2-2b scoring: its 
 GEMMA_WINDOW, GEMMA_SOFTCAP = 4096, 50.0  # the local layers' window, the attention softcap
 LONG_PROMPT, LONG_GEN = 6144, 16  # a prompt past the window: the local caches roll
 SSD_FLAGS = {"use_ssd_kernel": True}  # mamba2's scoring forward through the SSD kernel
+QWEN_HEADS = (16, 2, 128)  # H, K, D of qwen2.5-3b
+TRAIN_PEERS, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 2048, 4, 3e-3  # the LM train paths, per peer batch 1
 
 
 def require(cond: bool, what: str) -> None:
@@ -796,31 +830,164 @@ def flash_kernel_phase(torch, kf):
 
 
 def grad_guard_phase(torch, kf, ks):
-    """The LM kernels have no backward on the card yet (ROADMAP Queue 1
-    item 16). With grad mode on and an input that requires grad, each
-    wrapper raises RuntimeError before any launch (its counter unchanged);
-    the same call under ``torch.inference_mode()`` launches once."""
-    q, k, v = flash_inputs(torch, 1, 256, 256, 4, 2, 64, torch.bfloat16, seed=11)
-    ssd = ssd_inputs(torch, (1, 64, 4, 32, 1, 16, 32), torch.float32, seed=11)
-    for fn, args, kw in ((kf.flash_attention, (q, k, v), {}), (ks.ssd_scan, ssd, {"chunk": 32})):
-        name = fn.__name__
-        args = (args[0].detach().requires_grad_(True), *args[1:])
-        before = fn.launches
-        try:
-            fn(*args, **kw)
-            refused = ""
-        except RuntimeError as e:
-            refused = str(e)
-        torch.cuda.synchronize()
-        require("Queue 1 item 16" in refused, f"{name} under grad mode did not refuse: {refused!r}")
-        require(fn.launches == before, f"{name} launched before refusing grad mode")
-        with torch.inference_mode():
-            out = fn(*args, **kw)
-        torch.cuda.synchronize()
-        require(fn.launches == before + 1 and bool(torch.isfinite(out).all()),
-                f"{name} under inference_mode: {fn.launches - before} launches")
-        print(f"kernel check {name} with an input requiring grad: RuntimeError under grad mode "
-              f"with no launch; one launch under inference_mode")
+    """With grad mode on and an input that requires grad: flash attention
+    differentiates through its kernels (one forward launch, one backward
+    launch, gradients within 2e-5 + 2e-4 |g| of the plain backward's in
+    f32); the SSD scan, which has no backward kernel (reference behaviour
+    18: the reference's Pallas scan has no gradient either), raises
+    RuntimeError before any launch (its counter unchanged), and the same
+    call under ``torch.inference_mode()`` launches once."""
+    q, k, v = flash_inputs(torch, 1, 256, 256, 4, 2, 64, torch.float32, seed=11)
+    q.requires_grad_(True)
+    do = torch.randn_like(q)
+    before = (kf.flash_attention.launches, kf.flash_attention_backward.launches)
+    (dq,) = torch.autograd.grad(kf.flash_attention(q, k, v, softcap=5.0, window=100), (q,), do)
+    ref = kf.flash_attention_backward_plain(q.detach(), k, v, do, softcap=5.0, window=100)[0]
+    torch.cuda.synchronize()
+    after = (kf.flash_attention.launches, kf.flash_attention_backward.launches)
+    require(after == (before[0] + 1, before[1] + 1),
+            f"flash_attention under grad mode: launches {before} -> {after}, not one of each")
+    require(bool(torch.all((dq - ref).abs() <= 2e-5 + 2e-4 * ref.abs())),
+            f"flash_attention's dq beyond 2e-5 + 2e-4 |g|: {float((dq - ref).abs().max()):.3e}")
+    print(f"kernel check flash_attention with q requiring grad: one forward and one backward "
+          f"launch, dq max_abs_err={float((dq - ref).abs().max()):.3e} against the plain backward")
+    args = [t.detach() for t in ssd_inputs(torch, (1, 64, 4, 32, 1, 16, 32), torch.float32, seed=11)]
+    args[0].requires_grad_(True)
+    before = ks.ssd_scan.launches
+    try:
+        ks.ssd_scan(*args, chunk=32)
+        refused = ""
+    except RuntimeError as e:
+        refused = str(e)
+    torch.cuda.synchronize()
+    require("reference behaviour 18" in refused, f"ssd_scan under grad mode did not refuse: {refused!r}")
+    require(ks.ssd_scan.launches == before, "ssd_scan launched before refusing grad mode")
+    with torch.inference_mode():
+        out = ks.ssd_scan(*args, chunk=32)
+    torch.cuda.synchronize()
+    require(ks.ssd_scan.launches == before + 1 and bool(torch.isfinite(out).all()),
+            f"ssd_scan under inference_mode: {ks.ssd_scan.launches - before} launches")
+    print("kernel check ssd_scan with an input requiring grad: RuntimeError (reference behaviour "
+          "18) under grad mode with no launch; one launch under inference_mode")
+
+
+def flash_bwd_inputs(torch, B, Sq, Skv, H, K, D, dtype, seed=0):
+    """q, k ~ 2 N (scores of a few units, where the softcap's derivative
+    departs from 1), v ~ 0.5 N, and the output's cotangent do ~ N."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    rand = lambda sd, *s: (torch.randn(s, generator=g, device="cuda") * sd).to(dtype)
+    return rand(2.0, B, Sq, H, D), rand(2.0, B, Skv, K, D), rand(0.5, B, Skv, K, D), \
+        rand(1.0, B, Sq, H, D)
+
+
+def flash_bwd_tolerance(torch, ref, dtype):
+    """Per-element limit on |kernel - autograd| for a gradient ``ref`` (f32
+    autograd of the plain version on the same inputs). f32: 2e-4 |g| + 1e-5
+    max|g| (sums over up to 8192 keys in other orders). bf16: the kernel
+    computes in f32 and rounds once to bf16, 2^-8 |g|, plus 2e-5 max|g|,
+    as ``flash_tolerance``."""
+    top = float(ref.abs().max())
+    if dtype == torch.float32:
+        return 2e-4 * ref.abs() + 1e-5 * top, "2e-4 |g| + 1e-5 max|g|"
+    return 2.0 ** -8 * ref.abs() + 2e-5 * top, "2^-8 |g| + 2e-5 max|g|"
+
+
+def autograd_of_plain(torch, kf, q, k, v, do, *, causal, softcap, window, kv_positions=None,
+                      straight_through=False):
+    """dq, dk, dv by autograd of the plain attention in f32 on q, k, v.
+    ``kv_positions`` (-1 masks a key) and ``straight_through`` (the softcap
+    applied with the derivative of the identity) plant faults."""
+    f = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    Sq, Skv = q.shape[1], k.shape[1]
+    if straight_through:
+        B, _, H, D = q.shape
+        K = k.shape[2]
+        u = torch.einsum("bqkgd,bskd->bkgqs", f[0].reshape(B, Sq, K, H // K, D) / math.sqrt(D), f[1])
+        s = u + (torch.tanh(u / softcap) * softcap - u).detach()
+        i, j = torch.arange(Sq, device=q.device)[:, None], torch.arange(Skv, device=q.device)[None]
+        ok = (i >= j) & ((i - j < window) if window else True) if causal else (j >= 0)
+        p = torch.softmax(torch.where(ok, s, -math.inf), dim=-1)
+        o = torch.einsum("bkgqs,bskd->bqkgd", p, f[2]).reshape(B, Sq, H, D)
+    else:
+        kpos = torch.arange(Skv, device=k.device) if kv_positions is None else kv_positions
+        o = kf.attend(*f, causal=causal, q_positions=torch.arange(Sq, device=q.device),
+                      kv_positions=kpos, window=window if causal else 0, softcap_val=softcap)
+    return torch.autograd.grad(o, f, do.float())
+
+
+def check_flash_bwd(torch, kf, q, k, v, do, what, *, causal=True, softcap=0.0, window=0,
+                    faults=False):
+    """The backward kernel against autograd of the plain version on the same
+    inputs, dq, dk and dv each within ``flash_bwd_tolerance``. ``faults``:
+    gradients of a dropped softcap derivative, an ignored window and a
+    skipped key tile must each fall outside that limit. Returns the largest
+    abs error."""
+    got = kf.flash_attention_backward(q, k, v, do, causal=causal, softcap=softcap, window=window)
+    ref = autograd_of_plain(torch, kf, q, k, v, do, causal=causal, softcap=softcap, window=window)
+    torch.cuda.synchronize()
+    worst, ratios = 0.0, []
+    for name, g, r, t in zip(("dq", "dk", "dv"), got, ref, (q, k, v)):
+        require(g.shape == t.shape and g.dtype == t.dtype, f"{name} {tuple(g.shape)} {g.dtype} at {what}")
+        tol, rule = flash_bwd_tolerance(torch, r, q.dtype)
+        err = (g.float() - r).abs()
+        ratios.append(float((err / tol).max()))
+        require(ratios[-1] <= 1, f"flash_attention_backward {name} outside the limit at {what}: "
+                f"max err/limit {ratios[-1]:.3f}")
+        worst = max(worst, float(err.max()))
+    print(f"kernel check flash_attention_backward {what} {str(q.dtype).split('.')[-1]}: "
+          f"max_abs_err={worst:.3e}, max err/limit dq {ratios[0]:.3f} dk {ratios[1]:.3f} dv "
+          f"{ratios[2]:.3f} ({rule} of autograd of the plain version in f32)")
+    if faults:
+        Skv = k.shape[1]
+        t0 = Skv // 2 // 64 * 64
+        kpos = torch.arange(Skv, device=k.device)
+        planted = {f"key tile [{t0}, {t0 + 64}) skipped":
+                   dict(kv_positions=torch.where((kpos >= t0) & (kpos < t0 + 64), -1, kpos))}
+        if softcap:
+            planted["softcap derivative dropped"] = dict(straight_through=True)
+        if causal and window:
+            planted["window ignored"] = dict(window=0)
+        for name, kw in planted.items():
+            opts = dict(causal=causal, softcap=softcap, window=window)
+            opts.update((key, val) for key, val in kw.items() if key in opts)
+            bad = autograd_of_plain(torch, kf, q, k, v, do, **opts,
+                                    **{key: val for key, val in kw.items() if key not in opts})
+            ratio = max(float(((b.to(q.dtype).float() - r).abs()
+                               / flash_bwd_tolerance(torch, r, q.dtype)[0]).max())
+                        for b, r in zip(bad, ref))
+            require(ratio > 1, f"the backward check at {what} would pass a planted fault ({name}): "
+                    f"max err/limit {ratio:.3f}")
+            print(f"  planted fault ({name}): max err/limit {ratio:.3f} (rejected)")
+    return worst
+
+
+def flash_bwd_phase(torch, kf):
+    """The backward kernel's cases, in f32 and bf16: gemma2-2b's heads (8
+    over 4, D 256, softcap 50) at S 8192, global and with the local layers'
+    window of 4096, with planted faults; qwen2.5-3b's heads (16 over 2, D
+    128) at a ragged S 1000; Sq 300 against Skv 500 without causal masking;
+    D 32 and 64 with a window narrower than a key tile."""
+    B, S_, H, K, D = FLASH_SCORING
+    Hq, Kq, Dq = QWEN_HEADS
+    cases = (  # (B, Sq, Skv, H, K, D), causal, softcap, window, faults
+        ((B, S_, S_, H, K, D), True, GEMMA_SOFTCAP, GEMMA_WINDOW, True),
+        ((B, S_, S_, H, K, D), True, GEMMA_SOFTCAP, 0, True),
+        ((2, 1000, 1000, Hq, Kq, Dq), True, 0.0, 0, False),
+        ((1, 300, 500, 8, 4, 128), False, 30.0, 100, False),  # the window is ignored
+        ((2, 200, 200, 4, 2, 32), True, 0.0, 20, False),
+        ((2, 333, 333, 4, 1, 64), True, 10.0, 0, False),
+    )
+    worst = 0.0
+    for shape, causal, cap, window, faults in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = flash_bwd_inputs(torch, *shape, dtype, seed=shape[1] + shape[5])
+            worst = max(worst, check_flash_bwd(
+                torch, kf, q, k, v, do, f"{shape} causal={causal} softcap={cap} window={window}",
+                causal=causal, softcap=cap, window=window, faults=faults))
+            del q, k, v, do
+            torch.cuda.empty_cache()
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -1045,6 +1212,61 @@ def reference_lm_phase(torch, arch: str, seq: int, flags: dict):
           f"{float((rg['prefill_logits'].cpu() - rc['prefill_logits']).abs().max()):.3e}, "
           f"states of {sorted(rc['state']['layers'][0])} within 1e-5, "
           f"8 greedy decode steps identical: {rg['tokens'][0].tolist()}")
+
+
+def reference_train_phase(torch):
+    """One train step of a 3-layer reduced gemma2-2b in f32 (S 160 over its
+    window of 64) and of a 3-layer reduced mamba2-370m in f32 (S 160 over
+    its chunk of 32, through ``ssd_chunked``), 2 peers x batch 2,
+    ``allgather_mean``, from the same state on the card (gemma2: flash
+    kernels forward and backward, folded over the peers) and on the CPU
+    (the plain versions). Plain SGD at rate 1 makes each side's update its
+    mean gradient: the two updates agree within 1e-4 of each leaf's largest
+    magnitude (f32 products summed in other orders by cuBLAS, cuDNN, the
+    kernels and the CPU), for mamba2 plus 1e-5 of the largest update of
+    any leaf: the f32 rounding of a sum over the 640 tokens is about
+    sqrt(640) x 2^-23 = 3e-6 of its terms' size, and a leaf whose updates
+    are small beside the rest (a gated norm's scale, 1/36 of the largest)
+    takes that rounding from terms of the others' size (1.192e-07 on the
+    card, 1.1e-4 of its own magnitude). The losses agree within rtol 1e-5. The step donates its state,
+    so each side starts from its own copy."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.p2p import Topology
+    from repro_torch.optim import sgd
+    from repro_torch.train import build_train_step, init_train_state
+
+    for arch, floor in (("gemma2-2b", 0.0), ("mamba2-370m", 1e-5)):
+        cfg = dataclasses.replace(reduced(get_config(arch), num_layers=3), dtype="float32")
+        state = init_train_state(torch.Generator().manual_seed(0), cfg, sgd(), device="cpu")
+        toks = torch.randint(0, cfg.vocab_size, (2 * TRAIN_PEERS, 161),
+                             generator=torch.Generator().manual_seed(1))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        out = {}
+        for device in ("cpu", "cuda"):
+            st = state.replace(params={k: p.to(device, copy=True) for k, p in state.params.items()})
+            step = build_train_step(cfg, sgd(), Topology(), TRAIN_PEERS, lambda s: 1.0, device=device)
+            new, metrics = step(st, batch)
+            out[device] = ({k: state.params[k] - p.cpu() for k, p in new.params.items()},
+                           float(metrics["loss"]))
+        (dc, lc), (dg, lg) = out["cpu"], out["cuda"]
+        require(abs(lg - lc) <= 1e-5 * abs(lc),
+                f"reduced {arch} train step: loss {lg} on the card, {lc} on the CPU")
+        top = max(float(w.abs().max()) for w in dc.values())
+        worst, worst_rel = 0.0, 0.0
+        for k, want in dc.items():
+            err, scale = float((dg[k] - want).abs().max()), float(want.abs().max())
+            require(scale > 0, f"reduced {arch} train step: {k} did not move on the CPU")
+            limit = 1e-4 * scale + floor * top
+            require(err <= limit, f"reduced {arch} train step: {k} update {err:.3e} from the "
+                    f"CPU's, beyond 1e-4 x {scale:.3e} + {floor:g} x {top:.3e}")
+            worst, worst_rel = max(worst, err / limit), max(worst_rel, err / scale)
+        via = "flash kernels" if arch == "gemma2-2b" else "ssd_chunked, no kernel"
+        print(f"reference check (reduced {arch} train step, 3 layers, f32, {TRAIN_PEERS} peers x 2 "
+              f"x 160 tokens, card ({via}) vs CPU): loss {lg:.6f} vs {lc:.6f}, every leaf's update "
+              f"within {worst_rel:.3e} of its largest magnitude, {worst:.3f} of its limit (1e-4 of "
+              f"it + {floor:g} of the largest update, {top:.3e})")
 
 
 # ---------------------------------------------------------------------------
@@ -1880,12 +2102,16 @@ def estimator_timing(torch):
 def kernel_body(name: str):
     """Which body of the flash or the SSD kernel a device kernel's name is,
     or None: flash's "wgmma<D>" (bf16 on the tensor cores) or "f32" (the
-    CUDA cores); the SSD kernel's bf16 passes "ssd states", "ssd carry" and
+    CUDA cores); the flash backward's three passes "bwd stats", "bwd dq" and
+    "bwd dkdv"; the SSD kernel's bf16 passes "ssd states", "ssd carry" and
     "ssd outputs", or its f32 body "ssd f32"."""
     if "flash_attention_kernel_wgmma<" in name:
         return "wgmma<" + name.split("flash_attention_kernel_wgmma<", 1)[1].split(">", 1)[0] + ">"
     if "flash_attention_kernel<" in name:
         return "f32"
+    found = re.search(r"\bbwd_(stats|dq|dkdv)_kernel\b", name)
+    if found:
+        return "bwd " + found.group(1)
     found = re.search(r"\bssd_kernel_(states|carry|outputs)\b", name)
     if found:
         return "ssd " + found.group(1)
@@ -1898,9 +2124,10 @@ RUN_MARK = "profiled run"  # the record_function around the run that device_prof
 def device_profile(torch, fn, attempts: int = 3):
     """Run ``fn`` under ``torch.profiler`` and read the device's kernels:
     (device window ms from the first kernel's start to the last one's end,
-    busy ms in that window, {"ssd_scan" | "flash_attention" | "matmul" |
-    "other": kernel ms} (every pass of the SSD kernel's bf16 body counts as
-    ssd_scan), the 5 kernels with the most device time, the number of
+    busy ms in that window, {"ssd_scan" | "flash_attention" |
+    "flash_attention_backward" | "matmul" | "other": kernel ms} (every pass
+    of the SSD kernel's bf16 body counts as ssd_scan, every pass of the flash
+    backward as flash_attention_backward), the 5 kernels with the most device time, the number of
     device activities, {flash or SSD body: [launches, ms]}, (the run's
     kernel launches that the profiler recorded on the host with no device
     record, the run's kernel launches)); None when the profiler saw no
@@ -1964,7 +2191,8 @@ def device_profile(torch, fn, attempts: int = 3):
             count, ms = bodies.get(body, (0, 0.0))
             bodies[body] = [count + 1, ms + us / 1e3]
         key = "ssd_scan" if "ssd_kernel" in name else "flash_attention" if (
-            "flash_attention_kernel" in name) else "topk_select" if re.search(
+            "flash_attention_kernel" in name) else "flash_attention_backward" if (
+            body or "").startswith("bwd ") else "topk_select" if re.search(
             r"\bselect_(row_|grid_)?kernel", name) else "topk_scatter" if re.search(
             r"\bscatter_(tile_|bucket_|gather_)?kernel", name) else (
             "matmul" if any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")) else "other")
@@ -2233,6 +2461,228 @@ def check_flash_on_path(torch, mods, model, cfg, tokens, expect):
                 torch, mods["kf"], q, k, v, f"on {name}'s q, k, v of the scoring forward "
                 f"{tuple(q.shape)} K={k.shape[2]} {kw}", faults="report", **kw))
     return worst
+
+
+def train_bytes(n_params: int, cfg, peers: int, seq: int) -> dict:
+    """The train step's device bytes reckoned before it runs, printed beside
+    the card's memory (the cut itself is taken from what runs out of
+    memory, ``drive_train``). Exact from the config: f32 params and Adam's
+    two moments (written in place: ``build_train_step`` donates the state),
+    a bf16 copy of the weights kept for the backward, the per-peer gradient
+    bank from vmap, each peer's embedding gradient twice more in f32 (the
+    gather's and the tied or untied unembedding's, before they are summed).
+    Estimated per token: the activations kept for the backward (about 14
+    bf16 d-wide and 5 d_ff-wide tensors an attention layer, 50 f32
+    d_inner-wide ones a Mamba-2 layer, the chunked scan's) and 6 f32
+    vocab-wide logits tensors. For gemma2-2b at 2 peers x 512 tokens this
+    gives 72.1 GiB against a peak of 72.91 GiB measured on an NVIDIA H100
+    80GB HBM3 at 700 W."""
+    tokens, emb = peers * seq, cfg.padded_vocab * cfg.d_model
+    layer = 14 * cfg.d_model * 2 + (50 * cfg.d_inner * 4 if cfg.ssm_state else 5 * cfg.d_ff * 2)
+    return {"params and moments": 12 * n_params, "bf16 weights": 2 * n_params,
+            "gradient bank": 4 * n_params * peers, "embedding gradients": 8 * emb * peers,
+            "activations": tokens * cfg.num_layers * layer,
+            "logits": 6 * tokens * cfg.padded_vocab * 4}
+
+
+def release(torch) -> None:
+    """Free what unreachable objects hold on the card (a step that ran out
+    of memory leaves its tensors in reference cycles through its
+    traceback) and return the cached blocks."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def drive_train(torch, mods, arch: str, expect_per_layer: dict, *, steps: int = TRAIN_STEPS,
+                schedule=None):
+    """``arch`` at full width trained through ``train.build_train_step`` on
+    the full graph: ``allgather_mean``, the reference CLI's Adam at 3e-3
+    under ``schedule``, by default ``warmup_cosine(lr, steps // 10 + 1,
+    steps)``, TRAIN_PEERS peers x batch 1 x TRAIN_SEQ tokens, ``steps``
+    steps on one fixed batch. The bytes are reckoned and printed first
+    (``train_bytes``); then each cut is tried in turn, the sequence halved
+    down to 256 and then the peers, never the widths, from a fresh state,
+    until one runs its steps without running out of memory, and each cut
+    is printed. The step writes the new params and moments into the
+    state's tensors (``build_train_step`` donates the state): the
+    functional update's second state of 31 GB does not fit beside the
+    first. Every step must launch ``expect_per_layer`` x layers (counters
+    zeroed before and read after each step) and give a finite loss; the
+    last loss must be below the first, and every leaf must have moved (its
+    first 4096 entries, copied before the first step). Returns the
+    launches of all the steps and the (config, peers, sequence) that ran."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.core.p2p import Topology
+    from repro_torch.optim import adam, warmup_cosine
+    from repro_torch.train import build_train_step, init_train_state
+
+    cfg = get_config(arch)
+    n_params = models.param_count(models.init_model(cfg, generator=None, device="meta"))
+    card = torch.cuda.get_device_properties(0).total_memory
+    cuts = [(p, s) for p in range(TRAIN_PEERS, 0, -1) for s in (TRAIN_SEQ, 1024, 512, 256)
+            if s <= TRAIN_SEQ]
+    parts = train_bytes(n_params, cfg, TRAIN_PEERS, TRAIN_SEQ)
+    print(f"path {arch} train: reckoned bytes at {TRAIN_PEERS} peers x {TRAIN_SEQ} tokens: "
+          f"{ {k: round(v / 2**30, 2) for k, v in parts.items()} } GiB, "
+          f"{sum(parts.values()) / 2**30:.2f} GiB in all against the card's {card / 2**30:.2f} GiB")
+    opt = adam()
+    sched = schedule or warmup_cosine(TRAIN_LR, steps // 10 + 1, steps)
+    expect = {k: v * cfg.num_layers for k, v in expect_per_layer.items()}
+    total = dict.fromkeys(KERNELS, 0)
+    for peers, seq in cuts:
+        if (peers, seq) != (TRAIN_PEERS, TRAIN_SEQ):
+            print(f"path {arch} train: CUT to {peers} peers x {seq} tokens (reckoned "
+                  f"{sum(train_bytes(n_params, cfg, peers, seq).values()) / 2**30:.2f} GiB)")
+        g = torch.Generator(device="cuda").manual_seed(0)
+        t0 = time.perf_counter()
+        held = torch.cuda.memory_allocated()
+        st = init_train_state(g, cfg, opt, device="cuda")
+        torch.cuda.synchronize()
+        print(f"path {arch} train: {n_params} params, state initialised in "
+              f"{time.perf_counter() - t0:.3f} s ({held / 2**30:.2f} GiB allocated before it)")
+        before = {k: p.reshape(-1)[:4096].clone() for k, p in st.params.items()}
+        toks = torch.randint(0, cfg.vocab_size, (peers, seq + 1), generator=g, device="cuda")
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        step = build_train_step(cfg, opt, Topology(), peers, sched)
+        losses, secs, lrs, failed = [], [], [], ""
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            for i in range(steps):
+                reset_counters(mods)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                st, metrics = step(st, batch)
+                loss = float(metrics["loss"])  # synchronises
+                secs.append(time.perf_counter() - t)
+                launches = read_counters(mods)
+                require(launches == dict(dict.fromkeys(KERNELS, 0), **expect),
+                        f"{arch} train step {i}: launches {launches}, expected {expect} per step")
+                for name, count in launches.items():
+                    total[name] += count
+                losses.append(loss)
+                lrs.append(metrics["lr"])
+        except torch.cuda.OutOfMemoryError as e:
+            failed = str(e).splitlines()[0][:160]
+        if not failed:
+            break
+        print(f"path {arch} train at {peers} peers x {seq} tokens: out of memory after "
+              f"{len(losses)} steps ({failed})")
+        del st, step, batch, before
+        release(torch)  # the failed step's tensors sit in reference cycles through its traceback
+        total = dict.fromkeys(KERNELS, 0)
+    else:
+        require(False, f"{arch} train: no cut of sequence and peers fits the card")
+    require(all(math.isfinite(x) for x in losses), f"{arch} train: non-finite loss {losses}")
+    require(losses[-1] < losses[0],
+            f"{arch} train: the loss did not fall on the repeated batch: {losses}")
+    require(all(bool(torch.isfinite(p).all()) for p in st.params.values()), f"{arch} train: non-finite params")
+    still = [k for k, b in before.items() if torch.equal(st.params[k].reshape(-1)[:4096], b)]
+    require(not still, f"{arch} train: {len(still)} of {len(before)} leaves did not move: {still[:5]}")
+    later = (f", then {sum(secs[1:]) / (steps - 1):.4f} s/step ({[round(x, 4) for x in secs[1:]]}), "
+             f"{peers * seq * (steps - 1) / sum(secs[1:]):.0f} tokens/s" if steps > 1 else "")
+    print(f"path {arch} train, {peers} peers x batch 1 x {seq} tokens, adam lr {TRAIN_LR} "
+          f"{'warmup_cosine' if schedule is None else 'constant'} (rates "
+          f"{[round(x, 6) for x in lrs]}): first step {secs[0]:.3f} s{later}, "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches per "
+          f"step { {k: v for k, v in expect.items() if v} or 'none' }, loss per step "
+          f"{[round(x, 5) for x in losses]}, all {len(before)} leaves moved")
+    return total, (cfg, peers, seq)
+
+
+def check_flash_bwd_on_path(torch, mods, cfg, peers: int, seq: int):
+    """The backward kernel on the inputs the train path gives it: one more
+    gemma2-2b train step (its launches required and kept out of the kernels
+    line) hands the q, k, v and do of its first local and first global
+    layer's backward, the peers folded into the batch, to recorders. A
+    profile of one more step from the same state says where a step's
+    device time goes; its flash launches by body must be one forward and
+    one backward (three passes) a layer. Then the kernel is held to the
+    plain backward on each recorded layer within ``flash_bwd_tolerance``
+    and timed there (``time_flash_bwd``). Returns (the largest error, the
+    global layer's timing keys: the kernels line's row)."""
+    from repro_torch.core.p2p import Topology
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.optim import adam, constant
+    from repro_torch.train import build_train_step, init_train_state
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    state = init_train_state(g, cfg, adam(), device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (peers, seq + 1), generator=g, device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    step = build_train_step(cfg, adam(), Topology(), peers, constant(TRAIN_LR))
+    reset_counters(mods)
+    # the backward runs the layers last to first: the recorders keep the last global and local layer
+    with recording(kf, "_backward", lambda args, kw: args[6] == 0) as glob, \
+            recording(kf, "_backward", lambda args, kw: args[6] != 0) as local:
+        state, _ = step(state, batch)
+    launches = read_counters(mods)
+    expect = dict(dict.fromkeys(KERNELS, 0), flash_attention=cfg.num_layers,
+                  flash_attention_backward=cfg.num_layers)
+    require(launches == expect, f"gemma2 recording train step: launches {launches} != {expect}")
+    bodies = {f"wgmma<{cfg.resolved_head_dim}>": cfg.num_layers,
+              **{f"bwd {p}": cfg.num_layers for p in ("stats", "dq", "dkdv")}}
+    print_profile(f"gemma2-2b train step ({peers} peers x batch 1 x {seq} tokens)",
+                  device_profile(torch, lambda: step(state, batch)), bodies)
+    del state, step
+    release(torch)
+    worst, row = 0.0, None
+    for name, seen in (("a local layer", local), ("a global layer", glob)):
+        (q, k, v, do, causal, cap, window), _ = seen[0]
+        require(q.dtype == torch.bfloat16 and q.shape == (peers, seq, cfg.num_heads,
+                                                          cfg.resolved_head_dim),
+                f"the path's backward inputs: {q.dtype} {tuple(q.shape)}")
+        require(causal and cap == GEMMA_SOFTCAP, f"the path's backward: causal={causal} softcap={cap}")
+        got = kf.flash_attention_backward(q, k, v, do, causal=causal, softcap=cap, window=window)
+        ref = kf.flash_attention_backward_plain(*(t.float() for t in (q, k, v, do)), causal=causal,
+                                                softcap=cap, window=window)
+        torch.cuda.synchronize()
+        layer = 0.0
+        for gname, a, r in zip(("dq", "dk", "dv"), got, ref):
+            tol, rule = flash_bwd_tolerance(torch, r, q.dtype)
+            err = (a.float() - r).abs()
+            require(bool(torch.all(err <= tol)), f"flash_attention_backward {gname} on {name}'s "
+                    f"inputs: max err/limit {float((err / tol).max()):.3f}")
+            layer = max(layer, float(err.max()))
+        worst = max(worst, layer)
+        print(f"kernel check flash_attention_backward on {name}'s q, k, v, do of a train step "
+              f"{tuple(q.shape)} K={k.shape[2]} window={window}: max_abs_err={layer:.3e} ({rule} "
+              f"of the plain backward in f32)")
+        del got, ref
+        row = time_flash_bwd(torch, kf, f"on {name}'s inputs of the train step", q, k, v, do, window)
+    return worst, row
+
+
+def drive_mamba_train(torch, mods):
+    """Two mamba2-370m train steps at full width through ``ssd_chunked``
+    (``use_ssd_kernel=False``, the reference's default) at Adam's constant
+    rate TRAIN_LR, with ``drive_train``'s cuts and checks (the loss falls,
+    every leaf moves): no kernel launch. Then the same step with
+    ``use_ssd_kernel=True`` must refuse (grad mode through the SSD kernel,
+    reference behaviour 18) before any launch."""
+    from repro_torch.core.p2p import Topology
+    from repro_torch.optim import adam, constant
+    from repro_torch.train import build_train_step, init_train_state
+
+    counts, (cfg, peers, seq) = drive_train(torch, mods, "mamba2-370m", {}, steps=2,
+                                            schedule=constant(TRAIN_LR))
+    release(torch)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    state = init_train_state(g, cfg, adam(), device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (peers, seq + 1), generator=g, device="cuda")
+    step = build_train_step(cfg, adam(), Topology(), peers, constant(TRAIN_LR), use_ssd_kernel=True)
+    reset_counters(mods)
+    try:
+        step(state, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+        refused = ""
+    except RuntimeError as e:
+        refused = str(e)
+    require("reference behaviour 18" in refused and read_counters(mods)["ssd_scan"] == 0,
+            f"mamba2 train step with use_ssd_kernel=True: {refused!r}, "
+            f"{read_counters(mods)['ssd_scan']} SSD launches")
+    print("path mamba2-370m train with use_ssd_kernel=True: RuntimeError (reference behaviour 18) "
+          "before any SSD launch")
+    return counts
 
 
 def profile_phase(torch, name, model, cfg, tokens, prompts, flags, bodies):
@@ -2594,17 +3044,21 @@ def ssd_timing(torch, ks):
     return out
 
 
-def flash_bound(torch, q, k, window: int):
+def flash_bound(torch, q, k, window: int, backward: bool = False):
     """(bound ms, bound_by, bytes, operations) of causal flash attention on
-    these inputs: q, k, v read once and o written once at 3.35 TB/s, against
-    4 D H B per valid (query, key) pair, pairs = sum_i min(i + 1, window)
+    these inputs, pairs = sum_i min(i + 1, window) valid (query, key) pairs
     (the pairs this run's mask keeps, not the whole square), at the dense
-    bf16 tensor-core rate for bf16 inputs or the fp32 rate for f32."""
+    bf16 tensor-core rate for bf16 inputs or the fp32 rate for f32, against
+    the bytes at 3.35 TB/s. Forward: q, k, v read and o written once, two
+    products, 4 D H B operations a pair. ``backward``: q, k, v and do read
+    and dq, dk, dv written once, the function's five products (s, dp, dv,
+    dq, dk), 10 D H B operations a pair."""
     B, S_, H, D = q.shape
-    nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
+    q_like, k_like, per_pair = (3, 4, 10) if backward else (2, 2, 4)
+    nbytes = q_like * q.numel() * q.element_size() + k_like * k.numel() * k.element_size()
     i = torch.arange(S_, dtype=torch.float64)
     pairs = float(torch.clamp(i + 1, max=window).sum()) if window else S_ * (S_ + 1) / 2
-    ops = 4 * D * H * B * pairs
+    ops = per_pair * D * H * B * pairs
     rate = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", nbytes, ops
@@ -2663,6 +3117,80 @@ def flash_timing(torch, kf):
     print(f"timing scaled_dot_product_attention {FLASH_SCORING} bf16, causal, GQA, no softcap and "
           f"no window (a different function, printed as a yardstick only): {t_sdpa:.4f} ms")
     return {"flash_attention": out[0]}
+
+
+def time_flash_bwd(torch, kf, what: str, q, k, v, do, window: int):
+    """The backward kernel and the plain backward (plain, kernel, kernel,
+    plain) on these bf16 inputs with gemma2-2b's softcap, causal, with
+    ``window``; printed beside its bound and, as a yardstick the port never
+    calls, the backward of ``flex_attention`` under ``torch.compile`` with
+    the same tanh ``score_mod`` and causal (and window) block mask, timed as
+    ``torch.autograd.grad`` of its output with the graph retained (so with
+    AOTAutograd's donated buffers off: a compiled backward that donates
+    its saved tensors refuses ``retain_graph``). Returns the kernels
+    line's timing keys."""
+    import torch._functorch.config as aot_config
+
+    with aot_config.patch(donated_buffer=False):
+        return _time_flash_bwd(torch, kf, what, q, k, v, do, window)
+
+
+def _time_flash_bwd(torch, kf, what: str, q, k, v, do, window: int):
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    S_ = q.shape[1]
+    flex = torch.compile(flex_attention)
+    score_mod = lambda score, b, h, qi, kj: torch.tanh(score / GEMMA_SOFTCAP) * GEMMA_SOFTCAP
+
+    def mask_mod(b, h, qi, kj):
+        causal = qi >= kj
+        return causal & (qi - kj < window) if window else causal
+
+    t0 = time.perf_counter()
+    block_mask = create_block_mask(mask_mod, None, None, S_, S_, device="cuda")
+    leaves = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+    o = flex(*leaves, score_mod=score_mod, block_mask=block_mask, enable_gqa=True)
+    lib = lambda: torch.autograd.grad(o, leaves, do.transpose(1, 2), retain_graph=True)
+    got = lib()
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    kern = lambda: kf.flash_attention_backward(q, k, v, do, softcap=GEMMA_SOFTCAP, window=window)
+    plain = lambda: kf.flash_attention_backward_plain(q, k, v, do, softcap=GEMMA_SOFTCAP,
+                                                      window=window)
+    flex_err = max(float((a.transpose(1, 2).float() - b.float()).abs().max())
+                   for a, b in zip(got, kern()))
+    del got
+    many = S_ <= 2048  # short calls: more of them for the same time
+    t_plain1, _ = time_ms(torch, plain, 10 if many else 2)
+    t_kern1, host1 = time_ms(torch, kern, 20 if many else 5)
+    t_kern2, host2 = time_ms(torch, kern, 20 if many else 5)
+    t_plain2, _ = time_ms(torch, plain, 10 if many else 2)
+    t_lib, _ = time_ms(torch, lib, 20 if many else 10)
+    bound, by, nbytes, ops = flash_bound(torch, q, k, window, backward=True)
+    row = {"ms": min(t_kern1, t_kern2), "plain_ms": min(t_plain1, t_plain2), "bound_ms": bound,
+           "bound_by": by, "library_ms": t_lib}
+    print(f"timing flash_attention_backward {what} {tuple(q.shape)} K={k.shape[2]} bf16 softcap "
+          f"{GEMMA_SOFTCAP} window {window}: kernel {t_kern1:.4f}/{t_kern2:.4f} ms, plain "
+          f"{t_plain1:.4f}/{t_plain2:.4f} ms, bound {bound:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP at "
+          f"989.4 TFLOP/s, {nbytes / 1e6:.1f} MB at 3.35 TB/s; roofline share "
+          f"{bound / row['ms']:.1%}; at the fp32 rate the kernel computes at, "
+          f"{ops / FP32_FLOPS * 1e3:.4f} ms), host enqueue {min(host1, host2) * 1e3:.1f} us/call, "
+          f"library flex_attention backward (torch.compile, first forward and backward "
+          f"{compile_s:.1f} s) {t_lib:.4f} ms, max |flex - kernel| {flex_err:.3e}")
+    del o, leaves
+    torch.cuda.empty_cache()
+    return row
+
+
+def flash_bwd_timing(torch, kf):
+    """``time_flash_bwd`` at gemma2-2b's scoring shape, its full context of
+    8192, for a local layer (window 4096) and a global one: the shape the
+    kernel check holds it at, beside the train path's own in
+    ``check_flash_bwd_on_path``."""
+    B, S_, H, K, D = FLASH_SCORING
+    q, k, v, do = flash_bwd_inputs(torch, B, S_, S_, H, K, D, torch.bfloat16, seed=4)
+    for window in (GEMMA_WINDOW, 0):
+        time_flash_bwd(torch, kf, "at gemma2-2b's full context", q, k, v, do, window)
 
 
 def select_timing_only(torch, src: Path) -> int:
@@ -2823,7 +3351,7 @@ def main() -> int:
     print(f"nvidia-smi: {card}")
 
     t0 = time.perf_counter()
-    libs = build.build_all([kq.SOURCE, kt.SOURCE, ks.SOURCE, kf.SOURCE])
+    libs = build.build_all([kq.SOURCE, kt.SOURCE, ks.SOURCE, kf.SOURCE, kf.BWD_SOURCE])
     for mod in (kq, kt, ks, kf):
         mod.load_library()
     print(f"build: {', '.join(str(p.relative_to(ROOT)) for p in libs.values())} in {time.perf_counter() - t0:.2f} s")
@@ -2833,6 +3361,7 @@ def main() -> int:
     errs.update(new_kernel_phase(torch, kq, kt))
     errs["ssd_scan"] = ssd_kernel_phase(torch, ks)
     errs["flash_attention"] = flash_kernel_phase(torch, kf)
+    errs["flash_attention_backward"] = flash_bwd_phase(torch, kf)
     grad_guard_phase(torch, kf, ks)
     stamp("kernels phase")
     reference_phase(torch)
@@ -2843,6 +3372,7 @@ def main() -> int:
     determinism_phase(torch, mods)
     reference_lm_phase(torch, "mamba2-370m", 40, SSD_FLAGS)
     reference_lm_phase(torch, "gemma2-2b", 160, {})  # 160 > the window of 64
+    reference_train_phase(torch)
     stamp("reference phase")
 
     total = dict.fromkeys(KERNELS, 0)
@@ -2868,13 +3398,13 @@ def main() -> int:
     for counts in (lm_counts, gemma_counts):
         for name, count in counts.items():
             total[name] += count
-    require(all(total.values()), f"a kernel was never launched on the main path: {total}")
 
     times = timing_phase(torch, kq, kt)
     times.update(select_timing(torch, kt))
     scatter_timing(torch, kt)
     times.update(ssd_timing(torch, ks))
     times.update(flash_timing(torch, kf))
+    flash_bwd_timing(torch, kf)
     estimator_timing(torch)
     bank_grad_timing(torch)
     stamp("timing phase")
@@ -2885,6 +3415,21 @@ def main() -> int:
     profile_phase(torch, "gemma2-2b", *gemma_run, {},
                   {f"wgmma<{gemma_cfg.resolved_head_dim}>": gemma_cfg.num_layers})
     stamp("profile phase")
+    del lm_run, gemma_run  # the serving models: the train paths need the card's memory
+    release(torch)
+    train_counts, (train_cfg, peers, seq) = drive_train(
+        torch, mods, "gemma2-2b", {"flash_attention": 1, "flash_attention_backward": 1})
+    release(torch)
+    path_err, times["flash_attention_backward"] = check_flash_bwd_on_path(torch, mods, train_cfg,
+                                                                          peers, seq)
+    errs["flash_attention_backward"] = max(errs["flash_attention_backward"], path_err)
+    stamp("gemma2-2b train path")
+    release(torch)
+    drive_mamba_train(torch, mods)
+    stamp("mamba2-370m train path")
+    for name, count in train_counts.items():
+        total[name] += count
+    require(all(total.values()), f"a kernel was never launched on the main path: {total}")
     kernels = [
         {
             "name": name,

@@ -18,6 +18,9 @@ digest. The checks over a trace:
 * ``RT004`` **unseeded-engine** (error) — an engine joined the trace
   without announcing a seeded RNG.
 
+:func:`trace_pass` runs each seeded scenario twice and diffs the runs
+(the reference's ``trace_pass``), on the device the caller names.
+
 Digests are sha256 over the canonical event tuples, so "identical trace"
 means identical event kinds, orders, times, and payload metadata — not
 just identical final metrics.
@@ -117,7 +120,7 @@ def check_trace(
 
 
 def diff_runs(
-    scenario: str, run: Callable[[TraceRecorder], None]
+    scenario: str, run: Callable[[TraceRecorder], Any]
 ) -> Tuple[List[Finding], TraceRecorder]:
     """Run ``run(tracer)`` twice with fresh recorders; RT003 on divergence.
 
@@ -182,3 +185,29 @@ def _run_cluster(tracer: TraceRecorder, *, device: Any = "cuda", init_params=Non
     for epoch in range(2):
         cluster.run_epoch_async(epoch)
     return cluster
+
+
+def trace_pass(*, deep: bool = True, device: Any = "cuda") -> Tuple[List[Finding], int]:
+    """The reference's trace pass: run each scenario twice with fresh
+    recorders (RT003 on diverging digests) and check the first run's trace
+    (RT001, RT004; RT002 ties are by design and left out). Returns
+    ``(findings, scenarios_run)``.
+
+    The serverless fan-out is numpy only and always runs; ``deep`` adds the
+    async churned cluster, which trains on ``device`` (the card by default;
+    without one it raises unless the caller passes ``device="cpu"``)."""
+    scenarios: List[Tuple[str, Callable[[TraceRecorder], Any]]] = [
+        ("serverless-fanout-faulty", _run_serverless),
+    ]
+    if deep:
+        scenarios.append(("p2p-cluster-async-churn",
+                          lambda tracer: _run_cluster(tracer, device=device)))
+    findings: List[Finding] = []
+    for name, run in scenarios:
+        diff_findings, recorder = diff_runs(name, run)
+        findings.extend(diff_findings)
+        findings.extend(
+            f for f in check_trace(recorder.events, label=f"<trace:{name}>")
+            if f.severity != "info"
+        )
+    return findings, len(scenarios)

@@ -14,9 +14,10 @@ port side is ``{name: tensor}`` keyed by ``nn.Module`` parameter names
 The CNNs' only 4-d leaves are convolution kernels and their only 2-d
 leaves are linear weights, so the rank of a leaf picks its mapping.
 
-The LM (:func:`lm_from_jax` / :func:`lm_to_jax`) is mapped by name, not
-rank: the reference stacks each period slot's layers on a leading axis
-(``stack/j/mixer/in_proj`` is (n_groups, din, dout)), its convolution
+The LM (:func:`lm_from_jax` / :func:`lm_to_jax`, and its optimizer
+moments through :func:`opt_state_from_jax` with the LM's config) is mapped
+by name, not rank: the reference stacks each period slot's layers on a
+leading axis (``stack/j/mixer/in_proj`` is (n_groups, din, dout)), its convolution
 weight ``conv_w`` is (K, C) and ``embed`` is (V_pad, d). Group g of slot j
 is the port's layer ``g * period + j`` and ``tail/r`` its layer
 ``n_groups * period + r``; ``in_proj``, ``out_proj``, the attention's
@@ -32,7 +33,7 @@ format visits leaves.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Mapping, Union
+from typing import Dict, Iterable, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -96,19 +97,27 @@ def to_jax(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     }
 
 
-def opt_state_from_jax(flat: Mapping[str, np.ndarray], *, device):
+def opt_state_from_jax(flat: Mapping[str, np.ndarray], *, device,
+                       cfg: Optional[ModelConfig] = None):
     """A reference optimizer state, flattened as ``train/checkpoint.py:
     _flatten`` flattens it -> the port's: ``{}`` for plain SGD, the momentum
     dict for SGD with momentum, ``{"mu", "nu", "t"}`` for Adam(W). Each
-    moment leaf takes its parameter's layout mapping."""
+    moment leaf takes its parameter's layout mapping: by rank for a CNN,
+    or, with the LM's ``cfg``, by name as :func:`lm_from_jax` maps the
+    params (so a reference LM train state, params and moments, starts the
+    port's step)."""
+    if cfg is None:
+        leaves = lambda sub: from_jax(sub, device=device)
+    else:
+        leaves = lambda sub: lm_from_jax(sub, cfg, device=device)
     if "t" in flat:
         sub = lambda pre: {p[len(pre):]: a for p, a in flat.items() if p.startswith(pre)}
         return {
-            "mu": from_jax(sub("mu/"), device=device),
-            "nu": from_jax(sub("nu/"), device=device),
+            "mu": leaves(sub("mu/")),
+            "nu": leaves(sub("nu/")),
             "t": torch.tensor(int(np.asarray(flat["t"])), dtype=torch.int32, device=device),
         }
-    return from_jax(flat, device=device)
+    return leaves(flat)
 
 
 def opt_state_to_jax(state) -> Dict[str, np.ndarray]:

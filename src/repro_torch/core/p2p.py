@@ -296,6 +296,54 @@ def _check_banks(params, opt_state, num_peers: int, banked: bool) -> None:
             raise ValueError(f"a PeerBank of {d.num_peers} rows for a {num_peers}-peer step")
 
 
+def _merge_leaf_states(template, names, parts):
+    """One optimizer state from ``parts``, ``[(leaf name, that leaf's new
+    state)]``, laid out as ``template``: each params-shaped dict gathers its
+    leaves from the parts, a shared leaf (Adam's step count, the same in
+    every part) comes from the last part."""
+    if not isinstance(template, Mapping):
+        return parts[-1][1] if parts else template
+    if set(template) == names:
+        return {k: part[k] for k, part in parts}
+    return {key: _merge_leaf_states(template[key], names, [(k, part[key]) for k, part in parts])
+            for key in template}
+
+
+def _donate_into(old, new, name):
+    """``new`` (one leaf's new optimizer state) with each of its
+    params-shaped ``{name: tensor}`` dicts written into the tensor at the
+    same place in ``old`` and holding that tensor; shared leaves (Adam's
+    step count) are left as they are."""
+    if not isinstance(new, Mapping):
+        return new
+    if set(new) == {name} and torch.is_tensor(new[name]):
+        return {name: old[name].copy_(new[name])}
+    return {key: _donate_into(old[key], val, name) for key, val in new.items()}
+
+
+def _update_by_leaf(optimizer: Optimizer, grads, opt_state, params, lr, donate: bool = False):
+    """``optimizer.update`` and ``apply_updates`` one leaf at a time ->
+    (new params, new optimizer state). Each gradient leaf is popped from
+    ``grads`` (the caller's dict, emptied) as it is used, so besides the
+    state at most one leaf's gradient, update and moments are alive. The
+    optimizers are leafwise, so the arithmetic is that of one call over
+    the dict, bit for bit. ``donate``: each leaf's new param and moments
+    are written into the old tensors (the old state is consumed), so the
+    new state takes no memory beside the old one."""
+    names = set(params)
+    new_params, parts = {}, []
+    for k in list(grads):
+        one = {k: grads.pop(k)}
+        sub = _map_leaf_dicts(opt_state, names, lambda d, k=k: {k: d[k]})
+        updates, part = optimizer.update(one, sub, {k: params[k]}, lr)
+        new = apply_updates({k: params[k]}, updates)[k]
+        if donate:
+            new, part = params[k].copy_(new), _donate_into(sub, part, k)
+        new_params[k] = new
+        parts.append((k, part))
+    return new_params, _merge_leaf_states(opt_state, names, parts)
+
+
 def exchange_gradients(grads, topo: Topology, generator=None, mailbox=None, *,
                        num_peers: Optional[int] = None):
     """``{name: (P, *shape)}`` bank -> (every peer's mixed gradient, new
@@ -324,6 +372,7 @@ def build_p2p_train_step(
     schedule: Callable[[int], float],
     *,
     adversary: Optional[R.AdversarySpec] = None,
+    donate: bool = False,
     device: Any = "cuda",
 ):
     """Returns ``step(train_state, batch) -> (train_state, metrics)``.
@@ -348,6 +397,12 @@ def build_p2p_train_step(
     peer steps its own row with its own mix; a single copy raises
     ``ValueError``, as a ``PeerBank`` does on the full graph's sync step.
     ``async`` needs the state's mailbox (:func:`init_mailbox`).
+
+    ``donate=True`` consumes the state, as JAX's ``donate_argnums`` does:
+    the step writes the new params and optimizer moments into the state's
+    own tensors, so that a caller holding the old state sees the new
+    values. At an LM's full width the functional update's new state beside
+    the old one does not fit one card (gemma2-2b: 31 GB each).
 
     Runs on ``device``, by default ``"cuda"``; without a card it raises
     unless the caller passes ``device="cpu"``. The state's params must lie
@@ -439,15 +494,17 @@ def build_p2p_train_step(
                     corrected, ctx, generator=state.key, state=state.mailbox
                 )
                 ef = {k: c - local[k].to(torch.float32) for k, c in corrected.items()}
+                del corrected, local
             else:
                 avg, mailbox = protocol.combine(
                     grads, ctx, generator=state.key, state=state.mailbox
                 )
+            del grads  # the bank, P copies of the params' size, before the update's copies
             if not banked:  # full graph: every row of the bank is the same mix
                 avg = {k: v[0] for k, v in avg.items()}
             lr = schedule(state.step)
-            updates, opt_state = optimizer.update(avg, state.opt_state, state.params, lr)
-            params = apply_updates(state.params, updates)
+            params, opt_state = _update_by_leaf(optimizer, avg, state.opt_state, state.params, lr,
+                                                donate)
         if banked:
             names = set(params)
             params = PeerBank(params)

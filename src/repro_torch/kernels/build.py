@@ -126,15 +126,18 @@ def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> N
 
 
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
-    """Raise before a launch whose output would cut the autograd graph: the
-    LM kernels have no backward kernel yet, and their wrappers fill a fresh
-    buffer. Under ``torch.no_grad()`` or ``torch.inference_mode()``, or with
-    no input that requires grad, nothing is refused."""
+    """Raise before a launch whose output would cut the autograd graph: a
+    kernel without a backward (the SSD scan's, as the reference's Pallas
+    scan has no gradient either) fills a fresh buffer. Under
+    ``torch.no_grad()`` or ``torch.inference_mode()``, or with no input that
+    requires grad, nothing is refused."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{name} has no backward kernel on CUDA yet (ROADMAP Queue 1 item 16, LM "
-            "training); call it under torch.inference_mode() or torch.no_grad(), or on "
-            "CPU tensors, where its plain version differentiates"
+            f"{name} has no backward kernel on CUDA: the reference's Pallas kernel has no "
+            "gradient either (ROADMAP reference behaviour 18), and its lm_loss trains through "
+            "the chunked scan (use_ssd_kernel=False); call the kernel under "
+            "torch.inference_mode() or torch.no_grad(), or on CPU tensors, where its plain "
+            "version differentiates"
         )
 
 

@@ -1,13 +1,18 @@
-"""Flash attention (forward): a CUDA kernel for Hopper beside its plain
-PyTorch version, and the port's one plain attention, ``attend``.
+"""Flash attention: CUDA kernels for Hopper (forward and backward) beside
+their plain PyTorch versions, and the port's one plain attention, ``attend``.
 
-Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py:flash_attention``
-(``_flash_kernel``). The CUDA source is ``csrc/flash_attention.cu``; its
-header says what bounds the kernel on the card and how it tiles. It has one
-body for each input type: f32 runs on the CUDA cores, bf16 on the tensor
-cores (``wgmma`` on tiles that the Tensor Memory Accelerator loads).
+The forward replaces the Pallas TPU kernel
+``repro/kernels/flash_attention.py:flash_attention`` (``_flash_kernel``).
+Its CUDA source is ``csrc/flash_attention.cu``; its header says what bounds
+the kernel on the card and how it tiles. It has one body for each input
+type: f32 runs on the CUDA cores, bf16 on the tensor cores (``wgmma`` on
+tiles that the Tensor Memory Accelerator loads). The backward,
+``csrc/flash_attention_bwd.cu``, stands for the reference's ``jax.grad``
+of the same function (its models differentiate ``attend``; the Pallas
+kernel has no backward): dq, dk and dv in three launches, f32 sums on the
+CUDA cores for f32 and bf16 inputs alike.
 
-The kernel's function, for query i and key j with positions counted from
+The kernels' function, for query i and key j with positions counted from
 0 on both sides (also when Sq != Skv), query head h reading KV head
 h // (H / K):
 
@@ -20,14 +25,19 @@ Without ``causal`` the window is ignored, as the Pallas kernel ignores it
 (``attend`` bounds |i - j| there; ``flash_attention_plain`` therefore
 passes it no window).
 
+``flash_attention`` is a ``torch.autograd.Function`` (:class:`FlashAttentionFn`)
+that works under ``torch.func`` transforms: its ``vmap`` rule folds a
+vmapped dimension (the P2P step's peers) into the batch, so each launch
+sees plain tensors. On CPU tensors its forward is ``flash_attention_plain``
+and its backward ``flash_attention_backward_plain``; on CUDA tensors both
+are the kernels, or raise: there is no fallback.
+
 ``attend`` is the port's copy of the reference's ``models/layers.py:attend``
 (masks from positions, ``finfo(f32).min`` as the mask value, a direct
 softmax up to 1024 keys, an online softmax over blocks of 1024 beyond).
 The models' decode calls it over the KV cache; ``flash_attention_plain``
-calls it with ``arange`` positions. A wrapper takes its plain version only for a
-tensor on the CPU. For a CUDA tensor it launches the kernel, or raises:
-there is no fallback. The wrapper counts its kernel launches in its
-``launches`` attribute.
+calls it with ``arange`` positions. Each wrapper counts its kernel
+launches in its ``launches`` attribute.
 """
 from __future__ import annotations
 
@@ -41,6 +51,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 
 SOURCE = "flash_attention.cu"
+BWD_SOURCE = "flash_attention_bwd.cu"
 MAX_HEADDIM = 256  # what the kernel's shared-memory tiling takes (csrc/flash_attention.cu)
 TMA_ALIGN = 16  # bytes: the bf16 body's TMA descriptors need this of base address and strides
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -72,7 +83,7 @@ def attend(
     if H % K:
         raise ValueError(f"the {K} KV heads must divide the {H} query heads")
     G = H // K
-    f32 = torch.float32
+    f32 = torch.promote_types(q.dtype, torch.float32)  # f32, or f64 for a gradient check
     qf = q.reshape(B, Sq, K, G, D).to(f32) / math.sqrt(D)
     mask_value = torch.finfo(f32).min
 
@@ -131,6 +142,57 @@ def flash_attention_plain(
     )
 
 
+def flash_attention_backward_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, *,
+    causal: bool = True, softcap: float = 0.0, window: int = 0,
+):
+    """Plain PyTorch backward of the kernels' function -> (dq, dk, dv) in
+    the dtypes of q, k and v: the formula the backward kernel computes,
+    step by step in f32 (f64 for f64 inputs) over the whole (Sq, Skv)
+    score matrix.
+
+        u_ij  = (q_i / sqrt(D)) . k_j,  t_ij = tanh(u_ij / softcap)
+        s_ij  = softcap * t_ij  (u_ij without softcap), masked as the forward
+        p_ij  = exp(s_ij - lse_i) on the valid j, else 0
+        dv_j  = sum_i p_ij do_i               dp_ij = do_i . v_j
+        ds_ij = p_ij (dp_ij - delta_i),       delta_i = do_i . o_i, o_i = sum_j p_ij v_j
+        du_ij = ds_ij (1 - t_ij^2)            (ds_ij without softcap)
+        dq_i  = sum_j du_ij k_j / sqrt(D)     dk_j = sum_i du_ij q_i / sqrt(D)
+
+    dk and dv sum over the H / K query heads of each KV group. A query row
+    with no valid key gets zero gradient, as the kernel's forward gives it
+    a zero output."""
+    B, Sq, H, D = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    G = H // K
+    f32 = torch.promote_types(q.dtype, torch.float32)  # f32, or f64 for a gradient check
+    scale = 1.0 / math.sqrt(D)
+    qf = q.reshape(B, Sq, K, G, D).to(f32)
+    kf, vf = k.to(f32), v.to(f32)
+    dof = do.reshape(B, Sq, K, G, D).to(f32)
+    u = torch.einsum("bqkgd,bskd->bkgqs", qf * scale, kf)
+    t = torch.tanh(u / softcap) if softcap else None
+    s = softcap * t if softcap else u
+    i = torch.arange(Sq, device=q.device)[:, None]
+    j = torch.arange(Skv, device=q.device)[None, :]
+    valid = (i - j >= 0) & ((i - j < window) if window else True) if causal else (j >= 0)
+    s = torch.where(valid, s, -math.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, 0.0)  # a row with no valid key
+    e = torch.where(valid, torch.exp(s - m), 0.0)
+    p = e / torch.clamp_min(e.sum(dim=-1, keepdim=True), 1e-30)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, vf)
+    delta = torch.einsum("bqkgd,bqkgd->bkgq", dof, o)[..., None]
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
+    du = p * (dp - delta)
+    if softcap:
+        du = du * (1.0 - t * t)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", du, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", du, qf) * scale
+    return dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
@@ -148,9 +210,31 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load(BWD_SOURCE)
+    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.flash_attention_backward_launch.argtypes = [
+        ptr, ptr, ptr, ptr,  # q, k, v, do
+        ptr, ptr, ptr,  # dq, dk, dv
+        ptr, ptr,  # scratch: lse, delta (batch, heads, Sq) f32
+        i32, i32, i32, i32, i32, i32, i32,  # batch, Sq, Skv, heads, kv heads, headdim, bf16
+        i64, i64, i64,  # q strides (batch, seq, head)
+        i64, i64, i64,  # k strides
+        i64, i64, i64,  # v strides
+        i64, i64, i64,  # do strides
+        f32, f32, i32, i32,  # scale, softcap, causal, window
+        ptr,  # stream
+    ]
+    lib.flash_attention_backward_launch.restype = ctypes.c_int
+    return lib
+
+
 def load_library() -> None:
-    """Build and load the kernel ahead of its first launch."""
+    """Build and load the forward and backward kernels ahead of their
+    first launch."""
     _lib()
+    _bwd_lib()
 
 
 def _check(q, k, v, window: int) -> None:
@@ -174,6 +258,16 @@ def _check(q, k, v, window: int) -> None:
         raise ValueError("q, k and v must lie on one device")
 
 
+def _check_launch(D: int, *tensors) -> None:
+    """What both CUDA kernels need beyond ``_check``: a headdim that is a
+    multiple of 32 up to 256 and a contiguous last dimension."""
+    if D % 32 or D > MAX_HEADDIM:
+        raise ValueError(f"the flash kernels take a headdim that is a multiple of 32 up to "
+                         f"{MAX_HEADDIM}, got {D}")
+    if not all(t.stride(-1) == 1 for t in tensors):
+        raise ValueError("the flash kernels' inputs must be contiguous in their last dimension")
+
+
 def _check_tma(q, k, v) -> None:
     """The bf16 body reads q, k and v through TMA descriptors: each base
     address, and the stride of each dimension longer than 1, must be a
@@ -191,43 +285,15 @@ def _check_tma(q, k, v) -> None:
                                  f"got {step} bytes")
 
 
-def flash_attention(
-    q: torch.Tensor,  # (B, Sq, H, D) f32 or bf16
-    k: torch.Tensor,  # (B, Skv, K, D), q's dtype
-    v: torch.Tensor,  # (B, Skv, K, D), q's dtype
-    *,
-    causal: bool = True,
-    softcap: float = 0.0,
-    window: int = 0,
-) -> torch.Tensor:
-    """Flash attention forward -> (B, Sq, H, D) in q's dtype. The inputs may
-    be strided views as long as their last dimension is contiguous (in
-    bf16 also with base addresses and strides on 16-byte boundaries, for
-    the TMA loads); the kernel masks the ragged last tiles, where the TPU
-    wrapper pads. The block sizes are the kernel's own: 64 queries by 64
-    keys in f32, 128 queries by 64 keys in bf16.
-
-    A query row with no valid key (only when causal with a window and
-    Sq > Skv + window - 1, never on a model path) gets 0 from the kernel;
-    the plain version gives it ``attend``'s uniform weights over the masked
-    keys, and the Pallas kernel weight 1 on its first fully masked block.
-    Such rows are outside the parity contract (ROADMAP.md, Queue 3).
-
-    On CUDA tensors there is no backward yet: with grad mode on and an
-    input that requires grad it raises ``RuntimeError`` before any launch
-    (``build.refuse_grad``); the CPU route differentiates."""
-    _check(q, k, v, window)
+def _forward(q, k, v, causal: bool, softcap: float, window: int) -> torch.Tensor:
+    """The forward on plain tensors: the plain version on the CPU, the
+    kernel on CUDA."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, softcap=softcap, window=window)
-    build.refuse_grad("flash_attention", q, k, v)
     stream = build.cuda_stream(q.device)
     B, Sq, H, D = q.shape
     Skv, K = k.shape[1], k.shape[2]
-    if D % 32 or D > MAX_HEADDIM:
-        raise ValueError(f"the flash kernel takes a headdim that is a multiple of 32 up to "
-                         f"{MAX_HEADDIM}, got {D}")
-    if not all(t.stride(-1) == 1 for t in (q, k, v)):
-        raise ValueError("q, k and v must be contiguous in their last dimension")
+    _check_launch(D, q, k, v)
     if q.dtype == torch.bfloat16:
         _check_tma(q, k, v)
     o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
@@ -246,4 +312,143 @@ def flash_attention(
     return o
 
 
+def _fold(info, in_dims, tensors):
+    """Tensors under ``vmap`` -> plain tensors with the vmapped dimension
+    folded into the batch (an unbatched one expanded to it)."""
+    out = []
+    for t, d in zip(tensors, in_dims):
+        t = t.expand(info.batch_size, *t.shape) if d is None else t.movedim(d, 0)
+        out.append(t.reshape(-1, *t.shape[2:]))
+    return out
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with its backward, in the ``setup_context`` form
+    that ``torch.func`` transforms take. It saves q, k and v (not o: the
+    backward recomputes what it needs). Its ``vmap`` rule folds the vmapped
+    dimension into the batch: a kernel that reads ``data_ptr()`` cannot see
+    a batched tensor, so ``generate_vmap_rule`` would not do."""
+
+    @staticmethod
+    def forward(q, k, v, causal, softcap, window):
+        return _forward(q, k, v, causal, softcap, window)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, softcap, window = inputs
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = (causal, softcap, window)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = FlashAttentionBackwardFn.apply(q, k, v, do, *ctx.opts)
+        return dq, dk, dv, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, softcap, window):
+        o = FlashAttentionFn.apply(*_fold(info, in_dims[:3], (q, k, v)), causal, softcap, window)
+        return o.unflatten(0, (info.batch_size, -1)), 0
+
+
+class FlashAttentionBackwardFn(torch.autograd.Function):
+    """The backward as a function of (q, k, v, do), so that it too runs
+    under ``vmap`` with the vmapped dimension folded into the batch. It has
+    no backward of its own: a second derivative raises."""
+
+    @staticmethod
+    def forward(q, k, v, do, causal, softcap, window):
+        return _backward(q, k, v, do, causal, softcap, window)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("flash_attention has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, do, causal, softcap, window):
+        grads = FlashAttentionBackwardFn.apply(*_fold(info, in_dims[:4], (q, k, v, do)),
+                                               causal, softcap, window)
+        return tuple(g.unflatten(0, (info.batch_size, -1)) for g in grads), (0, 0, 0)
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Sq, H, D) f32 or bf16
+    k: torch.Tensor,  # (B, Skv, K, D), q's dtype
+    v: torch.Tensor,  # (B, Skv, K, D), q's dtype
+    *,
+    causal: bool = True,
+    softcap: float = 0.0,
+    window: int = 0,
+) -> torch.Tensor:
+    """Flash attention -> (B, Sq, H, D) in q's dtype, differentiable
+    (:class:`FlashAttentionFn`). The inputs may be strided views as long as
+    their last dimension is contiguous (in bf16 also with base addresses
+    and strides on 16-byte boundaries, for the TMA loads); the kernel masks
+    the ragged last tiles, where the TPU wrapper pads. The block sizes are
+    the kernel's own: 64 queries by 64 keys in f32, 128 queries by 64 keys
+    in bf16.
+
+    A query row with no valid key (only when causal with a window and
+    Sq > Skv + window - 1, never on a model path) gets 0 from the kernel
+    and zero gradient from both backwards; the plain forward gives it
+    ``attend``'s uniform weights over the masked keys, and the Pallas
+    kernel weight 1 on its first fully masked block. Such rows are outside
+    the parity contract (ROADMAP.md, Queue 3)."""
+    _check(q, k, v, window)
+    return FlashAttentionFn.apply(q, k, v, bool(causal), float(softcap), int(window))
+
+
 flash_attention.launches = 0
+
+
+def flash_attention_backward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, *,
+    causal: bool = True, softcap: float = 0.0, window: int = 0,
+):
+    """Backward of ``flash_attention`` at (q, k, v) for the output's
+    cotangent ``do`` (q's shape and dtype) -> (dq, dk, dv) in the inputs'
+    dtype. On CPU tensors: ``flash_attention_backward_plain``. On CUDA: the
+    kernel, three launches counted as one (row statistics, dq, dk and dv),
+    with f32 scratch of 8 B H Sq bytes; a build or launch failure raises."""
+    _check(q, k, v, window)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"do must have q's shape {tuple(q.shape)}, dtype {q.dtype} and device, "
+                         f"got {tuple(do.shape)} {do.dtype} on {do.device}")
+    return _backward(q, k, v, do, causal, softcap, window)
+
+
+flash_attention_backward.launches = 0
+
+
+def _backward(q, k, v, do, causal: bool, softcap: float, window: int):
+    """The backward on plain tensors: the plain version on the CPU, the
+    kernel on CUDA."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, do, causal=causal, softcap=softcap,
+                                              window=window)
+    stream = build.cuda_stream(q.device)
+    B, Sq, H, D = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    _check_launch(D, q, k, v, do)
+    dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Skv, K, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    stats = torch.empty((2, B, H, Sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _bwd_lib().flash_attention_backward_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+            B, Sq, Skv, H, K, D, _DTYPES[q.dtype],
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+            1.0 / math.sqrt(D), float(softcap), int(causal), int(window), stream,
+        )
+    if err:
+        raise RuntimeError(f"flash_attention_backward kernel launch failed: cudaError {err}")
+    flash_attention_backward.launches += 1
+    return dq, dk, dv

@@ -225,9 +225,11 @@ def ssd_scan(
     a scratch of the chunk states, (B, chunks, H, P, N) in f32 and the same
     again as bf16 hi and lo halves), f32 inputs the CUDA-core body;
     ``launches`` counts one per call either way. On CUDA
-    tensors there is no backward yet: with grad mode on and an input that
-    requires grad it raises ``RuntimeError`` before any launch
-    (``build.refuse_grad``); the CPU route differentiates."""
+    tensors there is no backward, as the reference's Pallas scan has no
+    gradient (ROADMAP reference behaviour 18; LM training takes the chunked
+    scan): with grad mode on and an input that requires grad it raises
+    ``RuntimeError`` before any launch (``build.refuse_grad``); the CPU
+    route differentiates."""
     _check(x, dt, A, Bm, Cm, chunk)
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)

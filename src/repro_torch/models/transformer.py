@@ -124,6 +124,11 @@ class LM(nn.Module):
             logits = logits[..., : cfg.vocab_size]
         return softcap(logits.to(torch.float32), cfg.final_logit_softcap)
 
+    def forward(self, tokens: torch.Tensor, cfg: ModelConfig, *, use_ssd_kernel: bool = False):
+        """``lm_forward``: what ``torch.func.functional_call`` runs (the
+        train step calls the module with the state's params)."""
+        return lm_forward(self, tokens, cfg, use_ssd_kernel=use_ssd_kernel)
+
     def run(self, x, cfg, *, positions, caches: Optional[List] = None, cache_pos=None,
             use_ssd_kernel: bool = False):
         new_caches = []

@@ -127,17 +127,24 @@ def test_wrapper_takes_the_plain_version_on_the_cpu_and_counts_no_launch():
 
 
 def test_cpu_route_differentiates_like_the_plain_function():
-    """On CPU tensors the wrapper is the plain version, autograd included:
-    its gradients are those of ``flash_attention_plain``."""
+    """On CPU tensors the wrapper's forward is the plain version and its
+    backward the plain backward (``flash_attention_backward_plain``, the
+    backward kernel's formula), bit for bit; its gradients are autograd's
+    of ``flash_attention_plain`` within 2e-6 of their largest magnitude
+    (the two formulas sum in other orders)."""
     arrays = _inputs(1, 40, 40, 4, 2, 32, seed=4)
     grads = []
     for fn in (K.flash_attention, K.flash_attention_plain):
         q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in arrays)
         out = fn(q, k, v, softcap=20.0, window=16)
-        (out * torch.linspace(-1.0, 1.0, out.numel()).view(out.shape)).sum().backward()
+        do = torch.linspace(-1.0, 1.0, out.numel()).view(out.shape)
+        (out * do).sum().backward()
         grads.append([t.grad for t in (q, k, v)])
-    for got, want in zip(*grads):
-        assert got is not None and torch.equal(got, want)
+    plain = K.flash_attention_backward_plain(*map(torch.from_numpy, arrays), do, softcap=20.0,
+                                             window=16)
+    for got, want, formula in zip(*grads, plain):
+        assert got is not None and torch.equal(got, formula)
+        assert float((got - want).abs().max()) <= 2e-6 * float(want.abs().max())
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
@@ -168,20 +175,23 @@ def cuda():
 
 
 @pytest.mark.parametrize("needs_grad", ["q", "k", "v"])
-def test_cuda_wrapper_refuses_grad_mode_before_launching(cuda, needs_grad):
-    """No backward kernel yet (ROADMAP Queue 1 item 16): with grad mode on
-    and an input requiring grad the wrapper raises before any launch; under
-    inference_mode the same call launches."""
+def test_cuda_wrapper_differentiates_through_the_backward_kernel(cuda, needs_grad):
+    """With grad mode on and an input requiring grad, the CUDA wrapper runs
+    one forward launch, and the backward one launch of the backward kernel
+    (never the plain backward); the gradient is within 2e-5 + 2e-4 |g| of
+    the plain version's in f32."""
     q, k, v = (torch.from_numpy(a).cuda() for a in _inputs(1, 64, 64, 4, 2, 32, seed=6))
     args = {"q": q, "k": k, "v": v}
     args[needs_grad] = args[needs_grad].requires_grad_(True)
-    before = K.flash_attention.launches
-    with pytest.raises(RuntimeError, match="Queue 1 item 16"):
-        K.flash_attention(**args)
-    assert K.flash_attention.launches == before
-    with torch.inference_mode():
-        out = K.flash_attention(**args)
-    assert K.flash_attention.launches == before + 1 and bool(torch.isfinite(out).all())
+    do = torch.randn_like(q)
+    before = (K.flash_attention.launches, K.flash_attention_backward.launches)
+    out = K.flash_attention(**args, softcap=5.0, window=20)
+    (got,) = torch.autograd.grad(out, (args[needs_grad],), do)
+    torch.cuda.synchronize()
+    assert (K.flash_attention.launches, K.flash_attention_backward.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = K.flash_attention_backward_plain(q, k, v, do, softcap=5.0, window=20)["qkv".index(needs_grad)]
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), atol=2e-5, rtol=2e-4)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

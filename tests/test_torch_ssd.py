@@ -296,6 +296,20 @@ def test_wrapper_refuses_what_the_scan_does_not_take():
         K.ssd_scan(*meta, chunk=16)
 
 
+def test_reference_pallas_scan_has_no_gradient():
+    """Reference behaviour 18 (ROADMAP): ``jax.grad`` through the reference's
+    ``kernels.ops.ssd_scan`` (the Pallas scan, here in interpret mode) fails
+    in Pallas's JVP rule, so the reference trains Mamba-2 through
+    ``ssd_chunked`` (its ``lm_loss`` defaults to ``use_ssd_kernel=False``),
+    and the port's scan kernel has no backward either; its CPU route
+    differentiates (``test_cpu_route_differentiates_like_the_plain_function``)."""
+    from repro.kernels import ops
+
+    x, dt, A, Bm, Cm = (jnp.asarray(a) for a in _inputs(1, 16, 2, 8, 1, 8, seed=9))
+    with pytest.raises(AssertionError):
+        jax.grad(lambda x: ops.ssd_scan(x, dt, A, Bm, Cm, chunk=8)[0].sum())(x)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -304,13 +318,14 @@ def cuda():
 
 @pytest.mark.parametrize("needs_grad", range(5))
 def test_cuda_wrapper_refuses_grad_mode_before_launching(cuda, needs_grad):
-    """No backward kernel yet (ROADMAP Queue 1 item 16): with grad mode on
-    and any of x, dt, A, B, C requiring grad the wrapper raises before any
-    launch; under inference_mode the same call launches."""
+    """No backward kernel, as the reference's Pallas scan has no gradient
+    (ROADMAP reference behaviour 18): with grad mode on and any of x, dt,
+    A, B, C requiring grad the wrapper raises before any launch; under
+    inference_mode the same call launches."""
     args = [t.cuda() for t in _torch(*_inputs(1, 64, 4, 32, 1, 16, seed=8))]
     args[needs_grad].requires_grad_(True)
     before = K.ssd_scan.launches
-    with pytest.raises(RuntimeError, match="Queue 1 item 16"):
+    with pytest.raises(RuntimeError, match="reference behaviour 18"):
         K.ssd_scan(*args, chunk=32)
     assert K.ssd_scan.launches == before
     with torch.inference_mode():
