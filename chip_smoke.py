@@ -44,16 +44,22 @@ failure):
              also Sq 200 with a window of 40, D 96, 160, 192 and 224, and q,
              k, v as strided views of one fused projection. The flash
              backward kernel against autograd of the plain version in f32,
-             in f32 and bf16: gemma2-2b's heads at S = 8192 with softcap
-             50, global and windowed (4096), where planted faults (a
-             dropped softcap derivative, an ignored window, a skipped key
-             tile) must fall outside the limit; qwen2.5-3b's heads (16 over
-             2, D 128) at a ragged S = 1000; Sq 300 against Skv 500 without
-             causal masking; D 32 and 64. With an input requiring grad the
-             flash wrapper launches its forward and backward kernels once
-             each; the SSD wrapper, which has no backward (reference
-             behaviour 18), refuses grad mode with no launch, and launches
-             under ``torch.inference_mode()``.
+             in f32 (the CUDA-core body) and bf16 (the tensor-core body):
+             gemma2-2b's heads at S = 8192 with softcap 50, global and
+             windowed (4096), where planted faults (a dropped softcap
+             derivative, an ignored window, a skipped key tile) must fall
+             outside the limit, and at a ragged S = 1000 with a window of
+             300; qwen2.5-3b's heads (16 over 2, D 128) at a ragged S =
+             1000; Sq 300 against Skv 500 without causal masking; D 32 and
+             64; in bf16 also D 96, 160, 192 and 224. In bf16 a second call
+             must give the same bits, and the forward's saved lse and o in
+             f32 must match the plain twin; ptxas's registers and spills of
+             every backward instance are printed at the build, and the
+             tensor-core instances must spill nothing. With an input
+             requiring grad the flash wrapper launches its forward and
+             backward kernels once each; the SSD wrapper, which has no
+             backward (reference behaviour 18), refuses grad mode with no
+             launch, and launches under ``torch.inference_mode()``.
 3. reference — small runs on the card against the same runs on the CPU
              (plain versions), same init and uniforms: a 4-peer squeezenet
              QSGD cluster epoch, one device train step with qsgd + EF and
@@ -79,7 +85,10 @@ failure):
              reduced gemma2-2b in f32 (2 peers, S 160 over its window of
              64) from one state on the card (flash kernels forward and
              backward) and on the CPU: plain SGD at rate 1, each leaf's
-             update within 1e-4 of its largest magnitude.
+             update within 1e-4 of its largest magnitude; it runs just
+             before the train paths, because ``build_train_step``
+             switches the allocator to expandable segments and every
+             earlier phase keeps PyTorch's default ones.
 4. path    — the main paths. ``LocalP2PCluster(...).run`` with the QSGD
              exchange: mobilenet-v3-small (full graph, 3 epochs), vgg11
              (full graph, 2 epochs), mobilenet-v3-small (ring, EF, 1 epoch);
@@ -147,8 +156,10 @@ failure):
              printed): 26 flash forward and 26 backward launches a step,
              the peers folded into the batch, a finite loss that falls; the
              backward kernel then held to the plain backward on a local and
-             a global layer's own inputs from one more step (kept out of the
-             kernels line); one mamba2-370m step at full width through
+             a global layer's own inputs and saved statistics from one more
+             step (kept out of the kernels line), its profile showing the
+             backward's two tensor-core launches a layer; one mamba2-370m
+             step at full width through
              ``ssd_chunked`` (no launch), and the same step with
              ``use_ssd_kernel=True`` refused before any launch.
 5. timing  — each kernel, its plain version, the PyTorch call that computes
@@ -159,9 +170,11 @@ failure):
              the scatter beside ``index_add_`` at fc2/w, at the device
              step's (1 mix + 4 own rows) banks, over one step's 180 bank
              scatters, and both its bodies over a sweep of row lengths;
-             the flash backward kernel at gemma2-2b's scoring shape beside
-             its bound and the backward of ``flex_attention`` under
-             ``torch.compile``; the SSD scan also at one 32k sequence,
+             the flash forward also writing what the backward reads; the
+             flash backward kernel at gemma2-2b's scoring shape and on the
+             train path's inputs beside its bound, the plain backward and
+             the backward of ``flex_attention`` under ``torch.compile``;
+             the SSD scan also at one 32k sequence,
              beside the bf16 bound
              and the fp32-rate bound of earlier rows; the robust
              estimators (trimmed mean, median, Krum's Gram matrix and
@@ -198,6 +211,12 @@ a checkout of the repository, it exits non-zero and prints no result.
 it before the port chose its own CNN numerics: run it for an earlier
 checkout and this one in one call. It prints no result line.
 
+``--train-timing SRC`` runs only the train paths' steps (mamba2-370m at 2
+x 1024, gemma2-2b down its cuts and at 2 x 512) with the ``repro_torch``
+under SRC, on fixed allocator segments unless ``PYTORCH_CUDA_ALLOC_CONF``
+asks for expandable ones: run it for an earlier checkout and this one, in
+both modes, in one call. It prints no result line.
+
 ``--scatter-timing SRC`` runs only the scatter's timing and the mobilenet
 top-k + EF device step (with a profile of one step) on the ``repro_torch``
 under SRC, making two scatter launches a leaf where that has no bank
@@ -216,6 +235,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -916,16 +936,49 @@ def autograd_of_plain(torch, kf, q, k, v, do, *, causal, softcap, window, kv_pos
     return torch.autograd.grad(o, f, do.float())
 
 
+def check_flash_stats(torch, kf, q, k, v, what, *, causal, softcap, window):
+    """The bf16 forward's saved statistics against ``flash_attention_stats_plain``
+    in f32 on the same inputs: lse within 4e-6 |lse| + 2e-5 (f32 sums of the
+    exponentials in another order, exp2 within 2 ulp, scores of up to 50
+    log units) and -inf on the same rows; o in f32 within the f32 forward's
+    own limit, 2e-5 + 2e-4 |o|, of the plain o before its rounding."""
+    _, o32, lse = kf.FlashAttentionFn.apply(q, k, v, causal, float(softcap), window)
+    ro, rl = kf.flash_attention_stats_plain(*(t.float() for t in (q, k, v)), causal=causal,
+                                            softcap=softcap, window=window)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(rl)
+    require(lse.shape == rl.shape and torch.equal(torch.isfinite(lse), fin),
+            f"flash lse {tuple(lse.shape)}: not -inf on the plain lse's rows at {what}")
+    lse_err = float((lse - rl)[fin].abs().max()) if bool(fin.any()) else 0.0
+    require(bool(torch.all((lse - rl)[fin].abs() <= 4e-6 * rl[fin].abs() + 2e-5)),
+            f"flash lse outside 4e-6 |lse| + 2e-5 at {what}: max abs err {lse_err:.3e}")
+    o_tol, _ = flash_tolerance(torch, ro, torch.float32)
+    require(bool(torch.all((o32 - ro).abs() <= o_tol)), f"flash o in f32 outside 2e-5 + 2e-4 |o| "
+            f"at {what}: max abs err {float((o32 - ro).abs().max()):.3e}")
+    print(f"  forward's lse max_abs_err={lse_err:.3e} (4e-6 |lse| + 2e-5), o in f32 "
+          f"max_abs_err={float((o32 - ro).abs().max()):.3e} (2e-5 + 2e-4 |o|) of the plain "
+          f"statistics in f32")
+
+
 def check_flash_bwd(torch, kf, q, k, v, do, what, *, causal=True, softcap=0.0, window=0,
                     faults=False):
     """The backward kernel against autograd of the plain version on the same
-    inputs, dq, dk and dv each within ``flash_bwd_tolerance``. ``faults``:
+    inputs, dq, dk and dv each within ``flash_bwd_tolerance``; in bf16 a
+    second call must give the same bits (no atomics) and the forward's
+    saved statistics must hold (``check_flash_stats``). ``faults``:
     gradients of a dropped softcap derivative, an ignored window and a
     skipped key tile must each fall outside that limit. Returns the largest
     abs error."""
     got = kf.flash_attention_backward(q, k, v, do, causal=causal, softcap=softcap, window=window)
     ref = autograd_of_plain(torch, kf, q, k, v, do, causal=causal, softcap=softcap, window=window)
     torch.cuda.synchronize()
+    if q.dtype == torch.bfloat16:
+        again = kf.flash_attention_backward(q, k, v, do, causal=causal, softcap=softcap,
+                                            window=window)
+        require(all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                    for a, b in zip(got, again)),
+                f"flash_attention_backward at {what}: two calls gave different bits")
+        del again
     worst, ratios = 0.0, []
     for name, g, r, t in zip(("dq", "dk", "dv"), got, ref, (q, k, v)):
         require(g.shape == t.shape and g.dtype == t.dtype, f"{name} {tuple(g.shape)} {g.dtype} at {what}")
@@ -937,7 +990,10 @@ def check_flash_bwd(torch, kf, q, k, v, do, what, *, causal=True, softcap=0.0, w
         worst = max(worst, float(err.max()))
     print(f"kernel check flash_attention_backward {what} {str(q.dtype).split('.')[-1]}: "
           f"max_abs_err={worst:.3e}, max err/limit dq {ratios[0]:.3f} dk {ratios[1]:.3f} dv "
-          f"{ratios[2]:.3f} ({rule} of autograd of the plain version in f32)")
+          f"{ratios[2]:.3f} ({rule} of autograd of the plain version in f32)"
+          + ("; a second call the same bits" if q.dtype == torch.bfloat16 else ""))
+    if q.dtype == torch.bfloat16:
+        check_flash_stats(torch, kf, q, k, v, what, causal=causal, softcap=softcap, window=window)
     if faults:
         Skv = k.shape[1]
         t0 = Skv // 2 // 64 * 64
@@ -962,25 +1018,54 @@ def check_flash_bwd(torch, kf, q, k, v, do, what, *, causal=True, softcap=0.0, w
     return worst
 
 
+def print_ptxas(source: str, report: str) -> None:
+    """Each kernel's registers and spills in ``ptxas -v``'s report of
+    ``source``; the tensor-core bodies (``*_wgmma<D>``) must spill nothing."""
+    entry = re.compile(r"Compiling entry function '\w*?((?:bwd|flash)_[a-z_]+)I(?:Li(\d+)E|f)E")
+    name, rows = None, []
+    for line in report.splitlines():
+        found = entry.search(line)
+        if found:
+            name = found.group(1) + (f"<{found.group(2)}>" if found.group(2) else "<float>")
+        elif name and "spill stores" in line:
+            spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", line)]
+        elif name and "Used" in line and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            rows.append((name, regs, spills))
+            require("wgmma" not in name or not any(spills),
+                    f"ptxas: {name} in {source} spills {spills[0]} bytes stored, {spills[1]} loaded")
+            name = None
+    require(any("wgmma" in n for n, _, _ in rows), f"ptxas: no tensor-core kernel in {source}")
+    print(f"ptxas {source}: " + "; ".join(f"{n} {r} registers, spills {s[0]}/{s[1]} bytes"
+                                          for n, r, s in rows))
+
+
 def flash_bwd_phase(torch, kf):
-    """The backward kernel's cases, in f32 and bf16: gemma2-2b's heads (8
-    over 4, D 256, softcap 50) at S 8192, global and with the local layers'
-    window of 4096, with planted faults; qwen2.5-3b's heads (16 over 2, D
-    128) at a ragged S 1000; Sq 300 against Skv 500 without causal masking;
-    D 32 and 64 with a window narrower than a key tile."""
+    """The backward kernel's cases, in f32 (the CUDA-core body) and bf16
+    (the tensor-core body): gemma2-2b's heads (8 over 4, D 256, softcap 50)
+    at S 8192, global and with the local layers' window of 4096, with
+    planted faults, and at a ragged S 1000 with a window of 300; qwen2.5-3b's
+    heads (16 over 2, D 128) at a ragged S 1000; Sq 300 against Skv 500
+    without causal masking; D 32 and 64 with a window narrower than a key
+    tile and with a softcap; in bf16 also D 96, 160, 192 and 224, so that
+    every instance of the tensor-core body runs."""
     B, S_, H, K, D = FLASH_SCORING
     Hq, Kq, Dq = QWEN_HEADS
-    cases = (  # (B, Sq, Skv, H, K, D), causal, softcap, window, faults
-        ((B, S_, S_, H, K, D), True, GEMMA_SOFTCAP, GEMMA_WINDOW, True),
-        ((B, S_, S_, H, K, D), True, GEMMA_SOFTCAP, 0, True),
-        ((2, 1000, 1000, Hq, Kq, Dq), True, 0.0, 0, False),
-        ((1, 300, 500, 8, 4, 128), False, 30.0, 100, False),  # the window is ignored
-        ((2, 200, 200, 4, 2, 32), True, 0.0, 20, False),
-        ((2, 333, 333, 4, 1, 64), True, 10.0, 0, False),
+    both = (torch.float32, torch.bfloat16)
+    cases = (  # (B, Sq, Skv, H, K, D), causal, softcap, window, faults, dtypes
+        ((B, S_, S_, H, K, D), True, GEMMA_SOFTCAP, GEMMA_WINDOW, True, both),
+        ((B, S_, S_, H, K, D), True, GEMMA_SOFTCAP, 0, True, both),
+        ((2, 1000, 1000, H, K, D), True, GEMMA_SOFTCAP, 300, False, both),
+        ((2, 1000, 1000, Hq, Kq, Dq), True, 0.0, 0, False, both),
+        ((1, 300, 500, 8, 4, 128), False, 30.0, 100, False, both),  # the window is ignored
+        ((2, 200, 200, 4, 2, 32), True, 0.0, 20, False, both),
+        ((2, 333, 333, 4, 1, 64), True, 10.0, 0, False, both),
+        *(((1, 300, 300, 4, 2, d), True, 5.0, 70, False, (torch.bfloat16,))
+          for d in (96, 160, 192, 224)),
     )
     worst = 0.0
-    for shape, causal, cap, window, faults in cases:
-        for dtype in (torch.float32, torch.bfloat16):
+    for shape, causal, cap, window, faults, dtypes in cases:
+        for dtype in dtypes:
             q, k, v, do = flash_bwd_inputs(torch, *shape, dtype, seed=shape[1] + shape[5])
             worst = max(worst, check_flash_bwd(
                 torch, kf, q, k, v, do, f"{shape} causal={causal} softcap={cap} window={window}",
@@ -2102,16 +2187,21 @@ def estimator_timing(torch):
 def kernel_body(name: str):
     """Which body of the flash or the SSD kernel a device kernel's name is,
     or None: flash's "wgmma<D>" (bf16 on the tensor cores) or "f32" (the
-    CUDA cores); the flash backward's three passes "bwd stats", "bwd dq" and
-    "bwd dkdv"; the SSD kernel's bf16 passes "ssd states", "ssd carry" and
-    "ssd outputs", or its f32 body "ssd f32"."""
+    CUDA cores); the flash backward's two bf16 launches "bwd dq wgmma<D>"
+    and "bwd dkdv wgmma<D>", or its f32 body's three passes "bwd f32
+    stats", "bwd f32 dq" and "bwd f32 dkdv"; the SSD kernel's bf16 passes
+    "ssd states", "ssd carry" and "ssd outputs", or its f32 body "ssd
+    f32"."""
     if "flash_attention_kernel_wgmma<" in name:
         return "wgmma<" + name.split("flash_attention_kernel_wgmma<", 1)[1].split(">", 1)[0] + ">"
     if "flash_attention_kernel<" in name:
         return "f32"
+    found = re.search(r"\bbwd_(dq|dkdv)_wgmma<(\d+)>", name)
+    if found:
+        return f"bwd {found.group(1)} wgmma<{found.group(2)}>"
     found = re.search(r"\bbwd_(stats|dq|dkdv)_kernel\b", name)
     if found:
-        return "bwd " + found.group(1)
+        return "bwd f32 " + found.group(1)
     found = re.search(r"\bssd_kernel_(states|carry|outputs)\b", name)
     if found:
         return "ssd " + found.group(1)
@@ -2468,21 +2558,29 @@ def train_bytes(n_params: int, cfg, peers: int, seq: int) -> dict:
     the card's memory (the cut itself is taken from what runs out of
     memory, ``drive_train``). Exact from the config: f32 params and Adam's
     two moments (written in place: ``build_train_step`` donates the state),
-    a bf16 copy of the weights kept for the backward, the per-peer gradient
-    bank from vmap, each peer's embedding gradient twice more in f32 (the
-    gather's and the tied or untied unembedding's, before they are summed).
-    Estimated per token: the activations kept for the backward (about 14
-    bf16 d-wide and 5 d_ff-wide tensors an attention layer, 50 f32
-    d_inner-wide ones a Mamba-2 layer, the chunked scan's) and 6 f32
-    vocab-wide logits tensors. For gemma2-2b at 2 peers x 512 tokens this
-    gives 72.1 GiB against a peak of 72.91 GiB measured on an NVIDIA H100
-    80GB HBM3 at 700 W."""
+    a bf16 copy of the weights kept for the backward, one f32 gradient (the
+    full graph's ``allgather_mean`` takes the gradient of the peers' mean
+    loss: no per-peer bank), the embedding's gradient twice in f32 (the
+    gather's and the tied or untied unembedding's, before they are summed),
+    each attention layer's o in f32 for the flash backward. Estimated per
+    token: the activations kept for the backward (about 14 bf16 d-wide and
+    5 d_ff-wide tensors an attention layer, 50 f32 d_inner-wide ones a
+    Mamba-2 layer, the chunked scan's) and, for the loss's chunked head,
+    three f32 tensors of one chunk's logits (``LOGITS_CHUNK_BYTES`` each)
+    alive at once in its backward. For gemma2-2b at 2 peers x 2048 tokens
+    this gives 65.32 GiB against a peak of 74.26 GiB allocated (77.62
+    reserved) measured on an NVIDIA H100 80GB HBM3 at 700 W, and 57.14
+    against 61.07 at 2 x 1024: the per-token terms are short by about 60 %."""
+    from repro_torch.train.steps import LOGITS_CHUNK_BYTES
+
     tokens, emb = peers * seq, cfg.padded_vocab * cfg.d_model
     layer = 14 * cfg.d_model * 2 + (50 * cfg.d_inner * 4 if cfg.ssm_state else 5 * cfg.d_ff * 2)
+    attn_o = 0 if cfg.ssm_state else cfg.num_layers * cfg.num_heads * cfg.resolved_head_dim * 4
+    chunk = min(tokens, max(1, LOGITS_CHUNK_BYTES // (4 * cfg.vocab_size))) * cfg.vocab_size * 4
     return {"params and moments": 12 * n_params, "bf16 weights": 2 * n_params,
-            "gradient bank": 4 * n_params * peers, "embedding gradients": 8 * emb * peers,
-            "activations": tokens * cfg.num_layers * layer,
-            "logits": 6 * tokens * cfg.padded_vocab * 4}
+            "gradient": 4 * n_params, "embedding gradients": 8 * emb,
+            "attention o in f32": tokens * attn_o,
+            "activations": tokens * cfg.num_layers * layer, "logits": 3 * chunk}
 
 
 def release(torch) -> None:
@@ -2494,7 +2592,7 @@ def release(torch) -> None:
 
 
 def drive_train(torch, mods, arch: str, expect_per_layer: dict, *, steps: int = TRAIN_STEPS,
-                schedule=None):
+                schedule=None, seqs=(TRAIN_SEQ, 1024, 512, 256), reckon: bool = True):
     """``arch`` at full width trained through ``train.build_train_step`` on
     the full graph: ``allgather_mean``, the reference CLI's Adam at 3e-3
     under ``schedule``, by default ``warmup_cosine(lr, steps // 10 + 1,
@@ -2509,8 +2607,10 @@ def drive_train(torch, mods, arch: str, expect_per_layer: dict, *, steps: int = 
     first. Every step must launch ``expect_per_layer`` x layers (counters
     zeroed before and read after each step) and give a finite loss; the
     last loss must be below the first, and every leaf must have moved (its
-    first 4096 entries, copied before the first step). Returns the
-    launches of all the steps and the (config, peers, sequence) that ran."""
+    first 4096 entries, copied before the first step). ``seqs``: the
+    sequence lengths tried, in order; ``reckon``: print ``train_bytes``'
+    reckoning (of this checkout's layout). Returns the launches of all the
+    steps and the (config, peers, sequence) that ran."""
     from repro_torch import models
     from repro_torch.configs import get_config
     from repro_torch.core.p2p import Topology
@@ -2520,20 +2620,21 @@ def drive_train(torch, mods, arch: str, expect_per_layer: dict, *, steps: int = 
     cfg = get_config(arch)
     n_params = models.param_count(models.init_model(cfg, generator=None, device="meta"))
     card = torch.cuda.get_device_properties(0).total_memory
-    cuts = [(p, s) for p in range(TRAIN_PEERS, 0, -1) for s in (TRAIN_SEQ, 1024, 512, 256)
-            if s <= TRAIN_SEQ]
-    parts = train_bytes(n_params, cfg, TRAIN_PEERS, TRAIN_SEQ)
-    print(f"path {arch} train: reckoned bytes at {TRAIN_PEERS} peers x {TRAIN_SEQ} tokens: "
-          f"{ {k: round(v / 2**30, 2) for k, v in parts.items()} } GiB, "
-          f"{sum(parts.values()) / 2**30:.2f} GiB in all against the card's {card / 2**30:.2f} GiB")
+    cuts = [(p, s) for p in range(TRAIN_PEERS, 0, -1) for s in seqs if s <= TRAIN_SEQ]
+    if reckon:
+        parts = train_bytes(n_params, cfg, TRAIN_PEERS, TRAIN_SEQ)
+        print(f"path {arch} train: reckoned bytes at {TRAIN_PEERS} peers x {TRAIN_SEQ} tokens: "
+              f"{ {k: round(v / 2**30, 2) for k, v in parts.items()} } GiB, {sum(parts.values()) / 2**30:.2f} "
+              f"GiB in all against the card's {card / 2**30:.2f} GiB")
     opt = adam()
     sched = schedule or warmup_cosine(TRAIN_LR, steps // 10 + 1, steps)
     expect = {k: v * cfg.num_layers for k, v in expect_per_layer.items()}
     total = dict.fromkeys(KERNELS, 0)
     for peers, seq in cuts:
         if (peers, seq) != (TRAIN_PEERS, TRAIN_SEQ):
-            print(f"path {arch} train: CUT to {peers} peers x {seq} tokens (reckoned "
-                  f"{sum(train_bytes(n_params, cfg, peers, seq).values()) / 2**30:.2f} GiB)")
+            reckoned = (f" (reckoned {sum(train_bytes(n_params, cfg, peers, seq).values()) / 2**30:.2f} "
+                        "GiB)" if reckon else "")
+            print(f"path {arch} train: CUT to {peers} peers x {seq} tokens{reckoned}")
         g = torch.Generator(device="cuda").manual_seed(0)
         t0 = time.perf_counter()
         held = torch.cuda.memory_allocated()
@@ -2563,7 +2664,7 @@ def drive_train(torch, mods, arch: str, expect_per_layer: dict, *, steps: int = 
                 losses.append(loss)
                 lrs.append(metrics["lr"])
         except torch.cuda.OutOfMemoryError as e:
-            failed = str(e).splitlines()[0][:160]
+            failed = str(e).splitlines()[0].split(" If reserved")[0][:400]
         if not failed:
             break
         print(f"path {arch} train at {peers} peers x {seq} tokens: out of memory after "
@@ -2584,7 +2685,8 @@ def drive_train(torch, mods, arch: str, expect_per_layer: dict, *, steps: int = 
     print(f"path {arch} train, {peers} peers x batch 1 x {seq} tokens, adam lr {TRAIN_LR} "
           f"{'warmup_cosine' if schedule is None else 'constant'} (rates "
           f"{[round(x, 6) for x in lrs]}): first step {secs[0]:.3f} s{later}, "
-          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches per "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (reserved "
+          f"{torch.cuda.max_memory_reserved() / 2**30:.2f}), launches per "
           f"step { {k: v for k, v in expect.items() if v} or 'none' }, loss per step "
           f"{[round(x, 5) for x in losses]}, all {len(before)} leaves moved")
     return total, (cfg, peers, seq)
@@ -2594,13 +2696,15 @@ def check_flash_bwd_on_path(torch, mods, cfg, peers: int, seq: int):
     """The backward kernel on the inputs the train path gives it: one more
     gemma2-2b train step (its launches required and kept out of the kernels
     line) hands the q, k, v and do of its first local and first global
-    layer's backward, the peers folded into the batch, to recorders. A
-    profile of one more step from the same state says where a step's
-    device time goes; its flash launches by body must be one forward and
-    one backward (three passes) a layer. Then the kernel is held to the
-    plain backward on each recorded layer within ``flash_bwd_tolerance``
-    and timed there (``time_flash_bwd``). Returns (the largest error, the
-    global layer's timing keys: the kernels line's row)."""
+    layer's backward (and the o in f32 and lse its forward saved), the peers
+    folded into the batch, to recorders. A profile of one more step from
+    the same state says where a step's device time goes; its flash launches
+    by body must be one forward and one backward (its two tensor-core
+    launches) a layer. Then the kernel is held to the plain backward on
+    each recorded layer, from that layer's own saved o and lse, within
+    ``flash_bwd_tolerance`` and timed there (``time_flash_bwd``). Returns
+    (the largest error, the global layer's timing keys: the kernels line's
+    row)."""
     from repro_torch.core.p2p import Topology
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.optim import adam, constant
@@ -2613,27 +2717,27 @@ def check_flash_bwd_on_path(torch, mods, cfg, peers: int, seq: int):
     step = build_train_step(cfg, adam(), Topology(), peers, constant(TRAIN_LR))
     reset_counters(mods)
     # the backward runs the layers last to first: the recorders keep the last global and local layer
-    with recording(kf, "_backward", lambda args, kw: args[6] == 0) as glob, \
-            recording(kf, "_backward", lambda args, kw: args[6] != 0) as local:
+    with recording(kf, "_backward", lambda args, kw: args[8] == 0) as glob, \
+            recording(kf, "_backward", lambda args, kw: args[8] != 0) as local:
         state, _ = step(state, batch)
     launches = read_counters(mods)
     expect = dict(dict.fromkeys(KERNELS, 0), flash_attention=cfg.num_layers,
                   flash_attention_backward=cfg.num_layers)
     require(launches == expect, f"gemma2 recording train step: launches {launches} != {expect}")
-    bodies = {f"wgmma<{cfg.resolved_head_dim}>": cfg.num_layers,
-              **{f"bwd {p}": cfg.num_layers for p in ("stats", "dq", "dkdv")}}
+    bodies = {f"{p}wgmma<{cfg.resolved_head_dim}>": cfg.num_layers
+              for p in ("", "bwd dq ", "bwd dkdv ")}
     print_profile(f"gemma2-2b train step ({peers} peers x batch 1 x {seq} tokens)",
                   device_profile(torch, lambda: step(state, batch)), bodies)
     del state, step
     release(torch)
     worst, row = 0.0, None
     for name, seen in (("a local layer", local), ("a global layer", glob)):
-        (q, k, v, do, causal, cap, window), _ = seen[0]
+        (q, k, v, o32, lse, do, causal, cap, window), _ = seen[0]
         require(q.dtype == torch.bfloat16 and q.shape == (peers, seq, cfg.num_heads,
                                                           cfg.resolved_head_dim),
                 f"the path's backward inputs: {q.dtype} {tuple(q.shape)}")
         require(causal and cap == GEMMA_SOFTCAP, f"the path's backward: causal={causal} softcap={cap}")
-        got = kf.flash_attention_backward(q, k, v, do, causal=causal, softcap=cap, window=window)
+        got = kf.FlashAttentionBackwardFn.apply(q, k, v, o32, lse, do, causal, cap, window)
         ref = kf.flash_attention_backward_plain(*(t.float() for t in (q, k, v, do)), causal=causal,
                                                 softcap=cap, window=window)
         torch.cuda.synchronize()
@@ -2649,7 +2753,8 @@ def check_flash_bwd_on_path(torch, mods, cfg, peers: int, seq: int):
               f"{tuple(q.shape)} K={k.shape[2]} window={window}: max_abs_err={layer:.3e} ({rule} "
               f"of the plain backward in f32)")
         del got, ref
-        row = time_flash_bwd(torch, kf, f"on {name}'s inputs of the train step", q, k, v, do, window)
+        row = time_flash_bwd(torch, kf, f"on {name}'s inputs of the train step", q, k, v, do,
+                             window)
     return worst, row
 
 
@@ -3065,8 +3170,11 @@ def flash_bound(torch, q, k, window: int, backward: bool = False):
 
 
 def flash_timing(torch, kf):
-    """The flash kernel and its plain version (plain, kernel, kernel, plain)
-    at gemma2-2b's scoring shape in bf16 with softcap 50, for a local layer
+    """The flash kernel as the scoring path calls it (under
+    ``torch.inference_mode()``: nothing saved), the same launch writing o in
+    f32 and lse for a backward as the train step calls it, and its plain
+    version (plain, kernel, saving, saving, kernel, plain) at gemma2-2b's
+    scoring shape in bf16 with softcap 50, for a local layer
     (window 4096) and a global one (no window); the global layer is the
     kernels line's row. Yardsticks the port never calls:
     ``flex_attention`` under ``torch.compile`` with the same tanh softcap
@@ -3094,11 +3202,17 @@ def flash_timing(torch, kf):
         got = lib()
         torch.cuda.synchronize()
         compile_s = time.perf_counter() - t0
-        kern = lambda: kf.flash_attention(q, k, v, softcap=GEMMA_SOFTCAP, window=window)
+        def kern():  # as the scoring path calls it: no statistics saved
+            with torch.inference_mode():
+                return kf.flash_attention(q, k, v, softcap=GEMMA_SOFTCAP, window=window)
+
+        stats = lambda: kf.FlashAttentionFn.apply(q, k, v, True, GEMMA_SOFTCAP, window)
         plain = lambda: kf.flash_attention_plain(q, k, v, softcap=GEMMA_SOFTCAP, window=window)
         flex_err = float((got.transpose(1, 2).float() - kern().float()).abs().max())
         t_plain1, _ = time_ms(torch, plain, 3)
         t_kern1, host1 = time_ms(torch, kern, 10)
+        t_stats1, _ = time_ms(torch, stats, 10)
+        t_stats2, _ = time_ms(torch, stats, 10)
         t_kern2, host2 = time_ms(torch, kern, 10)
         t_plain2, _ = time_ms(torch, plain, 3)
         t_lib, _ = time_ms(torch, lib, 20)
@@ -3106,7 +3220,9 @@ def flash_timing(torch, kf):
         row = {"ms": min(t_kern1, t_kern2), "plain_ms": min(t_plain1, t_plain2), "bound_ms": bound,
                "bound_by": by, "library_ms": t_lib}
         print(f"timing flash_attention {FLASH_SCORING} bf16 softcap {GEMMA_SOFTCAP} window {window}: "
-              f"kernel {t_kern1:.4f}/{t_kern2:.4f} ms, plain {t_plain1:.4f}/{t_plain2:.4f} ms, bound "
+              f"kernel {t_kern1:.4f}/{t_kern2:.4f} ms (with o in f32 and lse saved for a backward, "
+              f"as the train step calls it, {t_stats1:.4f}/{t_stats2:.4f} ms), plain "
+              f"{t_plain1:.4f}/{t_plain2:.4f} ms, bound "
               f"{bound:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP at 989.4 TFLOP/s, {nbytes / 1e6:.1f} MB at "
               f"3.35 TB/s; roofline share {bound / row['ms']:.1%}), host enqueue "
               f"{min(host1, host2) * 1e3:.1f} us/call, library flex_attention (torch.compile, first call "
@@ -3120,9 +3236,10 @@ def flash_timing(torch, kf):
 
 
 def time_flash_bwd(torch, kf, what: str, q, k, v, do, window: int):
-    """The backward kernel and the plain backward (plain, kernel, kernel,
-    plain) on these bf16 inputs with gemma2-2b's softcap, causal, with
-    ``window``; printed beside its bound and, as a yardstick the port never
+    """The backward kernel (its two launches, from the o in f32 and lse that
+    one forward launch saved first) and the plain backward (plain, kernel,
+    kernel, plain) on these bf16 inputs with gemma2-2b's softcap, causal,
+    with ``window``; printed beside its bound and, as a yardstick the port never
     calls, the backward of ``flex_attention`` under ``torch.compile`` with
     the same tanh ``score_mod`` and causal (and window) block mask, timed as
     ``torch.autograd.grad`` of its output with the graph retained (so with
@@ -3154,7 +3271,9 @@ def _time_flash_bwd(torch, kf, what: str, q, k, v, do, window: int):
     got = lib()
     torch.cuda.synchronize()
     compile_s = time.perf_counter() - t0
-    kern = lambda: kf.flash_attention_backward(q, k, v, do, softcap=GEMMA_SOFTCAP, window=window)
+    _, o32, lse = kf.FlashAttentionFn.apply(q, k, v, True, GEMMA_SOFTCAP, window)
+    kern = lambda: kf.FlashAttentionBackwardFn.apply(q, k, v, o32, lse, do, True, GEMMA_SOFTCAP,
+                                                     window)
     plain = lambda: kf.flash_attention_backward_plain(q, k, v, do, softcap=GEMMA_SOFTCAP,
                                                       window=window)
     flex_err = max(float((a.transpose(1, 2).float() - b.float()).abs().max())
@@ -3173,11 +3292,13 @@ def _time_flash_bwd(torch, kf, what: str, q, k, v, do, window: int):
           f"{GEMMA_SOFTCAP} window {window}: kernel {t_kern1:.4f}/{t_kern2:.4f} ms, plain "
           f"{t_plain1:.4f}/{t_plain2:.4f} ms, bound {bound:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP at "
           f"989.4 TFLOP/s, {nbytes / 1e6:.1f} MB at 3.35 TB/s; roofline share "
-          f"{bound / row['ms']:.1%}; at the fp32 rate the kernel computes at, "
-          f"{ops / FP32_FLOPS * 1e3:.4f} ms), host enqueue {min(host1, host2) * 1e3:.1f} us/call, "
+          f"{bound / row['ms']:.1%}; the kernels' 20 D operations a pair, S and dP twice and dq, "
+          f"dk and dv each from two bf16 halves of its A operand, take "
+          f"{ops * 2.0 / BF16_FLOPS * 1e3:.4f} ms at that rate), host enqueue "
+          f"{min(host1, host2) * 1e3:.1f} us/call, "
           f"library flex_attention backward (torch.compile, first forward and backward "
           f"{compile_s:.1f} s) {t_lib:.4f} ms, max |flex - kernel| {flex_err:.3e}")
-    del o, leaves
+    del o, leaves, o32, lse
     torch.cuda.empty_cache()
     return row
 
@@ -3319,6 +3440,51 @@ def p2p_timing_only(torch, src: Path) -> int:
     return 0
 
 
+def train_timing_only(torch, src: Path) -> int:
+    """``--train-timing SRC``: only the train paths' steps, with the
+    ``repro_torch`` under SRC, in the allocator mode that
+    ``PYTORCH_CUDA_ALLOC_CONF`` gives the process (fixed segments unless it
+    says ``expandable_segments:True``; a port that switches the allocator
+    when it builds its step is switched back): mamba2-370m at 2 peers x
+    1024 tokens for 6 steps, gemma2-2b from 2 x TRAIN_SEQ down the cuts for
+    4 steps, and gemma2-2b at 2 x 512 (where every checkout fits) for 4
+    steps. Run it for an earlier checkout and this one, in both modes, in
+    one call to compare their steps on one card. Prints no result line."""
+    sys.path.insert(0, str(src.resolve()))
+    import repro_torch.train as train
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import qsgd as kq
+    from repro_torch.kernels import ssd_scan as ks
+    from repro_torch.kernels import topk as kt
+    from repro_torch.optim import constant
+
+    require(Path(train.__file__).resolve().is_relative_to(src.resolve()), f"train from {train.__file__}")
+    expandable = "expandable_segments:True" in os.environ.get("PYTORCH_CUDA_ALLOC_CONF", "")
+    build_step = train.build_train_step
+
+    def build_in_mode(*args, **kw):
+        step = build_step(*args, **kw)
+        torch._C._accelerator_setAllocatorSettings(f"expandable_segments:{expandable}")
+        return step
+
+    train.build_train_step = build_in_mode
+    kf.load_library()
+    print(f"nvidia-smi: {card_line()}; train paths of {Path(train.__file__).parents[2]}, "
+          f"{'expandable' if expandable else 'fixed'} segments")
+    mods = {"kq": kq, "kt": kt, "ks": ks, "kf": kf}
+    start = time.perf_counter()
+    drive_train(torch, mods, "mamba2-370m", {}, steps=6, schedule=constant(TRAIN_LR), seqs=(1024,),
+                reckon=False)
+    release(torch)
+    flash = {"flash_attention": 1, "flash_attention_backward": 1}
+    drive_train(torch, mods, "gemma2-2b", flash, reckon=False)
+    release(torch)
+    drive_train(torch, mods, "gemma2-2b", flash, seqs=(512,), reckon=False)
+    release(torch)
+    print(f"train paths of {src}: {time.perf_counter() - start:.1f} s")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3333,6 +3499,8 @@ def main() -> int:
         return scatter_timing_only(torch, Path(sys.argv[2]))
     if sys.argv[1:2] == ["--p2p-timing"]:
         return p2p_timing_only(torch, Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--train-timing"]:
+        return train_timing_only(torch, Path(sys.argv[2]))
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import qsgd as kq
@@ -3354,7 +3522,9 @@ def main() -> int:
     libs = build.build_all([kq.SOURCE, kt.SOURCE, ks.SOURCE, kf.SOURCE, kf.BWD_SOURCE])
     for mod in (kq, kt, ks, kf):
         mod.load_library()
-    print(f"build: {', '.join(str(p.relative_to(ROOT)) for p in libs.values())} in {time.perf_counter() - t0:.2f} s")
+    print(f"build: {', '.join(str(p.relative_to(ROOT)) for p in libs.values())} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    print_ptxas(kf.BWD_SOURCE, build.ptxas_report(kf.BWD_SOURCE))
 
     checks = kernel_phase(torch, kq)
     errs = {name: checks[name][0] for name in checks}
@@ -3372,7 +3542,6 @@ def main() -> int:
     determinism_phase(torch, mods)
     reference_lm_phase(torch, "mamba2-370m", 40, SSD_FLAGS)
     reference_lm_phase(torch, "gemma2-2b", 160, {})  # 160 > the window of 64
-    reference_train_phase(torch)
     stamp("reference phase")
 
     total = dict.fromkeys(KERNELS, 0)
@@ -3417,6 +3586,10 @@ def main() -> int:
     stamp("profile phase")
     del lm_run, gemma_run  # the serving models: the train paths need the card's memory
     release(torch)
+    # the first train step built switches the allocator to expandable
+    # segments (build_train_step): every phase above ran on fixed ones
+    reference_train_phase(torch)
+    stamp("reference train phase")
     train_counts, (train_cfg, peers, seq) = drive_train(
         torch, mods, "gemma2-2b", {"flash_attention": 1, "flash_attention_backward": 1})
     release(torch)

@@ -13,7 +13,11 @@ Two kinds of state, chosen by what the peers' mixes are:
 * **Held once.** A sync protocol on the full graph gives every peer the
   same mix, so params and optimizer state are one copy, as the reference's
   replicated ``out_specs`` hold them; the per-peer gradients share it
-  (``vmap`` with ``in_dims=(None, 0)``).
+  (``vmap`` with ``in_dims=(None, 0)``). Where the mix is the plain
+  mean (``allgather_mean`` or ``psum_mean`` with an f32 wire, no EF, no
+  clip, no adversary) the step takes one gradient of the peers' mean
+  loss, the mean of their gradients, and makes no ``(P, *shape)`` bank
+  (the reference, one peer per device, never holds one either).
 * **A per-peer bank** (:class:`PeerBank`, ``{name: (P, *shape)}``). On a
   sparse overlay (ring, gossip, hierarchical, static) each peer's mix is
   its own row of the Metropolis–Hastings matrix, and under ``async`` each
@@ -59,8 +63,10 @@ import torch
 from repro_torch.core import compression as C
 from repro_torch.core import robust as R
 from repro_torch.core.exchange import (
+    AllGatherMean,
     ExchangeContext,
     ExchangeProtocol,
+    PsumMean,
     check_overlay,
     get_exchange,
 )
@@ -392,6 +398,20 @@ def build_p2p_train_step(
     each peer's gradient norm before the clip (0 when off) and aux, as
     ``(P,)`` tensors, and the rate.
 
+    Where the protocol's combine is the plain mean of the bank
+    (``allgather_mean`` or ``psum_mean`` on the full graph with
+    ``exchange_dtype`` float32, no EF and no residual in the state, no
+    clip, no adversary), the step takes ``grad`` of the peers' mean loss
+    (``vmap`` of ``loss_fn`` over the peers inside it) instead: the mean
+    of their gradients, summed in another order, with no bank (at an LM's
+    full width the bank is P copies of the params). Where the loss
+    computes in bf16 (``cast_params_once``, or a model that casts its
+    weights, as the LMs do), a weight's gradient then comes out of one
+    bf16 product over all the peers' rows: their sum rounded to bf16
+    once, where the bank rounds each peer's and takes the mean in f32.
+    The two agree within that rounding (``tests/test_torch_p2p_mean.py``
+    holds a reduced bf16 gemma2-2b to it).
+
     On a sparse overlay and under ``async`` the state's params and
     optimizer moments are :class:`PeerBank` banks (:func:`peer_bank`), and each
     peer steps its own row with its own mix; a single copy raises
@@ -438,20 +458,29 @@ def build_p2p_train_step(
         return {k: p.to(torch.bfloat16) if p.dtype == torch.float32 and p.dim() - lead >= 2
                 else p for k, p in params.items()}
 
+    def micro_rounds(fn, params, batch, dim: int):
+        """``fn(params, batch) -> (grads, loss, aux)`` over ``accum_steps``
+        micro-rounds, each leaf of the batch cut along ``dim``: the grads
+        (in f32), loss and aux averaged over them; one round is ``fn``."""
+        if rounds == 1:
+            return fn(params, batch)
+        micro = {k: v.unflatten(dim, (rounds, v.shape[dim] // rounds)) for k, v in batch.items()}
+        for i in range(rounds):
+            g, l, a = fn(params, {k: v.select(dim, i) for k, v in micro.items()})
+            if not i:
+                grads = {k: torch.zeros_like(x, dtype=torch.float32) for k, x in g.items()}
+                loss = aux = l.new_zeros(l.shape, dtype=torch.float32)
+            grads = {k: grads[k] + g[k].to(torch.float32) / rounds for k in grads}
+            loss, aux = loss + l / rounds, aux + a / rounds
+        return grads, loss, aux
+
+    def one_grad(params, batch):
+        grads, (loss, aux) = grad_fn(params, batch)
+        return grads, loss, aux
+
     def peer_grads(params, batch):
         """One peer's (grads, loss, aux, grad norm); vmapped over the peers."""
-        if rounds > 1:
-            micro = {k: v.reshape(rounds, v.shape[0] // rounds, *v.shape[1:])
-                     for k, v in batch.items()}
-            some = next(iter(params.values()))
-            grads = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
-            loss = aux = some.new_zeros((), dtype=torch.float32)
-            for i in range(rounds):
-                g, (l, a) = grad_fn(params, {k: v[i] for k, v in micro.items()})
-                grads = {k: grads[k] + g[k].to(torch.float32) / rounds for k in grads}
-                loss, aux = loss + l / rounds, aux + a / rounds
-        else:
-            grads, (loss, aux) = grad_fn(params, batch)
+        grads, loss, aux = micro_rounds(one_grad, params, batch, 0)
         if topo.grad_clip:
             grads, gnorm = clip_by_global_norm(grads, topo.grad_clip)
         else:
@@ -459,6 +488,54 @@ def build_p2p_train_step(
         return grads, loss, aux, gnorm
 
     per_peer = torch.func.vmap(peer_grads, in_dims=(0 if banked else None, 0))
+    plain_mean = (not banked and type(protocol) in (AllGatherMean, PsumMean)
+                  and ctx.wire_dtype == torch.float32 and not topo.ef and not topo.grad_clip
+                  and attackers is None)
+
+    def mean_loss(params, batch):
+        """The peers' mean loss, with each peer's (loss, aux) as ``(P,)``."""
+        loss, aux = torch.func.vmap(loss_fn, in_dims=(None, 0))(params, batch)
+        return loss.mean(), (loss, aux)
+
+    mean_grad_fn = torch.func.grad_and_value(mean_loss, has_aux=True)
+
+    def one_mean_grad(params, split):
+        grads, (_, (loss, aux)) = mean_grad_fn(params, split)
+        return grads, loss, aux
+
+    def mean_grads(params, split):
+        """One gradient of the peers' mean loss (their gradients' mean, in
+        f32, averaged over the micro-rounds in f32) and each peer's loss
+        and aux."""
+        grads, loss, aux = micro_rounds(one_mean_grad, params, split, 1)
+        return {k: g.to(torch.float32) for k, g in grads.items()}, loss, aux
+
+    def combine_bank(grads, state):
+        """The per-peer gradient bank -> (the mix each peer steps with, the
+        new mailbox, the new EF residual bank): the attackers' rows
+        poisoned, EF re-injected, the protocol's combine."""
+        if attackers is not None:
+            # Byzantine ranks publish a poisoned contribution: their
+            # rows of the bank are replaced before the exchange
+            poisoned = R.poison_gradients({k: g[attackers] for k, g in grads.items()},
+                                          adversary, state.key, lead=1)
+            grads = {k: g.to(torch.float32).index_copy(0, attackers, poisoned[k])
+                     for k, g in grads.items()}
+        ef = state.ef
+        if topo.ef and ef is None:
+            ef = init_ef({k: g[0] for k, g in grads.items()}, num_peers)
+        if ef is not None:
+            corrected = {k: g.to(torch.float32) + ef[k] for k, g in grads.items()}
+            avg, local, mailbox = protocol.combine_ef(
+                corrected, ctx, generator=state.key, state=state.mailbox
+            )
+            ef = {k: c - local[k].to(torch.float32) for k, c in corrected.items()}
+            del corrected, local
+        else:
+            avg, mailbox = protocol.combine(grads, ctx, generator=state.key, state=state.mailbox)
+        if not banked:  # full graph: every row of the bank is the same mix
+            avg = {k: v[0] for k, v in avg.items()}
+        return avg, mailbox, ef
 
     def step(state, batch):
         state = as_train_state(state)
@@ -475,33 +552,18 @@ def build_p2p_train_step(
                     f"{num_peers} peers"
                 )
             split[k] = v.reshape(num_peers, v.shape[0] // num_peers, *v.shape[1:])
+        fused = plain_mean and state.ef is None
         with f32_numerics():
-            grads, loss, aux, gnorm = per_peer(compute_params(state.params), split)
-        with torch.no_grad():
-            if attackers is not None:
-                # Byzantine ranks publish a poisoned contribution: their
-                # rows of the bank are replaced before the exchange
-                poisoned = R.poison_gradients({k: g[attackers] for k, g in grads.items()},
-                                              adversary, state.key, lead=1)
-                grads = {k: g.to(torch.float32).index_copy(0, attackers, poisoned[k])
-                         for k, g in grads.items()}
-            ef = state.ef
-            if topo.ef and ef is None:
-                ef = init_ef({k: g[0] for k, g in grads.items()}, num_peers)
-            if ef is not None:
-                corrected = {k: g.to(torch.float32) + ef[k] for k, g in grads.items()}
-                avg, local, mailbox = protocol.combine_ef(
-                    corrected, ctx, generator=state.key, state=state.mailbox
-                )
-                ef = {k: c - local[k].to(torch.float32) for k, c in corrected.items()}
-                del corrected, local
+            if fused:
+                avg, loss, aux = mean_grads(compute_params(state.params), split)
+                gnorm = loss.new_zeros(loss.shape)
             else:
-                avg, mailbox = protocol.combine(
-                    grads, ctx, generator=state.key, state=state.mailbox
-                )
-            del grads  # the bank, P copies of the params' size, before the update's copies
-            if not banked:  # full graph: every row of the bank is the same mix
-                avg = {k: v[0] for k, v in avg.items()}
+                grads, loss, aux, gnorm = per_peer(compute_params(state.params), split)
+        with torch.no_grad():
+            mailbox, ef = state.mailbox, state.ef
+            if not fused:
+                avg, mailbox, ef = combine_bank(grads, state)
+                del grads  # the bank, P copies of the params' size, before the update's copies
             lr = schedule(state.step)
             params, opt_state = _update_by_leaf(optimizer, avg, state.opt_state, state.params, lr,
                                                 donate)

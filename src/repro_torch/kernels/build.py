@@ -8,9 +8,11 @@ finished build is reused. Several sources build in
 parallel: one ``nvcc`` each, all started together.
 
 Nothing here runs at import time; the first kernel launch builds what it
-needs. ``python -m repro_torch.kernels.build SOURCE...`` compiles the
-named sources once more with ``-Xptxas -v`` into a scratch file and prints
-what ptxas reports for each kernel: registers, shared memory and spills.
+needs. Each build runs with ``-Xptxas -v`` and keeps nvcc's output beside
+the library (``build/<stem>-<hash>.log``): what ptxas reports for each
+kernel, registers, shared memory and spills. ``python -m
+repro_torch.kernels.build SOURCE...`` builds the named sources if needed
+and prints it.
 """
 from __future__ import annotations
 
@@ -33,10 +35,11 @@ _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
 # sm_90a keeps Hopper-only instructions available. No --use_fast_math: the
-# QSGD parity rules need IEEE division and sqrtf.
+# QSGD parity rules need IEEE division and sqrtf. -Xptxas -v: the build's
+# log holds each kernel's registers and spills.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -80,8 +83,9 @@ def library_path(source: str) -> Path:
 
 def build_all(sources: Sequence[str]) -> Dict[str, Path]:
     """Compile every source not built yet, one ``nvcc`` per source in
-    parallel; returns ``{source: library path}``. Raises with the compiler's
-    output if any build fails."""
+    parallel, each one's output kept beside its library (``.log``); returns
+    ``{source: library path}``. Raises with the compiler's output if any
+    build fails."""
     out = {s: library_path(s) for s in sources}
     todo = [s for s in sources if not out[s].exists()]
     if not todo:
@@ -100,6 +104,7 @@ def build_all(sources: Sequence[str]) -> Dict[str, Path]:
     for s, tmp, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode == 0:
+            out[s].with_suffix(".log").write_text(log)
             os.replace(tmp, out[s])  # atomic: a concurrent process sees all or nothing
         else:
             os.unlink(tmp)
@@ -150,15 +155,9 @@ def cuda_stream(device: torch.device) -> ctypes.c_void_p:
 
 
 def ptxas_report(source: str) -> str:
-    """nvcc's output for ``csrc/<source>`` with ``-Xptxas -v`` (the library
-    built is thrown away)."""
-    with tempfile.TemporaryDirectory() as tmp:
-        cmd = [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(Path(tmp) / "lib.so"),
-               str(CSRC / source)]
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"{source}: nvcc exited {proc.returncode}\n{proc.stdout}")
-    return proc.stdout
+    """What ptxas reported when ``csrc/<source>`` was built (``-Xptxas -v``
+    in its build log), building it first if needed."""
+    return build_all([source])[source].with_suffix(".log").read_text()
 
 
 if __name__ == "__main__":

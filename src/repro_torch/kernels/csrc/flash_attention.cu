@@ -83,7 +83,11 @@
 // and an exp2 per score) beside the tensor cores, and shared-memory reads:
 // each S step reads 2 KB of q and 2 KB of k for 64 x 64 x 16 products, and
 // each v tile is read twice (for hi and lo) by both warpgroups. Each k and
-// v tile also feeds one query head, not both heads of its KV group.
+// v tile also feeds one query head, not both heads of its KV group. For a
+// backward (lse and o32 given; scoring and serve pass neither) the epilogue
+// also writes o in f32, (B, Sq, H, D), and each row's log-sum-exp lse =
+// ln 2 (m + log2 l), (B, H, Sq) f32, -inf for a row with no valid key: what
+// flash_attention_bwd.cu's bf16 body reads (4 (D + 1) bytes a row more).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -102,6 +106,7 @@ constexpr int kMaxD = 256;
 constexpr int kMaxOTiles = kMaxD / 64;  // 4x4 micro-tiles of the (64, D) output per thread
 constexpr float kMInit = -1e30f;  // the running max before any valid key, as in Pallas
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
@@ -318,20 +323,8 @@ constexpr int kTcConsumers = 256;
 constexpr int kTcTileQ = 128;            // query rows of a block, 64 per consumer warpgroup
 constexpr int kStages = 2;               // stages of the k and v rings
 constexpr uint32_t kQChunkBytes = kTcTileQ * 64;  // one column chunk of the q tile
-constexpr uint32_t kKVChunkBytes = kTileK * 64;   // one column chunk of a k or v tile
-constexpr uint32_t kSwizzleRows = 8 * 64;         // 8 rows of 64 bytes: one swizzle atom
+constexpr uint32_t kKVChunkBytes = kRowChunkBytes;  // one column chunk of a k or v tile
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
-
-// Reductions over the 4 lanes that hold one row of a wgmma fragment.
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 // The rows and columns of the score tile that one consumer thread holds.
 struct Rows {
@@ -347,36 +340,6 @@ struct Mask {
   int Skv, causal, window, capped;
   float pre, post;
 };
-
-// S = q k^T over D: wgmma.m64n64k16 from the warpgroup's q rows at sQw and
-// the k tile at sKs, both K-major, 16 columns (32 bytes) a step.
-template <int kD>
-__device__ __forceinline__ void issue_s(float (&sc)[32], uint32_t sQw, uint32_t sKs) {
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    const uint32_t a = sQw + (kk / 2) * kQChunkBytes + (kk % 2) * 32;
-    const uint32_t b = sKs + (kk / 2) * kKVChunkBytes + (kk % 2) * 32;
-    wgmma_ss_n64(sc, smem_desc(a, 16, kSwizzleRows), smem_desc(b, 16, kSwizzleRows), kk > 0);
-  }
-}
-
-// O += (P_hi + P_lo) V over the 64 keys of the v tile at sVs, 16 keys a
-// step, in the widest wgmma N that tiles D (the whole row at D = 256).
-template <int kD>
-__device__ __forceinline__ void issue_pv(float (&acc)[kD / 2], uint32_t (&p_hi)[16],
-                                         uint32_t (&p_lo)[16], uint32_t sVs) {
-  constexpr int kN = kD % 256 == 0 ? 256 : kD % 128 == 0 ? 128 : kD % 64 == 0 ? 64 : 32;
-#pragma unroll
-  for (int kk = 0; kk < kTileK / 16; ++kk) {
-#pragma unroll
-    for (int n = 0; n < kD / kN; ++n) {
-      const uint32_t b = sVs + kk * 16 * 64 + n * (kN / kChunkCols) * kKVChunkBytes;
-      const uint64_t desc = smem_desc(b, kKVChunkBytes, kSwizzleRows);
-      wgmma_rs<kN>(acc + n * (kN / 2), p_hi + 4 * kk, desc);
-      wgmma_rs<kN>(acc + n * (kN / 2), p_lo + 4 * kk, desc);
-    }
-  }
-}
 
 // Softcap and mask the scores of keys j0.. in place, then the online
 // softmax of rows r0 and r0 + 8 in log2 units: m (the running max of z) and
@@ -438,13 +401,7 @@ __device__ __forceinline__ void rescale_and_split(float (&acc)[kD / 2], const fl
 #pragma unroll
     for (int i = 0; i < kD / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
   }
-#pragma unroll
-  for (int n = 0; n < 16; ++n) {
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(sc[2 * n], sc[2 * n + 1]);
-    const float2 back = __bfloat1622float2(hi);
-    p_hi[n] = bf16x2_bits(hi);
-    p_lo[n] = bf16x2_bits(__floats2bfloat162_rn(sc[2 * n] - back.x, sc[2 * n + 1] - back.y));
-  }
+  split_bf16(sc, p_hi, p_lo);
   fence_regs(acc);
   fence_regs(p_hi);
   fence_regs(p_lo);
@@ -461,7 +418,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
                              const __grid_constant__ CUtensorMap kmap,
                              const __grid_constant__ CUtensorMap vmap,
-                             __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H, int rep,
+                             __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                             float* __restrict__ o32, int Sq, int Skv, int H, int rep,
                              float scale, float softcap, int causal, int window) {
   constexpr int kChunks = kD / kChunkCols;
   constexpr uint32_t kQBytes = kChunks * kQChunkBytes, kKVBytes = kChunks * kKVChunkBytes;
@@ -553,7 +511,7 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
     if (ntiles > 0) {
       mbar_wait(k_full, 0);
       wgmma_fence();
-      issue_s<kD>(sc, sQw, sK);
+      wgmma_scores<kD, kQChunkBytes, kKVChunkBytes>(sc, sQw, sK);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
@@ -565,9 +523,9 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
         mbar_wait(k_full + 8 * s, (t / kStages) & 1);
         mbar_wait(v_full + 8 * sp, ((t - 1) / kStages) & 1);
         wgmma_fence();
-        issue_s<kD>(sc, sQw, sK + s * kKVBytes);
+        wgmma_scores<kD, kQChunkBytes, kKVChunkBytes>(sc, sQw, sK + s * kKVBytes);
         wgmma_commit();
-        issue_pv<kD>(acc, p_hi, p_lo, sV + sp * kKVBytes);
+        wgmma_rows_split<kD>(acc, p_hi, p_lo, sV + sp * kKVBytes);
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs(sc);
@@ -583,24 +541,39 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
       const int sp = (ntiles - 1) % kStages;
       mbar_wait(v_full + 8 * sp, ((ntiles - 1) / kStages) & 1);
       wgmma_fence();
-      issue_pv<kD>(acc, p_hi, p_lo, sV + sp * kKVBytes);
+      wgmma_rows_split<kD>(acc, p_hi, p_lo, sV + sp * kKVBytes);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
       mbar_arrive(v_empty + 8 * sp);
     }
 
-    // o = acc / l, rounded once to bf16; rows past the sequence are not stored
+    // o = acc / l, rounded once to bf16; rows past the sequence are not stored.
+    // For a backward (lse given): o also in f32, and lse = ln 2 (m + log2 l),
+    // -inf for a row with no valid key.
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int i = rows.r0 + 8 * r;
       if (i < Sq) {
         const float denom = fmaxf(l_run[r], 1e-30f);
-        __nv_bfloat16* out = o + ((static_cast<long long>(b) * Sq + i) * H + h) * kD + rows.c0;
+        const long long row = (static_cast<long long>(b) * Sq + i) * H + h;
+        __nv_bfloat16* out = o + row * kD + rows.c0;
 #pragma unroll
         for (int n = 0; n < kD / 8; ++n) {
           *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) =
               __floats2bfloat162_rn(acc[4 * n + 2 * r] / denom, acc[4 * n + 2 * r + 1] / denom);
+        }
+        if (lse != nullptr) {
+          float* out32 = o32 + row * kD + rows.c0;
+#pragma unroll
+          for (int n = 0; n < kD / 8; ++n) {
+            *reinterpret_cast<float2*>(out32 + 8 * n) =
+                make_float2(acc[4 * n + 2 * r] / denom, acc[4 * n + 2 * r + 1] / denom);
+          }
+          if (rows.c0 == 0) {
+            lse[(static_cast<long long>(b) * H + h) * Sq + i] =
+                l_run[r] > 0.0f ? (m_run[r] + log2f(l_run[r])) * kLn2 : -INFINITY;
+          }
         }
       }
     }
@@ -608,9 +581,9 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
 }
 
 template <int kD>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int batch, int Sq, int Skv,
-                 int H, int K, Strides qs, Strides ks, Strides vs, float scale, float softcap,
-                 int causal, int window, cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, float* o32,
+                 int batch, int Sq, int Skv, int H, int K, Strides qs, Strides ks, Strides vs,
+                 float scale, float softcap, int causal, int window, cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
   if (!make_map(&qmap, q, kD, Sq, H, batch, qs, kTcTileQ) ||
       !make_map(&kmap, k, kD, Skv, K, batch, ks, kTileK) ||
@@ -624,15 +597,16 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int batch
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + kTcTileQ - 1) / kTcTileQ, H, batch);
   flash_attention_kernel_wgmma<kD><<<grid, kTcThreads, smem, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), Sq, Skv, H, H / K, scale, softcap, causal,
-      window);
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), lse, o32, Sq, Skv, H, H / K, scale,
+      softcap, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      int batch, int Sq, int Skv, int H, int K, int D, int bf16,
+                                      void* lse, void* o32, int batch, int Sq, int Skv, int H,
+                                      int K, int D, int bf16,
                                       long long q_sb, long long q_ss, long long q_sh,
                                       long long k_sb, long long k_ss, long long k_sh,
                                       long long v_sb, long long v_ss, long long v_sh,
@@ -644,14 +618,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   }
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
+  float* o32_f = static_cast<float*>(o32);
   if (!bf16) {
+    if (lse_f != nullptr) return static_cast<int>(cudaErrorInvalidValue);  // the bf16 body's only
     return launch<float>(q, k, v, o, batch, Sq, Skv, H, K, D, qs, ks, vs, scale, softcap, causal,
                          window, st);
   }
 #define FLASH_WGMMA_CASE(d)                                                                    \
   case d:                                                                                      \
-    return launch_wgmma<d>(q, k, v, o, batch, Sq, Skv, H, K, qs, ks, vs, scale, softcap, causal, \
-                           window, st);
+    return launch_wgmma<d>(q, k, v, o, lse_f, o32_f, batch, Sq, Skv, H, K, qs, ks, vs, scale,  \
+                           softcap, causal, window, st);
   switch (D) {
     FLASH_WGMMA_CASE(32)
     FLASH_WGMMA_CASE(64)

@@ -15,19 +15,66 @@
 //   dv_j  = sum_i p_ij dO_i,  dp_ij = dO_i . v_j,  delta_i = dO_i . o_i
 //   du_ij = p_ij (dp_ij - delta_i) (1 - t_ij^2)    (no factor without softcap)
 //   dq_i  = scale sum_j du_ij k_j,  dk_j = scale sum_i du_ij q_i
-// dk and dv sum over the H / K query heads of each KV group. q, k, v and dO
-// are f32 or bf16 and every product runs in f32 on the CUDA cores; dq, dk
-// and dv are written once, in the inputs' type. A query row with no valid
-// key gets zero gradient (the forward kernel gives it a zero output).
+// dk and dv sum over the H / K query heads of each KV group; dq, dk and dv
+// are written once, in the inputs' type. A query row with no valid key gets
+// zero gradient (the forward gives it a zero output and lse = -inf). No
+// launch uses atomics: the same inputs give the same bits on every run
+// (atomic adds into dq would save the second S and dP below, and lose that).
 //
-// Three launches on one stream, none with atomics, so a gradient is the
-// same bits on every run:
+// Bound: operations. The function's five products (s, dp, dv, dq, dk) cost
+// 10 D operations a valid pair against 2 D bytes a row of each tensor.
+//
+// Two bodies, picked by input type in flash_attention_backward_launch.
+//
+// bf16, on the tensor cores, from what the forward saved: its o in f32 (the
+// cancellation in dp - delta needs delta at f32 accuracy: from the bf16
+// output the dq check fails by 270x) and lse (batch, H, Sq) f32. Two
+// launches in FlashAttention-2's deterministic form, both built from
+// hopper.cuh: TMA loads of 64-row tiles in 64-byte column chunks with the
+// 64-byte swizzle, mbarrier full/empty pairs, one producer thread, wgmma.
+//   (1) dq: one block per (batch, head, 64-query tile), one consumer
+//       warpgroup (254 registers at D = 256, no spills) and a producer
+//       warpgroup. Its prologue takes delta_i = dO_i . o_i over the rows it
+//       owns (each row's 4 lanes a quarter of D each) and writes it to the
+//       scratch, (batch, H, Sq) f32, for launch (2). Per key tile the mask
+//       leaves (k and v through 2-stage rings): S = q k^T and dP = dO v^T
+//       on wgmma.m64n64k16 from shared memory; softcap, mask, p = 2^(z -
+//       lse log2 e) and dS = p (dP - delta)(1 - t^2) on the accumulator
+//       fragments in registers; dq += dS k with dS as the register A
+//       operand and k read in its natural (key, D) layout, the forward's P V
+//       pattern. At D = 256: q, dO and two stages of k and v, 197,704 bytes
+//       of shared memory.
+//   (2) dk and dv: one block per (batch, KV head, 64-key tile): the keys are
+//       wgmma's M, so S^T = k q^T and dP^T = v dO^T land in registers laid
+//       out as the A operand of dv += P^T dO and dk += dS^T q, which read dO
+//       and q in their natural layout. It walks the group's query heads and
+//       the query tiles that see its keys, q and dO double-buffered. Two
+//       (64, D) f32 accumulators do not fit one thread's 240 registers at D
+//       = 256, so two consumer warpgroups split the work: warpgroup 0
+//       computes S^T, P^T and g = P^T (1 - t^2) and owns dv; warpgroup 1
+//       computes dP^T, reads g through shared memory (one f32 fragment,
+//       16 KB, thread for thread: both hold the same (key, query) positions;
+//       named barriers 1 and 2 say written and read), forms dS^T = g (dP^T -
+//       delta) and owns dk. setmaxnreg gives the consumers 240 registers and
+//       the producer 24; no spills. At D = 256: k, v, two stages of q and dO
+//       and the exchange, 214,088 bytes.
+//   Work: 14 D operations a valid pair (S and dP in both launches) against
+//   the function's 10 D, at the bf16 tensor-core rate. P and dS enter the
+//   tensor cores as two bf16 halves, hi = bf16(x) and lo = bf16(x - hi),
+//   both multiplied: one rounding of P or dS to bf16 moves a gradient by
+//   up to 2^-9 of a term, outside the 2^-8 |g| + 2e-5 max|g| the checks
+//   allow on gradients that cancel; the split leaves 2^-17. That makes 20 D
+//   on the tensor cores. What holds it back: one consumer warpgroup per SM
+//   in launch (1) and no overlap of the softcap and exponentials (CUDA
+//   cores) with the products, the serial hand-over of g in launch (2), and
+//   wgmma.m64n64 score tiles.
+//
+// f32, on the CUDA cores (TF32 would not meet the f32 checks): three
+// launches on one stream, none with atomics:
 //   (a) stats: one block per (batch, head, 64-query tile) runs the forward
 //       again in f32 (online softmax over 32-key tiles, as the f32 forward
 //       body does), and writes lse_i = m_i + log(l_i) and delta_i = dO_i .
-//       o_i with o_i in f32. Recomputing leaves the forward kernels as they
-//       are, and delta from the f32 o (not the forward's bf16 output) keeps
-//       the cancellation in dp - delta at f32 accuracy.
+//       o_i with o_i in f32, into a scratch of 2 (batch, H, Sq) f32.
 //   (b) dq: one block per (batch, head, 64-query tile) walks the key tiles
 //       that its rows may see, recomputes s and dp for each (64 x 32) tile,
 //       and adds du k into a (64, D) f32 accumulator in registers.
@@ -40,22 +87,21 @@
 // c + 8, c + 16, c + 24: float4 reads along D without bank conflicts), and
 // the accumulators are 4 x 4 micro-tiles fed from a transposed copy of the
 // probabilities. At D = 256 pass (c) holds k, v, q and dO tiles and two
-// probability tiles, 220,672 bytes, set with cudaFuncSetAttribute.
-//
-// Bound: operations. The function's five products (s, dp, dv, dq, dk) cost
-// 10 D operations a valid pair against 2 D bytes a row of each tensor; this
-// design spends 18 D (passes (a) and (b) recompute s, pass (a) also o, pass
-// (b) and (c) each dp) at the fp32 rate, 1/15 of the bf16 tensor-core rate
-// the bound takes for bf16 inputs. What holds it back further: two float4
-// shared-memory reads per 8 FMAs in the score tiles, and one block of 8
-// warps per SM at D = 256. A tensor-core body (wgmma, as the forward's) is
-// the redesign.
+// probability tiles, 220,672 bytes, set with cudaFuncSetAttribute. It
+// spends 18 D operations a pair at the fp32 rate.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+// ---------------------------------------------------------------------------
+// The f32 body: three launches on the CUDA cores
+// ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;
 constexpr int kTq = 64;             // query rows of a tile
@@ -67,10 +113,6 @@ constexpr int kPq = kTq + 4;        // pitch of key-major probability tiles [key
 constexpr int kPk = kTk + 8;        // pitch of query-major probability tiles [query][key]
 constexpr float kMInit = -1e30f;    // the running max before any valid key
 
-struct Strides {
-  long long b, s, h;  // elements between batches, sequence positions, heads
-};
-
 struct Problem {
   int Sq, Skv, H, rep, D;
   Strides qs, ks, vs, dos;
@@ -79,9 +121,7 @@ struct Problem {
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 __device__ __forceinline__ bool is_valid(int i, int j, const Problem& p) {
   if (i >= p.Sq || j >= p.Skv) return false;
@@ -557,12 +597,422 @@ int launch(const void* q, const void* k, const void* v, const void* dO, void* dq
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 body: two launches on the tensor cores (wgmma on TMA-fed tiles)
+// ---------------------------------------------------------------------------
+
+constexpr int kTile = 64;     // query rows or keys of a tile: wgmma's M and the depth of A B
+constexpr int kStages = 2;    // stages of the streamed tiles' rings
+constexpr int kConsumer = 128;  // threads of a consumer warpgroup
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
+
+__host__ __device__ constexpr uint32_t tile_bytes(int D) {
+  return (D / kChunkCols) * kRowChunkBytes;
+}
+
+// 1024 bytes of slack to align the tiles to the swizzle pattern; the dq
+// launch holds q, dO and kStages k and v tiles, the dk and dv launch k, v,
+// kStages q and dO tiles and the exchange of one (64 x 64) f32 fragment.
+constexpr size_t dq_tc_smem(int D) {
+  return 1024 + (2 + 2 * kStages) * tile_bytes(D) + 8 * (1 + 4 * kStages);
+}
+constexpr size_t dkdv_tc_smem(int D) {
+  return 1024 + (2 + 2 * kStages) * tile_bytes(D) + 32 * kConsumer * 4 + 8 * (1 + 4 * kStages);
+}
+
+// (1) dq and delta. One block per (batch, head, 64-query tile): one
+// consumer warpgroup (threads 0-127) and one producer warpgroup whose
+// thread 128 loads q and dO once and the key tiles through the k and v
+// rings. A thread holds rows r0 and r0 + 8 of the tile and columns c0 +
+// 8n + {0, 1} of each score fragment, as wgmma lays them out.
+template <int kD>
+__global__ void __launch_bounds__(2 * kConsumer, 1)
+bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+             const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
+             const __nv_bfloat16* __restrict__ dO, const float* __restrict__ o32,
+             const float* __restrict__ lse, float* __restrict__ delta,
+             __nv_bfloat16* __restrict__ dq, Problem p) {
+  constexpr int kChunks = kD / kChunkCols;
+  constexpr uint32_t kBytes = tile_bytes(kD);
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;  // chunk c at sQ + c kRowChunkBytes
+  const uint32_t sDO = sQ + kBytes;
+  const uint32_t sK = sDO + kBytes;  // stage s at sK + s kBytes
+  const uint32_t sV = sK + kStages * kBytes;
+  // barriers: q and dO full; then k full, k empty, v full, v empty, each kStages of 8 bytes
+  const uint32_t qd_full = sV + kStages * kBytes, k_full = qd_full + 8;
+  const uint32_t k_empty = k_full + 8 * kStages, v_full = k_empty + 8 * kStages;
+  const uint32_t v_empty = v_full + 8 * kStages;
+
+  const int nq = (p.Sq + kTile - 1) / kTile;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * kTile;  // longest rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  int j_begin, j_end;
+  key_range(q0, min(kTile, p.Sq - q0), p, &j_begin, &j_end);
+  const int ntiles = j_end > j_begin ? (j_end - j_begin + kTile - 1) / kTile : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qd_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, kConsumer);
+      mbar_init(v_empty + 8 * s, kConsumer);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumer) {
+    // producer: one thread issues every load; the rings' empty barriers pace it
+    if (threadIdx.x == kConsumer) {
+      const int hk = h / p.rep;
+      mbar_expect_tx(qd_full, 2 * kBytes);
+      for (int c = 0; c < kChunks; ++c) {
+        tma_load(sQ + c * kRowChunkBytes, &qmap, qd_full, c * kChunkCols, q0, h, b);
+        tma_load(sDO + c * kRowChunkBytes, &domap, qd_full, c * kChunkCols, q0, h, b);
+      }
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % kStages;
+        const uint32_t parity = ((t / kStages) & 1) ^ 1;
+        const int j0 = j_begin + t * kTile;
+        mbar_wait(k_empty + 8 * s, parity);
+        mbar_expect_tx(k_full + 8 * s, kBytes);
+        for (int c = 0; c < kChunks; ++c) {
+          tma_load(sK + s * kBytes + c * kRowChunkBytes, &kmap, k_full + 8 * s, c * kChunkCols,
+                   j0, hk, b);
+        }
+        mbar_wait(v_empty + 8 * s, parity);
+        mbar_expect_tx(v_full + 8 * s, kBytes);
+        for (int c = 0; c < kChunks; ++c) {
+          tma_load(sV + s * kBytes + c * kRowChunkBytes, &vmap, v_full + 8 * s, c * kChunkCols,
+                   j0, hk, b);
+        }
+      }
+    }
+  } else {
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int r0 = q0 + 16 * warp + lane / 4, c0 = 2 * (lane % 4);
+    const long long stat0 = (static_cast<long long>(b) * p.H + h) * p.Sq;
+    // delta = dO . o (o in f32 from the forward) and lse in log2 units of
+    // rows r0 and r0 + 8: the 4 lanes of a row each sum every fourth float4
+    float dl[2], L2[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = r0 + 8 * r;
+      float sum = 0.0f;
+      if (i < p.Sq) {
+        const float* orow = o32 + ((static_cast<long long>(b) * p.Sq + i) * p.H + h) * kD;
+        const __nv_bfloat16* drow = dO + b * p.dos.b + i * p.dos.s + h * p.dos.h;
+#pragma unroll 4
+        for (int d = 4 * (lane % 4); d < kD; d += 16) {
+          const float4 o4 = *reinterpret_cast<const float4*>(orow + d);
+          const float2 d01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(drow + d));
+          const float2 d23 =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(drow + d + 2));
+          sum = fmaf(d01.x, o4.x, sum);
+          sum = fmaf(d01.y, o4.y, sum);
+          sum = fmaf(d23.x, o4.z, sum);
+          sum = fmaf(d23.y, o4.w, sum);
+        }
+      }
+      dl[r] = quad_sum(sum);
+      L2[r] = i < p.Sq ? lse[stat0 + i] * kLog2e : 0.0f;
+      if (i < p.Sq && lane % 4 == 0) delta[stat0 + i] = dl[r];
+    }
+    const bool capped = p.softcap > 0.0f;
+    const float pre = capped ? p.scale / p.softcap : 0.0f;
+    const float post = (capped ? p.softcap : p.scale) * kLog2e;
+    float acc[kD / 2];
+#pragma unroll
+    for (int i = 0; i < kD / 2; ++i) acc[i] = 0.0f;
+    float sc[32], dp[32];
+    uint32_t hi[16], lo[16];
+
+    mbar_wait(qd_full, 0);
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % kStages;
+      const uint32_t ph = (t / kStages) & 1;
+      const int j0 = j_begin + t * kTile;
+      mbar_wait(k_full + 8 * s, ph);
+      mbar_wait(v_full + 8 * s, ph);
+      wgmma_fence();
+      wgmma_scores<kD, kRowChunkBytes, kRowChunkBytes>(sc, sQ, sK + s * kBytes);
+      wgmma_scores<kD, kRowChunkBytes, kRowChunkBytes>(dp, sDO, sV + s * kBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      mbar_arrive(v_empty + 8 * s);
+      // ds = p (dp - delta) (1 - t^2), p = 2^(z - lse2) on the valid pairs
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int r = (e >> 1) & 1;
+        const int j = j0 + c0 + 8 * (e / 4) + (e & 1);
+        float x = sc[e], g = 1.0f;
+        if (capped) {
+          x = tanhf(x * pre);
+          g = 1.0f - x * x;
+        }
+        const float pr = is_valid(r0 + 8 * r, j, p) ? exp2_ftz(fmaf(x, post, -L2[r])) : 0.0f;
+        sc[e] = pr * (dp[e] - dl[r]) * g;
+      }
+      split_bf16(sc, hi, lo);
+      fence_regs(hi);
+      fence_regs(lo);
+      wgmma_fence();
+      wgmma_rows_split<kD>(acc, hi, lo, sK + s * kBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(k_empty + 8 * s);
+    }
+
+    // dq = scale acc, rounded once to bf16; rows past the sequence are not stored
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = r0 + 8 * r;
+      if (i < p.Sq) {
+        __nv_bfloat16* out = dq + ((static_cast<long long>(b) * p.Sq + i) * p.H + h) * kD + c0;
+#pragma unroll
+        for (int n = 0; n < kD / 8; ++n) {
+          *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) = __floats2bfloat162_rn(
+              acc[4 * n + 2 * r] * p.scale, acc[4 * n + 2 * r + 1] * p.scale);
+        }
+      }
+    }
+  }
+}
+
+// (2) dk and dv. One block per (batch, KV head, 64-key tile): consumer
+// warpgroups 0 and 1 and a producer warpgroup, one thread of which loads
+// the k and v tiles once and streams the (q, dO) tiles of the group's heads
+// and of the query tiles that see the keys through two rings. Keys are
+// wgmma's M, so S^T and dP^T come out laid out as the A operand of P^T dO
+// and dS^T q. Warpgroup 0 computes S^T, P^T and g = P^T (1 - t^2) and owns
+// dv; warpgroup 1 computes dP^T, takes g through shared memory (one f32
+// fragment, thread for thread: both warpgroups hold the same (key, query)
+// positions), forms dS^T = g (dP^T - delta) and owns dk. Named barrier 1
+// says g is written, 2 that it has been read.
+template <int kD>
+__global__ void __launch_bounds__(3 * kConsumer, 1)
+bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+               const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int K, Problem p) {
+  constexpr int kChunks = kD / kChunkCols;
+  constexpr uint32_t kBytes = tile_bytes(kD);
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sK = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sV = sK + kBytes;
+  const uint32_t sQ = sV + kBytes;  // stage s at sQ + s kBytes
+  const uint32_t sDO = sQ + kStages * kBytes;
+  const uint32_t sX = sDO + kStages * kBytes;  // g: [32][kConsumer] f32
+  // barriers: k and v full; then q full, q empty, dO full, dO empty, each kStages of 8 bytes
+  const uint32_t kv_full = sX + 32 * kConsumer * 4, q_full = kv_full + 8;
+  const uint32_t q_empty = q_full + 8 * kStages, do_full = q_empty + 8 * kStages;
+  const uint32_t do_empty = do_full + 8 * kStages;
+
+  const int j0 = blockIdx.x * kTile;  // the first key tiles see the most queries
+  const int g = blockIdx.y, b = blockIdx.z;
+  const int keys = min(kTile, p.Skv - j0);
+  // the queries [i_begin, i_end) that may see a key of [j0, j0 + keys)
+  int i_begin = 0, i_end = p.Sq;
+  if (p.causal) {
+    i_begin = j0;
+    if (p.window > 0) i_end = min(p.Sq, j0 + keys - 1 + p.window);
+  }
+  const int nqt = i_end > i_begin ? (i_end - i_begin + kTile - 1) / kTile : 0;
+  const int steps = p.rep * nqt;  // (head, query tile) pairs, head-major
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(q_full + 8 * s, 1);
+      mbar_init(do_full + 8 * s, 1);
+      mbar_init(q_empty + 8 * s, 2 * kConsumer);
+      mbar_init(do_empty + 8 * s, 2 * kConsumer);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kConsumer;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 2 * kConsumer) {
+      mbar_expect_tx(kv_full, 2 * kBytes);
+      for (int c = 0; c < kChunks; ++c) {
+        tma_load(sK + c * kRowChunkBytes, &kmap, kv_full, c * kChunkCols, j0, g, b);
+        tma_load(sV + c * kRowChunkBytes, &vmap, kv_full, c * kChunkCols, j0, g, b);
+      }
+      for (int u = 0; u < steps; ++u) {
+        const int s = u % kStages;
+        const uint32_t parity = ((u / kStages) & 1) ^ 1;
+        const int h = g * p.rep + u / nqt, i0 = i_begin + (u % nqt) * kTile;
+        mbar_wait(q_empty + 8 * s, parity);
+        mbar_expect_tx(q_full + 8 * s, kBytes);
+        for (int c = 0; c < kChunks; ++c) {
+          tma_load(sQ + s * kBytes + c * kRowChunkBytes, &qmap, q_full + 8 * s, c * kChunkCols, i0,
+                   h, b);
+        }
+        mbar_wait(do_empty + 8 * s, parity);
+        mbar_expect_tx(do_full + 8 * s, kBytes);
+        for (int c = 0; c < kChunks; ++c) {
+          tma_load(sDO + s * kBytes + c * kRowChunkBytes, &domap, do_full + 8 * s, c * kChunkCols,
+                   i0, h, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int tid = threadIdx.x % kConsumer, lane = tid % 32, warp = tid / 32;
+    const int r0 = j0 + 16 * warp + lane / 4, c0 = 2 * (lane % 4);  // keys r0, r0 + 8
+    float* X = reinterpret_cast<float*>(smem_raw + (sX - smem_u32(smem_raw)));
+    const bool capped = p.softcap > 0.0f;
+    const float pre = capped ? p.scale / p.softcap : 0.0f;
+    const float post = (capped ? p.softcap : p.scale) * kLog2e;
+    float acc[kD / 2];  // dv in warpgroup 0, dk / scale in warpgroup 1
+#pragma unroll
+    for (int i = 0; i < kD / 2; ++i) acc[i] = 0.0f;
+    float sc[32], col[16];
+    uint32_t hi[16], lo[16];
+
+    mbar_wait(kv_full, 0);
+    for (int u = 0; u < steps; ++u) {
+      const int s = u % kStages;
+      const uint32_t ph = (u / kStages) & 1;
+      const int h = g * p.rep + u / nqt, i0 = i_begin + (u % nqt) * kTile;
+      // this thread's 16 query columns' lse (log2 units; warpgroup 0) or delta (1)
+      const float* stat = (wg == 0 ? lse : delta) + (static_cast<long long>(b) * p.H + h) * p.Sq;
+      const float mul = wg == 0 ? kLog2e : 1.0f;
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        const int i = i0 + c0 + 8 * (n / 2) + (n & 1);
+        col[n] = i < p.Sq ? stat[i] * mul : 0.0f;
+      }
+      if (wg == 0) {
+        mbar_wait(q_full + 8 * s, ph);
+        wgmma_fence();
+        wgmma_scores<kD, kRowChunkBytes, kRowChunkBytes>(sc, sK, sQ + s * kBytes);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        if (u > 0) named_sync(2, 2 * kConsumer);  // warpgroup 1 has read the last g
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int j = r0 + 8 * ((e >> 1) & 1);
+          const int i = i0 + c0 + 8 * (e / 4) + (e & 1);
+          float x = sc[e], gt = 1.0f;
+          if (capped) {
+            x = tanhf(x * pre);
+            gt = 1.0f - x * x;
+          }
+          const float pr =
+              is_valid(i, j, p) ? exp2_ftz(fmaf(x, post, -col[2 * (e / 4) + (e & 1)])) : 0.0f;
+          X[e * kConsumer + tid] = pr * gt;
+          sc[e] = pr;
+        }
+        __threadfence_block();
+        named_arrive(1, 2 * kConsumer);
+        split_bf16(sc, hi, lo);
+        fence_regs(hi);
+        fence_regs(lo);
+        mbar_wait(do_full + 8 * s, ph);
+        wgmma_fence();
+        wgmma_rows_split<kD>(acc, hi, lo, sDO + s * kBytes);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+      } else {
+        mbar_wait(do_full + 8 * s, ph);
+        wgmma_fence();
+        wgmma_scores<kD, kRowChunkBytes, kRowChunkBytes>(sc, sV, sDO + s * kBytes);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        named_sync(1, 2 * kConsumer);  // warpgroup 0's g of this step
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          sc[e] = X[e * kConsumer + tid] * (sc[e] - col[2 * (e / 4) + (e & 1)]);
+        }
+        __threadfence_block();
+        if (u + 1 < steps) named_arrive(2, 2 * kConsumer);
+        split_bf16(sc, hi, lo);
+        fence_regs(hi);
+        fence_regs(lo);
+        mbar_wait(q_full + 8 * s, ph);
+        wgmma_fence();
+        wgmma_rows_split<kD>(acc, hi, lo, sQ + s * kBytes);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+      }
+      mbar_arrive(q_empty + 8 * s);
+      mbar_arrive(do_empty + 8 * s);
+    }
+
+    // dv, or dk = scale acc, rounded once to bf16; keys past the sequence are not stored
+    __nv_bfloat16* out = wg == 0 ? dv : dk;
+    const float mul = wg == 0 ? 1.0f : p.scale;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int j = r0 + 8 * r;
+      if (j < p.Skv) {
+        __nv_bfloat16* row = out + ((static_cast<long long>(b) * p.Skv + j) * K + g) * kD + c0;
+#pragma unroll
+        for (int n = 0; n < kD / 8; ++n) {
+          *reinterpret_cast<__nv_bfloat162*>(row + 8 * n) =
+              __floats2bfloat162_rn(acc[4 * n + 2 * r] * mul, acc[4 * n + 2 * r + 1] * mul);
+        }
+      }
+    }
+  }
+}
+
+template <int kD>
+int launch_wgmma(const void* q, const void* k, const void* v, const void* o32, const void* lse,
+                 const void* dO, void* dq, void* dk, void* dv, float* delta, int batch, int K,
+                 const Problem& p, cudaStream_t stream) {
+  CUtensorMap qmap, kmap, vmap, domap;
+  if (!make_map(&qmap, q, kD, p.Sq, p.H, batch, p.qs, kTile) ||
+      !make_map(&kmap, k, kD, p.Skv, K, batch, p.ks, kTile) ||
+      !make_map(&vmap, v, kD, p.Skv, K, batch, p.vs, kTile) ||
+      !make_map(&domap, dO, kD, p.Sq, p.H, batch, p.dos, kTile)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr size_t sa = dq_tc_smem(kD), sb = dkdv_tc_smem(kD);
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(bwd_dq_wgmma<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(sa))) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(bwd_dkdv_wgmma<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(sb))) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  const int nq = (p.Sq + kTile - 1) / kTile, nk = (p.Skv + kTile - 1) / kTile;
+  bwd_dq_wgmma<kD><<<dim3(nq, p.H, batch), 2 * kConsumer, sa, stream>>>(
+      qmap, kmap, vmap, domap, static_cast<const __nv_bfloat16*>(dO),
+      static_cast<const float*>(o32), static_cast<const float*>(lse), delta,
+      static_cast<__nv_bfloat16*>(dq), p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  bwd_dkdv_wgmma<kD><<<dim3(nk, K, batch), 3 * kConsumer, sb, stream>>>(
+      qmap, kmap, vmap, domap, static_cast<const float*>(lse), delta,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), K, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// bf16 (the tensor-core body): o is the forward's f32 output (batch, Sq,
+// H, D), contiguous, lse its (batch, H, Sq) f32 row statistic, and scratch
+// takes delta (batch, H, Sq) f32; dO's base and strides must suit TMA.
+// f32 (the CUDA-core body): o and lse are not read, and scratch takes lse
+// and delta, 2 (batch, H, Sq) f32.
 extern "C" int flash_attention_backward_launch(
-    const void* q, const void* k, const void* v, const void* dO, void* dq, void* dk, void* dv,
-    void* lse, void* delta, int batch, int Sq, int Skv, int H, int K, int D, int bf16,
-    long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+    const void* q, const void* k, const void* v, const void* o, const void* lse, const void* dO,
+    void* dq, void* dk, void* dv, void* scratch, int batch, int Sq, int Skv, int H, int K, int D,
+    int bf16, long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh, long long do_sb,
     long long do_ss, long long do_sh, float scale, float softcap, int causal, int window,
     void* stream) {
@@ -575,8 +1025,25 @@ extern "C" int flash_attention_backward_launch(
                   Strides{v_sb, v_ss, v_sh}, Strides{do_sb, do_ss, do_sh},
                   scale, softcap, causal, window};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-  float* d = static_cast<float*>(delta);
-  if (bf16) return launch<__nv_bfloat16>(q, k, v, dO, dq, dk, dv, l, d, batch, K, p, st);
-  return launch<float>(q, k, v, dO, dq, dk, dv, l, d, batch, K, p, st);
+  float* stats = static_cast<float*>(scratch);
+  if (!bf16) {
+    const long long n = static_cast<long long>(batch) * H * Sq;
+    return launch<float>(q, k, v, dO, dq, dk, dv, stats, stats + n, batch, K, p, st);
+  }
+  if (o == nullptr || lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+#define FLASH_BWD_WGMMA_CASE(d) \
+  case d:                       \
+    return launch_wgmma<d>(q, k, v, o, lse, dO, dq, dk, dv, stats, batch, K, p, st);
+  switch (D) {
+    FLASH_BWD_WGMMA_CASE(32)
+    FLASH_BWD_WGMMA_CASE(64)
+    FLASH_BWD_WGMMA_CASE(96)
+    FLASH_BWD_WGMMA_CASE(128)
+    FLASH_BWD_WGMMA_CASE(160)
+    FLASH_BWD_WGMMA_CASE(192)
+    FLASH_BWD_WGMMA_CASE(224)
+    FLASH_BWD_WGMMA_CASE(256)
+  }
+#undef FLASH_BWD_WGMMA_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

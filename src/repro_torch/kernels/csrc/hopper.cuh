@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (flash_attention.cu, ssd_scan.cu): shared-memory addresses, mbarriers,
-// TMA tile loads and the tensor maps they read (64-byte column chunks in
-// the 64-byte swizzle), wgmma descriptors for that swizzle, and the
-// wgmma.mma_async forms the kernels issue (m64n64k16 with both operands in
-// shared memory; m64nNk16 with A in registers and B N-major in shared
-// memory). Each source that includes it gets its own internal copy.
+// (flash_attention.cu, flash_attention_bwd.cu, ssd_scan.cu): shared-memory
+// addresses, mbarriers, named barriers, TMA tile loads and the tensor maps
+// they read (64-byte column chunks in the 64-byte swizzle), wgmma
+// descriptors for that swizzle, the wgmma.mma_async forms the kernels issue
+// (m64n64k16 with both operands in shared memory; m64nNk16 with A in
+// registers and B N-major in shared memory), the whole-tile products the
+// flash kernels build from them, and the split of an f32 fragment into bf16
+// hi + lo halves. Each source that includes it gets its own internal copy.
 #pragma once
 
 #include <cuda.h>
@@ -20,6 +22,8 @@ struct Strides {
 };
 
 constexpr int kChunkCols = 32;  // bf16 columns of a 64-byte swizzled chunk
+constexpr uint32_t kSwizzleRows = 8 * 64;  // 8 rows of 64 bytes: one swizzle atom
+constexpr uint32_t kRowChunkBytes = 64 * 64;  // one column chunk of a 64-row tile
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -82,6 +86,15 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int kPending>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Named barrier ``id`` (1..15; 0 is __syncthreads) over ``count`` threads,
+// a multiple of 32: sync waits for the others, arrive does not.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // Pin a register that an asynchronous wgmma reads or writes: the compiler
@@ -217,6 +230,56 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b
   else wgmma_rs_n32(d, a, b);
 }
 
+// S (64 x 64, f32) = A B^T over kD: wgmma.m64n64k16 from two K-major bf16
+// tiles in the 64-byte swizzle, 16 columns (32 bytes) a step; the column
+// chunks of A lie kAChunk bytes apart, those of B kBChunk.
+template <int kD, uint32_t kAChunk, uint32_t kBChunk>
+__device__ __forceinline__ void wgmma_scores(float (&d)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    const uint32_t sa = a + (kk / 2) * kAChunk + (kk % 2) * 32;
+    const uint32_t sb = b + (kk / 2) * kBChunk + (kk % 2) * 32;
+    wgmma_ss_n64(d, smem_desc(sa, 16, kSwizzleRows), smem_desc(sb, 16, kSwizzleRows), kk > 0);
+  }
+}
+
+// acc (64 x kD, f32) += (hi + lo) B: the A operand a (64 x 64) fragment in
+// registers as two bf16 halves, B the 64-row tile at b read N-major (its
+// rows are the depth, transposed by the instruction), 16 rows a step. kD
+// is cut into the widest wgmma Ns that fit, 256, 128, 64 then 32 (224 =
+// 128 + 64 + 32): few instructions and few live descriptors.
+template <int kD, int kOff = 0>
+__device__ __forceinline__ void wgmma_rows_split_from(float* acc, const uint32_t* hi,
+                                                      const uint32_t* lo, uint32_t b, int kk) {
+  if constexpr (kOff < kD) {
+    constexpr int kRest = kD - kOff;
+    constexpr int kN = kRest >= 256 ? 256 : kRest >= 128 ? 128 : kRest >= 64 ? 64 : 32;
+    const uint32_t sb = b + kk * 16 * 64 + (kOff / kChunkCols) * kRowChunkBytes;
+    const uint64_t desc = smem_desc(sb, kRowChunkBytes, kSwizzleRows);
+    wgmma_rs<kN>(acc + kOff / 2, hi + 4 * kk, desc);
+    wgmma_rs<kN>(acc + kOff / 2, lo + 4 * kk, desc);
+    wgmma_rows_split_from<kD, kOff + kN>(acc, hi, lo, b, kk);
+  }
+}
+
+template <int kD>
+__device__ __forceinline__ void wgmma_rows_split(float (&acc)[kD / 2], const uint32_t (&hi)[16],
+                                                 const uint32_t (&lo)[16], uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rows_split_from<kD>(acc, hi, lo, b, kk);
+}
+
+// Reductions over the 4 lanes that hold one row of a wgmma fragment.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
 // 2^x, flushing results below 2^-126 to zero: exp2f without its subnormal
 // path, a 2-ulp approximation (ex2.approx.ftz).
 __device__ __forceinline__ float exp2_ftz(float x) {
@@ -227,6 +290,20 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// A (64 x 64) f32 fragment as the A operand of wgmma_rows_split: pair n
+// (values 2n, 2n + 1) as hi = bf16(x) and lo = bf16(x - hi). One rounding
+// to bf16 keeps 8 bits; the two halves keep about 16.
+__device__ __forceinline__ void split_bf16(const float (&x)[32], uint32_t (&hi)[16],
+                                           uint32_t (&lo)[16]) {
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * n], x[2 * n + 1]);
+    const float2 back = __bfloat1622float2(h);
+    hi[n] = bf16x2_bits(h);
+    lo[n] = bf16x2_bits(__floats2bfloat162_rn(x[2 * n] - back.x, x[2 * n + 1] - back.y));
+  }
 }
 
 template <int kN>

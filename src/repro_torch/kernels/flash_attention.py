@@ -9,8 +9,10 @@ type: f32 runs on the CUDA cores, bf16 on the tensor cores (``wgmma`` on
 tiles that the Tensor Memory Accelerator loads). The backward,
 ``csrc/flash_attention_bwd.cu``, stands for the reference's ``jax.grad``
 of the same function (its models differentiate ``attend``; the Pallas
-kernel has no backward): dq, dk and dv in three launches, f32 sums on the
-CUDA cores for f32 and bf16 inputs alike.
+kernel has no backward). It has one body for each input type too: bf16
+runs two launches on the tensor cores (dq and delta = dO . o; then dk and
+dv), from the forward's saved o (in f32) and log-sum-exp; f32 runs three
+launches on the CUDA cores that recompute both.
 
 The kernels' function, for query i and key j with positions counted from
 0 on both sides (also when Sq != Skv), query head h reading KV head
@@ -28,9 +30,14 @@ passes it no window).
 ``flash_attention`` is a ``torch.autograd.Function`` (:class:`FlashAttentionFn`)
 that works under ``torch.func`` transforms: its ``vmap`` rule folds a
 vmapped dimension (the P2P step's peers) into the batch, so each launch
-sees plain tensors. On CPU tensors its forward is ``flash_attention_plain``
-and its backward ``flash_attention_backward_plain``; on CUDA tensors both
-are the kernels, or raise: there is no fallback.
+sees plain tensors. Outside ``torch.inference_mode()`` its forward also
+returns what the backward reads: o in f32 and each row's log-sum-exp
+``lse`` (B, H, Sq) f32 of its masked, softcapped scores. On CPU tensors the
+forward is ``flash_attention_plain`` (with ``flash_attention_stats_plain``)
+and the backward ``flash_attention_backward_plain``, which computes the
+statistics again; ``flash_attention_backward_saved_plain`` is the bf16
+backward kernels' plain twin, from the saved o and lse. On CUDA tensors
+both are the kernels, or raise: there is no fallback.
 
 ``attend`` is the port's copy of the reference's ``models/layers.py:attend``
 (masks from positions, ``finfo(f32).min`` as the mask value, a direct
@@ -142,14 +149,89 @@ def flash_attention_plain(
     )
 
 
+def _masked_scores(q, k, *, causal: bool, softcap: float, window: int):
+    """The kernels' scores, (B, K, G, Sq, Skv) in f32 (f64 for f64 inputs),
+    -inf on the masked pairs, with t = tanh(u / softcap) (None without a
+    softcap), the validity mask and q in f32 as (B, Sq, K, G, D)."""
+    B, Sq, H, D = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    f32 = torch.promote_types(q.dtype, torch.float32)  # f32, or f64 for a gradient check
+    qf = q.reshape(B, Sq, K, H // K, D).to(f32)
+    u = torch.einsum("bqkgd,bskd->bkgqs", qf * (1.0 / math.sqrt(D)), k.to(f32))
+    t = torch.tanh(u / softcap) if softcap else None
+    s = softcap * t if softcap else u
+    i = torch.arange(Sq, device=q.device)[:, None]
+    j = torch.arange(Skv, device=q.device)[None, :]
+    valid = (i - j >= 0) & ((i - j < window) if window else True) if causal else (j >= 0)
+    return torch.where(valid, s, -math.inf), t, valid, qf
+
+
+def flash_attention_stats_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, softcap: float = 0.0, window: int = 0,
+):
+    """Plain PyTorch version of what the forward kernel saves for the
+    backward -> (o, lse): o = softmax(s) v in f32 (f64 for f64 inputs), (B,
+    Sq, H, D), before the output's rounding, and lse_i = log sum_j exp(s_ij)
+    over the valid keys, (B, H, Sq), over the whole (Sq, Skv) score matrix.
+    A query row with no valid key gets o = 0 and lse = -inf, as the kernel
+    gives it."""
+    B, Sq, H, D = q.shape
+    s, _, valid, _ = _masked_scores(q, k, causal=causal, softcap=softcap, window=window)
+    lse = torch.logsumexp(s, dim=-1)  # -inf on a row with no valid key
+    p = torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(p.dtype))
+    return o.reshape(B, Sq, H, D), lse.reshape(B, H, Sq)
+
+
+def flash_attention_backward_saved_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, *, causal: bool = True, softcap: float = 0.0, window: int = 0,
+):
+    """Plain PyTorch backward in the bf16 kernel's form, from the forward's
+    o (B, Sq, H, D) and lse (B, H, Sq) -> (dq, dk, dv) in the dtypes of q,
+    k and v, step by step in f32 (f64 for f64 inputs) over the whole (Sq,
+    Skv) score matrix.
+
+        u_ij  = (q_i / sqrt(D)) . k_j,  t_ij = tanh(u_ij / softcap)
+        s_ij  = softcap * t_ij  (u_ij without softcap), masked as the forward
+        p_ij  = exp(s_ij - lse_i) on the valid j, else 0
+        dv_j  = sum_i p_ij do_i               dp_ij = do_i . v_j
+        ds_ij = p_ij (dp_ij - delta_i),       delta_i = do_i . o_i
+        du_ij = ds_ij (1 - t_ij^2)            (ds_ij without softcap)
+        dq_i  = sum_j du_ij k_j / sqrt(D)     dk_j = sum_i du_ij q_i / sqrt(D)
+
+    dk and dv sum over the H / K query heads of each KV group. A query row
+    with no valid key gets zero gradient, as the kernel's forward gives it
+    a zero output."""
+    B, Sq, H, D = q.shape
+    K = k.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(D)
+    s, t, valid, qf = _masked_scores(q, k, causal=causal, softcap=softcap, window=window)
+    f32 = s.dtype
+    kf, vf = k.to(f32), v.to(f32)
+    dof = do.reshape(B, Sq, K, G, D).to(f32)
+    p = torch.where(valid, torch.exp(s - lse.reshape(B, K, G, Sq, 1).to(f32)), 0.0)
+    delta = torch.einsum("bqkgd,bqkgd->bkgq", dof, o.reshape(B, Sq, K, G, D).to(f32))[..., None]
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
+    du = p * (dp - delta)
+    if softcap:
+        du = du * (1.0 - t * t)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", du, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", du, qf) * scale
+    return dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def flash_attention_backward_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, *,
     causal: bool = True, softcap: float = 0.0, window: int = 0,
 ):
     """Plain PyTorch backward of the kernels' function -> (dq, dk, dv) in
-    the dtypes of q, k and v: the formula the backward kernel computes,
+    the dtypes of q, k and v: the formula the backward kernels compute,
     step by step in f32 (f64 for f64 inputs) over the whole (Sq, Skv)
-    score matrix.
+    score matrix, in one pass (the scores once; o and delta from p).
 
         u_ij  = (q_i / sqrt(D)) . k_j,  t_ij = tanh(u_ij / softcap)
         s_ij  = softcap * t_ij  (u_ij without softcap), masked as the forward
@@ -161,22 +243,16 @@ def flash_attention_backward_plain(
 
     dk and dv sum over the H / K query heads of each KV group. A query row
     with no valid key gets zero gradient, as the kernel's forward gives it
-    a zero output."""
+    a zero output. ``flash_attention_backward_saved_plain`` is the same
+    function from the forward's saved o and lse."""
     B, Sq, H, D = q.shape
-    Skv, K = k.shape[1], k.shape[2]
+    K = k.shape[2]
     G = H // K
-    f32 = torch.promote_types(q.dtype, torch.float32)  # f32, or f64 for a gradient check
     scale = 1.0 / math.sqrt(D)
-    qf = q.reshape(B, Sq, K, G, D).to(f32)
+    s, t, valid, qf = _masked_scores(q, k, causal=causal, softcap=softcap, window=window)
+    f32 = s.dtype
     kf, vf = k.to(f32), v.to(f32)
     dof = do.reshape(B, Sq, K, G, D).to(f32)
-    u = torch.einsum("bqkgd,bskd->bkgqs", qf * scale, kf)
-    t = torch.tanh(u / softcap) if softcap else None
-    s = softcap * t if softcap else u
-    i = torch.arange(Sq, device=q.device)[:, None]
-    j = torch.arange(Skv, device=q.device)[None, :]
-    valid = (i - j >= 0) & ((i - j < window) if window else True) if causal else (j >= 0)
-    s = torch.where(valid, s, -math.inf)
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, 0.0)  # a row with no valid key
     e = torch.where(valid, torch.exp(s - m), 0.0)
@@ -199,6 +275,7 @@ def _lib() -> ctypes.CDLL:
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.flash_attention_launch.argtypes = [
         ptr, ptr, ptr, ptr,  # q, k, v, o
+        ptr, ptr,  # lse (batch, heads, Sq) and o in f32, or null: bf16 only
         i32, i32, i32, i32, i32, i32, i32,  # batch, Sq, Skv, heads, kv heads, headdim, bf16
         i64, i64, i64,  # q strides (batch, seq, head)
         i64, i64, i64,  # k strides
@@ -215,9 +292,11 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = build.load(BWD_SOURCE)
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.flash_attention_backward_launch.argtypes = [
-        ptr, ptr, ptr, ptr,  # q, k, v, do
+        ptr, ptr, ptr,  # q, k, v
+        ptr, ptr,  # the forward's o in f32 and lse: bf16 only
+        ptr,  # do
         ptr, ptr, ptr,  # dq, dk, dv
-        ptr, ptr,  # scratch: lse, delta (batch, heads, Sq) f32
+        ptr,  # scratch: delta (bf16) or lse and delta (f32), (batch, heads, Sq) f32 each
         i32, i32, i32, i32, i32, i32, i32,  # batch, Sq, Skv, heads, kv heads, headdim, bf16
         i64, i64, i64,  # q strides (batch, seq, head)
         i64, i64, i64,  # k strides
@@ -285,23 +364,42 @@ def _check_tma(q, k, v) -> None:
                                  f"got {step} bytes")
 
 
-def _forward(q, k, v, causal: bool, softcap: float, window: int) -> torch.Tensor:
-    """The forward on plain tensors: the plain version on the CPU, the
-    kernel on CUDA."""
+def _no_stats(q) -> torch.Tensor:
+    """The saved statistics of a forward that saves none: an empty tensor
+    that folds and unfolds under ``vmap`` like a real one."""
+    return q.new_empty((q.shape[0], 0), dtype=torch.float32)
+
+
+def _forward(q, k, v, causal: bool, softcap: float, window: int, stats: bool):
+    """The forward on plain tensors -> (o, o32, lse): the plain version on
+    the CPU, the kernel on CUDA. With ``stats`` also o in f32 (B, Sq, H, D)
+    and lse (B, H, Sq), the backward's inputs (f64 for f64 inputs on the
+    CPU); without, or for f32 on CUDA (the f32 backward recomputes its
+    own), two empty tensors."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, softcap=softcap, window=window)
+        o = flash_attention_plain(q, k, v, causal=causal, softcap=softcap, window=window)
+        if not stats:
+            return o, _no_stats(q), _no_stats(q)
+        return (o, *flash_attention_stats_plain(q, k, v, causal=causal, softcap=softcap,
+                                                window=window))
     stream = build.cuda_stream(q.device)
     B, Sq, H, D = q.shape
     Skv, K = k.shape[1], k.shape[2]
     _check_launch(D, q, k, v)
-    if q.dtype == torch.bfloat16:
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
         _check_tma(q, k, v)
     o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    o32 = lse = _no_stats(q)
+    if stats and bf16:
+        o32 = torch.empty((B, Sq, H, D), dtype=torch.float32, device=q.device)
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
-        return o
+        return o, o32, lse
     with torch.cuda.device(q.device):
         err = _lib().flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr() if lse.numel() else None, o32.data_ptr() if o32.numel() else None,
             B, Sq, Skv, H, K, D, _DTYPES[q.dtype],
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             1.0 / math.sqrt(D), float(softcap), int(causal), int(window), stream,
@@ -309,7 +407,7 @@ def _forward(q, k, v, causal: bool, softcap: float, window: int) -> torch.Tensor
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     flash_attention.launches += 1
-    return o
+    return o, o32, lse
 
 
 def _fold(info, in_dims, tensors):
@@ -322,43 +420,53 @@ def _fold(info, in_dims, tensors):
     return out
 
 
+def _unfold(info, tensors):
+    """Outputs of a launch on folded tensors -> outputs batched in dim 0."""
+    return tuple(t.unflatten(0, (info.batch_size, -1)) for t in tensors)
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """``flash_attention`` with its backward, in the ``setup_context`` form
-    that ``torch.func`` transforms take. It saves q, k and v (not o: the
-    backward recomputes what it needs). Its ``vmap`` rule folds the vmapped
+    that ``torch.func`` transforms take. It returns (o, o32, lse): o32 (o
+    in f32) and lse are marked non-differentiable and saved, with q, k and
+    v, for the backward; under ``torch.inference_mode()`` (scoring, serve)
+    the forward computes neither. Its ``vmap`` rule folds the vmapped
     dimension into the batch: a kernel that reads ``data_ptr()`` cannot see
     a batched tensor, so ``generate_vmap_rule`` would not do."""
 
     @staticmethod
     def forward(q, k, v, causal, softcap, window):
-        return _forward(q, k, v, causal, softcap, window)
+        return _forward(q, k, v, causal, softcap, window,
+                        stats=not torch.is_inference_mode_enabled())
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         q, k, v, causal, softcap, window = inputs
-        ctx.save_for_backward(q, k, v)
+        _, o32, lse = output
+        ctx.mark_non_differentiable(o32, lse)
+        ctx.save_for_backward(q, k, v, o32, lse)
         ctx.opts = (causal, softcap, window)
 
     @staticmethod
-    def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = FlashAttentionBackwardFn.apply(q, k, v, do, *ctx.opts)
+    def backward(ctx, do, _do32, _dlse):
+        q, k, v, o32, lse = ctx.saved_tensors
+        dq, dk, dv = FlashAttentionBackwardFn.apply(q, k, v, o32, lse, do, *ctx.opts)
         return dq, dk, dv, None, None, None
 
     @staticmethod
     def vmap(info, in_dims, q, k, v, causal, softcap, window):
-        o = FlashAttentionFn.apply(*_fold(info, in_dims[:3], (q, k, v)), causal, softcap, window)
-        return o.unflatten(0, (info.batch_size, -1)), 0
+        outs = FlashAttentionFn.apply(*_fold(info, in_dims[:3], (q, k, v)), causal, softcap, window)
+        return _unfold(info, outs), (0, 0, 0)
 
 
 class FlashAttentionBackwardFn(torch.autograd.Function):
-    """The backward as a function of (q, k, v, do), so that it too runs
-    under ``vmap`` with the vmapped dimension folded into the batch. It has
-    no backward of its own: a second derivative raises."""
+    """The backward as a function of (q, k, v, o32, lse, do), so that it too
+    runs under ``vmap`` with the vmapped dimension folded into the batch. It
+    has no backward of its own: a second derivative raises."""
 
     @staticmethod
-    def forward(q, k, v, do, causal, softcap, window):
-        return _backward(q, k, v, do, causal, softcap, window)
+    def forward(q, k, v, o32, lse, do, causal, softcap, window):
+        return _backward(q, k, v, o32, lse, do, causal, softcap, window)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -369,10 +477,10 @@ class FlashAttentionBackwardFn(torch.autograd.Function):
         raise RuntimeError("flash_attention has no second derivative")
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, do, causal, softcap, window):
-        grads = FlashAttentionBackwardFn.apply(*_fold(info, in_dims[:4], (q, k, v, do)),
-                                               causal, softcap, window)
-        return tuple(g.unflatten(0, (info.batch_size, -1)) for g in grads), (0, 0, 0)
+    def vmap(info, in_dims, q, k, v, o32, lse, do, causal, softcap, window):
+        grads = FlashAttentionBackwardFn.apply(
+            *_fold(info, in_dims[:6], (q, k, v, o32, lse, do)), causal, softcap, window)
+        return _unfold(info, grads), (0, 0, 0)
 
 
 def flash_attention(
@@ -399,7 +507,7 @@ def flash_attention(
     kernel weight 1 on its first fully masked block. Such rows are outside
     the parity contract (ROADMAP.md, Queue 3)."""
     _check(q, k, v, window)
-    return FlashAttentionFn.apply(q, k, v, bool(causal), float(softcap), int(window))
+    return FlashAttentionFn.apply(q, k, v, bool(causal), float(softcap), int(window))[0]
 
 
 flash_attention.launches = 0
@@ -411,39 +519,63 @@ def flash_attention_backward(
 ):
     """Backward of ``flash_attention`` at (q, k, v) for the output's
     cotangent ``do`` (q's shape and dtype) -> (dq, dk, dv) in the inputs'
-    dtype. On CPU tensors: ``flash_attention_backward_plain``. On CUDA: the
-    kernel, three launches counted as one (row statistics, dq, dk and dv),
-    with f32 scratch of 8 B H Sq bytes; a build or launch failure raises."""
+    dtype. On CUDA in bf16 the forward runs first for the o in f32 and
+    lse that the backward reads (one forward launch). On CPU tensors:
+    ``flash_attention_backward_plain``.
+    On CUDA in bf16: two launches on the tensor cores counted as one (dq,
+    writing delta = dO . o into a (B, H, Sq) f32 scratch; then dk and dv),
+    in f32 three on the CUDA cores (row statistics lse and delta with o
+    recomputed, dq, then dk and dv; 8 B H Sq bytes of scratch). No atomics:
+    the same inputs give the same bits. A build or launch failure raises."""
     _check(q, k, v, window)
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"do must have q's shape {tuple(q.shape)}, dtype {q.dtype} and device, "
                          f"got {tuple(do.shape)} {do.dtype} on {do.device}")
-    return _backward(q, k, v, do, causal, softcap, window)
+    causal, softcap, window = bool(causal), float(softcap), int(window)
+    if q.device.type == "cuda" and q.dtype == torch.bfloat16:
+        _, o32, lse = _forward(q, k, v, causal, softcap, window, stats=True)
+    else:
+        o32 = lse = _no_stats(q)  # the f32 body and the plain backward recompute them
+    return _backward(q, k, v, o32, lse, do, causal, softcap, window)
 
 
 flash_attention_backward.launches = 0
 
 
-def _backward(q, k, v, do, causal: bool, softcap: float, window: int):
-    """The backward on plain tensors: the plain version on the CPU, the
-    kernel on CUDA."""
+def _backward(q, k, v, o32, lse, do, causal: bool, softcap: float, window: int):
+    """The backward on plain tensors: on the CPU the plain version, which
+    computes the scores once and needs neither o32 nor lse; on CUDA the
+    kernel."""
+    B, Sq, H, D = q.shape
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, do, causal=causal, softcap=softcap,
                                               window=window)
+    if q.dtype == torch.bfloat16 and (tuple(o32.shape) != (B, Sq, H, D)
+                                      or tuple(lse.shape) != (B, H, Sq)):
+        raise RuntimeError("flash_attention's bf16 backward needs the forward's o and lse: the "
+                           "forward ran under torch.inference_mode(), which saves neither")
     stream = build.cuda_stream(q.device)
-    B, Sq, H, D = q.shape
     Skv, K = k.shape[1], k.shape[2]
     _check_launch(D, q, k, v, do)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        if not (o32.dtype == lse.dtype == torch.float32 and o32.is_contiguous()
+                and lse.is_contiguous()):
+            raise ValueError("the bf16 backward reads o32 and lse as contiguous f32 tensors")
+        _check_tma(q, k, v)
+        if not do.is_contiguous() or do.data_ptr() % TMA_ALIGN:
+            do = do.clone(memory_format=torch.contiguous_format)  # TMA-ready rows
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Skv, K, D), dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    stats = torch.empty((2, B, H, Sq), dtype=torch.float32, device=q.device)
+    scratch = torch.empty((1 if bf16 else 2, B, H, Sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = _bwd_lib().flash_attention_backward_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o32.data_ptr() if bf16 else None, lse.data_ptr() if bf16 else None, do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
             B, Sq, Skv, H, K, D, _DTYPES[q.dtype],
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
             1.0 / math.sqrt(D), float(softcap), int(causal), int(window), stream,

@@ -124,10 +124,13 @@ class LM(nn.Module):
             logits = logits[..., : cfg.vocab_size]
         return softcap(logits.to(torch.float32), cfg.final_logit_softcap)
 
-    def forward(self, tokens: torch.Tensor, cfg: ModelConfig, *, use_ssd_kernel: bool = False):
+    def forward(self, tokens: torch.Tensor, cfg: ModelConfig, *, use_ssd_kernel: bool = False,
+                head: bool = True):
         """``lm_forward``: what ``torch.func.functional_call`` runs (the
-        train step calls the module with the state's params)."""
-        return lm_forward(self, tokens, cfg, use_ssd_kernel=use_ssd_kernel)
+        train step calls the module with the state's params). ``head=False``
+        returns the normed hidden state in place of the logits: the train
+        step's loss applies the head itself, a chunk of tokens at a time."""
+        return lm_forward(self, tokens, cfg, use_ssd_kernel=use_ssd_kernel, head=head)
 
     def run(self, x, cfg, *, positions, caches: Optional[List] = None, cache_pos=None,
             use_ssd_kernel: bool = False):
@@ -141,13 +144,16 @@ class LM(nn.Module):
 
 def lm_forward(
     model: LM, tokens: torch.Tensor, cfg: ModelConfig, *, use_ssd_kernel: bool = False,
+    head: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward (scoring). Returns (logits (B, S, vocab) f32, aux)."""
+    """Full-sequence forward (scoring). Returns (logits (B, S, vocab) f32, aux),
+    or with ``head=False`` (the train step's loss) (the hidden state after
+    ``final_norm`` (B, S, d_model) in the compute dtype, aux)."""
     x = model.embed_tokens(tokens, cfg)
     x, _ = model.run(x, cfg, positions=torch.arange(x.shape[1], device=x.device),
                      use_ssd_kernel=use_ssd_kernel)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return model.unembed_logits(x, cfg), aux
+    return (model.unembed_logits(x, cfg) if head else x), aux
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int, *, device) -> DecodeState:

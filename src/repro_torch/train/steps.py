@@ -9,7 +9,9 @@ can take per-peer gradients with ``torch.func.grad_and_value`` under
 ``meta`` device: the params come from the state.
 
 On the card the full-sequence attention runs the flash kernels, forward and
-backward (``kernels/flash_attention.py``). The SSD scan's kernel has no
+backward (``kernels/flash_attention.py``). ``lm_loss`` applies the LM head
+a chunk of tokens at a time (:class:`ChunkedHeadFn`): no (B, S, vocab)
+f32 logits are held for the backward. The SSD scan's kernel has no
 backward, as the reference's Pallas scan has no gradient (ROADMAP.md,
 reference behaviour 18): ``use_ssd_kernel`` defaults to False, and Mamba-2
 trains through ``ssd_chunked``, as the reference's ``lm_loss`` does.
@@ -19,6 +21,7 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 import torch
+import torch.nn.functional as F
 from torch.func import functional_call
 
 from repro_torch import models
@@ -27,6 +30,129 @@ from repro_torch.core.p2p import Topology, TrainState, build_p2p_train_step
 from repro_torch.core.simulate import resolve_device
 from repro_torch.models.transformer import LM
 from repro_torch.optim import Optimizer
+
+
+LOGITS_CHUNK_BYTES = 1 << 28  # bounds one chunk's f32 logits in the head's loss
+
+
+def _chunk_rows(vocab: int) -> int:
+    return max(1, LOGITS_CHUNK_BYTES // (4 * vocab))
+
+
+def _logits(x, w, vocab: int, cap: float):
+    """One chunk's logits as ``LM.unembed_logits`` makes them: the linear
+    in x's dtype, the slice to ``vocab``, the f32 cast and the final
+    softcap. Returns (logits, t = tanh(pre-cap logits / cap), or None
+    without a softcap)."""
+    z = F.linear(x, w)[:, :vocab].to(torch.float32)
+    if not cap:
+        return z, None
+    t = torch.tanh(z.div_(cap))
+    return t * cap, t
+
+
+def _head_forward(x, w, labels, vocab: int, cap: float):
+    wc = w.to(x.dtype)
+    rows = _chunk_rows(vocab)
+    lse, gold = [], []
+    for s in range(0, x.shape[0], rows):
+        z, _ = _logits(x[s:s + rows], wc, vocab, cap)
+        lse.append(torch.logsumexp(z, dim=-1))
+        gold.append(z.gather(-1, labels[s:s + rows, None])[:, 0])
+    return torch.cat(lse), torch.cat(gold)
+
+
+def _head_backward(x, w, labels, lse, g_lse, g_gold, vocab: int, cap: float):
+    """(dx, dw) from each chunk's logits computed again: d logits =
+    g_lse softmax + g_gold onehot(label), back through the softcap (in
+    autograd's order), the f32 cast and the linear (in x's dtype); dw
+    summed over the chunks in f32 and cast once to w's dtype. The chunk's
+    f32 temporaries are updated in place: two are alive at a time."""
+    wc = w.to(x.dtype)
+    dx = torch.empty_like(x)
+    dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+    rows = _chunk_rows(vocab)
+    for s in range(0, x.shape[0], rows):
+        xc, sl = x[s:s + rows], slice(s, s + rows)
+        dz, t = _logits(xc, wc, vocab, cap)
+        dz.sub_(lse[sl, None]).exp_().mul_(g_lse[sl, None])
+        dz.scatter_add_(-1, labels[sl, None], g_gold[sl, None])
+        if cap:  # d (tanh(z / cap) cap) / dz = cap (1 - t^2) / cap
+            dz.mul_(cap).mul_(t.mul_(t).neg_().add_(1)).div_(cap)
+            del t
+        dz = F.pad(dz.to(x.dtype), (0, w.shape[0] - vocab))
+        dx[sl] = dz @ wc
+        dw.add_(dz.t() @ xc)
+    return dx, dw.to(w.dtype)
+
+
+def _per_peer(info, in_dims, fn, args, n):
+    """A head function under ``vmap``: one call per peer (row of the
+    vmapped dimension), outputs stacked; ``n`` leading args are tensors."""
+    out = []
+    for p in range(info.batch_size):
+        row = [a if d is None else a.select(d, p) for a, d in zip(args[:n], in_dims[:n])]
+        out.append(fn(*row, *args[n:]))
+    return tuple(torch.stack(o) for o in zip(*out)), (0,) * len(out[0])
+
+
+class ChunkedHeadFn(torch.autograd.Function):
+    """(x (N, d), w (padded vocab, d), labels (N,)) -> each token's
+    log-sum-exp and gold logit (N,) f32 over the logits ``LM.unembed_logits``
+    would give, computed a chunk of ``LOGITS_CHUNK_BYTES`` of f32 logits at
+    a time. Only x, w, the labels and lse are saved: the backward
+    (:class:`ChunkedHeadBackwardFn`) computes each chunk's logits again.
+    Under ``vmap`` with w shared the peers' tokens fold into one call;
+    otherwise, and in the backward, each peer is one call."""
+
+    @staticmethod
+    def forward(x, w, labels, vocab, cap):
+        return _head_forward(x, w, labels, vocab, cap)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, labels, vocab, cap = inputs
+        ctx.save_for_backward(x, w, labels, output[0])
+        ctx.opts = (vocab, cap)
+
+    @staticmethod
+    def backward(ctx, g_lse, g_gold):
+        x, w, labels, lse = ctx.saved_tensors
+        g_lse = torch.zeros_like(lse) if g_lse is None else g_lse
+        g_gold = torch.zeros_like(lse) if g_gold is None else g_gold
+        dx, dw = ChunkedHeadBackwardFn.apply(x, w, labels, lse, g_lse, g_gold, *ctx.opts)
+        return dx, dw, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, labels, vocab, cap):
+        if in_dims[1] is None:  # one w: the peers' tokens are one batch
+            xs, ls = (t.expand(info.batch_size, *t.shape) if d is None else t.movedim(d, 0)
+                      for t, d in zip((x, labels), (in_dims[0], in_dims[2])))
+            lse, gold = ChunkedHeadFn.apply(xs.flatten(0, 1), w, ls.flatten(0, 1), vocab, cap)
+            return (lse.unflatten(0, (info.batch_size, -1)),
+                    gold.unflatten(0, (info.batch_size, -1))), (0, 0)
+        return _per_peer(info, in_dims, ChunkedHeadFn.apply, (x, w, labels, vocab, cap), 3)
+
+
+class ChunkedHeadBackwardFn(torch.autograd.Function):
+    """The head's backward as a function, so that it runs under ``vmap``
+    (one call per peer: each peer's dw is its own). No second derivative."""
+
+    @staticmethod
+    def forward(x, w, labels, lse, g_lse, g_gold, vocab, cap):
+        return _head_backward(x, w, labels, lse, g_lse, g_gold, vocab, cap)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the chunked LM head has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _per_peer(info, in_dims, ChunkedHeadBackwardFn.apply, args, 6)
 
 
 def lm_loss(
@@ -39,7 +165,10 @@ def lm_loss(
     z_loss: float = 1e-4,
 ):
     """Next-token cross-entropy plus the z-loss ``z_loss * mean(lse^2)``, on
-    f32 logits of ``model`` run with ``params``. Returns (loss, ce).
+    f32 logits of ``model`` run with ``params``. Returns (loss, ce). The
+    model runs up to ``final_norm`` and :class:`ChunkedHeadFn` applies the
+    head, a chunk of tokens at a time: the reference's value, without its
+    (B, S, vocab) f32 logits.
 
     The reference adds ``router_aux_coef * aux`` for a MoE config; MoE is
     not ported, so such a config raises ``NotImplementedError``."""
@@ -48,11 +177,11 @@ def lm_loss(
             f"{cfg.name} is a MoE config, and MoE is not ported yet: ROADMAP.md, Queue 1, "
             "item 11 (moe_apply and its router aux loss)"
         )
-    logits, _ = functional_call(model, params, (batch["tokens"], cfg),
-                                {"use_ssd_kernel": use_ssd_kernel})
-    logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, batch["labels"][..., None])[..., 0]
+    x, _ = functional_call(model, params, (batch["tokens"], cfg),
+                           {"use_ssd_kernel": use_ssd_kernel, "head": False})
+    w = params["embed"] if cfg.tie_embeddings else params["unembed.weight"]
+    lse, gold = ChunkedHeadFn.apply(x.reshape(-1, x.shape[-1]), w, batch["labels"].reshape(-1),
+                                    cfg.vocab_size, float(cfg.final_logit_softcap or 0.0))
     ce = (lse - gold).mean()
     loss = ce
     if z_loss:
@@ -86,7 +215,15 @@ def build_train_step(
     as the reference's jitted step does: the new params and moments are
     written into the state's own tensors (``build_p2p_train_step``'s
     ``donate``; at full width a second state does not fit one card), so a
-    caller that reads the old params after the step copies them first."""
+    caller that reads the old params after the step copies them first.
+
+    On CUDA it switches PyTorch's caching allocator to expandable segments,
+    for the whole process from then on: with fixed segments the blocks
+    freed between a full-width step's backward and its update stay split
+    (gemma2-2b at 2 peers x 2048 tokens on an 80 GB card ran out of memory
+    on its 4th step with 29 GiB reserved but unallocated)."""
+    if resolve_device(device).type == "cuda":
+        torch._C._accelerator_setAllocatorSettings("expandable_segments:True")
     with torch.device("meta"):
         model = LM(cfg, generator=None, device="meta")  # a skeleton: params come from the state
 

@@ -10,7 +10,11 @@ against f32 images makes ``lax.conv_general_dilated`` raise, as the port's
 batch 8, SGD with momentum, 3 steps on the full graph (also with the
 gradient clip, whose f32 scale promotes bf16 gradients to f32 as jnp
 does) and on the ring, against the reference's step in a subprocess with four host devices (row r
-of the port's bank against mesh device r's buffer on the ring).
+of the port's bank against mesh device r's buffer on the ring). On the
+full graph without the clip the step makes no bank: it takes one gradient
+of the peers' mean loss, whose bf16 weight gradients are the peers' sum
+rounded once, and ``max|g|`` below is then that of the mean it hands the
+update (no larger than the bank's).
 
 Tolerance: both sides round the same bf16 products, but XLA and oneDNN
 accumulate them in other orders, so a bf16 activation or gradient may land
@@ -163,13 +167,19 @@ def test_bf16_compute_params_match_the_reference(reference, monkeypatch, case):
     topo = p2p.Topology(cast_params_once=True, **CASES[case])
     graph = topo.graph
     opt = sgd(momentum=0.9)
-    step = p2p.build_p2p_train_step(mlp_loss, opt, topo, PEERS, lambda s: LR, device="cpu")
     params = convert.from_jax(part("init"), device="cpu")
     mom = convert.opt_state_from_jax(part("mom0"), device="cpu")
     grads = []  # every peer's gradient bank, as the step hands it to the exchange
     combine = AllGatherMean.combine
     monkeypatch.setattr(AllGatherMean, "combine", lambda self, g, *a, **kw: (
         grads.append(g), combine(self, g, *a, **kw))[1])
+    means = []  # what the full graph's bank-free mean hands the update
+    update = p2p._update_by_leaf
+    monkeypatch.setattr(p2p, "_update_by_leaf", lambda opt, avg, *a: (
+        means.append(dict(avg)), update(opt, avg, *a))[1])
+    seen = []  # the dtypes of the params the loss computes with
+    loss_fn = lambda p, b: (seen.append({k: v.dtype for k, v in p.items()}), mlp_loss(p, b))[1]
+    step = p2p.build_p2p_train_step(loss_fn, opt, topo, PEERS, lambda s: LR, device="cpu")
     if graph != "full":
         params, mom = p2p.peer_bank(params, mom, PEERS)
     state = p2p.TrainState(params, mom, 0, None)
@@ -178,11 +188,20 @@ def test_bf16_compute_params_match_the_reference(reference, monkeypatch, case):
         b = part(f"batch{i}")
         state, metrics = step(state, {k: torch.from_numpy(v) for k, v in b.items()})
         losses.append(float(metrics["loss"]))
-    # the bf16 cast: the 2-d weights' gradients come back bf16 (f32 after
-    # the clip's f32 scale), the biases' f32
-    weights = torch.float32 if topo.grad_clip else torch.bfloat16
-    assert {k: g.dtype for k, g in grads[0].items()} == {
-        "l1.w": weights, "l1.b": torch.float32, "l2.w": weights, "l2.b": torch.float32}
+    # the bf16 cast: the loss sees bf16 2-d weights and f32 biases; in a
+    # bank their gradients come back bf16 (f32 after the clip's f32 scale),
+    # the biases' f32. The full graph's plain mean makes no bank: one
+    # gradient of the peers' mean loss, handed to the update in f32
+    assert seen and all(d == {"l1.w": torch.bfloat16, "l1.b": torch.float32,
+                              "l2.w": torch.bfloat16, "l2.b": torch.float32} for d in seen)
+    if case == "full":
+        assert grads == [] and len(means) == STEPS
+        assert all(g.dtype == torch.float32 for m in means for g in m.values())
+        grads = means
+    else:
+        weights = torch.float32 if topo.grad_clip else torch.bfloat16
+        assert {k: g.dtype for k, g in grads[0].items()} == {
+            "l1.w": weights, "l1.b": torch.float32, "l2.w": weights, "l2.b": torch.float32}
     assert all(v.dtype == torch.float32 for v in state.params.values())  # master params
     np.testing.assert_allclose(losses, data[f"{case}/loss"], rtol=2**-7)
     gmax = max(float(g.abs().max()) for bank in grads for g in bank.values())

@@ -41,13 +41,14 @@ import torch
 
 from repro.configs import get_config as jget_config
 from repro.configs import reduced as jreduced
+from repro.models.transformer import _unembed as junembed
 from repro.train.checkpoint import _flatten
 from repro.train.steps import lm_loss as jlm_loss
 from repro_torch import convert
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.p2p import Topology, TrainState, build_p2p_train_step
 from repro_torch.optim import adam, warmup_cosine
-from repro_torch.train import build_train_step, init_train_state, lm_loss
+from repro_torch.train import build_train_step, init_train_state, lm_loss, steps
 from repro_torch.models.transformer import LM
 
 torch.set_num_threads(2)  # the test workers share the CPU with each other
@@ -270,3 +271,105 @@ def test_donated_step_writes_the_same_state_into_the_inputs_tensors():
         for m in ("mu", "nu"):
             assert torch.equal(results[True].opt_state[m][k], results[False].opt_state[m][k])
     assert int(results[True].opt_state["t"]) == int(results[False].opt_state["t"]) == 2
+
+
+# ---------------------------------------------------------------------------
+# The loss's chunked LM head (``train.steps.ChunkedHeadFn``)
+# ---------------------------------------------------------------------------
+
+def _ragged_chunk(monkeypatch, vocab, rows=7):
+    """A chunk of ``rows`` tokens' f32 logits: it divides none of the
+    token counts below."""
+    monkeypatch.setattr(steps, "LOGITS_CHUNK_BYTES", rows * 4 * vocab)
+    assert steps._chunk_rows(vocab) == rows
+
+
+@pytest.mark.parametrize("chunk", ["one", "ragged"])
+def test_chunked_head_matches_the_reference_head(monkeypatch, chunk):
+    """The head alone: lse and gold logit of every token from
+    ``ChunkedHeadFn``, made into the reference's ce + z-loss, against
+    ``jax.value_and_grad`` of the reference's ``_unembed`` (tied, the final
+    softcap 30, vocab 500 padded to 512) and its loss, in the hidden state x
+    and the embedding w: the loss within rtol 1e-5, dx and dw within 1e-4
+    of their largest magnitude, in one chunk and in chunks of 7 tokens."""
+    jcfg, cfg = (dataclasses.replace(c, vocab_size=500) for c in _cfgs("gemma2-2b"))
+    assert cfg.padded_vocab == 512 and cfg.tie_embeddings and cfg.final_logit_softcap
+    if chunk == "ragged":
+        _ragged_chunk(monkeypatch, cfg.vocab_size)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((B, 37, cfg.d_model)).astype(np.float32)
+    w = (rng.standard_normal((cfg.padded_vocab, cfg.d_model)) * 0.5).astype(np.float32)
+    labels = rng.integers(0, cfg.vocab_size, size=(B, 37))
+
+    def ref_loss(x, w):
+        logits = junembed({"embed": w}, x, jcfg)
+        lse = jax.nn.logsumexp(logits, axis=-1)
+        gold = jnp.take_along_axis(logits, jnp.asarray(labels)[..., None], axis=-1)[..., 0]
+        return (lse - gold).mean() + 1e-4 * jnp.square(lse).mean()
+
+    jloss, (jdx, jdw) = jax.value_and_grad(ref_loss, argnums=(0, 1))(x, w)
+    xt, wt = (torch.from_numpy(a).requires_grad_(True) for a in (x, w))
+    lse, gold = steps.ChunkedHeadFn.apply(xt.reshape(-1, cfg.d_model), wt,
+                                          torch.from_numpy(labels).reshape(-1), cfg.vocab_size,
+                                          cfg.final_logit_softcap)
+    loss = (lse - gold).mean() + 1e-4 * torch.square(lse).mean()
+    dx, dw = torch.autograd.grad(loss, (xt, wt))
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+    for name, got, want in (("dx", dx, jdx), ("dw", dw, jdw)):
+        want = np.asarray(want)
+        err = float(np.abs(got.numpy() - want).max())
+        assert err <= 1e-4 * float(np.abs(want).max()), f"{name}: {err:.3e}"
+    assert float(dw[cfg.vocab_size:].abs().max()) == 0.0  # the padded rows
+
+
+def test_lm_loss_matches_reference_in_ragged_chunks(monkeypatch):
+    """``lm_loss`` through reduced gemma2-2b (tied embeddings, both
+    softcaps) with the head in chunks of 7 tokens (2 x 80 tokens): the
+    reference's loss and ``jax.grad`` at ``test_lm_loss_and_gradients_match_reference``'s
+    tolerances."""
+    jcfg, cfg = _cfgs("gemma2-2b")
+    _ragged_chunk(monkeypatch, cfg.vocab_size)
+    jparams = fill_params(jcfg)
+    tokens, labels = _batch(cfg, ARCHS["gemma2-2b"][1])
+    (jloss, jce), jgrads = _reference_value_and_grad(jcfg)(
+        jparams, {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)})
+    params = convert.lm_from_jax(_flatten(jparams), cfg, device="cpu")
+    with torch.device("meta"):
+        model = LM(cfg, generator=None, device="meta")
+    batch = {"tokens": torch.from_numpy(tokens).long(), "labels": torch.from_numpy(labels).long()}
+    grads, (loss, ce) = torch.func.grad_and_value(
+        lambda p: lm_loss(model, p, batch, cfg), has_aux=True)(params)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    np.testing.assert_allclose(float(ce), float(jce), rtol=1e-5)
+    want = convert.lm_from_jax(_flatten(jgrads), cfg, device="cpu")
+    for name, g in grads.items():
+        scale = float(want[name].abs().max())
+        err = float((g - want[name]).abs().max())
+        assert err <= 1e-4 * scale + 1e-9, f"{name}: {err:.3e} beyond 1e-4 x {scale:.3e}"
+
+
+def test_chunked_head_under_vmap_over_two_peers(monkeypatch):
+    """Both transform orders of the P2P step over 2 peers with shared
+    params, the head in chunks of 7 tokens: ``vmap(grad(lm_loss))`` (the
+    per-peer bank) equals a loop over the peers, and ``grad`` of the
+    peers' mean loss under ``vmap`` (the bank-free mean) equals the loop's
+    mean, each within 1e-6 of the largest magnitude (the peers' tokens
+    sum in another order)."""
+    jcfg, cfg = _cfgs("gemma2-2b")
+    _ragged_chunk(monkeypatch, cfg.vocab_size)
+    params = convert.lm_from_jax(_flatten(fill_params(jcfg)), cfg, device="cpu")
+    with torch.device("meta"):
+        model = LM(cfg, generator=None, device="meta")
+    tokens, labels = _batch(cfg, 40, rows=4)
+    split = {"tokens": torch.from_numpy(tokens).long().reshape(2, 2, -1),
+             "labels": torch.from_numpy(labels).long().reshape(2, 2, -1)}
+    loss = lambda p, b: lm_loss(model, p, b, cfg)[0]
+    loop = [torch.func.grad(loss)(params, {k: v[i] for k, v in split.items()}) for i in range(2)]
+    bank = torch.func.vmap(torch.func.grad(loss), in_dims=(None, 0))(params, split)
+    mean = torch.func.grad(lambda p: torch.func.vmap(loss, in_dims=(None, 0))(p, split).mean())(
+        params)
+    for name in params:
+        want = torch.stack([g[name] for g in loop])
+        scale = float(want.abs().max())
+        assert float((bank[name] - want).abs().max()) <= 1e-6 * scale, name
+        assert float((mean[name] - want.mean(dim=0)).abs().max()) <= 1e-6 * scale, name
