@@ -85,7 +85,9 @@ failure):
              reduced gemma2-2b in f32 (2 peers, S 160 over its window of
              64) from one state on the card (flash kernels forward and
              backward) and on the CPU: plain SGD at rate 1, each leaf's
-             update within 1e-4 of its largest magnitude; it runs just
+             update within 1e-4 of its largest magnitude; the same step on
+             the card with ``remat`` on and off: the same loss, the updates
+             within the same limit, 5 and 3 flash forwards; they run just
              before the train paths, because ``build_train_step``
              switches the allocator to expandable segments and every
              earlier phase keeps PyTorch's default ones.
@@ -148,20 +150,36 @@ failure):
              a local layer's; those forwards' launches, and those of the
              prefill-vs-forward checks, stay out of the kernels line.
              LM training (run after the profile phase, once the serving
-             models are freed): gemma2-2b at full width through
-             ``train.build_train_step`` (``allgather_mean``, Adam at 3e-3
-             under ``warmup_cosine``), 2 peers x batch 1 x 2048 tokens, 4
-             steps on one fixed batch, the bytes reckoned first and the
-             sequence, then the peers, cut where they do not fit (each cut
-             printed): 26 flash forward and 26 backward launches a step,
-             the peers folded into the batch, a finite loss that falls; the
-             backward kernel then held to the plain backward on a local and
-             a global layer's own inputs and saved statistics from one more
-             step (kept out of the kernels line), its profile showing the
-             backward's two tensor-core launches a layer; one mamba2-370m
-             step at full width through
+             models are freed), every config with ``remat`` on as
+             published (each layer group run again in the backward):
+             gemma2-2b at full width through ``train.build_train_step``
+             (``allgather_mean``, Adam at 3e-3 under ``warmup_cosine``), 2
+             peers x batch 1 x 2048 tokens, 4 steps on one fixed batch, the
+             bytes reckoned first, no cut (running out of memory fails):
+             52 flash forward (each layer's and its recompute's) and 26
+             backward launches a step, the peers folded into the batch, a
+             finite loss that falls, the peak memory printed; the backward
+             kernel then held to the plain backward on a local and a global
+             layer's own inputs and saved statistics from one more step
+             (kept out of the kernels line), its profile showing the
+             forward's 52 and the backward's two tensor-core launches a
+             layer; two mamba2-370m steps at 2 x 2048 through
              ``ssd_chunked`` (no launch), and the same step with
-             ``use_ssd_kernel=True`` refused before any launch.
+             ``use_ssd_kernel=True`` refused before any launch. The train
+             CLI twin (``repro_torch.launch.train.main``, through
+             ``P2PTrainer``): qwen2.5-3b at full width, ``--data-parallel 2
+             --batch 2 --seq 2048 --steps 4 --backend instance
+             --serverless-report`` (72 flash forwards and 36 backwards a
+             step, finite losses, every leaf moved, s/step and peak memory
+             printed, the backward kernel held to the plain backward on its
+             last layer's inputs; its 13.6 GB of params exceed a Lambda, so
+             the serverless and frontier lines come from the next run);
+             reduced qwen2.5-3b with ``remat`` put back, ``--exchange qsgd
+             --ef --cost-report --serverless-report`` (the QSGD kernels), 3 steps
+             written with ``--checkpoint``, one step ``--restore``d from the
+             file the same bits as the same step from the state held in
+             memory, and the serve twin's ``--checkpoint`` reading the
+             file; the example twin (qwen-100m, qsgd, 2 peers) for 3 steps.
 5. timing  — each kernel, its plain version, the PyTorch call that computes
              the same function where there is one, and the bound, at the
              main path's largest shapes, timed with CUDA events; the select
@@ -212,7 +230,8 @@ it before the port chose its own CNN numerics: run it for an earlier
 checkout and this one in one call. It prints no result line.
 
 ``--train-timing SRC`` runs only the train paths' steps (mamba2-370m at 2
-x 1024, gemma2-2b down its cuts and at 2 x 512) with the ``repro_torch``
+x 1024, gemma2-2b down its cuts and at 2 x 512, launch counts unchecked)
+with the ``repro_torch``
 under SRC, on fixed allocator segments unless ``PYTORCH_CUDA_ALLOC_CONF``
 asks for expandable ones: run it for an earlier checkout and this one, in
 both modes, in one call. It prints no result line.
@@ -2555,32 +2574,41 @@ def check_flash_on_path(torch, mods, model, cfg, tokens, expect):
 
 def train_bytes(n_params: int, cfg, peers: int, seq: int) -> dict:
     """The train step's device bytes reckoned before it runs, printed beside
-    the card's memory (the cut itself is taken from what runs out of
-    memory, ``drive_train``). Exact from the config: f32 params and Adam's
-    two moments (written in place: ``build_train_step`` donates the state),
-    a bf16 copy of the weights kept for the backward, one f32 gradient (the
-    full graph's ``allgather_mean`` takes the gradient of the peers' mean
-    loss: no per-peer bank), the embedding's gradient twice in f32 (the
-    gather's and the tied or untied unembedding's, before they are summed),
-    each attention layer's o in f32 for the flash backward. Estimated per
-    token: the activations kept for the backward (about 14 bf16 d-wide and
-    5 d_ff-wide tensors an attention layer, 50 f32 d_inner-wide ones a
-    Mamba-2 layer, the chunked scan's) and, for the loss's chunked head,
-    three f32 tensors of one chunk's logits (``LOGITS_CHUNK_BYTES`` each)
-    alive at once in its backward. For gemma2-2b at 2 peers x 2048 tokens
-    this gives 65.32 GiB against a peak of 74.26 GiB allocated (77.62
-    reserved) measured on an NVIDIA H100 80GB HBM3 at 700 W, and 57.14
-    against 61.07 at 2 x 1024: the per-token terms are short by about 60 %."""
+    the card's memory. Exact from the config: f32 params and Adam's two
+    moments (written in place: ``build_train_step`` donates the state), one
+    f32 gradient (the full graph's ``allgather_mean`` takes the gradient of
+    the peers' mean loss: no per-peer bank), the embedding's gradient twice
+    in f32 (the gather's and the tied or untied unembedding's, before they
+    are summed). With ``cfg.remat`` (every published config) the backward
+    keeps each group's input (bf16, d_model wide) and runs one group at a
+    time again: one group's activations and bf16 weights are alive at
+    once, and its attention o in f32; without remat, every layer's.
+    Estimated per token and layer: the activations kept for the backward
+    (about 14 bf16 d-wide and 5 d_ff-wide tensors an attention layer, 50
+    f32 d_inner-wide ones a Mamba-2 layer, the chunked scan's) and, for the
+    loss's chunked head, three f32 tensors of one chunk's logits
+    (``LOGITS_CHUNK_BYTES`` each) alive at once in its backward. PR 23,
+    before the port honoured remat: 65.32 GiB reckoned for gemma2-2b at 2
+    peers x 2048 tokens against a peak of 74.26 GiB allocated, on an NVIDIA
+    H100 80GB HBM3 at 700 W: the per-token terms were short by about
+    60 %."""
+    from repro_torch.models.transformer import layer_grouping
     from repro_torch.train.steps import LOGITS_CHUNK_BYTES
 
     tokens, emb = peers * seq, cfg.padded_vocab * cfg.d_model
     layer = 14 * cfg.d_model * 2 + (50 * cfg.d_inner * 4 if cfg.ssm_state else 5 * cfg.d_ff * 2)
-    attn_o = 0 if cfg.ssm_state else cfg.num_layers * cfg.num_heads * cfg.resolved_head_dim * 4
+    attn_o = 0 if cfg.ssm_state else cfg.num_heads * cfg.resolved_head_dim * 4
     chunk = min(tokens, max(1, LOGITS_CHUNK_BYTES // (4 * cfg.vocab_size))) * cfg.vocab_size * 4
-    return {"params and moments": 12 * n_params, "bf16 weights": 2 * n_params,
-            "gradient": 4 * n_params, "embedding gradients": 8 * emb,
-            "attention o in f32": tokens * attn_o,
-            "activations": tokens * cfg.num_layers * layer, "logits": 3 * chunk}
+    period, n_groups, rem = layer_grouping(cfg)
+    live = len(period) + rem if cfg.remat else cfg.num_layers  # layers whose activations are alive
+    weights = 2 * n_params * live // cfg.num_layers
+    parts = {"params and moments": 12 * n_params, "bf16 weights": weights,
+             "gradient": 4 * n_params, "embedding gradients": 8 * emb,
+             "attention o in f32": tokens * live * attn_o,
+             "activations": tokens * live * layer, "logits": 3 * chunk}
+    if cfg.remat:
+        parts["group inputs"] = tokens * n_groups * cfg.d_model * 2
+    return parts
 
 
 def release(torch) -> None:
@@ -2591,26 +2619,46 @@ def release(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def drive_train(torch, mods, arch: str, expect_per_layer: dict, *, steps: int = TRAIN_STEPS,
-                schedule=None, seqs=(TRAIN_SEQ, 1024, 512, 256), reckon: bool = True):
+def train_launches(cfg) -> dict:
+    """Kernel launches of one LM train step: the flash forward once per
+    attention layer and again in the backward's recompute of each remat
+    group (``cfg.remat``: every layer of ``layer_grouping``'s groups, the
+    tail layers once), its backward once per attention layer. Mamba-2
+    launches none (``ssd_chunked``)."""
+    from repro_torch.models.transformer import layer_grouping
+
+    if cfg.ssm_state:
+        return {}
+    period, n_groups, rem = layer_grouping(cfg)
+    grouped = n_groups * len(period)
+    return {"flash_attention": (2 if cfg.remat else 1) * grouped + rem,
+            "flash_attention_backward": cfg.num_layers}
+
+
+CUTS = tuple((p, s) for p in range(TRAIN_PEERS, 0, -1) for s in (TRAIN_SEQ, 1024, 512, 256))
+
+
+def drive_train(torch, mods, arch: str, *, steps: int = TRAIN_STEPS, schedule=None,
+                cuts=((TRAIN_PEERS, TRAIN_SEQ),), reckon: bool = True,
+                check_launches: bool = True):
     """``arch`` at full width trained through ``train.build_train_step`` on
     the full graph: ``allgather_mean``, the reference CLI's Adam at 3e-3
     under ``schedule``, by default ``warmup_cosine(lr, steps // 10 + 1,
     steps)``, TRAIN_PEERS peers x batch 1 x TRAIN_SEQ tokens, ``steps``
     steps on one fixed batch. The bytes are reckoned and printed first
-    (``train_bytes``); then each cut is tried in turn, the sequence halved
-    down to 256 and then the peers, never the widths, from a fresh state,
-    until one runs its steps without running out of memory, and each cut
-    is printed. The step writes the new params and moments into the
-    state's tensors (``build_train_step`` donates the state): the
-    functional update's second state of 31 GB does not fit beside the
-    first. Every step must launch ``expect_per_layer`` x layers (counters
-    zeroed before and read after each step) and give a finite loss; the
-    last loss must be below the first, and every leaf must have moved (its
-    first 4096 entries, copied before the first step). ``seqs``: the
-    sequence lengths tried, in order; ``reckon``: print ``train_bytes``'
-    reckoning (of this checkout's layout). Returns the launches of all the
-    steps and the (config, peers, sequence) that ran."""
+    (``train_bytes``); then each of ``cuts`` (peers, sequence) is tried in
+    turn from a fresh state, until one runs its steps without running out
+    of memory, and each cut is printed; by default there is none to try,
+    and running out of memory fails the run. The step writes the new params
+    and moments into the state's tensors (``build_train_step`` donates the
+    state). Every step must launch ``train_launches(cfg)`` (counters zeroed
+    before and read after each step; ``check_launches=False`` for another
+    checkout's port) and give a finite loss; the last loss must be below
+    the first, and every leaf must have moved (its first 4096 entries,
+    copied before the first step). ``reckon``: print ``train_bytes``'
+    reckoning (of this checkout's layout). Prints the peak device memory.
+    Returns the launches of all the steps and the (config, peers,
+    sequence) that ran."""
     from repro_torch import models
     from repro_torch.configs import get_config
     from repro_torch.core.p2p import Topology
@@ -2620,15 +2668,15 @@ def drive_train(torch, mods, arch: str, expect_per_layer: dict, *, steps: int = 
     cfg = get_config(arch)
     n_params = models.param_count(models.init_model(cfg, generator=None, device="meta"))
     card = torch.cuda.get_device_properties(0).total_memory
-    cuts = [(p, s) for p in range(TRAIN_PEERS, 0, -1) for s in seqs if s <= TRAIN_SEQ]
     if reckon:
         parts = train_bytes(n_params, cfg, TRAIN_PEERS, TRAIN_SEQ)
-        print(f"path {arch} train: reckoned bytes at {TRAIN_PEERS} peers x {TRAIN_SEQ} tokens: "
-              f"{ {k: round(v / 2**30, 2) for k, v in parts.items()} } GiB, {sum(parts.values()) / 2**30:.2f} "
-              f"GiB in all against the card's {card / 2**30:.2f} GiB")
+        print(f"path {arch} train: reckoned bytes at {TRAIN_PEERS} peers x {TRAIN_SEQ} tokens "
+              f"(remat={cfg.remat}): { {k: round(v / 2**30, 2) for k, v in parts.items()} } GiB, "
+              f"{sum(parts.values()) / 2**30:.2f} GiB in all against the card's "
+              f"{card / 2**30:.2f} GiB")
     opt = adam()
     sched = schedule or warmup_cosine(TRAIN_LR, steps // 10 + 1, steps)
-    expect = {k: v * cfg.num_layers for k, v in expect_per_layer.items()}
+    expect = train_launches(cfg)
     total = dict.fromkeys(KERNELS, 0)
     for peers, seq in cuts:
         if (peers, seq) != (TRAIN_PEERS, TRAIN_SEQ):
@@ -2657,7 +2705,7 @@ def drive_train(torch, mods, arch: str, expect_per_layer: dict, *, steps: int = 
                 loss = float(metrics["loss"])  # synchronises
                 secs.append(time.perf_counter() - t)
                 launches = read_counters(mods)
-                require(launches == dict(dict.fromkeys(KERNELS, 0), **expect),
+                require(not check_launches or launches == dict(dict.fromkeys(KERNELS, 0), **expect),
                         f"{arch} train step {i}: launches {launches}, expected {expect} per step")
                 for name, count in launches.items():
                     total[name] += count
@@ -2692,6 +2740,33 @@ def drive_train(torch, mods, arch: str, expect_per_layer: dict, *, steps: int = 
     return total, (cfg, peers, seq)
 
 
+def hold_bwd_to_plain(torch, kf, seen, what: str, cfg, peers: int, seq: int, softcap: float):
+    """The backward kernel held to the plain backward in f32 on one layer's
+    recorded inputs (``kf._backward``'s q, k, v, the o in f32 and lse its
+    forward saved, do; the peers folded into the batch) within
+    ``flash_bwd_tolerance``. Returns the largest error."""
+    (q, k, v, o32, lse, do, causal, cap, window), _ = seen[0]
+    require(q.dtype == torch.bfloat16 and q.shape == (peers, seq, cfg.num_heads,
+                                                      cfg.resolved_head_dim),
+            f"the path's backward inputs: {q.dtype} {tuple(q.shape)}")
+    require(causal and cap == softcap, f"the path's backward: causal={causal} softcap={cap}")
+    got = kf.FlashAttentionBackwardFn.apply(q, k, v, o32, lse, do, causal, cap, window)
+    ref = kf.flash_attention_backward_plain(*(t.float() for t in (q, k, v, do)), causal=causal,
+                                            softcap=cap, window=window)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for gname, a, r in zip(("dq", "dk", "dv"), got, ref):
+        tol, rule = flash_bwd_tolerance(torch, r, q.dtype)
+        err = (a.float() - r).abs()
+        require(bool(torch.all(err <= tol)), f"flash_attention_backward {gname} on {what}'s "
+                f"inputs: max err/limit {float((err / tol).max()):.3f}")
+        worst = max(worst, float(err.max()))
+    print(f"kernel check flash_attention_backward on {what}'s q, k, v, do of a train step "
+          f"{tuple(q.shape)} K={k.shape[2]} window={window}: max_abs_err={worst:.3e} ({rule} "
+          f"of the plain backward in f32)")
+    return worst
+
+
 def check_flash_bwd_on_path(torch, mods, cfg, peers: int, seq: int):
     """The backward kernel on the inputs the train path gives it: one more
     gemma2-2b train step (its launches required and kept out of the kernels
@@ -2699,10 +2774,10 @@ def check_flash_bwd_on_path(torch, mods, cfg, peers: int, seq: int):
     layer's backward (and the o in f32 and lse its forward saved), the peers
     folded into the batch, to recorders. A profile of one more step from
     the same state says where a step's device time goes; its flash launches
-    by body must be one forward and one backward (its two tensor-core
-    launches) a layer. Then the kernel is held to the plain backward on
-    each recorded layer, from that layer's own saved o and lse, within
-    ``flash_bwd_tolerance`` and timed there (``time_flash_bwd``). Returns
+    by body must be ``train_launches``' forwards (each layer's forward and
+    its recompute) and one backward (its two tensor-core launches) a layer.
+    Then the kernel is held to the plain backward on each recorded layer
+    (``hold_bwd_to_plain``) and timed there (``time_flash_bwd``). Returns
     (the largest error, the global layer's timing keys: the kernels line's
     row)."""
     from repro_torch.core.p2p import Topology
@@ -2721,38 +2796,21 @@ def check_flash_bwd_on_path(torch, mods, cfg, peers: int, seq: int):
             recording(kf, "_backward", lambda args, kw: args[8] != 0) as local:
         state, _ = step(state, batch)
     launches = read_counters(mods)
-    expect = dict(dict.fromkeys(KERNELS, 0), flash_attention=cfg.num_layers,
-                  flash_attention_backward=cfg.num_layers)
+    per_step = train_launches(cfg)
+    expect = dict(dict.fromkeys(KERNELS, 0), **per_step)
     require(launches == expect, f"gemma2 recording train step: launches {launches} != {expect}")
-    bodies = {f"{p}wgmma<{cfg.resolved_head_dim}>": cfg.num_layers
-              for p in ("", "bwd dq ", "bwd dkdv ")}
+    D = cfg.resolved_head_dim
+    bodies = {f"wgmma<{D}>": per_step["flash_attention"],
+              **{f"{p}wgmma<{D}>": cfg.num_layers for p in ("bwd dq ", "bwd dkdv ")}}
     print_profile(f"gemma2-2b train step ({peers} peers x batch 1 x {seq} tokens)",
                   device_profile(torch, lambda: step(state, batch)), bodies)
     del state, step
     release(torch)
     worst, row = 0.0, None
     for name, seen in (("a local layer", local), ("a global layer", glob)):
-        (q, k, v, o32, lse, do, causal, cap, window), _ = seen[0]
-        require(q.dtype == torch.bfloat16 and q.shape == (peers, seq, cfg.num_heads,
-                                                          cfg.resolved_head_dim),
-                f"the path's backward inputs: {q.dtype} {tuple(q.shape)}")
-        require(causal and cap == GEMMA_SOFTCAP, f"the path's backward: causal={causal} softcap={cap}")
-        got = kf.FlashAttentionBackwardFn.apply(q, k, v, o32, lse, do, causal, cap, window)
-        ref = kf.flash_attention_backward_plain(*(t.float() for t in (q, k, v, do)), causal=causal,
-                                                softcap=cap, window=window)
-        torch.cuda.synchronize()
-        layer = 0.0
-        for gname, a, r in zip(("dq", "dk", "dv"), got, ref):
-            tol, rule = flash_bwd_tolerance(torch, r, q.dtype)
-            err = (a.float() - r).abs()
-            require(bool(torch.all(err <= tol)), f"flash_attention_backward {gname} on {name}'s "
-                    f"inputs: max err/limit {float((err / tol).max()):.3f}")
-            layer = max(layer, float(err.max()))
-        worst = max(worst, layer)
-        print(f"kernel check flash_attention_backward on {name}'s q, k, v, do of a train step "
-              f"{tuple(q.shape)} K={k.shape[2]} window={window}: max_abs_err={layer:.3e} ({rule} "
-              f"of the plain backward in f32)")
-        del got, ref
+        worst = max(worst, hold_bwd_to_plain(torch, kf, seen, name, cfg, peers, seq,
+                                             GEMMA_SOFTCAP))
+        (q, k, v, _, _, do, _, _, window), _ = seen[0]
         row = time_flash_bwd(torch, kf, f"on {name}'s inputs of the train step", q, k, v, do,
                              window)
     return worst, row
@@ -2769,7 +2827,7 @@ def drive_mamba_train(torch, mods):
     from repro_torch.optim import adam, constant
     from repro_torch.train import build_train_step, init_train_state
 
-    counts, (cfg, peers, seq) = drive_train(torch, mods, "mamba2-370m", {}, steps=2,
+    counts, (cfg, peers, seq) = drive_train(torch, mods, "mamba2-370m", steps=2,
                                             schedule=constant(TRAIN_LR))
     release(torch)
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -2788,6 +2846,257 @@ def drive_mamba_train(torch, mods):
     print("path mamba2-370m train with use_ssd_kernel=True: RuntimeError (reference behaviour 18) "
           "before any SSD launch")
     return counts
+
+
+def remat_phase(torch, mods):
+    """One train step of a 3-layer reduced gemma2-2b in f32 (one remat
+    group of a local and a global layer, one tail layer; S 160 over its
+    window of 64), 2 peers x batch 2, ``allgather_mean``, plain SGD at rate
+    1, on the card from one state with ``cfg.remat`` on and off: the same
+    loss, every leaf's update within 1e-4 of its largest magnitude (the
+    reduced step's card limit: the recompute's generated vmap rule sums
+    each group's per-peer gradients where one product over the folded peers
+    sums them without it), and ``train_launches``' counts: 5 flash forwards
+    with remat (the group's two layers twice, the tail once), 3 without, 3
+    backwards either way."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.p2p import Topology
+    from repro_torch.optim import sgd
+    from repro_torch.train import build_train_step, init_train_state
+
+    base = dataclasses.replace(reduced(get_config("gemma2-2b"), num_layers=3), dtype="float32")
+    state = init_train_state(torch.Generator().manual_seed(0), base, sgd(), device="cpu")
+    toks = torch.randint(0, base.vocab_size, (2 * TRAIN_PEERS, 161),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for remat in (True, False):
+        cfg = dataclasses.replace(base, remat=remat)
+        st = state.replace(params={k: p.to("cuda", copy=True) for k, p in state.params.items()})
+        step = build_train_step(cfg, sgd(), Topology(), TRAIN_PEERS, lambda s: 1.0)
+        reset_counters(mods)
+        new, metrics = step(st, batch)
+        launches = read_counters(mods)
+        expect = dict(dict.fromkeys(KERNELS, 0), **train_launches(cfg))
+        require(launches == expect, f"reduced gemma2 step remat={remat}: launches {launches} != "
+                f"{expect}")
+        out[remat] = ({k: state.params[k] - p.cpu() for k, p in new.params.items()},
+                      float(metrics["loss"]), launches["flash_attention"])
+    (dr, lr_, fr), (dn, ln, fn) = out[True], out[False]
+    require(abs(lr_ - ln) <= 1e-6 * abs(ln), f"reduced gemma2 step: loss {lr_} with remat, {ln} "
+            "without")
+    worst = 0.0
+    for k, want in dn.items():
+        err, scale = float((dr[k] - want).abs().max()), float(want.abs().max())
+        require(err <= 1e-4 * scale, f"reduced gemma2 step: {k} update {err:.3e} with remat from "
+                f"without, beyond 1e-4 x {scale:.3e}")
+        worst = max(worst, err / scale)
+    print(f"reference check (reduced gemma2-2b train step on the card, 3 layers, f32, remat on "
+          f"against off): loss {lr_:.7f} vs {ln:.7f}, every leaf's update within {worst:.3e} of "
+          f"its largest magnitude (limit 1e-4), flash forwards {fr} vs {fn}")
+
+
+def leaf_sample(p):
+    """65,536 entries spread over a leaf: an embedding's rows of the tokens
+    a batch holds are among them (its first rows may hold none)."""
+    return p.reshape(-1)[::max(1, p.numel() // 65536)]
+
+
+def _counted_steps(torch, mods, expect, losses, secs, before, last_hook=None):
+    """A stand-in for ``P2PTrainer.step`` that zeroes the launch counters
+    before each step and requires ``expect`` after it (None: no check),
+    keeps each step's loss and time and ``leaf_sample`` of every leaf
+    before the first step; ``last_hook(run)`` wraps the call of step
+    number ``last_hook.step``. Returns (the stand-in, the total launches)."""
+    from repro_torch.train import P2PTrainer
+
+    step, total = P2PTrainer.step, dict.fromkeys(KERNELS, 0)
+
+    def counted(self, state, batch):
+        if not before:
+            before.update({k: leaf_sample(p).clone() for k, p in state.params.items()})
+        reset_counters(mods)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run = lambda: step(self, state, batch)
+        out = (last_hook(run) if last_hook is not None and len(losses) == last_hook.step
+               else run())
+        losses.append(float(out[1]["loss"]))  # synchronises
+        secs.append(time.perf_counter() - t)
+        launches = read_counters(mods)
+        require(expect is None or launches == expect,
+                f"train CLI step {len(losses)}: launches {launches} != {expect}")
+        for name, count in launches.items():
+            total[name] += count
+        return out
+
+    return counted, total
+
+
+@contextlib.contextmanager
+def trainer_steps(stand_in):
+    from repro_torch.train import P2PTrainer
+
+    step = P2PTrainer.step
+    P2PTrainer.step = stand_in
+    try:
+        yield
+    finally:
+        P2PTrainer.step = step
+
+
+def drive_cli_train(torch, mods):
+    """The train CLI twin at full width: ``repro_torch.launch.train.main``
+    with ``--full --arch qwen2.5-3b --data-parallel 2 --batch 2 --seq 2048
+    --steps 4 --exchange allgather_mean --backend instance
+    --serverless-report`` through ``P2PTrainer`` (its step:
+    ``build_train_step``, remat on as configured; the CLI prints its step
+    lines and the instance accounting of the measured steps). The
+    serverless accounting and the cost frontier refuse this model, as the
+    reference's do: its 13.6 GB of f32 params need 27,904 MB of Lambda
+    memory, above the 10,240 MB cap (``ServerlessPlanner``'s ValueError);
+    the reduced CLI run below prints both.
+    Every step must launch ``train_launches(cfg)`` (72 flash forwards, 36
+    backwards), the losses be finite, every leaf move. Prints s/step after
+    the first and the peak device memory. Then the backward kernel is held
+    to the plain backward on the inputs of the last step's last layer
+    (qwen2.5-3b's 16 heads over 2, D 128, no softcap). Returns the
+    launches of the four steps and the largest error."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.launch import train as cli
+
+    cfg = get_config("qwen2.5-3b")
+    n_params = models.param_count(models.init_model(cfg, generator=None, device="meta"))
+    parts = train_bytes(n_params, cfg, TRAIN_PEERS, TRAIN_SEQ)
+    print(f"path qwen2.5-3b train CLI: {n_params} params, reckoned bytes at {TRAIN_PEERS} peers x "
+          f"{TRAIN_SEQ} tokens (remat={cfg.remat}): "
+          f"{ {k: round(v / 2**30, 2) for k, v in parts.items()} } GiB, "
+          f"{sum(parts.values()) / 2**30:.2f} GiB in all")
+    expect = dict(dict.fromkeys(KERNELS, 0), **train_launches(cfg))
+    losses, secs, before, seen = [], [], {}, []
+
+    def record_last(run):
+        with recording(kf, "_backward") as last:
+            out = run()
+        seen.extend(last)
+        return out
+
+    record_last.step = TRAIN_STEPS - 1
+    stand_in, total = _counted_steps(torch, mods, expect, losses, secs, before, record_last)
+    torch.cuda.reset_peak_memory_stats()
+    with trainer_steps(stand_in):
+        state = cli.main(["--full", "--arch", "qwen2.5-3b", "--data-parallel", str(TRAIN_PEERS),
+                          "--batch", str(TRAIN_PEERS), "--seq", str(TRAIN_SEQ),
+                          "--steps", str(TRAIN_STEPS), "--exchange", "allgather_mean",
+                          "--backend", "instance", "--serverless-report", "--log-every", "1"])
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+    require(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+            f"qwen2.5-3b train CLI: losses {losses}")
+    require(all(bool(torch.isfinite(p).all()) for p in state.params.values()),
+            "qwen2.5-3b train CLI: non-finite params")
+    still = [k for k, b in before.items() if torch.equal(leaf_sample(state.params[k]), b)]
+    require(not still, f"qwen2.5-3b train CLI: {len(still)} of {len(before)} leaves did not move: "
+            f"{still[:5]}")
+    print(f"path qwen2.5-3b train CLI, {TRAIN_PEERS} peers x batch 1 x {TRAIN_SEQ} tokens: first step "
+          f"{secs[0]:.3f} s, then {sum(secs[1:]) / (len(secs) - 1):.4f} s/step "
+          f"({[round(x, 4) for x in secs[1:]]}), "
+          f"{TRAIN_PEERS * TRAIN_SEQ * (len(secs) - 1) / sum(secs[1:]):.0f} tokens/s, peak device "
+          f"memory {peak / 2**30:.2f} GiB (reserved {reserved / 2**30:.2f}), launches per step "
+          f"{ {k: v for k, v in expect.items() if v} }, loss per step "
+          f"{[round(x, 5) for x in losses]}, all {len(before)} leaves moved")
+    del state
+    release(torch)
+    err = hold_bwd_to_plain(torch, kf, seen, "qwen2.5-3b's last layer", cfg, TRAIN_PEERS,
+                            TRAIN_SEQ, 0.0)
+    return total, err
+
+
+def drive_cli_checkpoint(torch, mods):
+    """The train CLI at ``reduced(qwen2.5-3b)`` with ``remat`` put back, 2
+    peers x batch 2 x 256 tokens, ``--exchange qsgd --ef`` (the QSGD
+    kernels), ``--cost-report --serverless-report`` (the serverless
+    accounting and the cost frontier of the card's step times): 3 steps
+    written with ``--checkpoint``; then one step
+    ``--restore``d from the file, and the same command again with the
+    state held in memory in place of the file: the two resumed states must
+    be the same bits (params, Adam's moments and step count, the EF bank,
+    the step). The serve twin's ``--checkpoint`` then reads the file.
+    Returns the launches of the CLI runs."""
+    import io
+
+    from repro_torch.configs import reduced
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as cli
+    from repro_torch.train import P2PTrainer
+
+    path = ROOT / "build" / "smoke_ckpt" / "qwen_qsgd_ef"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    argv = ["--arch", "qwen2.5-3b", "--data-parallel", "2", "--batch", "4", "--seq", "256",
+            "--exchange", "qsgd", "--ef", "--log-every", "1", "--cost-report",
+            "--serverless-report"]
+    losses, secs, before = [], [], {}
+    stand_in, total = _counted_steps(torch, mods, None, losses, secs, before)
+    with_remat = lambda cfg, **kw: reduced(cfg, remat=True, **kw)
+    cli.reduced, restore = with_remat, P2PTrainer.restore
+    try:
+        with trainer_steps(stand_in):
+            saved = cli.main(argv + ["--steps", "3", "--checkpoint", str(path)])
+            from_file = cli.main(argv + ["--steps", "1", "--restore", str(path)])
+            P2PTrainer.restore = lambda self, p, like=None: saved
+            in_memory = cli.main(argv + ["--steps", "1", "--restore", str(path)])
+    finally:
+        cli.reduced, P2PTrainer.restore = reduced, restore
+    require(total["qsgd_quantize"] > 0 and total["qsgd_dequant_reduce"] > 0,
+            f"reduced qwen2.5-3b qsgd CLI: launches {total}")
+    require(from_file.step == in_memory.step == 4, f"resumed steps {from_file.step}, "
+            f"{in_memory.step}")
+    same = lambda a, b: a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    require(same(from_file.params, in_memory.params) and same(from_file.ef, in_memory.ef)
+            and all(same(from_file.opt_state[m], in_memory.opt_state[m]) for m in ("mu", "nu"))
+            and torch.equal(from_file.opt_state["t"], in_memory.opt_state["t"])
+            and losses[3] == losses[4],
+            "reduced qwen2.5-3b qsgd CLI: the step resumed from the checkpoint differs from the "
+            "step from the state held in memory")
+    print(f"path reduced qwen2.5-3b train CLI (remat, qsgd + EF, 2 peers x 2 x 256 tokens): "
+          f"losses {[round(x, 5) for x in losses[:3]]}, checkpoint {path.name}.npz; the step "
+          f"resumed from it and the step from the state in memory the same bits (loss "
+          f"{losses[3]:.6f}, every param, moment and EF row); launches "
+          f"{ {k: v for k, v in total.items() if v} }")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve.main(["--arch", "qwen2.5-3b", "--checkpoint", str(path), "--gen", "4",
+                    "--batch", "2"])
+    require("restored checkpoint (step 3)" in out.getvalue(), f"serve: {out.getvalue()!r}")
+    print("path serve twin --checkpoint of that file: " + " | ".join(out.getvalue().splitlines()))
+    return total
+
+
+def drive_example(torch, mods):
+    """The example twin (``examples/p2p_serverless_train.py``'s qwen-100m,
+    qsgd(127, 2048), grad clip 1.0, through ``P2PTrainer``) for 3 steps of
+    2 peers x 4 x 128 tokens, its checkpoint under build/: finite losses,
+    every leaf moved, the QSGD kernels launched. Returns its launches."""
+    from repro_torch.examples import p2p_serverless_train
+
+    losses, secs, before = [], [], {}
+    stand_in, total = _counted_steps(torch, mods, None, losses, secs, before)
+    with trainer_steps(stand_in):
+        state = p2p_serverless_train.main([
+            "--steps", "3", "--peers", "2", "--batch", "8", "--seq", "128",
+            "--checkpoint", str(ROOT / "build" / "smoke_ckpt" / "example")])
+    still = [k for k, b in before.items() if torch.equal(leaf_sample(state.params[k]), b)]
+    require(all(math.isfinite(x) for x in losses) and not still and total["qsgd_quantize"] > 0,
+            f"example twin: losses {losses}, {len(still)} leaves still, launches {total}")
+    print(f"path example twin (qwen-100m, qsgd, 2 peers x 4 x 128 tokens): losses "
+          f"{[round(x, 5) for x in losses]}, s/step {[round(x, 4) for x in secs]}, all "
+          f"{len(before)} leaves moved, launches { {k: v for k, v in total.items() if v} }")
+    del state
+    release(torch)
+    return total
 
 
 def profile_phase(torch, name, model, cfg, tokens, prompts, flags, bodies):
@@ -3292,9 +3601,9 @@ def _time_flash_bwd(torch, kf, what: str, q, k, v, do, window: int):
           f"{GEMMA_SOFTCAP} window {window}: kernel {t_kern1:.4f}/{t_kern2:.4f} ms, plain "
           f"{t_plain1:.4f}/{t_plain2:.4f} ms, bound {bound:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP at "
           f"989.4 TFLOP/s, {nbytes / 1e6:.1f} MB at 3.35 TB/s; roofline share "
-          f"{bound / row['ms']:.1%}; the kernels' 20 D operations a pair, S and dP twice and dq, "
-          f"dk and dv each from two bf16 halves of its A operand, take "
-          f"{ops * 2.0 / BF16_FLOPS * 1e3:.4f} ms at that rate), host enqueue "
+          f"{bound / row['ms']:.1%}; the kernels' 24 D operations a pair, S and dP three times "
+          f"(delta's sweep, dq's, dk and dv's) and dq, dk and dv each from two bf16 halves of "
+          f"its A operand, take {ops * 2.4 / BF16_FLOPS * 1e3:.4f} ms at that rate), host enqueue "
           f"{min(host1, host2) * 1e3:.1f} us/call, "
           f"library flex_attention backward (torch.compile, first forward and backward "
           f"{compile_s:.1f} s) {t_lib:.4f} ms, max |flex - kernel| {flex_err:.3e}")
@@ -3473,13 +3782,13 @@ def train_timing_only(torch, src: Path) -> int:
           f"{'expandable' if expandable else 'fixed'} segments")
     mods = {"kq": kq, "kt": kt, "ks": ks, "kf": kf}
     start = time.perf_counter()
-    drive_train(torch, mods, "mamba2-370m", {}, steps=6, schedule=constant(TRAIN_LR), seqs=(1024,),
-                reckon=False)
+    drive_train(torch, mods, "mamba2-370m", steps=6, schedule=constant(TRAIN_LR),
+                cuts=((TRAIN_PEERS, 1024),), reckon=False, check_launches=False)
     release(torch)
-    flash = {"flash_attention": 1, "flash_attention_backward": 1}
-    drive_train(torch, mods, "gemma2-2b", flash, reckon=False)
+    drive_train(torch, mods, "gemma2-2b", cuts=CUTS, reckon=False, check_launches=False)
     release(torch)
-    drive_train(torch, mods, "gemma2-2b", flash, seqs=(512,), reckon=False)
+    drive_train(torch, mods, "gemma2-2b", cuts=((TRAIN_PEERS, 512),), reckon=False,
+                check_launches=False)
     release(torch)
     print(f"train paths of {src}: {time.perf_counter() - start:.1f} s")
     return 0
@@ -3589,9 +3898,9 @@ def main() -> int:
     # the first train step built switches the allocator to expandable
     # segments (build_train_step): every phase above ran on fixed ones
     reference_train_phase(torch)
+    remat_phase(torch, mods)
     stamp("reference train phase")
-    train_counts, (train_cfg, peers, seq) = drive_train(
-        torch, mods, "gemma2-2b", {"flash_attention": 1, "flash_attention_backward": 1})
+    train_counts, (train_cfg, peers, seq) = drive_train(torch, mods, "gemma2-2b")
     release(torch)
     path_err, times["flash_attention_backward"] = check_flash_bwd_on_path(torch, mods, train_cfg,
                                                                           peers, seq)
@@ -3600,8 +3909,15 @@ def main() -> int:
     release(torch)
     drive_mamba_train(torch, mods)
     stamp("mamba2-370m train path")
-    for name, count in train_counts.items():
-        total[name] += count
+    cli_counts, cli_err = drive_cli_train(torch, mods)
+    errs["flash_attention_backward"] = max(errs["flash_attention_backward"], cli_err)
+    stamp("qwen2.5-3b train CLI path")
+    ckpt_counts = drive_cli_checkpoint(torch, mods)
+    example_counts = drive_example(torch, mods)
+    stamp("checkpoint and example paths")
+    for counts in (train_counts, cli_counts, ckpt_counts, example_counts):
+        for name, count in counts.items():
+            total[name] += count
     require(all(total.values()), f"a kernel was never launched on the main path: {total}")
     kernels = [
         {

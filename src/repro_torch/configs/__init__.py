@@ -9,7 +9,16 @@ from __future__ import annotations
 import importlib
 from typing import Dict
 
-from repro_torch.configs.base import ModelConfig, reduced
+from repro_torch.configs.base import (
+    DECODE_32K,
+    LONG_500K,
+    PREFILL_32K,
+    SHAPES,
+    TRAIN_4K,
+    ModelConfig,
+    ShapeConfig,
+    reduced,
+)
 
 LM_ARCHS = ("mamba2-370m", "gemma2-2b", "qwen2.5-3b", "starcoder2-3b")
 PAPER_ARCHS = ("vgg11", "mobilenet-v3-small", "squeezenet1.1")  # the paper's own models
@@ -30,4 +39,5 @@ def all_configs() -> Dict[str, ModelConfig]:
     return {n: get_config(n) for n in _ARCH_MODULES}
 
 
-__all__ = ["ModelConfig", "reduced", "get_config", "all_configs", "LM_ARCHS", "PAPER_ARCHS"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "TRAIN_4K", "PREFILL_32K", "DECODE_32K",
+           "LONG_500K", "reduced", "get_config", "all_configs", "LM_ARCHS", "PAPER_ARCHS"]

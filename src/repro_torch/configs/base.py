@@ -2,9 +2,8 @@
 ``repro/configs/base.py`` :class:`ModelConfig` (fields unchanged).
 
 A config fully determines parameter shapes. It is a frozen dataclass, so
-configs are hashable. :func:`reduced` is a copy of the reference's too.
-The input-shape configs (``ShapeConfig``) come with the trainer
-(ROADMAP.md, Queue 1, item 9).
+configs are hashable. :func:`reduced` and the input shapes
+(:class:`ShapeConfig`, ``SHAPES``) are copies of the reference's too.
 """
 from __future__ import annotations
 
@@ -197,6 +196,27 @@ class ModelConfig:
         per_expert = 3 * d * self.d_ff
         inactive = (self.num_experts - self.experts_per_token) * per_expert
         return full - self.num_layers * inactive
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (the 4 assigned shapes)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

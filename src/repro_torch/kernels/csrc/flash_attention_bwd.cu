@@ -26,18 +26,23 @@
 //
 // Two bodies, picked by input type in flash_attention_backward_launch.
 //
-// bf16, on the tensor cores, from what the forward saved: its o in f32 (the
-// cancellation in dp - delta needs delta at f32 accuracy: from the bf16
-// output the dq check fails by 270x) and lse (batch, H, Sq) f32. Two
-// launches in FlashAttention-2's deterministic form, both built from
-// hopper.cuh: TMA loads of 64-row tiles in 64-byte column chunks with the
-// 64-byte swizzle, mbarrier full/empty pairs, one producer thread, wgmma.
+// bf16, on the tensor cores, from the forward's lse (batch, H, Sq) f32.
+// The cancellation in dp - delta needs delta at f32 accuracy and free of
+// lse's error: from the bf16 output the dq check fails by 270x, from the
+// forward's o in f32 (P V with P as bf16 hi + lo: 1.3e-5 of |o|) by 7.7x
+// on qwen2.5-3b's trained rows; so delta_i = sum_j p_ij dp_ij / sum_j p_ij,
+// from the same p and dp as dq (an error of lse then scales the row's
+// gradients). Two launches in FlashAttention-2's deterministic form, both
+// built from hopper.cuh: TMA loads of 64-row tiles in 64-byte column
+// chunks with the 64-byte swizzle, mbarrier full/empty pairs, one producer
+// thread, wgmma.
 //   (1) dq: one block per (batch, head, 64-query tile), one consumer
-//       warpgroup (254 registers at D = 256, no spills) and a producer
-//       warpgroup. Its prologue takes delta_i = dO_i . o_i over the rows it
-//       owns (each row's 4 lanes a quarter of D each) and writes it to the
-//       scratch, (batch, H, Sq) f32, for launch (2). Per key tile the mask
-//       leaves (k and v through 2-stage rings): S = q k^T and dP = dO v^T
+//       warpgroup and a producer warpgroup, which streams the key tiles
+//       twice. Sweep 1 takes S and dP of each tile and sums p and p dp over
+//       the row (each row's 4 lanes, then a quad sum) into delta, written
+//       to the scratch, (batch, H, Sq) f32, for launch (2). Sweep 2, per
+//       key tile the mask leaves (k and v through 2-stage rings): S = q k^T
+//       and dP = dO v^T
 //       on wgmma.m64n64k16 from shared memory; softcap, mask, p = 2^(z -
 //       lse log2 e) and dS = p (dP - delta)(1 - t^2) on the accumulator
 //       fragments in registers; dq += dS k with dS as the register A
@@ -58,12 +63,13 @@
 //       delta) and owns dk. setmaxnreg gives the consumers 240 registers and
 //       the producer 24; no spills. At D = 256: k, v, two stages of q and dO
 //       and the exchange, 214,088 bytes.
-//   Work: 14 D operations a valid pair (S and dP in both launches) against
-//   the function's 10 D, at the bf16 tensor-core rate. P and dS enter the
+//   Work: 18 D operations a valid pair (S and dP in both sweeps of launch
+//   (1) and in launch (2)) against the function's 10 D, at the bf16
+//   tensor-core rate. P and dS enter the
 //   tensor cores as two bf16 halves, hi = bf16(x) and lo = bf16(x - hi),
 //   both multiplied: one rounding of P or dS to bf16 moves a gradient by
 //   up to 2^-9 of a term, outside the 2^-8 |g| + 2e-5 max|g| the checks
-//   allow on gradients that cancel; the split leaves 2^-17. That makes 20 D
+//   allow on gradients that cancel; the split leaves 2^-17. That makes 24 D
 //   on the tensor cores. What holds it back: one consumer warpgroup per SM
 //   in launch (1) and no overlap of the softcap and exponentials (CUDA
 //   cores) with the products, the serial hand-over of g in launch (2), and
@@ -630,7 +636,6 @@ template <int kD>
 __global__ void __launch_bounds__(2 * kConsumer, 1)
 bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
              const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
-             const __nv_bfloat16* __restrict__ dO, const float* __restrict__ o32,
              const float* __restrict__ lse, float* __restrict__ delta,
              __nv_bfloat16* __restrict__ dq, Problem p) {
   constexpr int kChunks = kD / kChunkCols;
@@ -673,10 +678,10 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
         tma_load(sQ + c * kRowChunkBytes, &qmap, qd_full, c * kChunkCols, q0, h, b);
         tma_load(sDO + c * kRowChunkBytes, &domap, qd_full, c * kChunkCols, q0, h, b);
       }
-      for (int t = 0; t < ntiles; ++t) {
+      for (int t = 0; t < 2 * ntiles; ++t) {  // two sweeps: delta, then dq
         const int s = t % kStages;
         const uint32_t parity = ((t / kStages) & 1) ^ 1;
-        const int j0 = j_begin + t * kTile;
+        const int j0 = j_begin + (t % ntiles) * kTile;
         mbar_wait(k_empty + 8 * s, parity);
         mbar_expect_tx(k_full + 8 * s, kBytes);
         for (int c = 0; c < kChunks; ++c) {
@@ -695,41 +700,21 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
     const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
     const int r0 = q0 + 16 * warp + lane / 4, c0 = 2 * (lane % 4);
     const long long stat0 = (static_cast<long long>(b) * p.H + h) * p.Sq;
-    // delta = dO . o (o in f32 from the forward) and lse in log2 units of
-    // rows r0 and r0 + 8: the 4 lanes of a row each sum every fourth float4
-    float dl[2], L2[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int i = r0 + 8 * r;
-      float sum = 0.0f;
-      if (i < p.Sq) {
-        const float* orow = o32 + ((static_cast<long long>(b) * p.Sq + i) * p.H + h) * kD;
-        const __nv_bfloat16* drow = dO + b * p.dos.b + i * p.dos.s + h * p.dos.h;
-#pragma unroll 4
-        for (int d = 4 * (lane % 4); d < kD; d += 16) {
-          const float4 o4 = *reinterpret_cast<const float4*>(orow + d);
-          const float2 d01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(drow + d));
-          const float2 d23 =
-              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(drow + d + 2));
-          sum = fmaf(d01.x, o4.x, sum);
-          sum = fmaf(d01.y, o4.y, sum);
-          sum = fmaf(d23.x, o4.z, sum);
-          sum = fmaf(d23.y, o4.w, sum);
-        }
-      }
-      dl[r] = quad_sum(sum);
-      L2[r] = i < p.Sq ? lse[stat0 + i] * kLog2e : 0.0f;
-      if (i < p.Sq && lane % 4 == 0) delta[stat0 + i] = dl[r];
-    }
     const bool capped = p.softcap > 0.0f;
     const float pre = capped ? p.scale / p.softcap : 0.0f;
     const float post = (capped ? p.softcap : p.scale) * kLog2e;
-    float acc[kD / 2];
+    float L2[2];  // lse of rows r0 and r0 + 8 in log2 units
 #pragma unroll
-    for (int i = 0; i < kD / 2; ++i) acc[i] = 0.0f;
+    for (int r = 0; r < 2; ++r) {
+      const int i = r0 + 8 * r;
+      L2[r] = i < p.Sq ? lse[stat0 + i] * kLog2e : 0.0f;
+    }
     float sc[32], dp[32];
-    uint32_t hi[16], lo[16];
 
+    // sweep 1: delta_i = sum_j p_ij dp_ij / sum_j p_ij over the row's keys,
+    // from the same S and dP as sweep 2 (the division takes out the error of
+    // lse that p shares along the row), written to the scratch for launch (2)
+    float ps[2] = {0.0f, 0.0f}, pd[2] = {0.0f, 0.0f};
     mbar_wait(qd_full, 0);
     for (int t = 0; t < ntiles; ++t) {
       const int s = t % kStages;
@@ -745,7 +730,45 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
       fence_regs(sc);
       fence_regs(dp);
       mbar_arrive(v_empty + 8 * s);
-      // ds = p (dp - delta) (1 - t^2), p = 2^(z - lse2) on the valid pairs
+      mbar_arrive(k_empty + 8 * s);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int r = (e >> 1) & 1;
+        const int j = j0 + c0 + 8 * (e / 4) + (e & 1);
+        const float x = capped ? tanhf(sc[e] * pre) : sc[e];
+        const float pr = is_valid(r0 + 8 * r, j, p) ? exp2_ftz(fmaf(x, post, -L2[r])) : 0.0f;
+        ps[r] += pr;
+        pd[r] = fmaf(pr, dp[e], pd[r]);
+      }
+    }
+    float dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = r0 + 8 * r;
+      const float sum_p = quad_sum(ps[r]), sum_pd = quad_sum(pd[r]);
+      dl[r] = sum_p > 0.0f ? sum_pd / sum_p : 0.0f;  // a row with no valid key: 0
+      if (i < p.Sq && lane % 4 == 0) delta[stat0 + i] = dl[r];
+    }
+
+    // sweep 2: ds = p (dp - delta) (1 - t^2); dq += ds k
+    float acc[kD / 2];
+#pragma unroll
+    for (int i = 0; i < kD / 2; ++i) acc[i] = 0.0f;
+    uint32_t hi[16], lo[16];
+    for (int t = ntiles; t < 2 * ntiles; ++t) {
+      const int s = t % kStages;
+      const uint32_t ph = (t / kStages) & 1;
+      const int j0 = j_begin + (t - ntiles) * kTile;
+      mbar_wait(k_full + 8 * s, ph);
+      mbar_wait(v_full + 8 * s, ph);
+      wgmma_fence();
+      wgmma_scores<kD, kRowChunkBytes, kRowChunkBytes>(sc, sQ, sK + s * kBytes);
+      wgmma_scores<kD, kRowChunkBytes, kRowChunkBytes>(dp, sDO, sV + s * kBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      mbar_arrive(v_empty + 8 * s);
 #pragma unroll
       for (int e = 0; e < 32; ++e) {
         const int r = (e >> 1) & 1;
@@ -972,9 +995,9 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
 }
 
 template <int kD>
-int launch_wgmma(const void* q, const void* k, const void* v, const void* o32, const void* lse,
-                 const void* dO, void* dq, void* dk, void* dv, float* delta, int batch, int K,
-                 const Problem& p, cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, const void* lse, const void* dO,
+                 void* dq, void* dk, void* dv, float* delta, int batch, int K, const Problem& p,
+                 cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap, domap;
   if (!make_map(&qmap, q, kD, p.Sq, p.H, batch, p.qs, kTile) ||
       !make_map(&kmap, k, kD, p.Skv, K, batch, p.ks, kTile) ||
@@ -992,8 +1015,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o32, c
   }
   const int nq = (p.Sq + kTile - 1) / kTile, nk = (p.Skv + kTile - 1) / kTile;
   bwd_dq_wgmma<kD><<<dim3(nq, p.H, batch), 2 * kConsumer, sa, stream>>>(
-      qmap, kmap, vmap, domap, static_cast<const __nv_bfloat16*>(dO),
-      static_cast<const float*>(o32), static_cast<const float*>(lse), delta,
+      qmap, kmap, vmap, domap, static_cast<const float*>(lse), delta,
       static_cast<__nv_bfloat16*>(dq), p);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   bwd_dkdv_wgmma<kD><<<dim3(nk, K, batch), 3 * kConsumer, sb, stream>>>(
@@ -1004,13 +1026,12 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o32, c
 
 }  // namespace
 
-// bf16 (the tensor-core body): o is the forward's f32 output (batch, Sq,
-// H, D), contiguous, lse its (batch, H, Sq) f32 row statistic, and scratch
-// takes delta (batch, H, Sq) f32; dO's base and strides must suit TMA.
-// f32 (the CUDA-core body): o and lse are not read, and scratch takes lse
-// and delta, 2 (batch, H, Sq) f32.
+// bf16 (the tensor-core body): lse is the forward's (batch, H, Sq) f32
+// row statistic, contiguous, and scratch takes delta (batch, H, Sq) f32;
+// dO's base and strides must suit TMA. f32 (the CUDA-core body): lse is
+// not read, and scratch takes lse and delta, 2 (batch, H, Sq) f32.
 extern "C" int flash_attention_backward_launch(
-    const void* q, const void* k, const void* v, const void* o, const void* lse, const void* dO,
+    const void* q, const void* k, const void* v, const void* lse, const void* dO,
     void* dq, void* dk, void* dv, void* scratch, int batch, int Sq, int Skv, int H, int K, int D,
     int bf16, long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh, long long do_sb,
@@ -1030,10 +1051,10 @@ extern "C" int flash_attention_backward_launch(
     const long long n = static_cast<long long>(batch) * H * Sq;
     return launch<float>(q, k, v, dO, dq, dk, dv, stats, stats + n, batch, K, p, st);
   }
-  if (o == nullptr || lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
 #define FLASH_BWD_WGMMA_CASE(d) \
   case d:                       \
-    return launch_wgmma<d>(q, k, v, o, lse, dO, dq, dk, dv, stats, batch, K, p, st);
+    return launch_wgmma<d>(q, k, v, lse, dO, dq, dk, dv, stats, batch, K, p, st);
   switch (D) {
     FLASH_BWD_WGMMA_CASE(32)
     FLASH_BWD_WGMMA_CASE(64)

@@ -10,9 +10,10 @@ tiles that the Tensor Memory Accelerator loads). The backward,
 ``csrc/flash_attention_bwd.cu``, stands for the reference's ``jax.grad``
 of the same function (its models differentiate ``attend``; the Pallas
 kernel has no backward). It has one body for each input type too: bf16
-runs two launches on the tensor cores (dq and delta = dO . o; then dk and
-dv), from the forward's saved o (in f32) and log-sum-exp; f32 runs three
-launches on the CUDA cores that recompute both.
+runs two launches on the tensor cores (delta = sum_j p dP / sum_j p, then
+dq, in one; dk and dv in the other), from the forward's saved log-sum-exp;
+f32 runs three launches on the CUDA cores that recompute it. The forward
+still saves o in f32 beside lse, which the bf16 backward no longer reads.
 
 The kernels' function, for query i and key j with positions counted from
 0 on both sides (also when Sq != Skv), query head h reading KV head
@@ -36,7 +37,7 @@ returns what the backward reads: o in f32 and each row's log-sum-exp
 forward is ``flash_attention_plain`` (with ``flash_attention_stats_plain``)
 and the backward ``flash_attention_backward_plain``, which computes the
 statistics again; ``flash_attention_backward_saved_plain`` is the bf16
-backward kernels' plain twin, from the saved o and lse. On CUDA tensors
+backward kernels' plain twin, from the saved lse. On CUDA tensors
 both are the kernels, or raise: there is no fallback.
 
 ``attend`` is the port's copy of the reference's ``models/layers.py:attend``
@@ -185,25 +186,27 @@ def flash_attention_stats_plain(
 
 
 def flash_attention_backward_saved_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
-    do: torch.Tensor, *, causal: bool = True, softcap: float = 0.0, window: int = 0,
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+    causal: bool = True, softcap: float = 0.0, window: int = 0,
 ):
-    """Plain PyTorch backward in the bf16 kernel's form, from the forward's
-    o (B, Sq, H, D) and lse (B, H, Sq) -> (dq, dk, dv) in the dtypes of q,
-    k and v, step by step in f32 (f64 for f64 inputs) over the whole (Sq,
-    Skv) score matrix.
+    """Plain PyTorch backward in the bf16 kernels' form, from the forward's
+    lse (B, H, Sq) -> (dq, dk, dv) in the dtypes of q, k and v, step by
+    step in f32 (f64 for f64 inputs) over the whole (Sq, Skv) score matrix.
 
         u_ij  = (q_i / sqrt(D)) . k_j,  t_ij = tanh(u_ij / softcap)
         s_ij  = softcap * t_ij  (u_ij without softcap), masked as the forward
         p_ij  = exp(s_ij - lse_i) on the valid j, else 0
         dv_j  = sum_i p_ij do_i               dp_ij = do_i . v_j
-        ds_ij = p_ij (dp_ij - delta_i),       delta_i = do_i . o_i
+        ds_ij = p_ij (dp_ij - delta_i),       delta_i = sum_j p_ij dp_ij / sum_j p_ij
         du_ij = ds_ij (1 - t_ij^2)            (ds_ij without softcap)
         dq_i  = sum_j du_ij k_j / sqrt(D)     dk_j = sum_i du_ij q_i / sqrt(D)
 
-    dk and dv sum over the H / K query heads of each KV group. A query row
-    with no valid key gets zero gradient, as the kernel's forward gives it
-    a zero output."""
+    delta_i is do_i . o_i; divided by the row's sum of p it carries no error
+    of lse, which p shares along the row (an error of lse then scales each
+    gradient of the row, where do_i . o_i from a saved o would add a term
+    that dq's cancellation in dp - delta makes large). dk and dv sum over
+    the H / K query heads of each KV group. A query row with no valid key
+    gets zero gradient."""
     B, Sq, H, D = q.shape
     K = k.shape[2]
     G = H // K
@@ -213,9 +216,10 @@ def flash_attention_backward_saved_plain(
     kf, vf = k.to(f32), v.to(f32)
     dof = do.reshape(B, Sq, K, G, D).to(f32)
     p = torch.where(valid, torch.exp(s - lse.reshape(B, K, G, Sq, 1).to(f32)), 0.0)
-    delta = torch.einsum("bqkgd,bqkgd->bkgq", dof, o.reshape(B, Sq, K, G, D).to(f32))[..., None]
     dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
     dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
+    sum_p = p.sum(dim=-1, keepdim=True)
+    delta = torch.where(sum_p > 0, (p * dp).sum(dim=-1, keepdim=True) / sum_p, 0.0)
     du = p * (dp - delta)
     if softcap:
         du = du * (1.0 - t * t)
@@ -244,7 +248,7 @@ def flash_attention_backward_plain(
     dk and dv sum over the H / K query heads of each KV group. A query row
     with no valid key gets zero gradient, as the kernel's forward gives it
     a zero output. ``flash_attention_backward_saved_plain`` is the same
-    function from the forward's saved o and lse."""
+    function from the forward's saved lse."""
     B, Sq, H, D = q.shape
     K = k.shape[2]
     G = H // K
@@ -293,7 +297,7 @@ def _bwd_lib() -> ctypes.CDLL:
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.flash_attention_backward_launch.argtypes = [
         ptr, ptr, ptr,  # q, k, v
-        ptr, ptr,  # the forward's o in f32 and lse: bf16 only
+        ptr,  # the forward's lse: bf16 only
         ptr,  # do
         ptr, ptr, ptr,  # dq, dk, dv
         ptr,  # scratch: delta (bf16) or lse and delta (f32), (batch, heads, Sq) f32 each
@@ -416,7 +420,7 @@ def _fold(info, in_dims, tensors):
     out = []
     for t, d in zip(tensors, in_dims):
         t = t.expand(info.batch_size, *t.shape) if d is None else t.movedim(d, 0)
-        out.append(t.reshape(-1, *t.shape[2:]))
+        out.append(t.flatten(0, 1))  # also the (P, B, 0) statistics of an f32 CUDA forward
     return out
 
 
@@ -545,23 +549,22 @@ flash_attention_backward.launches = 0
 def _backward(q, k, v, o32, lse, do, causal: bool, softcap: float, window: int):
     """The backward on plain tensors: on the CPU the plain version, which
     computes the scores once and needs neither o32 nor lse; on CUDA the
-    kernel."""
+    kernel, which in bf16 reads the forward's lse (not o32: it takes each
+    row's delta from p and dP)."""
     B, Sq, H, D = q.shape
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, do, causal=causal, softcap=softcap,
                                               window=window)
-    if q.dtype == torch.bfloat16 and (tuple(o32.shape) != (B, Sq, H, D)
-                                      or tuple(lse.shape) != (B, H, Sq)):
-        raise RuntimeError("flash_attention's bf16 backward needs the forward's o and lse: the "
-                           "forward ran under torch.inference_mode(), which saves neither")
+    if q.dtype == torch.bfloat16 and tuple(lse.shape) != (B, H, Sq):
+        raise RuntimeError("flash_attention's bf16 backward needs the forward's lse: the "
+                           "forward ran under torch.inference_mode(), which saves none")
     stream = build.cuda_stream(q.device)
     Skv, K = k.shape[1], k.shape[2]
     _check_launch(D, q, k, v, do)
     bf16 = q.dtype == torch.bfloat16
     if bf16:
-        if not (o32.dtype == lse.dtype == torch.float32 and o32.is_contiguous()
-                and lse.is_contiguous()):
-            raise ValueError("the bf16 backward reads o32 and lse as contiguous f32 tensors")
+        if not (lse.dtype == torch.float32 and lse.is_contiguous()):
+            raise ValueError("the bf16 backward reads lse as a contiguous f32 tensor")
         _check_tma(q, k, v)
         if not do.is_contiguous() or do.data_ptr() % TMA_ALIGN:
             do = do.clone(memory_format=torch.contiguous_format)  # TMA-ready rows
@@ -573,8 +576,8 @@ def _backward(q, k, v, o32, lse, do, causal: bool, softcap: float, window: int):
     scratch = torch.empty((1 if bf16 else 2, B, H, Sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = _bwd_lib().flash_attention_backward_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o32.data_ptr() if bf16 else None, lse.data_ptr() if bf16 else None, do.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr() if bf16 else None,
+            do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
             B, Sq, Skv, H, K, D, _DTYPES[q.dtype],
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],

@@ -10,8 +10,9 @@ dense LMs are served (``--arch mamba2-370m``, ``qwen2.5-3b``,
 ``starcoder2-3b``). The prefill's attention goes through the flash kernel
 (its plain version for a model on the CPU); decode attends over the KV
 cache with the plain ``attend``, as the reference does. The weights are
-random, from a seeded ``torch.Generator``; reading a checkpoint waits for
-the npz reader (ROADMAP.md, Queue 1, item 9).
+random, from a seeded ``torch.Generator``, or ``--checkpoint``'s: a v1
+params checkpoint or a v2 train state's params, written by either
+package's trainer (``train.checkpoint.restore_params``).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import torch
 
 from repro_torch import models
 from repro_torch.configs import get_config, reduced
+from repro_torch.train import checkpoint as ckpt
 
 
 def _sync(device: torch.device) -> None:
@@ -93,11 +95,6 @@ def main(argv=None):
         cfg = reduced(cfg, vocab_size=512)
     if cfg.family == "cnn":
         raise SystemExit("CNNs are not served autoregressively")
-    if args.checkpoint:
-        raise NotImplementedError(
-            "reading a checkpoint is not ported yet: ROADMAP.md, Queue 1, item 9 "
-            "(the npz checkpoint reader)"
-        )
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to serve on the CPU")
@@ -106,6 +103,12 @@ def main(argv=None):
 
     model = models.init_model(cfg, generator=torch.Generator(device=device).manual_seed(0),
                               device=device)
+    if args.checkpoint:
+        params, meta = ckpt.restore_params(args.checkpoint, dict(model.named_parameters()), cfg)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(params[name])
+        print(f"restored checkpoint (step {meta.get('step')})")
     B = args.batch
     sampler = torch.Generator(device=device).manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (B, args.prompt_len), generator=sampler,

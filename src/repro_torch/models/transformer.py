@@ -8,6 +8,12 @@ scans over the groups (``lax.scan``); here the layers are an
 slot j. ``convert.lm_from_jax`` / ``lm_to_jax`` carry weights across that
 layout (``layer_grouping`` gives it).
 
+With ``cfg.remat`` a training forward (no caches, autograd recording)
+runs each group of ``len(period)`` layers through :class:`RecomputeGroupFn`,
+as the reference wraps its scanned group body in ``jax.checkpoint``: the
+backward keeps each group's input and runs the group again. The tail
+layers run plain, as the reference applies them outside its scan.
+
 Every other family raises ``NotImplementedError`` naming its ROADMAP item.
 A decode state holds each layer's SSM state or KV cache in layer order;
 prefill and decode write the KV caches in place (``layers.attention_apply``).
@@ -19,8 +25,10 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
+from repro_torch.kernels import build
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import RMSNorm, dense_linear, rmsnorm, softcap
@@ -59,6 +67,58 @@ def layer_grouping(cfg: ModelConfig) -> Tuple[Tuple[BlockSpec, ...], int, int]:
         if ok and n >= 1:
             return specs[:p], n, Lnum - n * p
     return specs, 1, 0
+
+
+class RecomputeGroupFn(torch.autograd.Function):
+    """``run(positions, x, params) -> x``, one group of layers, saving only
+    its inputs: the backward runs the group again from the saved x and
+    params and takes its vector-Jacobian product (``torch.func.vjp``), as
+    ``jax.checkpoint`` does. Every tensor the group reads is an input, not
+    closed over: inside a ``torch.func`` transform a parameter reached by
+    closure gets no gradient, and a tensor made at the transform's level
+    cannot be read at the Function's. ``generate_vmap_rule``: under
+    ``vmap`` the forward and the backward are vmapped (the flash Function
+    inside folds the peers into its batch).
+
+    The backward returns its gradients detached: ``torch.func.grad`` takes
+    gradients with ``create_graph=True``, so the recompute's backward is
+    recorded, and gradients that kept that record would keep every group's
+    recomputed activations alive until the transform ends. There is no
+    second derivative through a remat group."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(run, positions, x, *params):
+        return run(positions, x, params)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        run, *tensors = inputs
+        ctx.run = run
+        ctx.save_for_backward(*tensors)
+
+    @staticmethod
+    def backward(ctx, gy):
+        run, (positions, *primals) = ctx.run, ctx.saved_tensors
+        _, vjp = torch.func.vjp(lambda x, *params: run(positions, x, params), *primals)
+        return (None, None, *(g.detach() for g in vjp(gy)))
+
+
+def _group_runner(blocks, cfg, use_ssd_kernel: bool):
+    """(the group's run function for :class:`RecomputeGroupFn`, its parameter
+    tensors in order): each block called through ``functional_call`` with
+    its share of the params."""
+    names = [[n for n, _ in b.named_parameters()] for b in blocks]
+
+    def run(positions, x, params):
+        it = iter(params)
+        for block, ns in zip(blocks, names):
+            x, _ = functional_call(block, {n: next(it) for n in ns}, (x, cfg),
+                                   {"positions": positions, "use_ssd_kernel": use_ssd_kernel})
+        return x
+
+    return run, [p for b in blocks for p in b.parameters()]
 
 
 class Block(nn.Module):
@@ -134,12 +194,31 @@ class LM(nn.Module):
 
     def run(self, x, cfg, *, positions, caches: Optional[List] = None, cache_pos=None,
             use_ssd_kernel: bool = False):
+        if cfg.remat and caches is None and torch.is_grad_enabled():
+            return self._run_remat(x, cfg, positions=positions, use_ssd_kernel=use_ssd_kernel)
         new_caches = []
         for i, block in enumerate(self.layers):
             x, nc = block(x, cfg, positions=positions, cache=None if caches is None else caches[i],
                           cache_pos=cache_pos, use_ssd_kernel=use_ssd_kernel)
             new_caches.append(nc)
         return rmsnorm(x, self.final_norm.scale, cfg.norm_eps), new_caches
+
+    def _run_remat(self, x, cfg, *, positions, use_ssd_kernel: bool):
+        """The training forward under ``cfg.remat``: ``layer_grouping``'s
+        groups each through one :class:`RecomputeGroupFn`, then the tail
+        layers plain."""
+        period, n_groups, _ = layer_grouping(cfg)
+        P = len(period)
+        if use_ssd_kernel and x.device.type == "cuda" and any(s.mixer == "mamba" for s in period):
+            # the groups' forwards run with grad mode off: the SSD kernel's
+            # refusal of grad mode (reference behaviour 18) is made here
+            build.refuse_grad("ssd_scan", x, *self.layers[0].parameters())
+        for g in range(n_groups):
+            run, params = _group_runner(self.layers[g * P:(g + 1) * P], cfg, use_ssd_kernel)
+            x = RecomputeGroupFn.apply(run, positions, x, *params)
+        for block in self.layers[n_groups * P:]:
+            x, _ = block(x, cfg, positions=positions, use_ssd_kernel=use_ssd_kernel)
+        return rmsnorm(x, self.final_norm.scale, cfg.norm_eps), [None] * len(self.layers)
 
 
 def lm_forward(

@@ -207,10 +207,11 @@ def build_train_step(
     schedule: Callable[[int], float],
     *,
     use_ssd_kernel: bool = False,
+    adversary=None,
     device="cuda",
 ):
     """``step(state, batch) -> (state, metrics)``: ``build_p2p_train_step``
-    over ``lm_loss``. ``batch`` holds ``tokens`` and ``labels``, (P * b, S)
+    over ``lm_loss`` (with ``adversary``'s Byzantine peers, if given). ``batch`` holds ``tokens`` and ``labels``, (P * b, S)
     int64; peer r takes rows [r b, (r + 1) b). The step donates its state,
     as the reference's jitted step does: the new params and moments are
     written into the state's own tensors (``build_p2p_train_step``'s
@@ -231,7 +232,7 @@ def build_train_step(
         return lm_loss(model, params, batch, cfg, use_ssd_kernel=use_ssd_kernel)
 
     return build_p2p_train_step(loss_fn, optimizer, topo, num_peers, schedule, donate=True,
-                                device=device)
+                                adversary=adversary, device=device)
 
 
 def build_serve_step(cfg: ModelConfig):

@@ -9,10 +9,11 @@ windowed, softcapped, GQA, non-causal with ragged lengths. A row with no
 valid key gets lse = -inf and o = 0.
 
 ``flash_attention_backward_saved_plain`` (the plain twin of the bf16
-backward kernels, from q, k, v, o, lse and do) fed the reference's o and
-the numpy lse: equal to ``flash_attention_backward_plain`` and to
-``jax.grad`` of ``attend`` within 2e-6 of each gradient's largest
-magnitude (sums in other orders, f32).
+backward kernels, from q, k, v, lse and do) fed the numpy lse: equal to
+``flash_attention_backward_plain`` and to ``jax.grad`` of ``attend``
+within 2e-6 of each gradient's largest magnitude (sums in other orders,
+f32); an error of lse shared along a row scales that row's gradients and
+adds nothing (its delta is divided by the row's sum of p).
 
 ``FlashAttentionFn``'s outputs (o, o in f32, lse) under ``torch.func.vmap``
 over peers: one call of the wrapper on plain tensors with the peers folded
@@ -20,6 +21,8 @@ into the batch, each output equal to a loop over the peers; under
 ``torch.inference_mode()`` nothing is saved. On a card (skipped here): the
 bf16 forward kernel's lse and o in f32 against the plain twin.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -116,7 +119,7 @@ def test_saved_form_backward_matches_the_plain_backward_and_jax_grad(case):
     ref_o, ref_grads = _reference(q, k, v, do, causal, cap, window)
     lse = _numpy_lse(q, k, causal, cap, window)
     got = K.flash_attention_backward_saved_plain(
-        *map(torch.from_numpy, (q, k, v, ref_o, lse, do)), causal=causal, softcap=cap,
+        *map(torch.from_numpy, (q, k, v, lse, do)), causal=causal, softcap=cap,
         window=window)
     plain = K.flash_attention_backward_plain(*map(torch.from_numpy, (q, k, v, do)),
                                              causal=causal, softcap=cap, window=window)
@@ -124,6 +127,26 @@ def test_saved_form_backward_matches_the_plain_backward_and_jax_grad(case):
     for name, a, b, r in zip("qkv", got, plain, ref_grads):
         _close(a, b.numpy(), f"{case} d{name}: saved form vs plain backward")
         _close(a, r, f"{case} d{name}: saved form vs jax.grad")
+
+
+def test_saved_form_delta_takes_out_an_error_of_lse():
+    """lse off by eps on one query row (what the forward's f32 statistics
+    can carry): that row's p scales by exp(-eps) and its delta does not
+    move, so its dq and its dv and dk terms scale by exp(-eps) and the rest
+    stays; with delta = do . o from an exact o, dq would take eps delta
+    sum_j p_ij k_j, large beside a dq whose dp - delta cancels."""
+    B, Sq, H, Kh, D, causal, cap, window = 1, 24, 2, 1, 32, True, 3.0, 0
+    q, k, v, do = map(torch.from_numpy, _inputs(B, Sq, Sq, H, Kh, D, seed=4))
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    _, lse = K.flash_attention_stats_plain(q, k, v, causal=causal, softcap=cap)
+    eps, row = 1e-3, 17
+    off = lse.clone()
+    off[..., row] += eps
+    base = K.flash_attention_backward_saved_plain(q, k, v, lse, do, causal=causal, softcap=cap)
+    moved = K.flash_attention_backward_saved_plain(q, k, v, off, do, causal=causal, softcap=cap)
+    want = base[0].clone()
+    want[:, row] *= math.exp(-eps)
+    torch.testing.assert_close(moved[0], want, rtol=1e-12, atol=1e-15)
 
 
 @pytest.mark.parametrize("causal,cap,window", [(True, 3.0, 10), (False, 0.0, 0)])

@@ -197,10 +197,21 @@ def test_unported_families_are_refused():
                               generator=torch.Generator(), device="cpu")
 
 
-def test_serve_twin_runs_on_the_cpu(capsys):
+def test_serve_twin_runs_on_the_cpu(capsys, tmp_path):
     gen = serve.main(["--device", "cpu", "--reduced", "--gen", "4"])
     assert gen.shape == (4, 4)
     out = capsys.readouterr().out
     assert "generated (4, 4)" in out and "request 0:" in out
-    with pytest.raises(NotImplementedError, match="item 9"):
-        serve.main(["--device", "cpu", "--checkpoint", "x.npz"])
+    # --checkpoint reads a params checkpoint (tests/test_torch_launch_train.py
+    # holds it to the reference's files); a missing file raises
+    from repro_torch.train import checkpoint as ck
+
+    cfg = reduced(get_config("gemma2-2b"), vocab_size=512)
+    model = models.init_model(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    ck.save(str(tmp_path / "params"), dict(model.named_parameters()), step=2, cfg=cfg)
+    again = serve.main(["--device", "cpu", "--reduced", "--gen", "4",
+                        "--checkpoint", str(tmp_path / "params")])
+    assert "restored checkpoint (step 2)" in capsys.readouterr().out
+    assert (again == gen).all()  # the seeded init the checkpoint holds
+    with pytest.raises(FileNotFoundError):
+        serve.main(["--device", "cpu", "--checkpoint", str(tmp_path / "x.npz")])
