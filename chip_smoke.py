@@ -35,12 +35,16 @@ failure):
              chunk 256, in bf16 (the tensor-core body) and f32 (the
              CUDA-core body), at a padded last chunk with 4 groups, and at a
              single chunk, in both types; in bf16 also at one 32k sequence
-             and at chunk 16 with N = 8; flash attention at gemma2-2b's
+             and at chunk 16 with N = 8; at zamba2-1.2b's scoring shape (4,
+             2048, 64 heads of 64), N = 64, chunk 256, in both types;
+             flash attention at gemma2-2b's
              scoring shape (1, 8192, 8 heads over 4, D 256), softcap 50,
              window 4096 and none, in bf16 (the tensor-core body), the same
              at S = 1024 in f32 (the CUDA-core body), and in both types a
              ragged S = 1000, Sq 300 against Skv 500 without causal
-             masking, D 32, 64 and 128, and MHA (32 heads, D 64); in bf16
+             masking, D 32, 64 and 128, MHA (32 heads, D 64), and at 2 x
+             2048 granite-moe's GQA groups of 3 (24 heads over 8, D 64) and
+             zamba2's MHA (32 heads, D 64); in bf16
              also Sq 200 with a window of 40, D 96, 160, 192 and 224, and q,
              k, v as strided views of one fused projection. The flash
              backward kernel against autograd of the plain version in f32,
@@ -51,7 +55,8 @@ failure):
              outside the limit, and at a ragged S = 1000 with a window of
              300; qwen2.5-3b's heads (16 over 2, D 128) at a ragged S =
              1000; Sq 300 against Skv 500 without causal masking; D 32 and
-             64; in bf16 also D 96, 160, 192 and 224. In bf16 a second call
+             64; granite-moe's and zamba2's heads at 2 x 2048; in bf16 also
+             D 96, 160, 192 and 224. In bf16 a second call
              must give the same bits, and the forward's saved lse and o in
              f32 must match the plain twin; ptxas's registers and spills of
              every backward instance are printed at the build, and the
@@ -69,9 +74,11 @@ failure):
              of 4 squeezenet peers with ``trimmed_mean:0.25`` and a
              sign_flip attacker and with ``reduce_scatter`` (params within
              1e-5, 1e-4 where the trim keeps the attacker's row), a 3-layer
-             reduced mamba2 and a 3-layer reduced gemma2 (S 160 over its
-             window of 64) in f32 (forward, prefill logits and states or
-             caches, 8 greedy decode steps); per-peer bank steps of
+             reduced mamba2, a 3-layer reduced gemma2 (S 160 over its
+             window of 64), a 3-layer reduced zamba2 (SSD kernel, the shared
+             block's flash) and a 3-layer reduced granite-moe (dense and
+             capacity dispatch) in f32 (forward, prefill logits and states
+             or caches, 8 greedy decode steps); per-peer bank steps of
              squeezenet (``allgather_mean`` and ``async`` K = 2 on the ring
              over 3 steps, ``qsgd(7, 256)`` + EF on the ring for 1), each
              card step from the CPU's state, bounded by the two sides'
@@ -85,9 +92,12 @@ failure):
              reduced gemma2-2b in f32 (2 peers, S 160 over its window of
              64) from one state on the card (flash kernels forward and
              backward) and on the CPU: plain SGD at rate 1, each leaf's
-             update within 1e-4 of its largest magnitude; the same step on
-             the card with ``remat`` on and off: the same loss, the updates
-             within the same limit, 5 and 3 flash forwards; they run just
+             update within 1e-4 of its largest magnitude, and likewise of a
+             3-layer reduced mamba2, zamba2 (its shared_attn layer's unread
+             params unmoved on both sides) and granite-moe with each
+             dispatch; the gemma2 and the zamba2 step on the card with
+             ``remat`` on and off: the same loss, the updates within the
+             same limit, 5 and 3 (zamba2: 2 and 1) flash forwards; they run just
              before the train paths, because ``build_train_step``
              switches the allocator to expandable segments and every
              earlier phase keeps PyTorch's default ones.
@@ -143,12 +153,26 @@ failure):
              512-token prompt and 32 greedy tokens, and at batch 1 with a
              6144-token prompt (the local layers' 4096-token caches roll)
              and 16 tokens (26 flash launches in each prefill, none in
-             decode). Launch counters are zeroed before and read after each
+             decode). zamba2-1.2b at full width (38 layers: 32 Mamba-2, 6
+             applying the one weight-tied attention + MLP block; bf16):
+             scoring ``forward(..., use_ssd_kernel=True)`` on 4 x 2048 (32
+             SSD and 6 flash launches each) and the serve twin at batch 4 x
+             512 + 32 tokens (6 flash launches in prefill, none in decode).
+             granite-moe-3b-a800m at full width (32 layers, 40 experts, top
+             8): scoring on 4 x 2048 with the dense and with the capacity
+             dispatch (32 flash launches each) and the serve twin as
+             zamba2's (32 flash launches in prefill). After the profile
+             phase, moonshot-v1-16b-a3b at its published widths with its
+             depth CUT to the layers that fit (``moonshot_depth``: 27 of 48
+             on an 80 GB card, printed): scoring on 1 x 2048 (a flash launch
+             a layer). Launch counters are zeroed before and read after each
              run and must equal the counts the path implies. Then the SSD
              kernel is held to its plain version on one layer's own inputs
              from a scoring forward, and the flash kernel on a global and
-             a local layer's; those forwards' launches, and those of the
-             prefill-vs-forward checks, stay out of the kernels line.
+             a local layer's (and on the new paths' first attention layer,
+             and the SSD kernel on zamba2's layer 0); those forwards'
+             launches, and those of the prefill-vs-forward checks, stay out
+             of the kernels line.
              LM training (run after the profile phase, once the serving
              models are freed), every config with ``remat`` on as
              published (each layer group run again in the backward):
@@ -180,6 +204,17 @@ failure):
              file the same bits as the same step from the state held in
              memory, and the serve twin's ``--checkpoint`` reading the
              file; the example twin (qwen-100m, qsgd, 2 peers) for 3 steps.
+             Then zamba2-1.2b (through ``ssd_chunked``) and
+             granite-moe-3b-a800m (dense dispatch) through
+             ``train.build_train_step`` as gemma2-2b: 2 peers x 2048, 4 Adam
+             steps, remat on, no cut; 12 flash forwards and 6 backwards a
+             step (zamba2), 64 and 32 (granite); every leaf moved but
+             zamba2's unread slot params, which stay bit for bit as
+             initialised (reference behaviour 23); the backward kernel held
+             to the plain backward on the last step's last attention layer.
+             granite trains at Adam 3e-4, a cut: at the CLI's 3e-3 its
+             loss rises, and ``granite_cli_rate`` runs those steps with
+             flash's kernels and with its plain version, which must agree.
 5. timing  — each kernel, its plain version, the PyTorch call that computes
              the same function where there is one, and the bound, at the
              main path's largest shapes, timed with CUDA events; the select
@@ -198,7 +233,10 @@ failure):
              estimators (trimmed mean, median, Krum's Gram matrix and
              selection) and the ``reduce_scatter`` and ``tree:2`` combines
              on a (4, vgg11's 28.1 M) f32 bank beside their byte bounds;
-             the per-peer gradients of vgg11 and mobilenet at 4 x 32,
+             the SSD scan and the flash forward at the zamba2, granite and
+             moonshot scoring shapes and the flash backward at granite's
+             train shape, beside their plain versions, bounds and SDPA
+             (printed only); the per-peer gradients of vgg11 and mobilenet at 4 x 32,
              banked (vmap over the bank), looped over the peers and held
              once, with deterministic cuDNN and with non-deterministic
              algorithms allowed.
@@ -209,7 +247,8 @@ failure):
              body: a gemma2-2b forward must launch flash's bf16 body once
              per layer and its f32 body never, a mamba2-370m forward each
              of the SSD bf16 body's three passes once per layer and its f32
-             body never. Each profile runs its work twice and reads the
+             body never; a zamba2-1.2b forward each SSD pass 32 times and
+             flash's bf16 body at D 64 6 times. Each profile runs its work twice and reads the
              second run only (the profiler can lose the device records of
              a session's first launches); a profile that still lost the
              device record of a launch it recorded on the host is taken
@@ -293,6 +332,11 @@ GEMMA_WINDOW, GEMMA_SOFTCAP = 4096, 50.0  # the local layers' window, the attent
 LONG_PROMPT, LONG_GEN = 6144, 16  # a prompt past the window: the local caches roll
 SSD_FLAGS = {"use_ssd_kernel": True}  # mamba2's scoring forward through the SSD kernel
 QWEN_HEADS = (16, 2, 128)  # H, K, D of qwen2.5-3b
+SSD_ZAMBA = (4, 2048, 64, 64, 1, 64, 256)  # zamba2-1.2b scoring: d_inner 4096 = 64 heads of 64, N 64
+GRANITE_FLASH = (2, 2048, 2048, 24, 8, 64)  # granite-moe-3b-a800m's heads: GQA groups of 3
+ZAMBA_FLASH = (2, 2048, 2048, 32, 32, 64)  # zamba2-1.2b's shared attention: MHA
+SCORING_BATCH = (4, 2048)  # zamba2 and granite scoring
+MOONSHOT_SEQ = 2048  # moonshot-v1-16b-a3b scoring, 1 sequence
 TRAIN_PEERS, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 2048, 4, 3e-3  # the LM train paths, per peer batch 1
 
 
@@ -716,7 +760,8 @@ def ssd_kernel_phase(torch, ks):
     small shapes every element within atol 2e-5 + rtol 2e-4 (the
     reference's own Pallas-vs-oracle tolerance); at the full-width scoring
     shape and one 32k sequence, where a 128-deep product meets 256-step
-    sums, the max abs error within 2e-5 of max|y|."""
+    sums, the max abs error within 2e-5 of max|y|; likewise at zamba2-1.2b's
+    scoring shape (4, 2048, 64 heads, P 64, N 64)."""
     worst = 0.0
     cases = ((SSD_SCORING, torch.bfloat16), (SSD_SCORING, torch.float32),
              ((1, 80, 8, 32, 4, 16, 32), torch.float32),  # padded last chunk, 4 groups
@@ -724,7 +769,8 @@ def ssd_kernel_phase(torch, ks):
              (SSD_LONG, torch.bfloat16),
              ((1, 80, 8, 32, 4, 16, 32), torch.bfloat16),
              ((2, 64, 4, 64, 1, 32, 64), torch.bfloat16),
-             ((1, 32, 2, 16, 1, 8, 16), torch.bfloat16))  # chunk 16 under a 64-row tile, N 8
+             ((1, 32, 2, 16, 1, 8, 16), torch.bfloat16),  # chunk 16 under a 64-row tile, N 8
+             (SSD_ZAMBA, torch.bfloat16), (SSD_ZAMBA, torch.float32))
     for shape, dtype in cases:
         args = ssd_inputs(torch, shape, dtype, seed=shape[1])
         y = ks.ssd_scan(*args, chunk=shape[-1])
@@ -734,7 +780,7 @@ def ssd_kernel_phase(torch, ks):
                 f"ssd_scan output {tuple(y.shape)} {y.dtype} at {shape}")
         err = (y - ref).abs()
         scale = float(ref.abs().max())
-        if shape in (SSD_SCORING, SSD_LONG):
+        if shape in (SSD_SCORING, SSD_LONG, SSD_ZAMBA):
             require(float(err.max()) <= 2e-5 * scale, f"ssd_scan max abs error {float(err.max()):.3e} "
                     f"> 2e-5 * max|y| ({scale:.3e}) at {shape} {dtype}")
             tol = "max abs <= 2e-5 max|y|"
@@ -832,7 +878,8 @@ def fused_qkv(torch, B, S_, H, K, D, seed):
 
 def flash_kernel_phase(torch, kf):
     """The flash kernel's cases. bf16 runs the tensor-core body, f32 the
-    CUDA-core one; every case below S 8192 runs in both, and the bf16 body
+    CUDA-core one; every case below S 8192 runs in both (granite-moe's GQA
+    groups of 3 and zamba2's MHA at 2 x 2048 among them), and the bf16 body
     also at each headdim it is built for, at a window narrower than a key
     tile, and on strided views."""
     B, S_, H, K, D = FLASH_SCORING
@@ -845,6 +892,8 @@ def flash_kernel_phase(torch, kf):
         ((2, 256, 256, 4, 2, 64), True, 0.0, 64),
         ((2, 256, 256, 16, 2, 128), True, 0.0, 0),
         ((1, 1024, 1024, 32, 32, 64), True, 0.0, 0),  # MHA
+        (GRANITE_FLASH, True, 0.0, 0),  # granite-moe-3b-a800m: GQA groups of 3
+        (ZAMBA_FLASH, True, 0.0, 0),  # zamba2-1.2b's shared attention
     )
     cases = (  # (B, Sq, Skv, H, K, D), dtype, causal, softcap, window
         ((B, S_, S_, H, K, D), bf16, True, GEMMA_SOFTCAP, GEMMA_WINDOW),
@@ -1066,8 +1115,9 @@ def flash_bwd_phase(torch, kf):
     planted faults, and at a ragged S 1000 with a window of 300; qwen2.5-3b's
     heads (16 over 2, D 128) at a ragged S 1000; Sq 300 against Skv 500
     without causal masking; D 32 and 64 with a window narrower than a key
-    tile and with a softcap; in bf16 also D 96, 160, 192 and 224, so that
-    every instance of the tensor-core body runs."""
+    tile and with a softcap; granite-moe-3b-a800m's heads (24 over 8, D 64)
+    and zamba2-1.2b's (32, MHA, D 64) at 2 x 2048; in bf16 also D 96, 160,
+    192 and 224, so that every instance of the tensor-core body runs."""
     B, S_, H, K, D = FLASH_SCORING
     Hq, Kq, Dq = QWEN_HEADS
     both = (torch.float32, torch.bfloat16)
@@ -1079,6 +1129,8 @@ def flash_bwd_phase(torch, kf):
         ((1, 300, 500, 8, 4, 128), False, 30.0, 100, False, both),  # the window is ignored
         ((2, 200, 200, 4, 2, 32), True, 0.0, 20, False, both),
         ((2, 333, 333, 4, 1, 64), True, 10.0, 0, False, both),
+        (GRANITE_FLASH, True, 0.0, 0, False, both),  # granite-moe-3b-a800m: GQA groups of 3
+        (ZAMBA_FLASH, True, 0.0, 0, False, both),  # zamba2-1.2b's shared attention
         *(((1, 300, 300, 4, 2, d), True, 5.0, 70, False, (torch.bfloat16,))
           for d in (96, 160, 192, 224)),
     )
@@ -1333,7 +1385,12 @@ def reference_train_phase(torch):
     are small beside the rest (a gated norm's scale, 1/36 of the largest)
     takes that rounding from terms of the others' size (1.192e-07 on the
     card, 1.1e-4 of its own magnitude). The losses agree within rtol 1e-5. The step donates its state,
-    so each side starts from its own copy."""
+    so each side starts from its own copy. Likewise a 3-layer reduced
+    zamba2-1.2b (a Mamba-2 layer, one applying the shared attention block,
+    a Mamba-2 tail layer; the mamba2 limit; the shared layer's unread params
+    must not move on either side, reference behaviour 23) and a 3-layer
+    reduced granite-moe-3b-a800m with the dense and with the capacity
+    dispatch (its router aux in the loss)."""
     import dataclasses
 
     from repro_torch.configs import get_config, reduced
@@ -1341,8 +1398,12 @@ def reference_train_phase(torch):
     from repro_torch.optim import sgd
     from repro_torch.train import build_train_step, init_train_state
 
-    for arch, floor in (("gemma2-2b", 0.0), ("mamba2-370m", 1e-5)):
+    for arch, floor, dispatch in (("gemma2-2b", 0.0, "dense"), ("mamba2-370m", 1e-5, "dense"),
+                                  ("zamba2-1.2b", 1e-5, "dense"),
+                                  ("granite-moe-3b-a800m", 0.0, "dense"),
+                                  ("granite-moe-3b-a800m", 0.0, "capacity")):
         cfg = dataclasses.replace(reduced(get_config(arch), num_layers=3), dtype="float32")
+        unread = unread_params(cfg)
         state = init_train_state(torch.Generator().manual_seed(0), cfg, sgd(), device="cpu")
         toks = torch.randint(0, cfg.vocab_size, (2 * TRAIN_PEERS, 161),
                              generator=torch.Generator().manual_seed(1))
@@ -1350,27 +1411,45 @@ def reference_train_phase(torch):
         out = {}
         for device in ("cpu", "cuda"):
             st = state.replace(params={k: p.to(device, copy=True) for k, p in state.params.items()})
-            step = build_train_step(cfg, sgd(), Topology(), TRAIN_PEERS, lambda s: 1.0, device=device)
+            step = build_train_step(cfg, sgd(), Topology(), TRAIN_PEERS, lambda s: 1.0,
+                                    moe_dispatch=dispatch, device=device)
             new, metrics = step(st, batch)
             out[device] = ({k: state.params[k] - p.cpu() for k, p in new.params.items()},
                            float(metrics["loss"]))
         (dc, lc), (dg, lg) = out["cpu"], out["cuda"]
+        tag = f"reduced {arch}" + (f" ({dispatch} dispatch)" if cfg.num_experts else "")
         require(abs(lg - lc) <= 1e-5 * abs(lc),
-                f"reduced {arch} train step: loss {lg} on the card, {lc} on the CPU")
+                f"{tag} train step: loss {lg} on the card, {lc} on the CPU")
+        require(all(float(dc[k].abs().max()) == float(dg[k].abs().max()) == 0.0 for k in unread),
+                f"{tag} train step: an unread param of a shared_attn layer moved")
         top = max(float(w.abs().max()) for w in dc.values())
         worst, worst_rel = 0.0, 0.0
         for k, want in dc.items():
+            if k in unread:
+                continue
             err, scale = float((dg[k] - want).abs().max()), float(want.abs().max())
             require(scale > 0, f"reduced {arch} train step: {k} did not move on the CPU")
             limit = 1e-4 * scale + floor * top
             require(err <= limit, f"reduced {arch} train step: {k} update {err:.3e} from the "
                     f"CPU's, beyond 1e-4 x {scale:.3e} + {floor:g} x {top:.3e}")
             worst, worst_rel = max(worst, err / limit), max(worst_rel, err / scale)
-        via = "flash kernels" if arch == "gemma2-2b" else "ssd_chunked, no kernel"
-        print(f"reference check (reduced {arch} train step, 3 layers, f32, {TRAIN_PEERS} peers x 2 "
+        via = {"gemma2-2b": "flash kernels", "mamba2-370m": "ssd_chunked, no kernel",
+               "zamba2-1.2b": "flash kernels and ssd_chunked"}.get(arch, "flash kernels")
+        print(f"reference check ({tag} train step, 3 layers, f32, {TRAIN_PEERS} peers x 2 "
               f"x 160 tokens, card ({via}) vs CPU): loss {lg:.6f} vs {lc:.6f}, every leaf's update "
               f"within {worst_rel:.3e} of its largest magnitude, {worst:.3f} of its limit (1e-4 of "
-              f"it + {floor:g} of the largest update, {top:.3e})")
+              f"it + {floor:g} of the largest update, {top:.3e})"
+              + (f"; the {len(unread)} unread params of its shared_attn layers unmoved on both "
+                 "sides" if unread else ""))
+
+
+def unread_params(cfg):
+    """The names of the params that the ``shared_attn`` layers own and never
+    read (their ``ln1``, ``ln2`` and ``ffn``: reference behaviour 23)."""
+    return {f"layers.{i}.{name}" for i, spec in enumerate(cfg.block_specs())
+            if spec.mixer == "shared_attn"
+            for name in ("ln1.scale", "ln2.scale", "ffn.w_gate.weight", "ffn.w_up.weight",
+                         "ffn.w_down.weight")}
 
 
 # ---------------------------------------------------------------------------
@@ -2333,18 +2412,20 @@ def print_profile(what: str, prof, bodies_expected: dict) -> None:
           + "; top kernels " + "; ".join(f"{n[:60]} {v:.3f} ms" for n, v in top))
 
 
-def init_lm(torch, arch: str):
-    """``arch`` at full width, its weights random from a seeded generator,
-    on the card."""
+def init_lm(torch, arch, cut: str = ""):
+    """``arch`` (a name, or a config) at full width, its weights random
+    from a seeded generator, on the card; ``cut`` says how its depth was
+    cut, if it was."""
     from repro_torch import models
     from repro_torch.configs import get_config
 
-    cfg = get_config(arch)
+    cfg = get_config(arch) if isinstance(arch, str) else arch
     t0 = time.perf_counter()
     model = models.init_model(cfg, generator=torch.Generator(device="cuda").manual_seed(0),
                               device="cuda").requires_grad_(False)
     torch.cuda.synchronize()
-    print(f"path {arch}: {models.param_count(model)} params, init {time.perf_counter() - t0:.3f} s")
+    print(f"path {cfg.name}: {models.param_count(model)} params{cut}, init "
+          f"{time.perf_counter() - t0:.3f} s")
     return model, cfg
 
 
@@ -2361,9 +2442,11 @@ def drive_scoring(torch, mods, model, cfg, tokens, flags: dict, expect: dict):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.inference_mode():
-            logits, _ = models.forward(model, {"tokens": tokens}, cfg, **flags)
+            logits, aux = models.forward(model, {"tokens": tokens}, cfg, **flags)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
+        require(math.isfinite(float(aux)) and (float(aux) > 0) == bool(cfg.num_experts),
+                f"{cfg.name} scoring aux {float(aux)}")
         launches = read_counters(mods)
         require(launches == expect, f"{cfg.name} scoring forward {i}: launches {launches} != {expect}")
         for name, count in launches.items():
@@ -2478,13 +2561,74 @@ def drive_lm(torch, mods):
     return total, err, (model, cfg, tokens, prompts)
 
 
-def check_ssd_on_path(torch, mods, model, cfg, tokens, expect):
+def ssd_exact(torch, x, dt, A, Bm, Cm):
+    """The SSD scan's function step by step in f64, y (B, S, H, P): h_t =
+    exp(dt_t A) h_(t-1) + dt_t x_t B_t^T, y_t = h_t C_t, each group's B and
+    C shared by its heads."""
+    f64 = torch.float64
+    rep = x.shape[2] // Bm.shape[2]
+    Bh, Ch = (t.to(f64).repeat_interleave(rep, dim=2) for t in (Bm, Cm))
+    h = torch.zeros((*x.shape[:1], *x.shape[2:], Bm.shape[-1]), dtype=f64, device=x.device)
+    ys = []
+    for t in range(x.shape[1]):
+        dt_t = dt[:, t].to(f64)  # (B, H)
+        h = h * torch.exp(dt_t * A.to(f64))[..., None, None] \
+            + (dt_t[..., None] * x[:, t].to(f64))[..., None] * Bh[:, t, :, None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, Ch[:, t]))
+    return torch.stack(ys, dim=1)
+
+
+@contextlib.contextmanager
+def kernel_order_cum(torch, ks):
+    """Within the block, ``ks.ssd_chunked`` (the plain version) sums each
+    chunk's inclusive cumsum of the log-decays as the bf16 body's
+    ``chunk_cum`` does (csrc/ssd_scan.cu): a shuffle scan within each warp
+    of 32 rows, then the sums of the warps before, added in order from 0.
+    f32 addition gives the same bits in the same order, so the plain
+    version then sees the kernel's cum."""
+    def cumsum(a, dim):
+        require(dim == 2 and a.shape[2] % 32 == 0, f"cumsum over dim {dim} of {tuple(a.shape)}")
+        v = a.reshape(*a.shape[:2], a.shape[2] // 32, 32, *a.shape[3:])
+        for off in (1, 2, 4, 8, 16):
+            v = v + torch.cat([torch.zeros_like(v[:, :, :, :off]), v[:, :, :, :-off]], dim=3)
+        before, run = [], torch.zeros_like(v[:, :, 0, 31])
+        for w in range(v.shape[2]):
+            before.append(run)
+            run = run + v[:, :, w, 31]
+        return (v + torch.stack(before, dim=2)[:, :, :, None]).reshape(a.shape)
+
+    class Ordered:
+        def __getattr__(self, name):
+            return getattr(torch, name)
+
+    ordered = Ordered()
+    ordered.cumsum = cumsum
+    ks.torch = ordered
+    try:
+        yield
+    finally:
+        ks.torch = torch
+
+
+def check_ssd_on_path(torch, mods, model, cfg, tokens, expect, cancels: bool = False):
     """The SSD kernel on the inputs the main path gives it: one more scoring
-    forward on the same 4 x 2048 tokens (48 launches, required and kept out
-    of the kernels line) hands its first layer's x, dt, A, B and C, strided
-    views of the convolution's output, to a recorder; the kernel is then
-    held to its plain version on those same views within 2e-5 of max|y|,
-    as at the scoring shape in the kernel phase."""
+    forward on the same tokens (its launches required and kept out of the
+    kernels line) hands its first layer's x, dt, A, B and C, strided views
+    of the convolution's output, to a recorder; the kernel is then held to
+    its plain version on those same views within 2e-5 of max|y|, as at the
+    scoring shape in the kernel phase (mamba2-370m). ``cancels``
+    (zamba2-1.2b, whose layer-0 output is half the size of the terms that
+    sum to it): within 2e-5 of the largest sum of the terms' sizes (the
+    same scan of |x|, |B| and |C|) in place of max|y|, from the plain
+    version and from the scan computed step by step in f64
+    (``ssd_exact``), whose distance from the plain version is printed
+    beside it. Its log-decays reach -62 a step, so a chunk's inclusive
+    cumsum reaches -3600, where one f32 ulp is 2.4e-4: the decays
+    exp(cum_i - cum_j) carry the rounding of the cumsum, which the kernel
+    and ``torch.cumsum`` sum in other orders. So the kernel is also held to
+    mamba2's rule, 2e-5 of max|y|, against the plain version run on the
+    cumsum summed in the bf16 body's order (``kernel_order_cum``), whose
+    distance from the f64 scan is printed beside the kernel's f32 body's."""
     from repro_torch import models
     from repro_torch.models import ssm
 
@@ -2494,19 +2638,48 @@ def check_ssd_on_path(torch, mods, model, cfg, tokens, expect):
     launches = read_counters(mods)
     require(launches == expect, f"recording forward: launches {launches} != {expect}")
     args, kw = seen[0]
+    plain = mods["ks"].ssd_scan_plain
     with torch.inference_mode():
         y = ssm.ssd_scan(*args, **kw)
-        ref = mods["ks"].ssd_scan_plain(*args, **kw)
+        ref = plain(*args, **kw)
     torch.cuda.synchronize()
-    x, dt, _, Bm, _ = args
+    x, dt, A, Bm, Cm = args
     err, scale = float((y - ref).abs().max()), float(ref.abs().max())
     require(x.dtype == torch.bfloat16 and not x.is_contiguous() and not Bm.is_contiguous(),
             f"the path's SSD inputs: {x.dtype}, x strides {x.stride()}, B strides {Bm.stride()}")
+    what = (f"kernel check ssd_scan on layer 0's inputs of {cfg.name}'s scoring forward "
+            f"{tuple(x.shape)} bf16 (x strides {x.stride()}, dt {dt.stride()}, B/C {Bm.stride()}): "
+            f"max_abs_err={err:.3e}, relative to max|y| {err / scale:.3e} (max|y| {scale:.3f}")
+    if cancels:
+        ks = mods["ks"]
+        with torch.inference_mode():
+            sizes = float(plain(x.abs(), dt, A, Bm.abs(), Cm.abs(), **kw).max())
+            y64 = ssd_exact(torch, *args)
+            y32 = ks.ssd_scan(x.float(), dt, A, Bm.float(), Cm.float(), **kw)
+            with kernel_order_cum(torch, ks):
+                ordered = plain(*args, **kw)
+        torch.cuda.synchronize()
+        off64 = lambda t: float((t - y64).abs().max())
+        kern, ref64 = off64(y), off64(ref)
+        require(max(err, kern) <= 2e-5 * sizes, f"ssd_scan on {cfg.name}'s path inputs: "
+                f"{err:.3e} from the plain version, {kern:.3e} from the scan in f64, beyond 2e-5 "
+                f"x the largest sum of the terms' sizes ({sizes:.3e})")
+        same_cum = float((ordered - y).abs().max())
+        require(same_cum <= 2e-5 * scale, f"ssd_scan on {cfg.name}'s path inputs: {same_cum:.3e} "
+                f"from the plain version on the kernel's cumsum, beyond 2e-5 x max|y| ({scale:.3e})")
+        a = (dt * A).float()
+        cum = a.reshape(a.shape[0], -1, kw["chunk"], a.shape[-1]).cumsum(2)
+        print(what + f"; {err / (2e-5 * scale):.3f} of 2e-5 max|y|): {err / (2e-5 * sizes):.3f} of "
+              f"2e-5 x the largest sum of the terms' sizes ({sizes:.3f}); from the scan in f64 "
+              f"kernel {kern:.3e} ({kern / (2e-5 * sizes):.3f} of that limit), its f32 body "
+              f"{off64(y32):.3e}, plain version {ref64:.3e}; log-decays down to {float(a.min()):.2f} "
+              f"a step, a chunk's cumsum down to {float(cum.min()):.2f}; the plain version on the "
+              f"cumsum in the bf16 body's order: {same_cum:.3e} from the kernel ({same_cum / (2e-5 * scale):.3f} "
+              f"of 2e-5 max|y|), {off64(ordered):.3e} from the scan in f64")
+        return err
     require(err <= 2e-5 * scale, f"ssd_scan on the path's inputs: max abs error {err:.3e} > 2e-5 * "
             f"max|y| ({scale:.3e})")
-    print(f"kernel check ssd_scan on layer 0's inputs of the scoring forward {tuple(x.shape)} bf16 "
-          f"(x strides {x.stride()}, dt {dt.stride()}, B/C {Bm.stride()}): max_abs_err={err:.3e}, "
-          f"relative to max|y| {err / scale:.3e} (max|y| {scale:.3f}; max abs <= 2e-5 max|y|)")
+    print(what + "; max abs <= 2e-5 max|y|)")
     return err
 
 
@@ -2542,13 +2715,14 @@ def drive_gemma(torch, mods):
     return total, err, (model, cfg, tokens, prompts)
 
 
-def check_flash_on_path(torch, mods, model, cfg, tokens, expect):
+def check_flash_on_path(torch, mods, model, cfg, tokens, expect, flags=None):
     """The flash kernel on the inputs the main path gives it: one more
-    scoring forward on the same tokens (26 launches, required and kept out
-    of the kernels line) hands the q, k and v of its first local layer
-    (window 4096) and of its first global layer to recorders; the kernel is
-    then held to its plain version on each within ``flash_tolerance``, and
-    the planted faults' distances are printed beside it."""
+    scoring forward with ``flags`` on the same tokens (its launches
+    required and kept out of the kernels line) hands the q, k and v of its
+    first local layer (gemma2-2b's window 4096) and of its first global
+    layer to recorders; the kernel is then held to its plain version on
+    each within ``flash_tolerance``, and the planted faults' distances are
+    printed beside it."""
     from repro_torch import models
     from repro_torch.models import layers
 
@@ -2556,20 +2730,145 @@ def check_flash_on_path(torch, mods, model, cfg, tokens, expect):
     with recording(layers, "flash_attention", lambda args, kw: kw["window"] == 0) as glob, \
             recording(layers, "flash_attention", lambda args, kw: kw["window"] != 0) as local, \
             torch.inference_mode():
-        models.forward(model, {"tokens": tokens}, cfg)
+        models.forward(model, {"tokens": tokens}, cfg, **(flags or {}))
     launches = read_counters(mods)
-    require(launches == expect, f"gemma2 recording forward: launches {launches} != {expect}")
+    require(launches == expect, f"{cfg.name} recording forward: launches {launches} != {expect}")
+    require(bool(glob) and bool(local) == bool(cfg.sliding_window),
+            f"{cfg.name} recording forward: {len(glob)} global and {len(local)} local layers seen")
     worst = 0.0
-    for name, seen in (("layer 0 (local)", local), ("layer 1 (global)", glob)):
+    for name, seen in (("the first local layer", local), ("the first global layer", glob)):
+        if not seen:
+            continue
         (q, k, v), kw = seen[0]
         require(q.dtype == torch.bfloat16
                 and q.shape == (*tokens.shape, cfg.num_heads, cfg.resolved_head_dim),
                 f"the path's flash inputs: {q.dtype} {tuple(q.shape)}")
         with torch.inference_mode():
             worst = max(worst, check_flash(
-                torch, mods["kf"], q, k, v, f"on {name}'s q, k, v of the scoring forward "
-                f"{tuple(q.shape)} K={k.shape[2]} {kw}", faults="report", **kw))
+                torch, mods["kf"], q, k, v, f"on {name}'s q, k, v of {cfg.name}'s scoring "
+                f"forward {tuple(q.shape)} K={k.shape[2]} {kw}", faults="report", **kw))
     return worst
+
+
+def drive_zamba(torch, mods):
+    """zamba2-1.2b at full width (38 layers: 32 Mamba-2 layers, d_inner
+    4096 = 64 SSD heads of 64, N 64, and 6 applying the one weight-tied
+    attention + MLP block, 32 heads of 64 over 32; d_model 2048, vocab
+    32,000), bf16. (a) Scoring: ``forward(..., use_ssd_kernel=True)`` on 4
+    x 2048 tokens, 32 SSD launches (each the bf16 body's three passes) and
+    6 flash launches each. (b) The serve twin: prefill of 4 x 512 tokens
+    (6 flash launches, the Mamba-2 layers through ``ssd_chunked``) and 32
+    greedy tokens (none in decode), a short warm-up first. The kernels line
+    counts (a) and (b). Then the checks, their launches required and left
+    out of that line: the SSD kernel on layer 0's inputs
+    (``check_ssd_on_path``), the flash kernel on the first shared layer's
+    (``check_flash_on_path``) and ``check_prefill_vs_forward``. Returns
+    (launches, SSD error, flash error, what the profile phase reuses)."""
+    model, cfg = init_lm(torch, "zamba2-1.2b")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, SCORING_BATCH, generator=g, device="cuda")
+    shared = sum(s.mixer == "shared_attn" for s in cfg.block_specs())
+    expect = dict(dict.fromkeys(KERNELS, 0), ssd_scan=cfg.num_layers - shared,
+                  flash_attention=shared)
+    total = drive_scoring(torch, mods, model, cfg, tokens, SSD_FLAGS, expect)
+    prompts = tokens[:, :PROMPT].contiguous()
+    prefill = dict(dict.fromkeys(KERNELS, 0), flash_attention=shared)
+    for gen, what in ((2, "warm-up"), (GEN, "batch 4")):
+        launches, res = drive_serve(torch, mods, model, cfg, prompts, gen, prefill, what)
+        for name, count in launches.items():
+            total[name] += count
+    ssd_err = check_ssd_on_path(torch, mods, model, cfg, tokens, expect, cancels=True)
+    flash_err = check_flash_on_path(torch, mods, model, cfg, tokens, expect, SSD_FLAGS)
+    check_prefill_vs_forward(torch, mods, model, cfg, prompts, res["prefill_logits"], SSD_FLAGS,
+                             expect)
+    return total, ssd_err, flash_err, (model, cfg, tokens, prompts)
+
+
+def drive_granite(torch, mods):
+    """granite-moe-3b-a800m at full width (32 layers, d_model 1536, 24
+    heads of 64 over 8 KV heads, 40 experts of width 512, top 8, vocab
+    49,155), bf16. (a) Scoring: ``forward`` on 4 x 2048 tokens with the
+    dense dispatch (two chunks of 4096 tokens, every expert on every token)
+    and with the capacity dispatch (each expert's 2048 slots), 32 flash
+    launches each. (b) The serve twin (the dense dispatch, as the
+    reference's): prefill of 4 x 512 and 32 greedy tokens, a short warm-up
+    first, 32 flash launches in each prefill, none in decode. The kernels
+    line counts (a) and (b). Then the flash kernel on the first layer's
+    q, k and v (``check_flash_on_path``) and ``check_prefill_vs_forward``,
+    their launches kept out of that line. Returns (launches, flash
+    error)."""
+    model, cfg = init_lm(torch, "granite-moe-3b-a800m")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, SCORING_BATCH, generator=g, device="cuda")
+    expect = dict(dict.fromkeys(KERNELS, 0), flash_attention=cfg.num_layers)
+    total = dict.fromkeys(KERNELS, 0)
+    for dispatch in ("dense", "capacity"):
+        for name, count in drive_scoring(torch, mods, model, cfg, tokens,
+                                         {"moe_dispatch": dispatch}, expect).items():
+            total[name] += count
+    prompts = tokens[:, :PROMPT].contiguous()
+    for gen, what in ((2, "warm-up"), (GEN, "batch 4")):
+        launches, res = drive_serve(torch, mods, model, cfg, prompts, gen, expect, what)
+        for name, count in launches.items():
+            total[name] += count
+    dense = {"moe_dispatch": "dense"}
+    err = check_flash_on_path(torch, mods, model, cfg, tokens, expect, dense)
+    check_prefill_vs_forward(torch, mods, model, cfg, prompts, res["prefill_logits"], dense, expect)
+    del model
+    release(torch)
+    return total, err
+
+
+def moonshot_depth(torch, cfg) -> tuple:
+    """moonshot-v1-16b-a3b's depth cut to what fits the card at published
+    widths: its 48 layers hold 28.9 B f32 params (107.6 GiB). Reckoned from
+    the params of one layer and of the rest (embedding, unembedding, final
+    norm) in f32, with 16 GiB kept for the scoring forward (a layer's bf16
+    weights, every expert's activations over the 2048 tokens, the f32
+    logits) and the allocator. Returns (layers, the reckoning as text)."""
+    import dataclasses
+
+    from repro_torch import models
+
+    count = lambda n: models.param_count(models.init_model(
+        dataclasses.replace(cfg, num_layers=n), generator=None, device="meta"))
+    per_layer, rest = count(2) - count(1), 2 * count(1) - count(2)
+    card = torch.cuda.get_device_properties(0).total_memory
+    layers = min(cfg.num_layers, int((card - 16 * 2**30 - 4 * rest) // (4 * per_layer)))
+    return layers, (f"{per_layer} params a layer ({4 * per_layer / 2**30:.2f} GiB in f32), {rest} "
+                    f"outside the layers ({4 * rest / 2**30:.2f} GiB), the card's "
+                    f"{card / 2**30:.2f} GiB less 16 GiB for the forward")
+
+
+def drive_moonshot(torch, mods):
+    """moonshot-v1-16b-a3b at published widths (d_model 2048, 16 heads of
+    128, MHA, 64 experts of width 1408, top 6, the always-on shared expert
+    of width 2816, vocab 163,840), bf16, its depth CUT to
+    ``moonshot_depth`` layers (the cut printed): scoring ``forward`` on 1 x
+    2048 tokens with the dense dispatch, one flash launch a layer, counted
+    in the kernels line; then the flash kernel on the first layer's q, k
+    and v (``check_flash_on_path``, kept out of it). Returns (launches,
+    flash error)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    full = get_config("moonshot-v1-16b-a3b")
+    layers, why = moonshot_depth(torch, full)
+    require(layers >= 1, f"moonshot: no layer fits ({why})")
+    cfg = dataclasses.replace(full, num_layers=layers)
+    print(f"path {full.name}: depth CUT from {full.num_layers} to {layers} layers, widths as "
+          f"published ({why})")
+    model, cfg = init_lm(torch, cfg, f" ({layers} of {full.num_layers} layers)")
+    tokens = torch.randint(0, cfg.vocab_size, (1, MOONSHOT_SEQ),
+                           generator=torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    expect = dict(dict.fromkeys(KERNELS, 0), flash_attention=layers)
+    dense = {"moe_dispatch": "dense"}
+    total = drive_scoring(torch, mods, model, cfg, tokens, dense, expect)
+    err = check_flash_on_path(torch, mods, model, cfg, tokens, expect, dense)
+    del model
+    release(torch)
+    return total, err
 
 
 def train_bytes(n_params: int, cfg, peers: int, seq: int) -> dict:
@@ -2583,29 +2882,42 @@ def train_bytes(n_params: int, cfg, peers: int, seq: int) -> dict:
     keeps each group's input (bf16, d_model wide) and runs one group at a
     time again: one group's activations and bf16 weights are alive at
     once, and its attention o in f32; without remat, every layer's.
-    Estimated per token and layer: the activations kept for the backward
-    (about 14 bf16 d-wide and 5 d_ff-wide tensors an attention layer, 50
-    f32 d_inner-wide ones a Mamba-2 layer, the chunked scan's) and, for the
-    loss's chunked head, three f32 tensors of one chunk's logits
-    (``LOGITS_CHUNK_BYTES`` each) alive at once in its backward. PR 23,
-    before the port honoured remat: 65.32 GiB reckoned for gemma2-2b at 2
-    peers x 2048 tokens against a peak of 74.26 GiB allocated, on an NVIDIA
-    H100 80GB HBM3 at 700 W: the per-token terms were short by about
-    60 %."""
+    Estimated per token and layer, by the layer's kind: the activations
+    kept for the backward, about 14 bf16 d-wide tensors every layer, 5
+    d_ff-wide ones a dense MLP, 6 (E x f)-wide ones a MoE layer's dense
+    dispatch (every expert's h1, h2, activation, product, gated product
+    and its (token, expert x f) copy) and 5 of the shared expert's width,
+    50 f32 d_inner-wide ones a Mamba-2 layer (the chunked scan's), and an
+    attention layer's o in f32 (a ``shared_attn`` layer's too, with the
+    shared block's MLP); and, for the loss's chunked head, three f32
+    tensors of one chunk's logits (``LOGITS_CHUNK_BYTES`` each) alive at
+    once in its backward. Without remat the reckoning was 65.32 GiB for
+    gemma2-2b at 2 peers x 2048 tokens against a peak of 74.26 GiB
+    allocated, on an NVIDIA H100 80GB HBM3 at 700 W: the per-token terms
+    were short by about 60 %."""
     from repro_torch.models.transformer import layer_grouping
     from repro_torch.train.steps import LOGITS_CHUNK_BYTES
 
     tokens, emb = peers * seq, cfg.padded_vocab * cfg.d_model
-    layer = 14 * cfg.d_model * 2 + (50 * cfg.d_inner * 4 if cfg.ssm_state else 5 * cfg.d_ff * 2)
-    attn_o = 0 if cfg.ssm_state else cfg.num_heads * cfg.resolved_head_dim * 4
+
+    def layer(spec):  # (activations, attention o in f32) per token
+        act = 14 * cfg.d_model * 2 + {
+            "dense": 5 * cfg.d_ff * 2,
+            "moe": 6 * cfg.num_experts * cfg.d_ff * 2 + 5 * cfg.moe_shared_ff * 2,
+        }.get(spec.ffn, 0)
+        if spec.mixer == "mamba":
+            return act + 50 * cfg.d_inner * 4, 0
+        return act, cfg.num_heads * cfg.resolved_head_dim * 4
+
     chunk = min(tokens, max(1, LOGITS_CHUNK_BYTES // (4 * cfg.vocab_size))) * cfg.vocab_size * 4
     period, n_groups, rem = layer_grouping(cfg)
-    live = len(period) + rem if cfg.remat else cfg.num_layers  # layers whose activations are alive
-    weights = 2 * n_params * live // cfg.num_layers
+    specs = cfg.block_specs()
+    live = (period + specs[n_groups * len(period):]) if cfg.remat else specs  # alive at once
+    weights = 2 * n_params * len(live) // cfg.num_layers
     parts = {"params and moments": 12 * n_params, "bf16 weights": weights,
              "gradient": 4 * n_params, "embedding gradients": 8 * emb,
-             "attention o in f32": tokens * live * attn_o,
-             "activations": tokens * live * layer, "logits": 3 * chunk}
+             "attention o in f32": tokens * sum(layer(s)[1] for s in live),
+             "activations": tokens * sum(layer(s)[0] for s in live), "logits": 3 * chunk}
     if cfg.remat:
         parts["group inputs"] = tokens * n_groups * cfg.d_model * 2
     return parts
@@ -2621,18 +2933,21 @@ def release(torch) -> None:
 
 def train_launches(cfg) -> dict:
     """Kernel launches of one LM train step: the flash forward once per
-    attention layer and again in the backward's recompute of each remat
-    group (``cfg.remat``: every layer of ``layer_grouping``'s groups, the
-    tail layers once), its backward once per attention layer. Mamba-2
-    launches none (``ssd_chunked``)."""
+    attention layer (``attn``, ``attn_local`` or ``shared_attn``) and again
+    in the backward's recompute of each remat group (``cfg.remat``: the
+    attention layers of ``layer_grouping``'s groups, the tail layers once),
+    its backward once per attention layer. Mamba-2 layers launch none
+    (``ssd_chunked``)."""
     from repro_torch.models.transformer import layer_grouping
 
-    if cfg.ssm_state:
-        return {}
     period, n_groups, rem = layer_grouping(cfg)
-    grouped = n_groups * len(period)
-    return {"flash_attention": (2 if cfg.remat else 1) * grouped + rem,
-            "flash_attention_backward": cfg.num_layers}
+    attn = lambda specs: sum(s.mixer != "mamba" for s in specs)
+    grouped = n_groups * attn(period)
+    tail = attn(cfg.block_specs()[n_groups * len(period):])
+    if not grouped + tail:
+        return {}
+    return {"flash_attention": (2 if cfg.remat else 1) * grouped + tail,
+            "flash_attention_backward": grouped + tail}
 
 
 CUTS = tuple((p, s) for p in range(TRAIN_PEERS, 0, -1) for s in (TRAIN_SEQ, 1024, 512, 256))
@@ -2640,11 +2955,11 @@ CUTS = tuple((p, s) for p in range(TRAIN_PEERS, 0, -1) for s in (TRAIN_SEQ, 1024
 
 def drive_train(torch, mods, arch: str, *, steps: int = TRAIN_STEPS, schedule=None,
                 cuts=((TRAIN_PEERS, TRAIN_SEQ),), reckon: bool = True,
-                check_launches: bool = True):
+                check_launches: bool = True, recorded: list = None, lr: float = TRAIN_LR):
     """``arch`` at full width trained through ``train.build_train_step`` on
-    the full graph: ``allgather_mean``, the reference CLI's Adam at 3e-3
-    under ``schedule``, by default ``warmup_cosine(lr, steps // 10 + 1,
-    steps)``, TRAIN_PEERS peers x batch 1 x TRAIN_SEQ tokens, ``steps``
+    the full graph: ``allgather_mean``, Adam at ``lr`` (by default the
+    reference CLI's 3e-3) under ``schedule``, by default
+    ``warmup_cosine(lr, steps // 10 + 1, steps)``, TRAIN_PEERS peers x batch 1 x TRAIN_SEQ tokens, ``steps``
     steps on one fixed batch. The bytes are reckoned and printed first
     (``train_bytes``); then each of ``cuts`` (peers, sequence) is tried in
     turn from a fresh state, until one runs its steps without running out
@@ -2655,19 +2970,26 @@ def drive_train(torch, mods, arch: str, *, steps: int = TRAIN_STEPS, schedule=No
     before and read after each step; ``check_launches=False`` for another
     checkout's port) and give a finite loss; the last loss must be below
     the first, and every leaf must have moved (its first 4096 entries,
-    copied before the first step). ``reckon``: print ``train_bytes``'
-    reckoning (of this checkout's layout). Prints the peak device memory.
-    Returns the launches of all the steps and the (config, peers,
-    sequence) that ran."""
+    copied before the first step) but the unread params of the
+    ``shared_attn`` layers (``unread_params``, reference behaviour 23),
+    which must come out bit for bit as they went in, their Adam moments
+    zero. ``reckon``: print ``train_bytes``' reckoning (of this checkout's
+    layout). ``recorded``: a list that takes the arguments of the last
+    step's first flash backward launch (``kf._backward``, the backward runs
+    the layers last to first). Prints the peak device memory. Returns the
+    launches of all the steps and the (config, peers, sequence) that
+    ran."""
     from repro_torch import models
     from repro_torch.configs import get_config
     from repro_torch.core.p2p import Topology
+    from repro_torch.kernels import flash_attention as kf
     from repro_torch.optim import adam, warmup_cosine
     from repro_torch.train import build_train_step, init_train_state
 
     cfg = get_config(arch)
     n_params = models.param_count(models.init_model(cfg, generator=None, device="meta"))
     card = torch.cuda.get_device_properties(0).total_memory
+    unread = unread_params(cfg)
     if reckon:
         parts = train_bytes(n_params, cfg, TRAIN_PEERS, TRAIN_SEQ)
         print(f"path {arch} train: reckoned bytes at {TRAIN_PEERS} peers x {TRAIN_SEQ} tokens "
@@ -2675,7 +2997,7 @@ def drive_train(torch, mods, arch: str, *, steps: int = TRAIN_STEPS, schedule=No
               f"{sum(parts.values()) / 2**30:.2f} GiB in all against the card's "
               f"{card / 2**30:.2f} GiB")
     opt = adam()
-    sched = schedule or warmup_cosine(TRAIN_LR, steps // 10 + 1, steps)
+    sched = schedule or warmup_cosine(lr, steps // 10 + 1, steps)
     expect = train_launches(cfg)
     total = dict.fromkeys(KERNELS, 0)
     for peers, seq in cuts:
@@ -2691,6 +3013,7 @@ def drive_train(torch, mods, arch: str, *, steps: int = TRAIN_STEPS, schedule=No
         print(f"path {arch} train: {n_params} params, state initialised in "
               f"{time.perf_counter() - t0:.3f} s ({held / 2**30:.2f} GiB allocated before it)")
         before = {k: p.reshape(-1)[:4096].clone() for k, p in st.params.items()}
+        kept = {k: st.params[k].clone() for k in unread}
         toks = torch.randint(0, cfg.vocab_size, (peers, seq + 1), generator=g, device="cuda")
         batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
         step = build_train_step(cfg, opt, Topology(), peers, sched)
@@ -2701,8 +3024,12 @@ def drive_train(torch, mods, arch: str, *, steps: int = TRAIN_STEPS, schedule=No
                 reset_counters(mods)
                 torch.cuda.synchronize()
                 t = time.perf_counter()
-                st, metrics = step(st, batch)
+                with (recording(kf, "_backward") if recorded is not None and i == steps - 1
+                      else contextlib.nullcontext([])) as seen:
+                    st, metrics = step(st, batch)
                 loss = float(metrics["loss"])  # synchronises
+                if seen:
+                    recorded[:] = seen
                 secs.append(time.perf_counter() - t)
                 launches = read_counters(mods)
                 require(not check_launches or launches == dict(dict.fromkeys(KERNELS, 0), **expect),
@@ -2717,7 +3044,7 @@ def drive_train(torch, mods, arch: str, *, steps: int = TRAIN_STEPS, schedule=No
             break
         print(f"path {arch} train at {peers} peers x {seq} tokens: out of memory after "
               f"{len(losses)} steps ({failed})")
-        del st, step, batch, before
+        del st, step, batch, before, kept
         release(torch)  # the failed step's tensors sit in reference cycles through its traceback
         total = dict.fromkeys(KERNELS, 0)
     else:
@@ -2727,16 +3054,25 @@ def drive_train(torch, mods, arch: str, *, steps: int = TRAIN_STEPS, schedule=No
             f"{arch} train: the loss did not fall on the repeated batch: {losses}")
     require(all(bool(torch.isfinite(p).all()) for p in st.params.values()), f"{arch} train: non-finite params")
     still = [k for k, b in before.items() if torch.equal(st.params[k].reshape(-1)[:4096], b)]
-    require(not still, f"{arch} train: {len(still)} of {len(before)} leaves did not move: {still[:5]}")
+    require(set(still) == unread, f"{arch} train: {len(still)} of {len(before)} leaves did not "
+            f"move: {sorted(set(still) - unread)[:5]}; unread params that moved: "
+            f"{sorted(unread - set(still))[:5]}")
+    require(all(torch.equal(st.params[k], kept[k]) and float(st.opt_state["mu"][k].abs().max())
+                == float(st.opt_state["nu"][k].abs().max()) == 0.0 for k in unread),
+            f"{arch} train: an unread param of a shared_attn layer changed")
+    del kept
     later = (f", then {sum(secs[1:]) / (steps - 1):.4f} s/step ({[round(x, 4) for x in secs[1:]]}), "
              f"{peers * seq * (steps - 1) / sum(secs[1:]):.0f} tokens/s" if steps > 1 else "")
-    print(f"path {arch} train, {peers} peers x batch 1 x {seq} tokens, adam lr {TRAIN_LR} "
+    print(f"path {arch} train, {peers} peers x batch 1 x {seq} tokens, adam lr {lr} "
           f"{'warmup_cosine' if schedule is None else 'constant'} (rates "
           f"{[round(x, 6) for x in lrs]}): first step {secs[0]:.3f} s{later}, "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (reserved "
           f"{torch.cuda.max_memory_reserved() / 2**30:.2f}), launches per "
           f"step { {k: v for k, v in expect.items() if v} or 'none' }, loss per step "
-          f"{[round(x, 5) for x in losses]}, all {len(before)} leaves moved")
+          f"{[round(x, 5) for x in losses]}, "
+          + (f"the other {len(before) - len(unread)} leaves moved, the {len(unread)} unread params "
+             "of the shared_attn layers bit for bit as initialised, their moments 0"
+             if unread else f"all {len(before)} leaves moved"))
     return total, (cfg, peers, seq)
 
 
@@ -2816,6 +3152,85 @@ def check_flash_bwd_on_path(torch, mods, cfg, peers: int, seq: int):
     return worst, row
 
 
+SLICE_TRAIN = {  # arch -> Adam's rate on the hybrid and MoE train paths
+    "zamba2-1.2b": TRAIN_LR,
+    # a cut: at the reference CLI's 3e-3 granite's loss rises over the 4
+    # steps (``granite_cli_rate``); at 3e-4 it falls
+    "granite-moe-3b-a800m": 3e-4,
+}
+
+
+def drive_slice_train(torch, mods, arch: str):
+    """``drive_train`` of ``arch`` at ``SLICE_TRAIN``'s rate (zamba2-1.2b
+    through ``ssd_chunked``, as the reference's ``lm_loss`` defaults;
+    granite-moe-3b-a800m with the dense dispatch, the reference trainer's
+    default), remat on as published, its last step recording its last
+    attention layer's flash backward; the backward kernel is then held to
+    the plain backward on those inputs (``hold_bwd_to_plain``, no softcap).
+    Returns (the launches of the steps, the largest error)."""
+    from repro_torch.kernels import flash_attention as kf
+
+    seen = []
+    counts, (cfg, peers, seq) = drive_train(torch, mods, arch, recorded=seen,
+                                            lr=SLICE_TRAIN[arch])
+    release(torch)
+    err = hold_bwd_to_plain(torch, kf, seen, f"{arch}'s last attention layer", cfg, peers, seq,
+                            cfg.attn_logit_softcap)
+    return counts, err
+
+
+def granite_cli_rate(torch):
+    """granite-moe-3b-a800m's train steps of ``drive_train`` (its seed, its
+    fixed batch, ``warmup_cosine``) at the reference CLI's rate, TRAIN_LR,
+    in place of ``SLICE_TRAIN``'s cut: once with flash's kernels and once
+    with ``flash_attention_plain`` in their place (autograd's backward of
+    the plain version, no kernel launched). Each step's loss and the
+    peers' cross-entropies are printed; the two runs' losses must agree
+    within 5 % (relative) at every step, so that whatever the
+    loss does at this rate is not the kernels' doing. The launches are not
+    counted in the kernels line."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.p2p import Topology
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.models import layers
+    from repro_torch.optim import adam, warmup_cosine
+    from repro_torch.train import build_train_step, init_train_state
+
+    cfg = get_config("granite-moe-3b-a800m")
+    tolerance = 0.05  # bf16 trajectories of 4 steps; the rise at 3e-3 is about 30 %
+    runs = {}
+    for route in ("kernels", "plain"):
+        g = torch.Generator(device="cuda").manual_seed(0)
+        st = init_train_state(g, cfg, adam(), device="cuda")
+        toks = torch.randint(0, cfg.vocab_size, (TRAIN_PEERS, TRAIN_SEQ + 1), generator=g,
+                             device="cuda")
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        step = build_train_step(cfg, adam(), Topology(), TRAIN_PEERS,
+                                warmup_cosine(TRAIN_LR, TRAIN_STEPS // 10 + 1, TRAIN_STEPS))
+        layers.flash_attention = kf.flash_attention if route == "kernels" else kf.flash_attention_plain
+        try:
+            out = []
+            for _ in range(TRAIN_STEPS):
+                st, metrics = step(st, batch)
+                out.append((float(metrics["loss"]), [round(float(c), 4) for c in metrics["aux"]]))
+        finally:
+            layers.flash_attention = kf.flash_attention
+        runs[route] = out
+        del st, step, batch
+        release(torch)
+    for route, out in runs.items():
+        print(f"path granite-moe-3b-a800m train at the CLI's Adam {TRAIN_LR}, flash by "
+              f"{'its kernels' if route == 'kernels' else 'flash_attention_plain'}: "
+              f"loss (cross-entropy of each peer) per step "
+              + ", ".join(f"{loss:.5f} ({ce})" for loss, ce in out))
+    gap = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(runs["kernels"], runs["plain"]))
+    require(all(math.isfinite(x[0]) for x in runs["kernels"] + runs["plain"]) and gap <= tolerance,
+            f"granite-moe-3b-a800m at Adam {TRAIN_LR}: the kernels' and the plain version's "
+            f"losses {runs} lie {gap:.3e} apart, beyond {tolerance}")
+    print(f"path granite-moe-3b-a800m train at the CLI's rate: the two runs' losses within "
+          f"{gap:.3e} of each other (relative; limit {tolerance})")
+
+
 def drive_mamba_train(torch, mods):
     """Two mamba2-370m train steps at full width through ``ssd_chunked``
     (``use_ssd_kernel=False``, the reference's default) at Adam's constant
@@ -2858,7 +3273,11 @@ def remat_phase(torch, mods):
     each group's per-peer gradients where one product over the folded peers
     sums them without it), and ``train_launches``' counts: 5 flash forwards
     with remat (the group's two layers twice, the tail once), 3 without, 3
-    backwards either way."""
+    backwards either way. The same for a 3-layer reduced zamba2-1.2b (one
+    group of a Mamba-2 layer and a layer applying the shared block, whose
+    params go into the group's Function as inputs; a Mamba-2 tail layer;
+    through ``ssd_chunked``): 2 flash forwards against 1, one backward, the
+    shared_attn layer's unread params unmoved."""
     import dataclasses
 
     from repro_torch.configs import get_config, reduced
@@ -2866,36 +3285,43 @@ def remat_phase(torch, mods):
     from repro_torch.optim import sgd
     from repro_torch.train import build_train_step, init_train_state
 
-    base = dataclasses.replace(reduced(get_config("gemma2-2b"), num_layers=3), dtype="float32")
-    state = init_train_state(torch.Generator().manual_seed(0), base, sgd(), device="cpu")
-    toks = torch.randint(0, base.vocab_size, (2 * TRAIN_PEERS, 161),
-                         generator=torch.Generator().manual_seed(1))
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    out = {}
-    for remat in (True, False):
-        cfg = dataclasses.replace(base, remat=remat)
-        st = state.replace(params={k: p.to("cuda", copy=True) for k, p in state.params.items()})
-        step = build_train_step(cfg, sgd(), Topology(), TRAIN_PEERS, lambda s: 1.0)
-        reset_counters(mods)
-        new, metrics = step(st, batch)
-        launches = read_counters(mods)
-        expect = dict(dict.fromkeys(KERNELS, 0), **train_launches(cfg))
-        require(launches == expect, f"reduced gemma2 step remat={remat}: launches {launches} != "
-                f"{expect}")
-        out[remat] = ({k: state.params[k] - p.cpu() for k, p in new.params.items()},
-                      float(metrics["loss"]), launches["flash_attention"])
-    (dr, lr_, fr), (dn, ln, fn) = out[True], out[False]
-    require(abs(lr_ - ln) <= 1e-6 * abs(ln), f"reduced gemma2 step: loss {lr_} with remat, {ln} "
-            "without")
-    worst = 0.0
-    for k, want in dn.items():
-        err, scale = float((dr[k] - want).abs().max()), float(want.abs().max())
-        require(err <= 1e-4 * scale, f"reduced gemma2 step: {k} update {err:.3e} with remat from "
-                f"without, beyond 1e-4 x {scale:.3e}")
-        worst = max(worst, err / scale)
-    print(f"reference check (reduced gemma2-2b train step on the card, 3 layers, f32, remat on "
-          f"against off): loss {lr_:.7f} vs {ln:.7f}, every leaf's update within {worst:.3e} of "
-          f"its largest magnitude (limit 1e-4), flash forwards {fr} vs {fn}")
+    for arch in ("gemma2-2b", "zamba2-1.2b"):
+        base = dataclasses.replace(reduced(get_config(arch), num_layers=3), dtype="float32")
+        unread = unread_params(base)
+        state = init_train_state(torch.Generator().manual_seed(0), base, sgd(), device="cpu")
+        toks = torch.randint(0, base.vocab_size, (2 * TRAIN_PEERS, 161),
+                             generator=torch.Generator().manual_seed(1))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        out = {}
+        for remat in (True, False):
+            cfg = dataclasses.replace(base, remat=remat)
+            st = state.replace(params={k: p.to("cuda", copy=True) for k, p in state.params.items()})
+            step = build_train_step(cfg, sgd(), Topology(), TRAIN_PEERS, lambda s: 1.0)
+            reset_counters(mods)
+            new, metrics = step(st, batch)
+            launches = read_counters(mods)
+            expect = dict(dict.fromkeys(KERNELS, 0), **train_launches(cfg))
+            require(launches == expect, f"reduced {arch} step remat={remat}: launches {launches} "
+                    f"!= {expect}")
+            out[remat] = ({k: state.params[k] - p.cpu() for k, p in new.params.items()},
+                          float(metrics["loss"]), launches["flash_attention"])
+        (dr, lr_, fr), (dn, ln, fn) = out[True], out[False]
+        require(abs(lr_ - ln) <= 1e-6 * abs(ln), f"reduced {arch} step: loss {lr_} with remat, "
+                f"{ln} without")
+        require(all(float(dr[k].abs().max()) == float(dn[k].abs().max()) == 0.0 for k in unread),
+                f"reduced {arch} step: an unread param of a shared_attn layer moved")
+        worst = 0.0
+        for k, want in dn.items():
+            if k in unread:
+                continue
+            err, scale = float((dr[k] - want).abs().max()), float(want.abs().max())
+            require(err <= 1e-4 * scale, f"reduced {arch} step: {k} update {err:.3e} with remat "
+                    f"from without, beyond 1e-4 x {scale:.3e}")
+            worst = max(worst, err / scale)
+        print(f"reference check (reduced {arch} train step on the card, 3 layers, f32, remat on "
+              f"against off): loss {lr_:.7f} vs {ln:.7f}, every leaf's update within {worst:.3e} "
+              f"of its largest magnitude (limit 1e-4), flash forwards {fr} vs {fn}"
+              + (f", the {len(unread)} unread params unmoved" if unread else ""))
 
 
 def leaf_sample(p):
@@ -3612,6 +4038,71 @@ def _time_flash_bwd(torch, kf, what: str, q, k, v, do, window: int):
     return row
 
 
+def slice_timing(torch, ks, kf):
+    """The SSD and flash kernels at the hybrid and MoE paths' shapes, bf16,
+    each beside its plain version, its bound and, for flash, the library
+    call that computes the same function there (no softcap, no window):
+    ``scaled_dot_product_attention``, causal, GQA. The SSD scan at
+    zamba2-1.2b's scoring shape; the flash forward as zamba2's, granite's
+    and moonshot's scoring forwards call it; the flash backward on
+    granite's train shape, from one forward's saved statistics (SDPA's
+    backward as its library call). Printed only: the kernels line keeps
+    the rows of ``ssd_timing``, ``flash_timing`` and the train path."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    Bsz, S_, H, P, G, N, Q = SSD_ZAMBA
+    args = ssd_inputs(torch, SSD_ZAMBA, torch.bfloat16, seed=3)
+    t_plain, _ = time_ms(torch, lambda: ks.ssd_scan_plain(*args, chunk=Q), 5)
+    t_kern, host = time_ms(torch, lambda: ks.ssd_scan(*args, chunk=Q), 20)
+    nbytes = 2 * Bsz * S_ * H * P + 4 * Bsz * S_ * H + 4 * H + 2 * 2 * Bsz * S_ * G * N \
+        + 4 * Bsz * S_ * H * P
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, 4 * Bsz * S_ * H * P * N / BF16_FLOPS * 1e3
+    bound = max(bytes_ms, ops_ms)
+    print(f"timing ssd_scan {SSD_ZAMBA[:4]} G={G} N={N} chunk {Q} bf16 (zamba2-1.2b scoring): "
+          f"kernel {t_kern:.4f} ms, plain {t_plain:.4f} ms, bound {bound:.4f} ms "
+          f"({'bytes' if bytes_ms >= ops_ms else 'operations'}; {nbytes / 1e6:.1f} MB at 3.35 TB/s "
+          f"= {bytes_ms:.4f} ms, recurrence at 989.4 TFLOP/s = {ops_ms:.4f} ms; roofline share "
+          f"{bound / t_kern:.1%}), host enqueue {host * 1e3:.1f} us/call, library none")
+    del args
+    bf16 = torch.bfloat16
+    for what, (B, S_, H, K, D) in (("zamba2-1.2b scoring", (*SCORING_BATCH, 32, 32, 64)),
+                                   ("granite-moe-3b-a800m scoring", (*SCORING_BATCH, 24, 8, 64)),
+                                   ("moonshot-v1-16b-a3b scoring", (1, MOONSHOT_SEQ, 16, 16, 128))):
+        q, k, v = flash_inputs(torch, B, S_, S_, H, K, D, bf16, seed=5)
+
+        def kern():
+            with torch.inference_mode():
+                return kf.flash_attention(q, k, v)
+
+        t_plain, _ = time_ms(torch, lambda: kf.flash_attention_plain(q, k, v), 3)
+        t_kern, host = time_ms(torch, kern, 20)
+        qt, kt_, vt = (t.transpose(1, 2) for t in (q, k, v))
+        t_lib, _ = time_ms(torch, lambda: sdpa(qt, kt_, vt, is_causal=True, enable_gqa=True), 20)
+        bound, by, nbytes, ops = flash_bound(torch, q, k, 0)
+        print(f"timing flash_attention ({what}) {(B, S_, H, K, D)} bf16 causal: kernel "
+              f"{t_kern:.4f} ms, plain {t_plain:.4f} ms, bound {bound:.4f} ms ({by}; "
+              f"{ops / 1e9:.2f} GFLOP at 989.4 TFLOP/s; roofline share {bound / t_kern:.1%}), host "
+              f"enqueue {host * 1e3:.1f} us/call, library scaled_dot_product_attention {t_lib:.4f} ms")
+        del q, k, v, qt, kt_, vt
+    q, k, v, do = flash_bwd_inputs(torch, *GRANITE_FLASH, bf16, seed=5)
+    _, o32, lse = kf.FlashAttentionFn.apply(q, k, v, True, 0.0, 0)
+    kern = lambda: kf.FlashAttentionBackwardFn.apply(q, k, v, o32, lse, do, True, 0.0, 0)
+    t_plain, _ = time_ms(torch, lambda: kf.flash_attention_backward_plain(q, k, v, do), 5)
+    t_kern, host = time_ms(torch, kern, 20)
+    leaves = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+    o = sdpa(*leaves, is_causal=True, enable_gqa=True)
+    t_lib, _ = time_ms(torch, lambda: torch.autograd.grad(o, leaves, do.transpose(1, 2),
+                                                          retain_graph=True), 20)
+    bound, by, nbytes, ops = flash_bound(torch, q, k, 0, backward=True)
+    print(f"timing flash_attention_backward (granite-moe-3b-a800m train) {GRANITE_FLASH} bf16 "
+          f"causal: kernel {t_kern:.4f} ms, plain {t_plain:.4f} ms, bound {bound:.4f} ms ({by}; "
+          f"{ops / 1e9:.2f} GFLOP at 989.4 TFLOP/s; roofline share {bound / t_kern:.1%}), host "
+          f"enqueue {host * 1e3:.1f} us/call, library scaled_dot_product_attention's backward "
+          f"{t_lib:.4f} ms")
+    del q, k, v, do, o32, lse, leaves, o
+    torch.cuda.empty_cache()
+
+
 def flash_bwd_timing(torch, kf):
     """``time_flash_bwd`` at gemma2-2b's scoring shape, its full context of
     8192, for a local layer (window 4096) and a global one: the shape the
@@ -3621,6 +4112,29 @@ def flash_bwd_timing(torch, kf):
     q, k, v, do = flash_bwd_inputs(torch, B, S_, S_, H, K, D, torch.bfloat16, seed=4)
     for window in (GEMMA_WINDOW, 0):
         time_flash_bwd(torch, kf, "at gemma2-2b's full context", q, k, v, do, window)
+
+
+def reference_slice_lm_phase(torch):
+    """``reference_lm_phase`` for the hybrid and MoE LMs: a 3-layer reduced
+    zamba2-1.2b (a Mamba-2 layer, a layer applying the shared attention
+    block, a Mamba-2 tail layer) through the SSD kernel, and a 3-layer
+    reduced granite-moe-3b-a800m with the dense and with the capacity
+    dispatch (prefill and decode take the dense one, the serve twin's)."""
+    reference_lm_phase(torch, "zamba2-1.2b", 40, SSD_FLAGS)
+    for dispatch in ("dense", "capacity"):
+        reference_lm_phase(torch, "granite-moe-3b-a800m", 40, {"moe_dispatch": dispatch})
+
+
+def profile_zamba(torch, zamba_run):
+    """``profile_phase`` of zamba2-1.2b: a scoring forward must launch each
+    of the SSD bf16 body's three passes once per Mamba-2 layer (32) and
+    flash's bf16 body at D 64 once per shared_attn layer (6), neither f32
+    body."""
+    cfg = zamba_run[1]
+    shared = sum(s.mixer == "shared_attn" for s in cfg.block_specs())
+    bodies = {f"ssd {p}": cfg.num_layers - shared for p in ("states", "carry", "outputs")}
+    bodies[f"wgmma<{cfg.resolved_head_dim}>"] = shared
+    profile_phase(torch, "zamba2-1.2b", *zamba_run, SSD_FLAGS, bodies)
 
 
 def select_timing_only(torch, src: Path) -> int:
@@ -3851,6 +4365,7 @@ def main() -> int:
     determinism_phase(torch, mods)
     reference_lm_phase(torch, "mamba2-370m", 40, SSD_FLAGS)
     reference_lm_phase(torch, "gemma2-2b", 160, {})  # 160 > the window of 64
+    reference_slice_lm_phase(torch)
     stamp("reference phase")
 
     total = dict.fromkeys(KERNELS, 0)
@@ -3873,7 +4388,14 @@ def main() -> int:
     gemma_counts, gemma_err, gemma_run = drive_gemma(torch, mods)
     errs["flash_attention"] = max(errs["flash_attention"], gemma_err)
     stamp("gemma2-2b path")
-    for counts in (lm_counts, gemma_counts):
+    zamba_counts, zamba_ssd_err, zamba_flash_err, zamba_run = drive_zamba(torch, mods)
+    errs["ssd_scan"] = max(errs["ssd_scan"], zamba_ssd_err)
+    errs["flash_attention"] = max(errs["flash_attention"], zamba_flash_err)
+    stamp("zamba2-1.2b path")
+    granite_counts, granite_err = drive_granite(torch, mods)
+    errs["flash_attention"] = max(errs["flash_attention"], granite_err)
+    stamp("granite-moe-3b-a800m path")
+    for counts in (lm_counts, gemma_counts, zamba_counts, granite_counts):
         for name, count in counts.items():
             total[name] += count
 
@@ -3883,6 +4405,7 @@ def main() -> int:
     times.update(ssd_timing(torch, ks))
     times.update(flash_timing(torch, kf))
     flash_bwd_timing(torch, kf)
+    slice_timing(torch, ks, kf)
     estimator_timing(torch)
     bank_grad_timing(torch)
     stamp("timing phase")
@@ -3892,9 +4415,13 @@ def main() -> int:
     gemma_cfg = gemma_run[1]  # every layer's scoring attention: the bf16 body at its headdim
     profile_phase(torch, "gemma2-2b", *gemma_run, {},
                   {f"wgmma<{gemma_cfg.resolved_head_dim}>": gemma_cfg.num_layers})
+    profile_zamba(torch, zamba_run)
     stamp("profile phase")
-    del lm_run, gemma_run  # the serving models: the train paths need the card's memory
+    del lm_run, gemma_run, zamba_run  # the serving models: the next paths need the card's memory
     release(torch)
+    moon_counts, moon_err = drive_moonshot(torch, mods)
+    errs["flash_attention"] = max(errs["flash_attention"], moon_err)
+    stamp("moonshot-v1-16b-a3b path")
     # the first train step built switches the allocator to expandable
     # segments (build_train_step): every phase above ran on fixed ones
     reference_train_phase(torch)
@@ -3915,7 +4442,17 @@ def main() -> int:
     ckpt_counts = drive_cli_checkpoint(torch, mods)
     example_counts = drive_example(torch, mods)
     stamp("checkpoint and example paths")
-    for counts in (train_counts, cli_counts, ckpt_counts, example_counts):
+    slice_counts = []
+    for arch in ("zamba2-1.2b", "granite-moe-3b-a800m"):
+        counts, err = drive_slice_train(torch, mods, arch)
+        errs["flash_attention_backward"] = max(errs["flash_attention_backward"], err)
+        slice_counts.append(counts)
+        release(torch)
+        stamp(f"{arch} train path")
+    granite_cli_rate(torch)
+    stamp("granite-moe-3b-a800m at the CLI's rate")
+    for counts in (moon_counts, train_counts, cli_counts, ckpt_counts, example_counts,
+                   *slice_counts):
         for name, count in counts.items():
             total[name] += count
     require(all(total.values()), f"a kernel was never launched on the main path: {total}")

@@ -1,8 +1,9 @@
 """Config registry of the port: ``get_config(name)`` / ``--arch <id>``.
 
-The paper's three CNNs and the LM architectures ported so far. The other
-LM architectures of the reference's registry come with their families
-(ROADMAP.md, Queue 1, item 11).
+The paper's three CNNs and the LM architectures ported so far: Mamba-2,
+the dense attention LMs, zamba2's hybrid and the MoE LMs. The other LM
+architectures of the reference's registry (whisper, internvl2) come with
+their families (ROADMAP.md, Queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ from repro_torch.configs.base import (
     reduced,
 )
 
-LM_ARCHS = ("mamba2-370m", "gemma2-2b", "qwen2.5-3b", "starcoder2-3b")
+LM_ARCHS = ("mamba2-370m", "gemma2-2b", "qwen2.5-3b", "starcoder2-3b", "zamba2-1.2b",
+            "granite-moe-3b-a800m", "moonshot-v1-16b-a3b", "dbrx-132b")
 PAPER_ARCHS = ("vgg11", "mobilenet-v3-small", "squeezenet1.1")  # the paper's own models
 # arch id -> module name
 _ARCH_MODULES = {name: name.replace("-", "_").replace(".", "_") for name in LM_ARCHS + PAPER_ARCHS}

@@ -22,10 +22,14 @@ weight ``conv_w`` is (K, C) and ``embed`` is (V_pad, d). Group g of slot j
 is the port's layer ``g * period + j`` and ``tail/r`` its layer
 ``n_groups * period + r``; ``in_proj``, ``out_proj``, the attention's
 ``wq``, ``wk``, ``wv``, ``wo``, the MLP's ``w_gate``, ``w_up``, ``w_down``
-and ``unembed`` (din, dout) are ``nn.Linear`` weights (dout, din),
+(a MoE layer's ``shared`` expert's too), the MoE ``router`` and
+``unembed`` (din, dout) are ``nn.Linear`` weights (dout, din),
 ``conv_w`` (K, C) is the port's depthwise (C, 1, K), and every other leaf
 (norm scales, the attention biases ``bq``, ``bk``, ``bv``, the SSM
-vectors, ``embed``) is unchanged.
+vectors, ``embed``, and a MoE layer's expert banks ``w_gate``, ``w_up``
+(E, d, f) and ``w_down`` (E, f, d), told from an MLP's linears by their
+rank) is unchanged. zamba2's ``shared_block/...`` leaves are the port's
+``shared_block.*``.
 
 ``jax_order`` gives the order of JAX's tree flatten (sorted dict keys,
 list entries by index), which is also the order in which the QSGD wire
@@ -131,7 +135,8 @@ def opt_state_to_jax(state) -> Dict[str, np.ndarray]:
     return to_jax(state)
 
 
-_LM_LINEAR = ("in_proj", "out_proj", "unembed", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+_LM_LINEAR = ("in_proj", "out_proj", "unembed", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+              "router")
 
 
 def _lm_leaf_to_torch(path: str, arr: np.ndarray):
@@ -140,7 +145,7 @@ def _lm_leaf_to_torch(path: str, arr: np.ndarray):
     last = path.rsplit("/", 1)[-1]
     t = torch.from_numpy(np.array(arr, dtype=np.float32))
     name = torch_name(path)
-    if last in _LM_LINEAR:
+    if last in _LM_LINEAR and t.dim() == 2:  # a 3-d MoE expert bank keeps its layout
         return f"{name}.weight", t.t().contiguous()
     if last == "conv_w":
         return name, t.t().contiguous()[:, None, :]

@@ -5,10 +5,12 @@ one-shot prefill, a twin of the reference's ``repro/launch/serve.py``.
         --prompt-len 512 --gen 32                       # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced --gen 4
 
-``--arch`` defaults to gemma2-2b, as in the reference; the Mamba-2 and
-dense LMs are served (``--arch mamba2-370m``, ``qwen2.5-3b``,
-``starcoder2-3b``). The prefill's attention goes through the flash kernel
-(its plain version for a model on the CPU); decode attends over the KV
+``--arch`` defaults to gemma2-2b, as in the reference; the Mamba-2, dense,
+hybrid and MoE LMs are served (``--arch mamba2-370m``, ``qwen2.5-3b``,
+``starcoder2-3b``, ``zamba2-1.2b``, ``granite-moe-3b-a800m``,
+``moonshot-v1-16b-a3b``, ``dbrx-132b``; a MoE layer takes the dense
+dispatch, the reference's default). The prefill's attention goes through
+the flash kernel (its plain version for a model on the CPU); decode attends over the KV
 cache with the plain ``attend``, as the reference does. The weights are
 random, from a seeded ``torch.Generator``, or ``--checkpoint``'s: a v1
 params checkpoint or a v2 train state's params, written by either

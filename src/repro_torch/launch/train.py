@@ -6,7 +6,9 @@
     PYTHONPATH=src python -m repro_torch.launch.train --full --arch qwen2.5-3b \\
         --data-parallel 2 --batch 2 --seq 2048 --steps 4     # on the card
 
-Where they differ:
+``--arch`` takes every LM of the port's registry (``configs.LM_ARCHS``:
+the Mamba-2, dense, hybrid and MoE LMs; a MoE layer takes the dense
+dispatch, the reference trainer's default). Where they differ:
 
 * ``--data-parallel N`` is the peer count P (default 1, what the reference
   gets on one device): the P peers are a stacked dimension on one card.

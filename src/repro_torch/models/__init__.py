@@ -6,8 +6,10 @@
                               device as NCHW
   labels  (B,)              — CNN training targets
 
-The CNNs and the Mamba-2 (``ssm``) and dense LMs are ported; the other LM
-families raise ``NotImplementedError`` naming their ROADMAP item.
+The CNNs and the Mamba-2 (``ssm``), dense, hybrid (zamba2) and MoE LMs are
+ported; the encoder-decoder and VLM families raise ``NotImplementedError``
+naming their ROADMAP item. ``moe_dispatch`` ("dense" or "capacity") picks a
+MoE layer's dispatch, as in the reference; other families ignore it.
 """
 from __future__ import annotations
 
@@ -41,18 +43,20 @@ def _tokens(tokens, model: nn.Module) -> torch.Tensor:
 
 
 def forward(
-    model: nn.Module, batch: Dict, cfg: ModelConfig, *, use_ssd_kernel: bool = False,
+    model: nn.Module, batch: Dict, cfg: ModelConfig, *, moe_dispatch: str = "dense",
+    use_ssd_kernel: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits, aux_loss); aux_loss is 0 for the CNNs and the ported
-    LMs. ``use_ssd_kernel`` sends the LM's full-sequence SSD scans through
-    the hand-written kernel; attention always takes the flash kernel (its
-    plain version on the CPU)."""
+    """Returns (logits, aux_loss); aux_loss is the MoE layers' summed router
+    loss, 0 for the CNNs and the LMs without MoE. ``use_ssd_kernel`` sends
+    the LM's full-sequence SSD scans through the hand-written kernel;
+    attention always takes the flash kernel (its plain version on the
+    CPU)."""
     if cfg.family == "cnn":
         device = next(model.parameters()).device
         logits = model(images_to_device(batch["images"], device))
         return logits, torch.zeros((), dtype=torch.float32, device=device)
     return _tf.lm_forward(model, _tokens(batch["tokens"], model), cfg,
-                          use_ssd_kernel=use_ssd_kernel)
+                          moe_dispatch=moe_dispatch, use_ssd_kernel=use_ssd_kernel)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int, *, device="cuda"):
@@ -61,7 +65,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int, *, device="cud
     return _tf.init_decode_state(cfg, batch, seq_len, device=device)
 
 
-def prefill(model: nn.Module, state, batch: Dict, cfg: ModelConfig):
+def prefill(model: nn.Module, state, batch: Dict, cfg: ModelConfig, *,
+            moe_dispatch: str = "dense"):
     """One-shot prompt prefill into a decode state. Returns
     (last-token logits, state positioned after the prompt); the prompt's
     attention goes through the flash kernel.
@@ -71,15 +76,18 @@ def prefill(model: nn.Module, state, batch: Dict, cfg: ModelConfig):
     so clone a state you mean to keep. Mamba-2 layers get new states."""
     if cfg.family == "cnn":
         raise ValueError("CNNs have no decode step")
-    return _tf.lm_prefill(model, state, _tokens(batch["tokens"], model), cfg)
+    return _tf.lm_prefill(model, state, _tokens(batch["tokens"], model), cfg,
+                          moe_dispatch=moe_dispatch)
 
 
-def decode_step(model: nn.Module, state, token, cfg: ModelConfig):
+def decode_step(model: nn.Module, state, token, cfg: ModelConfig, *,
+                moe_dispatch: str = "dense"):
     """One decode step of ``token`` (B, 1). Returns (logits (B, vocab), the
     state one position on); it consumes ``state`` as ``prefill`` does."""
     if cfg.family == "cnn":
         raise ValueError("CNNs have no decode step")
-    return _tf.lm_decode_step(model, state, _tokens(token, model), cfg)
+    return _tf.lm_decode_step(model, state, _tokens(token, model), cfg,
+                              moe_dispatch=moe_dispatch)
 
 
 def param_count(model: nn.Module) -> int:

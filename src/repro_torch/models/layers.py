@@ -1,5 +1,5 @@
 """Model primitives of the port: the parts of the reference's
-``repro/models/layers.py`` that the Mamba-2 and dense LMs use.
+``repro/models/layers.py`` that the Mamba-2, dense, hybrid and MoE LMs use.
 
 Parameters are stored in ``param_dtype`` (float32) and cast to the
 config's working dtype (bfloat16) at each use, as in the reference.
@@ -8,9 +8,10 @@ transposes them from the reference's (in, out). Attention keeps the
 reference's layouts at its functions: q (B, S, H, D), k and v
 (B, S, K, D), a KV cache {"k", "v"} of (B, S_cache, K, D). The one plain
 attention, ``attend``, lives beside the flash kernel in
-``kernels/flash_attention.py``. MoE comes with its family (ROADMAP.md,
-Queue 1, item 11). The reference's ``shard`` hints have no counterpart on
-one card.
+``kernels/flash_attention.py``. The MoE layer's expert banks keep the
+reference's layout, ``w_gate``/``w_up`` (E, d, f) and ``w_down`` (E, f, d);
+its router and its shared expert are ``nn.Linear`` weights. The
+reference's ``shard`` hints have no counterpart on one card.
 """
 from __future__ import annotations
 
@@ -216,3 +217,126 @@ def mlp_apply(mlp: MLP, x: torch.Tensor, act: str) -> torch.Tensor:
     g = activation(F.linear(x, mlp.w_gate.weight.to(dt)), act)
     u = F.linear(x, mlp.w_up.weight.to(dt))
     return F.linear(g * u, mlp.w_down.weight.to(dt))
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (token-choice top-k)
+#
+# The reference's einsums and gathers, outside any Pallas kernel there, so
+# plain PyTorch here. The dense dispatch runs every expert on every token
+# of a chunk (the gates zero the unrouted pairs); the capacity dispatch
+# gathers each expert's routed tokens into C slots and drops the overflow.
+# ---------------------------------------------------------------------------
+
+class MoE(nn.Module):
+    """The parameters of the reference's ``init_moe``: ``router`` (d -> E),
+    the expert banks ``w_gate``, ``w_up`` (E, d, f) and ``w_down`` (E, f, d),
+    and with ``cfg.moe_shared_ff`` the always-on ``shared`` MLP."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator, device):
+        super().__init__()
+        d, f, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+        pdt = getattr(torch, cfg.param_dtype)
+        self.router = dense_linear(d, E, generator=generator, device=device, dtype=pdt)
+
+        def bank(shape, fan_in):
+            w = torch.randn(shape, generator=generator, device=device) / math.sqrt(fan_in)
+            return nn.Parameter(w.to(pdt))
+
+        self.w_gate = bank((E, d, f), d)
+        self.w_up = bank((E, d, f), d)
+        self.w_down = bank((E, f, d), f)
+        if cfg.moe_shared_ff:
+            self.shared = MLP(d, cfg.moe_shared_ff, generator=generator, device=device, dtype=pdt)
+
+
+def router_topk(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(T, E) router logits -> (dense gates (T, E), the Switch load-balance
+    aux loss, the probabilities), as the reference's ``router_topk``: the k
+    largest probabilities renormalised to sum 1. The one-hot is a
+    comparison with ``arange(E)`` (``F.one_hot`` has no vmap rule)."""
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    vals, idx = torch.topk(probs, k)
+    vals = vals / torch.clamp_min(vals.sum(-1, keepdim=True), 1e-9)
+    E = probs.shape[-1]
+    onehot = (idx[..., None] == torch.arange(E, device=idx.device)).to(torch.float32)  # (T, k, E)
+    dense_gates = (onehot * vals[..., None]).sum(dim=-2)
+    frac_tokens = (onehot.sum(-2) > 0).to(torch.float32).mean(dim=0)
+    frac_probs = probs.mean(dim=0)
+    aux = E * torch.sum(frac_tokens * frac_probs)
+    return dense_gates, aux, probs
+
+
+def _experts_dense(xi, gi, wg, wu, wd, act: str) -> torch.Tensor:
+    """One chunk of the dense dispatch: every expert on every token (E, Tc,
+    f), gated, then one product over (expert, f), in the reference's order
+    (XLA computes its ``etf,efd,te->td`` as the gated h, then that product)."""
+    h = activation(torch.matmul(xi, wg), act) * torch.matmul(xi, wu)  # (E, Tc, f)
+    h = h * gi.t()[:, :, None]
+    E, Tc, f = h.shape
+    return h.transpose(0, 1).reshape(Tc, E * f) @ wd.reshape(E * f, -1)
+
+
+def moe_apply(
+    moe: MoE,
+    x: torch.Tensor,  # (B, S, d)
+    cfg: ModelConfig,
+    *,
+    dispatch: str = "dense",
+    token_chunk: int = 4096,
+    capacity_factor: float = 1.25,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``moe_apply``: returns (y (B, S, d), the aux loss in
+    f32). ``dispatch="dense"`` runs the tokens in chunks of about
+    ``token_chunk`` (the reference's chunk rule; a loop where it scans);
+    ``"capacity"`` computes only the routed tokens, ``capacity_factor``
+    sizing each expert's slots. Another dispatch raises ``ValueError``."""
+    B, S, d = x.shape
+    dt = x.dtype
+    T = B * S
+    xt = x.reshape(T, d)
+    logits = F.linear(xt, moe.router.weight.to(dt))  # (T, E)
+    gates, aux, _ = router_topk(logits, cfg.experts_per_token)
+    gates = gates.to(dt)
+    wg, wu, wd = moe.w_gate.to(dt), moe.w_up.to(dt), moe.w_down.to(dt)
+
+    if dispatch == "dense":
+        nchunks = max(1, T // max(token_chunk, 1)) if T > token_chunk else 1
+        while T % nchunks:
+            nchunks -= 1
+        Tc = T // nchunks
+        y = torch.cat([_experts_dense(xt[c * Tc:(c + 1) * Tc], gates[c * Tc:(c + 1) * Tc],
+                                      wg, wu, wd, cfg.act) for c in range(nchunks)])
+    elif dispatch == "capacity":
+        y = _moe_capacity(xt, gates, wg, wu, wd, cfg, capacity_factor)
+    else:
+        raise ValueError(f"unknown moe dispatch {dispatch!r}")
+
+    if cfg.moe_shared_ff:
+        y = y + mlp_apply(moe.shared, xt, cfg.act)
+    return y.reshape(B, S, d), aux.to(torch.float32)
+
+
+def _moe_capacity(xt, gates, wg, wu, wd, cfg: ModelConfig, capacity_factor: float) -> torch.Tensor:
+    """The reference's ``_moe_capacity``: each routed (token, expert) pair
+    takes the next of the expert's C = ceil(k T / E x capacity_factor) slots
+    in token order (a cumulative count down the tokens); pairs past C are
+    dropped. The (E, C) slot table is a max-scatter of token indices, an
+    empty slot holding token 0 and a zero gate."""
+    T, E = gates.shape
+    C = max(int(math.ceil(cfg.experts_per_token * T / E * capacity_factor)), 1)
+    dev = gates.device
+    routed = gates > 0
+    pos = torch.cumsum(routed.to(torch.int64), dim=0) - 1  # (T, E): slot within the expert
+    keep = routed & (pos < C)
+    dest = torch.where(keep, torch.arange(E, device=dev)[None, :] * C + pos, E * C).reshape(-1)
+    table = lambda src: torch.zeros(E * C + 1, dtype=torch.int64, device=dev).scatter_reduce(
+        0, dest, src.reshape(-1), reduce="amax")[: E * C].reshape(E, C)
+    slot_token = table(torch.arange(T, device=dev)[:, None].expand(T, E))
+    occupied = table(keep.to(torch.int64)) > 0
+    xe = torch.where(occupied[..., None], xt[slot_token], 0)  # (E, C, d)
+    h = activation(torch.bmm(xe, wg), cfg.act) * torch.bmm(xe, wu)
+    ye = torch.bmm(h, wd)  # (E, C, d)
+    g = gates[slot_token, torch.arange(E, device=dev)[:, None]]  # (E, C)
+    ye = ye * (g * occupied)[..., None]
+    return torch.zeros_like(xt).index_add(0, slot_token.reshape(-1), ye.reshape(E * C, -1))

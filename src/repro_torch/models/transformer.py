@@ -1,5 +1,7 @@
-"""Decoder-only LM of the port, for ``family == "ssm"`` (Mamba-2) and
-``family == "dense"`` (gemma2-2b, qwen2.5-3b, starcoder2-3b).
+"""Decoder-only LM of the port, for ``family == "ssm"`` (Mamba-2),
+``"dense"`` (gemma2-2b, qwen2.5-3b, starcoder2-3b), ``"hybrid"``
+(zamba2-1.2b) and ``"moe"`` (granite-moe-3b-a800m, moonshot-v1-16b-a3b,
+dbrx-132b).
 
 A copy of those paths of the reference's ``repro/models/transformer.py``.
 The reference stacks the layers of each period slot on a leading axis and
@@ -8,15 +10,27 @@ scans over the groups (``lax.scan``); here the layers are an
 slot j. ``convert.lm_from_jax`` / ``lm_to_jax`` carry weights across that
 layout (``layer_grouping`` gives it).
 
+zamba2's weight-tied attention + MLP block is ``LM.shared_block``, applied
+by every ``shared_attn`` layer at window 0. A ``shared_attn`` layer still
+owns an ``ln1``, ``ln2`` and dense ``ffn`` that nothing reads, as the
+reference's ``_init_block`` makes them: they keep the params, the
+checkpoints and the wire bytes leaf for leaf the reference's, and their
+gradients are zero on both sides (ROADMAP.md, reference behaviour 23).
+
 With ``cfg.remat`` a training forward (no caches, autograd recording)
 runs each group of ``len(period)`` layers through :class:`RecomputeGroupFn`,
 as the reference wraps its scanned group body in ``jax.checkpoint``: the
 backward keeps each group's input and runs the group again. The tail
 layers run plain, as the reference applies them outside its scan.
 
-Every other family raises ``NotImplementedError`` naming its ROADMAP item.
-A decode state holds each layer's SSM state or KV cache in layer order;
-prefill and decode write the KV caches in place (``layers.attention_apply``).
+The forward returns the MoE layers' summed aux loss as the reference's
+scan carries it: each group adds its last layer's aux (every MoE config
+has a period of one layer), each tail layer its own.
+
+The encoder-decoder and VLM families raise ``NotImplementedError`` naming
+their ROADMAP item. A decode state holds each layer's SSM state or KV cache
+in layer order (a ``shared_attn`` layer has its own cache); prefill and
+decode write the KV caches in place (``layers.attention_apply``).
 """
 from __future__ import annotations
 
@@ -37,8 +51,6 @@ DecodeState = Dict[str, object]
 
 
 _UNPORTED = {  # family -> what ROADMAP.md, Queue 1, item 11 ports for it
-    "hybrid": "zamba2-1.2b's shared attention block",
-    "moe": "MoE: moe_apply",
     "encdec": "the encoder-decoder, whisper",
     "vlm": "the VLM stub, internvl2",
 }
@@ -46,10 +58,11 @@ _UNPORTED = {  # family -> what ROADMAP.md, Queue 1, item 11 ports for it
 
 def require_ported(cfg: ModelConfig) -> None:
     """Raise for a family whose layers are not ported yet."""
-    if cfg.family not in ("ssm", "dense"):
+    if cfg.family not in ("ssm", "dense", "hybrid", "moe"):
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet: the Mamba-2 (ssm) and dense LMs "
-            f"are; ROADMAP.md, Queue 1, item 11, 'LM side' ({_UNPORTED.get(cfg.family, cfg.family)})"
+            f"model family {cfg.family!r} is not ported yet: the Mamba-2 (ssm), dense, hybrid and "
+            f"MoE LMs are; ROADMAP.md, Queue 1, item 11, 'LM side' "
+            f"({_UNPORTED.get(cfg.family, cfg.family)})"
         )
 
 
@@ -69,16 +82,24 @@ def layer_grouping(cfg: ModelConfig) -> Tuple[Tuple[BlockSpec, ...], int, int]:
     return specs, 1, 0
 
 
+def _zero(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 class RecomputeGroupFn(torch.autograd.Function):
-    """``run(positions, x, params) -> x``, one group of layers, saving only
-    its inputs: the backward runs the group again from the saved x and
-    params and takes its vector-Jacobian product (``torch.func.vjp``), as
-    ``jax.checkpoint`` does. Every tensor the group reads is an input, not
-    closed over: inside a ``torch.func`` transform a parameter reached by
-    closure gets no gradient, and a tensor made at the transform's level
-    cannot be read at the Function's. ``generate_vmap_rule``: under
-    ``vmap`` the forward and the backward are vmapped (the flash Function
-    inside folds the peers into its batch).
+    """``run(positions, x, params) -> (x, aux)``, one group of layers,
+    saving only its inputs: the backward runs the group again from the
+    saved x and params and takes its vector-Jacobian product
+    (``torch.func.vjp``) at the cotangents of both outputs (a MoE group's
+    aux has a gradient, through its router), as ``jax.checkpoint`` does.
+    Every tensor the group reads is an input, not closed over: inside a
+    ``torch.func`` transform a parameter reached by closure gets no
+    gradient, and a tensor made at the transform's level cannot be read at
+    the Function's. So zamba2's shared block goes in as inputs of every
+    group that applies it (its gradient is then the sum over the groups),
+    and a ``shared_attn`` layer's unread params get zeros from the vjp.
+    ``generate_vmap_rule``: under ``vmap`` the forward and the backward are
+    vmapped (the flash Function inside folds the peers into its batch).
 
     The backward returns its gradients detached: ``torch.func.grad`` takes
     gradients with ``create_graph=True``, so the recompute's backward is
@@ -99,31 +120,65 @@ class RecomputeGroupFn(torch.autograd.Function):
         ctx.save_for_backward(*tensors)
 
     @staticmethod
-    def backward(ctx, gy):
+    def backward(ctx, gy, gaux):
         run, (positions, *primals) = ctx.run, ctx.saved_tensors
         _, vjp = torch.func.vjp(lambda x, *params: run(positions, x, params), *primals)
-        return (None, None, *(g.detach() for g in vjp(gy)))
+        return (None, None, *(g.detach() for g in vjp((gy, gaux))))
 
 
-def _group_runner(blocks, cfg, use_ssd_kernel: bool):
+def _group_runner(blocks, shared, cfg, moe_dispatch: str, use_ssd_kernel: bool):
     """(the group's run function for :class:`RecomputeGroupFn`, its parameter
     tensors in order): each block called through ``functional_call`` with
-    its share of the params."""
+    its share of the params, then, where a block of the group applies it,
+    the shared block's params, called through ``functional_call`` too. The
+    group's aux is its last block's, as the reference's scanned body adds."""
     names = [[n for n, _ in b.named_parameters()] for b in blocks]
+    uses_shared = any(b.spec.mixer == "shared_attn" for b in blocks)
+    shared_names = [n for n, _ in shared.named_parameters()] if uses_shared else []
 
     def run(positions, x, params):
         it = iter(params)
-        for block, ns in zip(blocks, names):
-            x, _ = functional_call(block, {n: next(it) for n in ns}, (x, cfg),
-                                   {"positions": positions, "use_ssd_kernel": use_ssd_kernel})
-        return x
+        block_params = [{n: next(it) for n in ns} for ns in names]
+        tied = {n: next(it) for n in shared_names}
+        shared_fn = (lambda h, c, **kw: functional_call(shared, tied, (h, c), kw)) if tied else None
+        for block, bp in zip(blocks, block_params):
+            x, aux, _ = functional_call(block, bp, (x, cfg), {
+                "positions": positions, "shared": shared_fn, "moe_dispatch": moe_dispatch,
+                "use_ssd_kernel": use_ssd_kernel})
+        return x, _zero(x) if aux is None else aux
 
-    return run, [p for b in blocks for p in b.parameters()]
+    params = [p for b in blocks for p in b.parameters()]
+    if uses_shared:
+        params += list(shared.parameters())
+    return run, params
+
+
+class SharedBlock(nn.Module):
+    """zamba2's weight-tied block, the reference's ``shared_block``: ``ln1``,
+    attention at window 0, ``ln2`` and the dense MLP."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator, device):
+        super().__init__()
+        pdt = getattr(torch, cfg.param_dtype)
+        self.ln1 = RMSNorm(cfg.d_model, device=device, dtype=pdt)
+        self.mixer = L.Attention(cfg, generator=generator, device=device)
+        self.ln2 = RMSNorm(cfg.d_model, device=device, dtype=pdt)
+        self.ffn = L.MLP(cfg.d_model, cfg.d_ff, generator=generator, device=device, dtype=pdt)
+
+    def forward(self, x, cfg, *, positions, cache=None, cache_pos=None):
+        h = self.ln1(x, cfg.norm_eps)
+        att, new_cache = L.attention_apply(self.mixer, h, cfg, positions=positions, window=0,
+                                           cache=cache, cache_pos=cache_pos)
+        x = x + att
+        return x + L.mlp_apply(self.ffn, self.ln2(x, cfg.norm_eps), cfg.act), new_cache
 
 
 class Block(nn.Module):
     """``ln1`` and the mixer (Mamba-2, or attention for ``attn`` and
-    ``attn_local``), then ``ln2`` and the dense MLP when ``ffn == "dense"``."""
+    ``attn_local``), then ``ln2`` and the dense MLP (``ffn == "dense"``) or
+    the MoE layer (``"moe"``). A ``shared_attn`` layer has no mixer: it
+    applies the ``shared`` block it is given, and its own ``ln1``, ``ln2``
+    and ``ffn`` are never read (reference behaviour 23)."""
 
     def __init__(self, cfg: ModelConfig, spec: BlockSpec, *, generator: torch.Generator, device):
         super().__init__()
@@ -132,13 +187,22 @@ class Block(nn.Module):
         self.ln1 = RMSNorm(cfg.d_model, device=device, dtype=pdt)
         if spec.mixer == "mamba":
             self.mixer = S.Mamba2(cfg, generator=generator, device=device)
-        else:
+        elif spec.mixer in ("attn", "attn_local"):
             self.mixer = L.Attention(cfg, generator=generator, device=device)
         if spec.ffn == "dense":
             self.ln2 = RMSNorm(cfg.d_model, device=device, dtype=pdt)
             self.ffn = L.MLP(cfg.d_model, cfg.d_ff, generator=generator, device=device, dtype=pdt)
+        elif spec.ffn == "moe":
+            self.ln2 = RMSNorm(cfg.d_model, device=device, dtype=pdt)
+            self.ffn = L.MoE(cfg, generator=generator, device=device)
 
-    def forward(self, x, cfg, *, positions, cache=None, cache_pos=None, use_ssd_kernel=False):
+    def forward(self, x, cfg, *, positions, cache=None, cache_pos=None, shared=None,
+                moe_dispatch="dense", use_ssd_kernel=False):
+        """Returns (x, the MoE aux loss or None without MoE (the reference's
+        zero: adding it changes no bit), the new cache)."""
+        if self.spec.mixer == "shared_attn":
+            x, new_cache = shared(x, cfg, positions=positions, cache=cache, cache_pos=cache_pos)
+            return x, None, new_cache
         h = self.ln1(x, cfg.norm_eps)
         if self.spec.mixer == "mamba":
             y, new_cache = S.mamba2_apply(self.mixer, h, cfg, state=cache, use_kernel=use_ssd_kernel)
@@ -151,14 +215,18 @@ class Block(nn.Module):
             y, new_cache = L.attention_apply(self.mixer, h, cfg, positions=positions, window=window,
                                              cache=cache, cache_pos=cache_pos)
         x = x + y
+        aux = None
         if self.spec.ffn == "dense":
             x = x + L.mlp_apply(self.ffn, self.ln2(x, cfg.norm_eps), cfg.act)
-        return x, new_cache
+        elif self.spec.ffn == "moe":
+            y, aux = L.moe_apply(self.ffn, self.ln2(x, cfg.norm_eps), cfg, dispatch=moe_dispatch)
+            x = x + y
+        return x, aux, new_cache
 
 
 class LM(nn.Module):
-    """Embedding, the blocks, ``final_norm``, and the tied or untied
-    unembedding."""
+    """Embedding, zamba2's ``shared_block`` where a layer applies it, the
+    blocks, ``final_norm``, and the tied or untied unembedding."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator, device):
         super().__init__()
@@ -170,6 +238,8 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.unembed = dense_linear(cfg.d_model, cfg.padded_vocab, generator=generator,
                                         device=device, dtype=pdt)
+        if any(s.mixer == "shared_attn" for s in cfg.block_specs()):
+            self.shared_block = SharedBlock(cfg, generator=generator, device=device)
         self.layers = nn.ModuleList(
             Block(cfg, spec, generator=generator, device=device) for spec in cfg.block_specs())
 
@@ -184,62 +254,78 @@ class LM(nn.Module):
             logits = logits[..., : cfg.vocab_size]
         return softcap(logits.to(torch.float32), cfg.final_logit_softcap)
 
-    def forward(self, tokens: torch.Tensor, cfg: ModelConfig, *, use_ssd_kernel: bool = False,
-                head: bool = True):
+    def forward(self, tokens: torch.Tensor, cfg: ModelConfig, *, moe_dispatch: str = "dense",
+                use_ssd_kernel: bool = False, head: bool = True):
         """``lm_forward``: what ``torch.func.functional_call`` runs (the
         train step calls the module with the state's params). ``head=False``
         returns the normed hidden state in place of the logits: the train
         step's loss applies the head itself, a chunk of tokens at a time."""
-        return lm_forward(self, tokens, cfg, use_ssd_kernel=use_ssd_kernel, head=head)
+        return lm_forward(self, tokens, cfg, moe_dispatch=moe_dispatch,
+                          use_ssd_kernel=use_ssd_kernel, head=head)
 
     def run(self, x, cfg, *, positions, caches: Optional[List] = None, cache_pos=None,
-            use_ssd_kernel: bool = False):
+            moe_dispatch: str = "dense", use_ssd_kernel: bool = False):
+        """The stack and ``final_norm``: (x, the summed aux, the new caches)."""
         if cfg.remat and caches is None and torch.is_grad_enabled():
-            return self._run_remat(x, cfg, positions=positions, use_ssd_kernel=use_ssd_kernel)
-        new_caches = []
+            return self._run_remat(x, cfg, positions=positions, moe_dispatch=moe_dispatch,
+                                   use_ssd_kernel=use_ssd_kernel)
+        period, n_groups, _ = layer_grouping(cfg)
+        grouped, P = n_groups * len(period), len(period)
+        aux, new_caches = _zero(x), []
         for i, block in enumerate(self.layers):
-            x, nc = block(x, cfg, positions=positions, cache=None if caches is None else caches[i],
-                          cache_pos=cache_pos, use_ssd_kernel=use_ssd_kernel)
+            x, a, nc = block(x, cfg, positions=positions,
+                             cache=None if caches is None else caches[i], cache_pos=cache_pos,
+                             shared=getattr(self, "shared_block", None), moe_dispatch=moe_dispatch,
+                             use_ssd_kernel=use_ssd_kernel)
+            if a is not None and (i >= grouped or i % P == P - 1):  # a group's last, a tail layer
+                aux = aux + a
             new_caches.append(nc)
-        return rmsnorm(x, self.final_norm.scale, cfg.norm_eps), new_caches
+        return rmsnorm(x, self.final_norm.scale, cfg.norm_eps), aux, new_caches
 
-    def _run_remat(self, x, cfg, *, positions, use_ssd_kernel: bool):
+    def _run_remat(self, x, cfg, *, positions, moe_dispatch: str, use_ssd_kernel: bool):
         """The training forward under ``cfg.remat``: ``layer_grouping``'s
         groups each through one :class:`RecomputeGroupFn`, then the tail
         layers plain."""
         period, n_groups, _ = layer_grouping(cfg)
         P = len(period)
+        shared = getattr(self, "shared_block", None)
         if use_ssd_kernel and x.device.type == "cuda" and any(s.mixer == "mamba" for s in period):
             # the groups' forwards run with grad mode off: the SSD kernel's
             # refusal of grad mode (reference behaviour 18) is made here
             build.refuse_grad("ssd_scan", x, *self.layers[0].parameters())
+        aux = _zero(x)
         for g in range(n_groups):
-            run, params = _group_runner(self.layers[g * P:(g + 1) * P], cfg, use_ssd_kernel)
-            x = RecomputeGroupFn.apply(run, positions, x, *params)
+            run, params = _group_runner(self.layers[g * P:(g + 1) * P], shared, cfg, moe_dispatch,
+                                        use_ssd_kernel)
+            x, a = RecomputeGroupFn.apply(run, positions, x, *params)
+            aux = aux + a
         for block in self.layers[n_groups * P:]:
-            x, _ = block(x, cfg, positions=positions, use_ssd_kernel=use_ssd_kernel)
-        return rmsnorm(x, self.final_norm.scale, cfg.norm_eps), [None] * len(self.layers)
+            x, a, _ = block(x, cfg, positions=positions, shared=shared, moe_dispatch=moe_dispatch,
+                            use_ssd_kernel=use_ssd_kernel)
+            if a is not None:
+                aux = aux + a
+        return rmsnorm(x, self.final_norm.scale, cfg.norm_eps), aux, [None] * len(self.layers)
 
 
 def lm_forward(
-    model: LM, tokens: torch.Tensor, cfg: ModelConfig, *, use_ssd_kernel: bool = False,
-    head: bool = True,
+    model: LM, tokens: torch.Tensor, cfg: ModelConfig, *, moe_dispatch: str = "dense",
+    use_ssd_kernel: bool = False, head: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward (scoring). Returns (logits (B, S, vocab) f32, aux),
     or with ``head=False`` (the train step's loss) (the hidden state after
-    ``final_norm`` (B, S, d_model) in the compute dtype, aux)."""
+    ``final_norm`` (B, S, d_model) in the compute dtype, aux); aux is the
+    MoE layers' summed router loss in f32 (0 without MoE)."""
     x = model.embed_tokens(tokens, cfg)
-    x, _ = model.run(x, cfg, positions=torch.arange(x.shape[1], device=x.device),
-                     use_ssd_kernel=use_ssd_kernel)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux, _ = model.run(x, cfg, positions=torch.arange(x.shape[1], device=x.device),
+                          moe_dispatch=moe_dispatch, use_ssd_kernel=use_ssd_kernel)
     return (model.unembed_logits(x, cfg) if head else x), aux
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int, *, device) -> DecodeState:
     """Each layer's SSM state or KV cache, in layer order. A local
     attention layer's cache holds ``min(seq_len, sliding_window)`` tokens,
-    another attention layer's ``min(seq_len, serve_window)`` when that is
-    set, else ``seq_len``."""
+    another attention layer's (a ``shared_attn`` layer's too: each keeps its
+    own) ``min(seq_len, serve_window)`` when that is set, else ``seq_len``."""
     require_ported(cfg)
     dt = getattr(torch, cfg.dtype)
 
@@ -253,26 +339,28 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int, *, device) -> 
 
 
 def lm_prefill(
-    model: LM, state: DecodeState, tokens: torch.Tensor, cfg: ModelConfig
+    model: LM, state: DecodeState, tokens: torch.Tensor, cfg: ModelConfig, *,
+    moe_dispatch: str = "dense",
 ) -> Tuple[torch.Tensor, DecodeState]:
     """One-shot prefill of the prompt (B, S) into every layer's state.
     Returns (last-token logits (B, vocab), the state at position S).
     Consumes ``state``: its KV caches are written in place and returned."""
     x = model.embed_tokens(tokens, cfg)
-    x, new_caches = model.run(x, cfg, positions=torch.arange(x.shape[1], device=x.device),
-                              caches=state["layers"], cache_pos=0)
+    x, _, new_caches = model.run(x, cfg, positions=torch.arange(x.shape[1], device=x.device),
+                                 caches=state["layers"], cache_pos=0, moe_dispatch=moe_dispatch)
     logits = model.unembed_logits(x[:, -1:], cfg)[:, 0]
     return logits, {"pos": tokens.shape[1], "layers": new_caches}
 
 
 def lm_decode_step(
-    model: LM, state: DecodeState, token: torch.Tensor, cfg: ModelConfig
+    model: LM, state: DecodeState, token: torch.Tensor, cfg: ModelConfig, *,
+    moe_dispatch: str = "dense",
 ) -> Tuple[torch.Tensor, DecodeState]:
     """One decode step of token (B, 1): returns (logits (B, vocab), new state).
     Consumes ``state``: its KV caches are written in place and returned."""
     pos = state["pos"]
     x = model.embed_tokens(token, cfg)
-    x, new_caches = model.run(x, cfg, positions=torch.tensor([pos], device=x.device),
-                              caches=state["layers"], cache_pos=pos)
+    x, _, new_caches = model.run(x, cfg, positions=torch.tensor([pos], device=x.device),
+                                 caches=state["layers"], cache_pos=pos, moe_dispatch=moe_dispatch)
     logits = model.unembed_logits(x, cfg)[:, 0]
     return logits, {"pos": pos + 1, "layers": new_caches}

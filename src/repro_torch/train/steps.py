@@ -161,24 +161,19 @@ def lm_loss(
     batch: Dict[str, torch.Tensor],
     cfg: ModelConfig,
     *,
+    moe_dispatch: str = "dense",
     use_ssd_kernel: bool = False,
     z_loss: float = 1e-4,
 ):
-    """Next-token cross-entropy plus the z-loss ``z_loss * mean(lse^2)``, on
+    """Next-token cross-entropy plus the z-loss ``z_loss * mean(lse^2)`` and,
+    for a MoE config, ``router_aux_coef`` times the layers' router aux, on
     f32 logits of ``model`` run with ``params``. Returns (loss, ce). The
     model runs up to ``final_norm`` and :class:`ChunkedHeadFn` applies the
     head, a chunk of tokens at a time: the reference's value, without its
-    (B, S, vocab) f32 logits.
-
-    The reference adds ``router_aux_coef * aux`` for a MoE config; MoE is
-    not ported, so such a config raises ``NotImplementedError``."""
-    if cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name} is a MoE config, and MoE is not ported yet: ROADMAP.md, Queue 1, "
-            "item 11 (moe_apply and its router aux loss)"
-        )
-    x, _ = functional_call(model, params, (batch["tokens"], cfg),
-                           {"use_ssd_kernel": use_ssd_kernel, "head": False})
+    (B, S, vocab) f32 logits."""
+    x, aux = functional_call(model, params, (batch["tokens"], cfg),
+                             {"moe_dispatch": moe_dispatch, "use_ssd_kernel": use_ssd_kernel,
+                              "head": False})
     w = params["embed"] if cfg.tie_embeddings else params["unembed.weight"]
     lse, gold = ChunkedHeadFn.apply(x.reshape(-1, x.shape[-1]), w, batch["labels"].reshape(-1),
                                     cfg.vocab_size, float(cfg.final_logit_softcap or 0.0))
@@ -186,6 +181,8 @@ def lm_loss(
     loss = ce
     if z_loss:
         loss = loss + z_loss * torch.square(lse).mean()
+    if cfg.num_experts:
+        loss = loss + cfg.router_aux_coef * aux
     return loss, ce
 
 
@@ -206,6 +203,7 @@ def build_train_step(
     num_peers: int,
     schedule: Callable[[int], float],
     *,
+    moe_dispatch: str = "dense",
     use_ssd_kernel: bool = False,
     adversary=None,
     device="cuda",
@@ -229,19 +227,20 @@ def build_train_step(
         model = LM(cfg, generator=None, device="meta")  # a skeleton: params come from the state
 
     def loss_fn(params, batch):
-        return lm_loss(model, params, batch, cfg, use_ssd_kernel=use_ssd_kernel)
+        return lm_loss(model, params, batch, cfg, moe_dispatch=moe_dispatch,
+                       use_ssd_kernel=use_ssd_kernel)
 
     return build_p2p_train_step(loss_fn, optimizer, topo, num_peers, schedule, donate=True,
                                 adversary=adversary, device=device)
 
 
-def build_serve_step(cfg: ModelConfig):
+def build_serve_step(cfg: ModelConfig, *, moe_dispatch: str = "dense"):
     """``serve_step(model, state, token) -> (logits, new_state)``: one decode
     step of the port's LM, under ``torch.inference_mode()``. The port keeps
     the weights in the module, where the reference passes params."""
 
     def serve_step(model, state, token):
         with torch.inference_mode():
-            return models.decode_step(model, state, token, cfg)
+            return models.decode_step(model, state, token, cfg, moe_dispatch=moe_dispatch)
 
     return serve_step

@@ -87,11 +87,6 @@ class P2PTrainer:
             raise ValueError(
                 f"backend must be 'serverless' or 'instance', got {backend!r}"
             )
-        if moe_dispatch != "dense":
-            raise NotImplementedError(
-                f"moe_dispatch={moe_dispatch!r}: MoE is not ported yet: ROADMAP.md, Queue 1, "
-                "item 11 (moe_apply and its dispatches)"
-            )
         if graph is not None:
             topo = dataclasses.replace(topo, graph=graph)
         if ef is not None:
@@ -127,8 +122,8 @@ class P2PTrainer:
         self.loss_fn = loss_fn
         if loss_fn is None:
             self._step = build_train_step(cfg, optimizer, step_topo, num_peers, schedule,
-                                          use_ssd_kernel=use_ssd_kernel, adversary=step_adversary,
-                                          device=self.device)
+                                          moe_dispatch=moe_dispatch, use_ssd_kernel=use_ssd_kernel,
+                                          adversary=step_adversary, device=self.device)
         else:
             self._step = build_p2p_train_step(loss_fn, optimizer, step_topo, num_peers, schedule,
                                               adversary=step_adversary, device=self.device)

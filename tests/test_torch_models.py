@@ -146,6 +146,7 @@ def test_same_padding_is_xlas_asymmetric_split():
 def test_lm_family_is_refused():
     import dataclasses
 
-    cfg = dataclasses.replace(get_config("vgg11"), family="moe")  # the dense family is ported
+    # the dense, hybrid and MoE families are ported; the encoder-decoder is not
+    cfg = dataclasses.replace(get_config("vgg11"), family="encdec")
     with pytest.raises(NotImplementedError, match="LM side"):
         models.init_model(cfg, generator=torch.Generator(), device="cpu")

@@ -163,9 +163,16 @@ def test_accounting_matches_reference(arch, exchange):
 
 def test_trainer_refusals():
     cfg = reduced(get_config("qwen2.5-3b"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        P2PTrainer(cfg, adam(), Topology(), 2, lambda s: 1e-3, moe_dispatch="capacity",
-                   device="cpu")
+    # MoE is ported: the capacity dispatch builds; on a MoE config an unknown
+    # dispatch raises the reference's ValueError (its moe_apply's) at the step
+    P2PTrainer(cfg, adam(), Topology(), 2, lambda s: 1e-3, moe_dispatch="capacity", device="cpu")
+    moe = reduced(get_config("granite-moe-3b-a800m"), num_layers=1)
+    trainer = P2PTrainer(moe, adam(), Topology(), 2, lambda s: 1e-3, moe_dispatch="sorted",
+                         device="cpu")
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, moe.vocab_size, (2, 9), generator=torch.Generator().manual_seed(1))
+    with pytest.raises(ValueError, match="unknown moe dispatch 'sorted'"):
+        trainer.step(state, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
     with pytest.raises(ValueError, match="backend must be"):
         P2PTrainer(cfg, adam(), Topology(), 2, lambda s: 1e-3, backend="tpu", device="cpu")
     with pytest.raises(ValueError, match="no scheduler configured"):
