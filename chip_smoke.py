@@ -76,9 +76,12 @@ failure):
              1e-5, 1e-4 where the trim keeps the attacker's row), a 3-layer
              reduced mamba2, a 3-layer reduced gemma2 (S 160 over its
              window of 64), a 3-layer reduced zamba2 (SSD kernel, the shared
-             block's flash) and a 3-layer reduced granite-moe (dense and
-             capacity dispatch) in f32 (forward, prefill logits and states
-             or caches, 8 greedy decode steps); per-peer bank steps of
+             block's flash), a 3-layer reduced granite-moe (dense and
+             capacity dispatch), a reduced whisper-base (2 encoder and 3
+             decoder layers, 64 frames a row) and a 3-layer reduced
+             internvl2-26b (16 patches a row) in f32 (forward, prefill
+             logits and states or caches, whisper's cross K/V too, 8 greedy
+             decode steps); per-peer bank steps of
              squeezenet (``allgather_mean`` and ``async`` K = 2 on the ring
              over 3 steps, ``qsgd(7, 256)`` + EF on the ring for 1), each
              card step from the CPU's state, bounded by the two sides'
@@ -94,8 +97,9 @@ failure):
              backward) and on the CPU: plain SGD at rate 1, each leaf's
              update within 1e-4 of its largest magnitude, and likewise of a
              3-layer reduced mamba2, zamba2 (its shared_attn layer's unread
-             params unmoved on both sides) and granite-moe with each
-             dispatch; the gemma2 and the zamba2 step on the card with
+             params unmoved on both sides), granite-moe with each
+             dispatch, whisper-base (remat on, with frames) and
+             internvl2-26b (with patches); the gemma2 and the zamba2 step on the card with
              ``remat`` on and off: the same loss, the updates within the
              same limit, 5 and 3 (zamba2: 2 and 1) flash forwards; they run just
              before the train paths, because ``build_train_step``
@@ -161,11 +165,20 @@ failure):
              granite-moe-3b-a800m at full width (32 layers, 40 experts, top
              8): scoring on 4 x 2048 with the dense and with the capacity
              dispatch (32 flash launches each) and the serve twin as
-             zamba2's (32 flash launches in prefill). After the profile
-             phase, moonshot-v1-16b-a3b at its published widths with its
-             depth CUT to the layers that fit (``moonshot_depth``: 27 of 48
-             on an 80 GB card, printed): scoring on 1 x 2048 (a flash launch
-             a layer). Launch counters are zeroed before and read after each
+             zamba2's (32 flash launches in prefill). whisper-base at full
+             width and depth (6 encoder and 6 decoder layers, seeded
+             frames of (16, 1500, 512)): scoring on 16 x (1500 frames, 448
+             tokens), 18 flash launches each (6 encoder non-causal, 6
+             decoder causal, 6 cross, 448 queries over 1500 keys), and
+             serving 16 x 4 prompt tokens with their frames and 64 greedy
+             tokens (18 in prefill, 0 in decode). After the profile phase,
+             moonshot-v1-16b-a3b at its published widths with its depth
+             CUT to the layers that fit (``depth_that_fits``: 27 of 48 on
+             an 80 GB card, printed): scoring on 1 x 2048 (a flash launch
+             a layer); internvl2-26b likewise (40 of 48, 48 heads of 128
+             over 8, seeded patches of (1, 256, 6144)): scoring on 1 x (256
+             + 2048) and serving 1 x (256 + 512) and 16 tokens (a flash
+             launch a layer in each forward and prefill). Launch counters are zeroed before and read after each
              run and must equal the counts the path implies. Then the SSD
              kernel is held to its plain version on one layer's own inputs
              from a scoring forward, and the flash kernel on a global and
@@ -215,6 +228,17 @@ failure):
              granite trains at Adam 3e-4, a cut: at the CLI's 3e-3 its
              loss rises, and ``granite_cli_rate`` runs those steps with
              flash's kernels and with its plain version, which must agree.
+             whisper-base trained likewise at 2 peers x 8 x (1500 frames,
+             448 tokens), Adam 3e-3, remat on: 36 flash forwards and 18
+             backwards a step; the backward kernel held to the plain
+             backward on the last step's last encoder layer, last cross
+             attention and last decoder self-attention, with dq held to
+             the backward in f64 (their cotangents are tiny and dq
+             cancels; both rules printed, a skipped key tile must fail
+             each gradient and bf16 products dq), and timed on the first
+             two beside SDPA's backward. The serve_decode example twin
+             (gemma2-2b, mamba2-370m, zamba2-1.2b reduced, 4 x 48 greedy
+             tokens, no launch).
 5. timing  — each kernel, its plain version, the PyTorch call that computes
              the same function where there is one, and the bound, at the
              main path's largest shapes, timed with CUDA events; the select
@@ -236,6 +260,9 @@ failure):
              the SSD scan and the flash forward at the zamba2, granite and
              moonshot scoring shapes and the flash backward at granite's
              train shape, beside their plain versions, bounds and SDPA
+             (printed only); the flash forward at whisper-base's encoder
+             (16, 1500, 8, 64) and cross (448 over 1500) shapes,
+             non-causal, and its decoder's, beside SDPA with the same mask
              (printed only); the per-peer gradients of vgg11 and mobilenet at 4 x 32,
              banked (vmap over the bank), looped over the peers and held
              once, with deterministic cuDNN and with non-deterministic
@@ -337,6 +364,11 @@ GRANITE_FLASH = (2, 2048, 2048, 24, 8, 64)  # granite-moe-3b-a800m's heads: GQA 
 ZAMBA_FLASH = (2, 2048, 2048, 32, 32, 64)  # zamba2-1.2b's shared attention: MHA
 SCORING_BATCH = (4, 2048)  # zamba2 and granite scoring
 MOONSHOT_SEQ = 2048  # moonshot-v1-16b-a3b scoring, 1 sequence
+# whisper-base: scoring rows of (1500 frames, 448 tokens: Whisper's text
+# context, n_text_ctx), a serve prompt of its 4-token start-of-transcript
+# prefix and 64 greedy tokens, and 8 rows per peer on its train path
+WHISPER_ROWS, WHISPER_TEXT, WHISPER_PROMPT, WHISPER_GEN, WHISPER_TRAIN_ROWS = 16, 448, 4, 64, 8
+VLM_TEXT, VLM_PROMPT, VLM_GEN = 2048, 512, 16  # internvl2-26b: scoring tokens, serve prompt, tokens
 TRAIN_PEERS, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 2048, 4, 3e-3  # the LM train paths, per peer batch 1
 
 
@@ -1324,11 +1356,24 @@ def reference_async_phase(torch):
           f"params max_abs_err={worst:.3e}")
 
 
+def stub_inputs(torch, cfg, rows: int, generator, device="cpu") -> dict:
+    """The batch entries beside the tokens that the config's family reads:
+    whisper's frames (rows, encoder_seq, d) and the VLM's patches (rows,
+    vision_tokens, d), f32 normals from ``generator`` (the stubbed
+    frontends' outputs, as the reference's tests draw them); none for the
+    other LMs."""
+    shapes = {"frames": cfg.encoder_seq, "patches": cfg.vision_tokens}
+    return {k: torch.randn((rows, n, cfg.d_model), generator=generator, device=device)
+            for k, n in shapes.items() if n}
+
+
 def reference_lm_phase(torch, arch: str, seq: int, flags: dict):
     """A 3-layer reduced ``arch`` in f32, the same weights (one CPU
     generator seed) on the card and on the CPU: the forward with ``flags``
     (the CPU takes the kernels' plain versions), prefill logits and every layer's state (SSM and convolution
-    states, or the K/V cache), then 8 greedy decode steps. Logits within
+    states, or the K/V cache; whisper's cross K/V too), then 8 greedy
+    decode steps. Whisper's batch carries frames and the VLM's patches
+    (``stub_inputs``). Logits within
     atol 1e-4 + rtol 1e-4 and states within 1e-5 + rtol 1e-5 (f32 products
     summed in other orders by cuBLAS, the kernels and the CPU); greedy
     tokens identical."""
@@ -1342,14 +1387,21 @@ def reference_lm_phase(torch, arch: str, seq: int, flags: dict):
     cfg = dataclasses.replace(reduced(get_config(arch), num_layers=3), dtype="float32")
     cpu_model = models.init_model(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     tokens = torch.randint(0, cfg.vocab_size, (2, seq), generator=torch.Generator().manual_seed(1))
+    extra = stub_inputs(torch, cfg, 2, torch.Generator().manual_seed(2))
+    cache = seq + 9 + (cfg.vision_tokens if "patches" in extra else 0)
     runs = {}
     for device, model in (("cpu", cpu_model), ("cuda", copy.deepcopy(cpu_model).to("cuda"))):
         model.requires_grad_(False)
+        batch = {"tokens": tokens, **{k: v.to(device) for k, v in extra.items()}}
         with torch.inference_mode():
-            logits, _ = models.forward(model, {"tokens": tokens}, cfg, **flags)
-            _, state = models.prefill(model, models.init_decode_state(cfg, 2, seq + 9, device=device),
-                                      {"tokens": tokens}, cfg)
-        res = serve.generate(model, cfg, tokens.to(device), 9)  # prefill, then 8 decode steps
+            logits, _ = models.forward(model, batch, cfg, **flags)
+            _, state = models.prefill(model, models.init_decode_state(cfg, 2, cache, device=device),
+                                      batch, cfg)
+        if extra:  # prefill, then 8 decode steps
+            res = generate_with(torch, model, cfg, tokens.to(device),
+                                {k: v for k, v in batch.items() if k != "tokens"}, 9, cache)
+        else:
+            res = serve.generate(model, cfg, tokens.to(device), 9)
         runs[device] = (logits.cpu(), dict(res, state=state))
     (lc, rc), (lg, rg) = runs["cpu"], runs["cuda"]
     close = lambda a, b, tol: bool(torch.all((a.cpu() - b.cpu()).abs() <= tol + tol * b.cpu().abs()))
@@ -1357,16 +1409,20 @@ def reference_lm_phase(torch, arch: str, seq: int, flags: dict):
     require(close(lg, lc, 1e-4), f"{tag} forward: card vs CPU logits beyond 1e-4")
     require(close(rg["prefill_logits"], rc["prefill_logits"], 1e-4),
             f"{tag} prefill: card vs CPU logits beyond 1e-4")
-    for layer, (sg, sc) in enumerate(zip(rg["state"]["layers"], rc["state"]["layers"])):
+    states = lambda r: r["state"]["self"] + [r["state"]["cross"]] if "self" in r["state"] \
+        else r["state"]["layers"]
+    for layer, (sg, sc) in enumerate(zip(states(rg), states(rc))):
         for k in sc:
             require(close(sg[k], sc[k], 1e-5), f"{tag} layer {layer} {k} state beyond 1e-5")
     require((rg["tokens"] == rc["tokens"]).all(), f"{tag}: greedy tokens differ, card vs CPU")
     err = float((lg - lc).abs().max())
-    print(f"reference check ({tag}, 3 layers, f32, {seq} tokens, card with "
+    print(f"reference check ({tag}, 3 layers, f32, {seq} tokens"
+          f"{''.join(f' + {k} {tuple(v.shape)}' for k, v in extra.items())}, card with "
           f"{flags or 'the flash kernel'} vs CPU): "
           f"forward logits max_abs_err={err:.3e}, prefill logits "
           f"{float((rg['prefill_logits'].cpu() - rc['prefill_logits']).abs().max()):.3e}, "
-          f"states of {sorted(rc['state']['layers'][0])} within 1e-5, "
+          f"states of {sorted(states(rc)[0])} within 1e-5"
+          f"{' (and the cross K/V)' if 'cross' in rc['state'] else ''}, "
           f"8 greedy decode steps identical: {rg['tokens'][0].tolist()}")
 
 
@@ -1390,7 +1446,13 @@ def reference_train_phase(torch):
     a Mamba-2 tail layer; the mamba2 limit; the shared layer's unread params
     must not move on either side, reference behaviour 23) and a 3-layer
     reduced granite-moe-3b-a800m with the dense and with the capacity
-    dispatch (its router aux in the loss)."""
+    dispatch (its router aux in the loss); and a reduced whisper-base (2
+    encoder and 3 decoder layers, remat on: every layer recomputed in the
+    backward, the encoder's gradient through each decoder layer's cross
+    K/V) with 64 frames a row, the mamba2 limit (its decoder's ``ln_cross``
+    scales take updates of 1/75 of the largest, and 1.192e-07 apart on
+    the card), and a 3-layer reduced internvl2-26b with 16 patches a row
+    (``stub_inputs``), the gemma2 limit."""
     import dataclasses
 
     from repro_torch.configs import get_config, reduced
@@ -1401,13 +1463,16 @@ def reference_train_phase(torch):
     for arch, floor, dispatch in (("gemma2-2b", 0.0, "dense"), ("mamba2-370m", 1e-5, "dense"),
                                   ("zamba2-1.2b", 1e-5, "dense"),
                                   ("granite-moe-3b-a800m", 0.0, "dense"),
-                                  ("granite-moe-3b-a800m", 0.0, "capacity")):
-        cfg = dataclasses.replace(reduced(get_config(arch), num_layers=3), dtype="float32")
+                                  ("granite-moe-3b-a800m", 0.0, "capacity"),
+                                  ("whisper-base", 1e-5, "dense"), ("internvl2-26b", 0.0, "dense")):
+        cfg = dataclasses.replace(reduced(get_config(arch), num_layers=3), dtype="float32",
+                                  remat=arch == "whisper-base")
         unread = unread_params(cfg)
         state = init_train_state(torch.Generator().manual_seed(0), cfg, sgd(), device="cpu")
         toks = torch.randint(0, cfg.vocab_size, (2 * TRAIN_PEERS, 161),
                              generator=torch.Generator().manual_seed(1))
-        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                 **stub_inputs(torch, cfg, 2 * TRAIN_PEERS, torch.Generator().manual_seed(2))}
         out = {}
         for device in ("cpu", "cuda"):
             st = state.replace(params={k: p.to(device, copy=True) for k, p in state.params.items()})
@@ -1436,7 +1501,9 @@ def reference_train_phase(torch):
         via = {"gemma2-2b": "flash kernels", "mamba2-370m": "ssd_chunked, no kernel",
                "zamba2-1.2b": "flash kernels and ssd_chunked"}.get(arch, "flash kernels")
         print(f"reference check ({tag} train step, 3 layers, f32, {TRAIN_PEERS} peers x 2 "
-              f"x 160 tokens, card ({via}) vs CPU): loss {lg:.6f} vs {lc:.6f}, every leaf's update "
+              f"x 160 tokens"
+              f"{''.join(f' + {k} {tuple(v.shape)}' for k, v in batch.items() if v.dim() == 3)}, "
+              f"card ({via}) vs CPU): loss {lg:.6f} vs {lc:.6f}, every leaf's update "
               f"within {worst_rel:.3e} of its largest magnitude, {worst:.3f} of its limit (1e-4 of "
               f"it + {floor:g} of the largest update, {top:.3e})"
               + (f"; the {len(unread)} unread params of its shared_attn layers unmoved on both "
@@ -2429,9 +2496,11 @@ def init_lm(torch, arch, cut: str = ""):
     return model, cfg
 
 
-def drive_scoring(torch, mods, model, cfg, tokens, flags: dict, expect: dict):
+def drive_scoring(torch, mods, model, cfg, tokens, flags: dict, expect: dict, extra=None):
     """The scoring forward with ``flags``: a warm-up and 3 timed calls,
-    each launching exactly ``expect``. Returns the launches of all four."""
+    each launching exactly ``expect``; ``extra``: the batch's other entries
+    (whisper's frames, the VLM's patches). Returns the launches of all
+    four."""
     from repro_torch import models
 
     total = dict.fromkeys(KERNELS, 0)
@@ -2442,7 +2511,7 @@ def drive_scoring(torch, mods, model, cfg, tokens, flags: dict, expect: dict):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.inference_mode():
-            logits, aux = models.forward(model, {"tokens": tokens}, cfg, **flags)
+            logits, aux = models.forward(model, {"tokens": tokens, **(extra or {})}, cfg, **flags)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         require(math.isfinite(float(aux)) and (float(aux) > 0) == bool(cfg.num_experts),
@@ -2458,7 +2527,8 @@ def drive_scoring(torch, mods, model, cfg, tokens, flags: dict, expect: dict):
         require(float(logits.abs().max()) <= cfg.final_logit_softcap,
                 f"{cfg.name} logits beyond the final softcap")
     steady = sum(secs[1:]) / 3
-    print(f"path {cfg.name} scoring, {tokens.shape[0]} x {tokens.shape[1]} tokens, "
+    extra_shapes = "".join(f" + {k} {tuple(v.shape)}" for k, v in (extra or {}).items())
+    print(f"path {cfg.name} scoring, {tokens.shape[0]} x {tokens.shape[1]} tokens{extra_shapes}, "
           f"{flags or 'flash kernel'}: "
           f"warm-up {secs[0]:.3f} s, then {steady:.4f} s/forward ({[round(x, 4) for x in secs[1:]]}), "
           f"{tokens.numel() / steady:.0f} tokens/s, peak device memory "
@@ -2467,15 +2537,43 @@ def drive_scoring(torch, mods, model, cfg, tokens, flags: dict, expect: dict):
     return total
 
 
-def drive_serve(torch, mods, model, cfg, prompts, gen: int, expect: dict, what: str):
+def generate_with(torch, model, cfg, prompts, extra: dict, gen: int, cache_len: int):
+    """The serve twin's ``generate`` for a batch that carries more than
+    tokens (whisper's frames, the VLM's patches), which the twin's CLI does
+    not build: prefill of ``prompts`` with ``extra`` into a decode state of
+    ``cache_len`` positions, then ``gen`` greedy tokens, timed likewise."""
+    from repro_torch import models
+
+    with torch.inference_mode():
+        state = models.init_decode_state(cfg, prompts.shape[0], cache_len,
+                                         device=next(model.parameters()).device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = models.prefill(model, state, {"tokens": prompts, **extra}, cfg)
+        out = [logits.argmax(-1)[:, None]]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(gen - 1):
+            step_logits, state = models.decode_step(model, state, out[-1], cfg)
+            out.append(step_logits.argmax(-1)[:, None])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return {"tokens": torch.cat(out, dim=1).cpu().numpy(), "prefill_logits": logits,
+            "prefill_s": t1 - t0, "decode_s": t2 - t1}
+
+
+def drive_serve(torch, mods, model, cfg, prompts, gen: int, expect: dict, what: str,
+                extra=None, cache_len=None):
     """The serve twin's ``generate``: prefill of ``prompts`` (through the
     flash kernel), then ``gen`` greedy tokens, launching exactly
-    ``expect``. Returns (launches, ``generate``'s result)."""
+    ``expect``; with ``extra`` (frames or patches) ``generate_with`` into
+    ``cache_len`` positions. Returns (launches, the generation's result)."""
     from repro_torch.launch import serve
 
     torch.cuda.reset_peak_memory_stats()
     reset_counters(mods)
-    res = serve.generate(model, cfg, prompts, gen)
+    res = (generate_with(torch, model, cfg, prompts, extra, gen, cache_len) if extra
+           else serve.generate(model, cfg, prompts, gen))
     launches = read_counters(mods)
     require(launches == expect, f"{cfg.name} serve {what}: launches {launches} != {expect}")
     B, P = prompts.shape
@@ -2492,20 +2590,22 @@ def drive_serve(torch, mods, model, cfg, prompts, gen: int, expect: dict, what: 
     return launches, res
 
 
-def check_prefill_vs_forward(torch, mods, model, cfg, prompts, prefill_logits, flags, expect):
+def check_prefill_vs_forward(torch, mods, model, cfg, prompts, prefill_logits, flags, expect,
+                             extra=None):
     """Prefill's last logits against the scoring forward's last position on
-    the same prompts, within twice that forward's own bf16 error (its
-    distance from the same forward in f32). The two forwards must launch
-    2 x ``expect``; a check, so kept out of the kernels line."""
+    the same prompts (and ``extra``, the frames or patches the prefill
+    had), within twice that forward's own bf16 error (its distance from the
+    same forward in f32). The two forwards must launch 2 x ``expect``; a
+    check, so kept out of the kernels line."""
     import dataclasses
 
     from repro_torch import models
 
     reset_counters(mods)
     with torch.inference_mode():
-        full, _ = models.forward(model, {"tokens": prompts}, cfg, **flags)
-        full32, _ = models.forward(model, {"tokens": prompts}, dataclasses.replace(cfg, dtype="float32"),
-                                   **flags)
+        batch = {"tokens": prompts, **(extra or {})}
+        full, _ = models.forward(model, batch, cfg, **flags)
+        full32, _ = models.forward(model, batch, dataclasses.replace(cfg, dtype="float32"), **flags)
     launches = read_counters(mods)
     twice = {k: 2 * v for k, v in expect.items()}
     require(launches == twice, f"{cfg.name} prefill check's two forwards: launches {launches} != {twice}")
@@ -2715,38 +2815,49 @@ def drive_gemma(torch, mods):
     return total, err, (model, cfg, tokens, prompts)
 
 
-def check_flash_on_path(torch, mods, model, cfg, tokens, expect, flags=None):
+def check_flash_on_path(torch, mods, model, cfg, tokens, expect, flags=None, extra=None,
+                        layers=None):
     """The flash kernel on the inputs the main path gives it: one more
-    scoring forward with ``flags`` on the same tokens (its launches
-    required and kept out of the kernels line) hands the q, k and v of its
-    first local layer (gemma2-2b's window 4096) and of its first global
-    layer to recorders; the kernel is then held to its plain version on
-    each within ``flash_tolerance``, and the planted faults' distances are
-    printed beside it."""
+    scoring forward with ``flags`` on the same tokens (and ``extra``, the
+    frames or patches; its launches required and kept out of the kernels
+    line) hands to recorders the q, k and v of the first call each of
+    ``layers`` accepts: {name: (a test of the wrapper's (args, kwargs), the
+    (Sq, Skv) it must have)}, by default the first local layer (gemma2-2b's
+    window 4096; required where the config has a sliding window) and the
+    first global layer of a decoder-only LM. Every layer named must be
+    seen; the kernel is then held to its plain version on each within
+    ``flash_tolerance``, and the planted faults' distances are printed
+    beside it."""
     from repro_torch import models
-    from repro_torch.models import layers
+    from repro_torch.models import layers as model_layers
 
+    S_ = tokens.shape[1] + cfg.vision_tokens * ("patches" in (extra or {}))
+    if layers is None:
+        layers = {"the first global layer": (lambda args, kw: kw["window"] == 0, (S_, S_))}
+        if cfg.sliding_window:
+            layers["the first local layer"] = (lambda args, kw: kw["window"] != 0, (S_, S_))
     reset_counters(mods)
-    with recording(layers, "flash_attention", lambda args, kw: kw["window"] == 0) as glob, \
-            recording(layers, "flash_attention", lambda args, kw: kw["window"] != 0) as local, \
-            torch.inference_mode():
-        models.forward(model, {"tokens": tokens}, cfg, **(flags or {}))
+    with contextlib.ExitStack() as stack:
+        seen = {name: stack.enter_context(recording(model_layers, "flash_attention", want))
+                for name, (want, _) in layers.items()}
+        stack.enter_context(torch.inference_mode())
+        models.forward(model, {"tokens": tokens, **(extra or {})}, cfg, **(flags or {}))
     launches = read_counters(mods)
     require(launches == expect, f"{cfg.name} recording forward: launches {launches} != {expect}")
-    require(bool(glob) and bool(local) == bool(cfg.sliding_window),
-            f"{cfg.name} recording forward: {len(glob)} global and {len(local)} local layers seen")
+    require(all(seen.values()), f"{cfg.name} recording forward: layers seen "
+            f"{ {name: len(calls) for name, calls in seen.items()} }")
     worst = 0.0
-    for name, seen in (("the first local layer", local), ("the first global layer", glob)):
-        if not seen:
-            continue
-        (q, k, v), kw = seen[0]
+    for name, (_, (Sq, Skv)) in layers.items():
+        (q, k, v), kw = seen[name][0]
         require(q.dtype == torch.bfloat16
-                and q.shape == (*tokens.shape, cfg.num_heads, cfg.resolved_head_dim),
-                f"the path's flash inputs: {q.dtype} {tuple(q.shape)}")
+                and q.shape == (tokens.shape[0], Sq, cfg.num_heads, cfg.resolved_head_dim)
+                and k.shape[1] == Skv, f"the path's flash inputs at {name}: {q.dtype} "
+                f"q {tuple(q.shape)} k {tuple(k.shape)}")
         with torch.inference_mode():
             worst = max(worst, check_flash(
                 torch, mods["kf"], q, k, v, f"on {name}'s q, k, v of {cfg.name}'s scoring "
-                f"forward {tuple(q.shape)} K={k.shape[2]} {kw}", faults="report", **kw))
+                f"forward {tuple(q.shape)} Skv={k.shape[1]} K={k.shape[2]} {kw}", faults="report",
+                **kw))
     return worst
 
 
@@ -2819,13 +2930,15 @@ def drive_granite(torch, mods):
     return total, err
 
 
-def moonshot_depth(torch, cfg) -> tuple:
-    """moonshot-v1-16b-a3b's depth cut to what fits the card at published
-    widths: its 48 layers hold 28.9 B f32 params (107.6 GiB). Reckoned from
-    the params of one layer and of the rest (embedding, unembedding, final
-    norm) in f32, with 16 GiB kept for the scoring forward (a layer's bf16
-    weights, every expert's activations over the 2048 tokens, the f32
-    logits) and the allocator. Returns (layers, the reckoning as text)."""
+def depth_that_fits(torch, cfg) -> tuple:
+    """The depth of ``cfg`` cut to what fits the card at published widths
+    (moonshot-v1-16b-a3b's 48 layers hold 28.9 B f32 params, 107.6 GiB;
+    internvl2-26b's 19.9 B, 74.1 GiB). Reckoned from the params of one
+    layer and of the rest (embedding, unembedding, final norm, the VLM's
+    projector) in f32, with 16 GiB kept for the scoring forward (a layer's
+    bf16 weights, moonshot's every expert's activations over its 2048
+    tokens, the f32 logits) and the allocator. Returns (layers, the
+    reckoning as text)."""
     import dataclasses
 
     from repro_torch import models
@@ -2844,7 +2957,7 @@ def drive_moonshot(torch, mods):
     """moonshot-v1-16b-a3b at published widths (d_model 2048, 16 heads of
     128, MHA, 64 experts of width 1408, top 6, the always-on shared expert
     of width 2816, vocab 163,840), bf16, its depth CUT to
-    ``moonshot_depth`` layers (the cut printed): scoring ``forward`` on 1 x
+    ``depth_that_fits`` layers (the cut printed): scoring ``forward`` on 1 x
     2048 tokens with the dense dispatch, one flash launch a layer, counted
     in the kernels line; then the flash kernel on the first layer's q, k
     and v (``check_flash_on_path``, kept out of it). Returns (launches,
@@ -2854,7 +2967,7 @@ def drive_moonshot(torch, mods):
     from repro_torch.configs import get_config
 
     full = get_config("moonshot-v1-16b-a3b")
-    layers, why = moonshot_depth(torch, full)
+    layers, why = depth_that_fits(torch, full)
     require(layers >= 1, f"moonshot: no layer fits ({why})")
     cfg = dataclasses.replace(full, num_layers=layers)
     print(f"path {full.name}: depth CUT from {full.num_layers} to {layers} layers, widths as "
@@ -2871,7 +2984,102 @@ def drive_moonshot(torch, mods):
     return total, err
 
 
-def train_bytes(n_params: int, cfg, peers: int, seq: int) -> dict:
+def whisper_layers(cfg, text: int) -> dict:
+    """``check_flash_on_path``'s layers of whisper's scoring forward: its
+    first encoder layer (non-causal, frames x frames), first decoder
+    self-attention (causal, ``text`` x ``text``) and first cross attention
+    (non-causal, ``text`` queries over the frames)."""
+    E = cfg.encoder_seq
+    square = lambda args: args[0].shape[1] == args[1].shape[1]
+    return {"the first encoder layer": (lambda a, kw: not kw["causal"] and square(a), (E, E)),
+            "the first decoder self-attention": (lambda a, kw: kw["causal"], (text, text)),
+            "the first cross attention": (lambda a, kw: not kw["causal"] and not square(a),
+                                          (text, E))}
+
+
+def drive_whisper(torch, mods):
+    """whisper-base at full width and depth (6 encoder and 6 decoder layers,
+    d_model 512, 8 heads of 64, vocab 51,865, 1500 frames), bf16, its
+    frames seeded f32 normals (B, 1500, 512) standing for the stubbed conv
+    frontend. (a) Scoring: ``forward`` on 16 x (1500 frames, 448 tokens,
+    Whisper's text context), 18 flash launches each: 6 in the encoder
+    (non-causal, 1500 x 1500), 6 in the decoder's self-attention (causal)
+    and 6 in its cross attention (non-causal, 448 queries over 1500 keys).
+    (b) Serving: prefill of 16 x 4 prompt tokens (Whisper's
+    start-of-transcript prefix) with their frames, 18 flash launches (the
+    encoder once, every layer's cross K/V written into the state), then 64
+    greedy tokens, none (decode attends through ``attend``), a short
+    warm-up first. The kernels line counts (a) and (b). Then the flash
+    kernel on the first encoder, decoder self- and cross attention's own
+    q, k and v (``check_flash_on_path``) and ``check_prefill_vs_forward``,
+    their launches kept out of that line. Returns (launches, flash
+    error)."""
+    model, cfg = init_lm(torch, "whisper-base")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (WHISPER_ROWS, WHISPER_TEXT), generator=g,
+                           device="cuda")
+    frames = stub_inputs(torch, cfg, WHISPER_ROWS, g, "cuda")
+    expect = dict(dict.fromkeys(KERNELS, 0), flash_attention=cfg.encoder_layers + 2 * cfg.num_layers)
+    total = drive_scoring(torch, mods, model, cfg, tokens, {}, expect, frames)
+    prompts = tokens[:, :WHISPER_PROMPT].contiguous()
+    for gen, what in ((2, "warm-up"),
+                      (WHISPER_GEN, f"batch {WHISPER_ROWS} with {cfg.encoder_seq} frames each")):
+        launches, res = drive_serve(torch, mods, model, cfg, prompts, gen, expect, what, frames,
+                                    WHISPER_PROMPT + gen)
+        for name, count in launches.items():
+            total[name] += count
+    err = check_flash_on_path(torch, mods, model, cfg, tokens, expect, extra=frames,
+                              layers=whisper_layers(cfg, WHISPER_TEXT))
+    check_prefill_vs_forward(torch, mods, model, cfg, prompts, res["prefill_logits"], {}, expect,
+                             frames)
+    del model
+    release(torch)
+    return total, err
+
+
+def drive_internvl2(torch, mods):
+    """internvl2-26b at published widths (d_model 6144, 48 heads of 128
+    over 8 KV heads: GQA groups of 6, d_ff 16,384, vocab 92,553, 256 vision
+    tokens), bf16, its depth CUT to ``depth_that_fits`` layers (the
+    reckoning printed before the model is built), its patches seeded f32
+    normals (B, 256, 6144) standing for the stubbed vision encoder. (a)
+    Scoring: ``forward`` on 1 x (256 patches + 2048 tokens), a flash launch
+    a layer over the 2304 positions. (b) Serving: prefill of 1 x (256 +
+    512), a flash launch a layer, then 16 greedy tokens, none, a short
+    warm-up first. The kernels line counts (a) and (b). Then the flash
+    kernel on the first layer's own q, k and v (``check_flash_on_path``)
+    and ``check_prefill_vs_forward``, their launches kept out of it.
+    Returns (launches, flash error)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    full = get_config("internvl2-26b")
+    layers, why = depth_that_fits(torch, full)
+    require(layers >= 1, f"internvl2: no layer fits ({why})")
+    print(f"path {full.name}: depth CUT from {full.num_layers} to {layers} layers, widths as "
+          f"published ({why})")
+    model, cfg = init_lm(torch, dataclasses.replace(full, num_layers=layers),
+                         f" ({layers} of {full.num_layers} layers)")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, VLM_TEXT), generator=g, device="cuda")
+    patches = stub_inputs(torch, cfg, 1, g, "cuda")
+    expect = dict(dict.fromkeys(KERNELS, 0), flash_attention=layers)
+    total = drive_scoring(torch, mods, model, cfg, tokens, {}, expect, patches)
+    prompts = tokens[:, :VLM_PROMPT].contiguous()
+    for gen, what in ((2, "warm-up"), (VLM_GEN, f"batch 1 after {cfg.vision_tokens} patches")):
+        launches, res = drive_serve(torch, mods, model, cfg, prompts, gen, expect, what, patches,
+                                    cfg.vision_tokens + VLM_PROMPT + gen)
+        for name, count in launches.items():
+            total[name] += count
+    err = check_flash_on_path(torch, mods, model, cfg, tokens, expect, extra=patches)
+    check_prefill_vs_forward(torch, mods, model, cfg, prompts, res["prefill_logits"], {}, expect,
+                             patches)
+    del model
+    release(torch)
+    return total, err
+
+def train_bytes(n_params: int, cfg, peers: int, seq: int, rows: int = 1) -> dict:
     """The train step's device bytes reckoned before it runs, printed beside
     the card's memory. Exact from the config: f32 params and Adam's two
     moments (written in place: ``build_train_step`` donates the state), one
@@ -2894,11 +3102,17 @@ def train_bytes(n_params: int, cfg, peers: int, seq: int) -> dict:
     once in its backward. Without remat the reckoning was 65.32 GiB for
     gemma2-2b at 2 peers x 2048 tokens against a peak of 74.26 GiB
     allocated, on an NVIDIA H100 80GB HBM3 at 700 W: the per-token terms
-    were short by about 60 %."""
+    were short by about 60 %. ``rows``: each peer's batch. Whisper's
+    encoder layers run over its ``encoder_seq`` frames a row, each decoder
+    layer's cross attention adds its q, o and normed input (3 d-wide bf16
+    tensors), its o in f32 and its K/V over the frames; with remat the
+    group inputs are every encoder layer's over the frames and every
+    decoder layer's over the tokens, and the encoder's output, which each
+    decoder group takes as an input, is kept once."""
     from repro_torch.models.transformer import layer_grouping
     from repro_torch.train.steps import LOGITS_CHUNK_BYTES
 
-    tokens, emb = peers * seq, cfg.padded_vocab * cfg.d_model
+    tokens, emb = peers * rows * seq, cfg.padded_vocab * cfg.d_model
 
     def layer(spec):  # (activations, attention o in f32) per token
         act = 14 * cfg.d_model * 2 + {
@@ -2910,6 +3124,22 @@ def train_bytes(n_params: int, cfg, peers: int, seq: int) -> dict:
         return act, cfg.num_heads * cfg.resolved_head_dim * 4
 
     chunk = min(tokens, max(1, LOGITS_CHUNK_BYTES // (4 * cfg.vocab_size))) * cfg.vocab_size * 4
+    if cfg.family == "encdec":
+        frames = peers * rows * cfg.encoder_seq
+        (act, o32), kv = layer(cfg.block_specs()[0]), 2 * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+        live = 1 if cfg.remat else cfg.encoder_layers  # layers alive at once, each stack
+        dec = 1 if cfg.remat else cfg.num_layers
+        weights = 2 * n_params * (live + dec) // (cfg.encoder_layers + cfg.num_layers)
+        parts = {"params and moments": 12 * n_params, "bf16 weights": weights,
+                 "gradient": 4 * n_params, "embedding gradients": 8 * emb,
+                 "attention o in f32": (frames * live + 2 * tokens * dec) * o32,
+                 "activations": frames * live * act
+                 + dec * (tokens * (act + 3 * cfg.d_model * 2) + frames * kv),
+                 "logits": 3 * chunk, "encoder output": frames * cfg.d_model * 2}
+        if cfg.remat:
+            parts["group inputs"] = (cfg.encoder_layers * frames + cfg.num_layers * tokens) \
+                * cfg.d_model * 2
+        return parts
     period, n_groups, rem = layer_grouping(cfg)
     specs = cfg.block_specs()
     live = (period + specs[n_groups * len(period):]) if cfg.remat else specs  # alive at once
@@ -2937,9 +3167,15 @@ def train_launches(cfg) -> dict:
     in the backward's recompute of each remat group (``cfg.remat``: the
     attention layers of ``layer_grouping``'s groups, the tail layers once),
     its backward once per attention layer. Mamba-2 layers launch none
-    (``ssd_chunked``)."""
+    (``ssd_chunked``). Whisper's encoder-decoder: each encoder layer's
+    attention and each decoder layer's self and cross attention, every
+    layer a remat group of its own."""
     from repro_torch.models.transformer import layer_grouping
 
+    if cfg.family == "encdec":
+        calls = cfg.encoder_layers + 2 * cfg.num_layers
+        return {"flash_attention": (2 if cfg.remat else 1) * calls,
+                "flash_attention_backward": calls}
     period, n_groups, rem = layer_grouping(cfg)
     attn = lambda specs: sum(s.mixer != "mamba" for s in specs)
     grouped = n_groups * attn(period)
@@ -2955,12 +3191,14 @@ CUTS = tuple((p, s) for p in range(TRAIN_PEERS, 0, -1) for s in (TRAIN_SEQ, 1024
 
 def drive_train(torch, mods, arch: str, *, steps: int = TRAIN_STEPS, schedule=None,
                 cuts=((TRAIN_PEERS, TRAIN_SEQ),), reckon: bool = True,
-                check_launches: bool = True, recorded: list = None, lr: float = TRAIN_LR):
+                check_launches: bool = True, recorded: dict = None, lr: float = TRAIN_LR,
+                rows: int = 1, extra=None):
     """``arch`` at full width trained through ``train.build_train_step`` on
     the full graph: ``allgather_mean``, Adam at ``lr`` (by default the
     reference CLI's 3e-3) under ``schedule``, by default
-    ``warmup_cosine(lr, steps // 10 + 1, steps)``, TRAIN_PEERS peers x batch 1 x TRAIN_SEQ tokens, ``steps``
-    steps on one fixed batch. The bytes are reckoned and printed first
+    ``warmup_cosine(lr, steps // 10 + 1, steps)``, ``cuts[0]``'s peers x
+    batch ``rows`` x its sequence (by default TRAIN_PEERS x 1 x TRAIN_SEQ
+    tokens), ``steps`` steps on one fixed batch. The bytes are reckoned and printed first
     (``train_bytes``); then each of ``cuts`` (peers, sequence) is tried in
     turn from a fresh state, until one runs its steps without running out
     of memory, and each cut is printed; by default there is none to try,
@@ -2970,15 +3208,20 @@ def drive_train(torch, mods, arch: str, *, steps: int = TRAIN_STEPS, schedule=No
     before and read after each step; ``check_launches=False`` for another
     checkout's port) and give a finite loss; the last loss must be below
     the first, and every leaf must have moved (its first 4096 entries,
-    copied before the first step) but the unread params of the
+    copied before the first step; for an untied ``embed``, the rows of the
+    batch's first 8 distinct tokens: a row no token reads gets no
+    gradient) but the unread params of the
     ``shared_attn`` layers (``unread_params``, reference behaviour 23),
     which must come out bit for bit as they went in, their Adam moments
     zero. ``reckon``: print ``train_bytes``' reckoning (of this checkout's
-    layout). ``recorded``: a list that takes the arguments of the last
-    step's first flash backward launch (``kf._backward``, the backward runs
-    the layers last to first). Prints the peak device memory. Returns the
-    launches of all the steps and the (config, peers, sequence) that
-    ran."""
+    layout). ``recorded``: {name: (a test of ``kf._backward``'s (args,
+    kwargs), a list)}: each list takes the arguments of the last step's
+    first flash backward launch that its test accepts (the backward runs
+    the layers last to first). ``rows``: each peer's batch. ``extra``:
+    ``extra(generator, rows)`` gives the batch's other entries for that
+    many rows (whisper's frames), made once with the tokens. Prints the
+    peak device memory. Returns the launches of all the steps and the
+    (config, peers, sequence) that ran."""
     from repro_torch import models
     from repro_torch.configs import get_config
     from repro_torch.core.p2p import Topology
@@ -2991,8 +3234,8 @@ def drive_train(torch, mods, arch: str, *, steps: int = TRAIN_STEPS, schedule=No
     card = torch.cuda.get_device_properties(0).total_memory
     unread = unread_params(cfg)
     if reckon:
-        parts = train_bytes(n_params, cfg, TRAIN_PEERS, TRAIN_SEQ)
-        print(f"path {arch} train: reckoned bytes at {TRAIN_PEERS} peers x {TRAIN_SEQ} tokens "
+        parts = train_bytes(n_params, cfg, *cuts[0], rows)
+        print(f"path {arch} train: reckoned bytes at {cuts[0][0]} peers x {rows} x {cuts[0][1]} tokens "
               f"(remat={cfg.remat}): { {k: round(v / 2**30, 2) for k, v in parts.items()} } GiB, "
               f"{sum(parts.values()) / 2**30:.2f} GiB in all against the card's "
               f"{card / 2**30:.2f} GiB")
@@ -3001,7 +3244,7 @@ def drive_train(torch, mods, arch: str, *, steps: int = TRAIN_STEPS, schedule=No
     expect = train_launches(cfg)
     total = dict.fromkeys(KERNELS, 0)
     for peers, seq in cuts:
-        if (peers, seq) != (TRAIN_PEERS, TRAIN_SEQ):
+        if (peers, seq) != cuts[0]:
             reckoned = (f" (reckoned {sum(train_bytes(n_params, cfg, peers, seq).values()) / 2**30:.2f} "
                         "GiB)" if reckon else "")
             print(f"path {arch} train: CUT to {peers} peers x {seq} tokens{reckoned}")
@@ -3012,10 +3255,14 @@ def drive_train(torch, mods, arch: str, *, steps: int = TRAIN_STEPS, schedule=No
         torch.cuda.synchronize()
         print(f"path {arch} train: {n_params} params, state initialised in "
               f"{time.perf_counter() - t0:.3f} s ({held / 2**30:.2f} GiB allocated before it)")
-        before = {k: p.reshape(-1)[:4096].clone() for k, p in st.params.items()}
+        toks = torch.randint(0, cfg.vocab_size, (peers * rows, seq + 1), generator=g, device="cuda")
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                 **(extra(g, peers * rows) if extra else {})}
+        read = toks[:, :-1].reshape(-1).unique()[:8]  # rows of an untied embedding that get a gradient
+        sample = lambda k, p: (p[read] if k == "embed" and not cfg.tie_embeddings
+                               else p.reshape(-1)[:4096])
+        before = {k: sample(k, p).clone() for k, p in st.params.items()}
         kept = {k: st.params[k].clone() for k in unread}
-        toks = torch.randint(0, cfg.vocab_size, (peers, seq + 1), generator=g, device="cuda")
-        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
         step = build_train_step(cfg, opt, Topology(), peers, sched)
         losses, secs, lrs, failed = [], [], [], ""
         torch.cuda.reset_peak_memory_stats()
@@ -3024,12 +3271,13 @@ def drive_train(torch, mods, arch: str, *, steps: int = TRAIN_STEPS, schedule=No
                 reset_counters(mods)
                 torch.cuda.synchronize()
                 t = time.perf_counter()
-                with (recording(kf, "_backward") if recorded is not None and i == steps - 1
-                      else contextlib.nullcontext([])) as seen:
+                with contextlib.ExitStack() as stack:
+                    seen = {name: stack.enter_context(recording(kf, "_backward", want))
+                            for name, (want, _) in (recorded or {}).items() if i == steps - 1}
                     st, metrics = step(st, batch)
                 loss = float(metrics["loss"])  # synchronises
-                if seen:
-                    recorded[:] = seen
+                for name, calls in seen.items():
+                    recorded[name][1][:] = calls
                 secs.append(time.perf_counter() - t)
                 launches = read_counters(mods)
                 require(not check_launches or launches == dict(dict.fromkeys(KERNELS, 0), **expect),
@@ -3053,7 +3301,7 @@ def drive_train(torch, mods, arch: str, *, steps: int = TRAIN_STEPS, schedule=No
     require(losses[-1] < losses[0],
             f"{arch} train: the loss did not fall on the repeated batch: {losses}")
     require(all(bool(torch.isfinite(p).all()) for p in st.params.values()), f"{arch} train: non-finite params")
-    still = [k for k, b in before.items() if torch.equal(st.params[k].reshape(-1)[:4096], b)]
+    still = [k for k, b in before.items() if torch.equal(sample(k, st.params[k]), b)]
     require(set(still) == unread, f"{arch} train: {len(still)} of {len(before)} leaves did not "
             f"move: {sorted(set(still) - unread)[:5]}; unread params that moved: "
             f"{sorted(unread - set(still))[:5]}")
@@ -3062,8 +3310,10 @@ def drive_train(torch, mods, arch: str, *, steps: int = TRAIN_STEPS, schedule=No
             f"{arch} train: an unread param of a shared_attn layer changed")
     del kept
     later = (f", then {sum(secs[1:]) / (steps - 1):.4f} s/step ({[round(x, 4) for x in secs[1:]]}), "
-             f"{peers * seq * (steps - 1) / sum(secs[1:]):.0f} tokens/s" if steps > 1 else "")
-    print(f"path {arch} train, {peers} peers x batch 1 x {seq} tokens, adam lr {lr} "
+             f"{peers * rows * seq * (steps - 1) / sum(secs[1:]):.0f} tokens/s" if steps > 1 else "")
+    extra_shapes = "".join(f" + {k} {tuple(v.shape)}" for k, v in batch.items()
+                           if k not in ("tokens", "labels"))
+    print(f"path {arch} train, {peers} peers x batch {rows} x {seq} tokens{extra_shapes}, adam lr {lr} "
           f"{'warmup_cosine' if schedule is None else 'constant'} (rates "
           f"{[round(x, 6) for x in lrs]}): first step {secs[0]:.3f} s{later}, "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (reserved "
@@ -3076,30 +3326,127 @@ def drive_train(torch, mods, arch: str, *, steps: int = TRAIN_STEPS, schedule=No
     return total, (cfg, peers, seq)
 
 
-def hold_bwd_to_plain(torch, kf, seen, what: str, cfg, peers: int, seq: int, softcap: float):
+BWD_F64_MULTIPLE = 4.0  # where dq cancels: its limit's second term, in units of the plain f32's own error
+
+
+def flash_bwd_dq_term_sizes(torch, kf, q, k, v, do, *, causal, softcap, window):
+    """Tq f32, shaped as dq: for each element of dq the sum of the sizes of
+    the terms it sums, taken before the subtraction dP - delta cancels. With
+    p, dP and delta as the plain backward has them (delta_i = sum_j p_ij
+    dP_ij), a_ij = p_ij (|dP_ij| + |delta_i|) |1 - t_ij^2| (no last factor
+    without softcap), Tq_i = scale sum_j a_ij |k_j|."""
+    s, t, valid, qf = kf._masked_scores(q.float(), k.float(), causal=causal, softcap=softcap,
+                                        window=window)
+    p = torch.where(valid, torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True)), 0.0)
+    B, Sq, H, D = q.shape
+    dp = torch.einsum("bqkgd,bskd->bkgqs", do.float().reshape(qf.shape), v.float())
+    a = p * (dp.abs() + (p * dp).sum(-1, keepdim=True).abs())
+    if softcap:
+        a = a * (1 - t * t)
+    return torch.einsum("bkgqs,bskd->bqkgd", a.abs(), k.float().abs()).reshape(B, Sq, H, D) \
+        / math.sqrt(D)
+
+
+def bwd_bf16_products(torch, kf, q, k, v, do, *, causal, softcap, window):
+    """A control that the check on cancelling inputs must reject: the plain
+    backward in f32 with p and dS rounded to bf16 before the products that
+    read them (dv = p^T dO, dq = dS K, dk = dS^T Q), as a kernel that fed
+    its tensor cores bf16 P and dS without splitting them into hi + lo
+    would compute; (dq, dk, dv) rounded to bf16 as the kernel rounds."""
+    s, t, valid, qf = kf._masked_scores(q.float(), k.float(), causal=causal, softcap=softcap,
+                                        window=window)
+    p = torch.where(valid, torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True)), 0.0)
+    B, Sq, H, D = q.shape
+    bf16 = lambda x: x.to(torch.bfloat16).float()
+    dof = do.float().reshape(qf.shape)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, v.float())
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    if softcap:
+        ds = ds * (1 - t * t)
+    ds, scale = bf16(ds), 1.0 / math.sqrt(D)
+    grads = (torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()).reshape(B, Sq, H, D) * scale,
+             torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * scale,
+             torch.einsum("bkgqs,bqkgd->bskd", bf16(p), dof))
+    return tuple(g.to(torch.bfloat16) for g in grads)
+
+
+def hold_bwd_to_plain(torch, kf, seen, what: str, cfg, peers: int, seq: int, softcap: float,
+                      causal_expected: bool = True, kv_seq: int = None, cancels: bool = False):
     """The backward kernel held to the plain backward in f32 on one layer's
     recorded inputs (``kf._backward``'s q, k, v, the o in f32 and lse its
-    forward saved, do; the peers folded into the batch) within
-    ``flash_bwd_tolerance``. Returns the largest error."""
+    forward saved, do; the peers folded into the batch: ``peers`` rows of
+    ``seq`` queries, against ``kv_seq`` keys, by default ``seq``) within
+    ``flash_bwd_tolerance``. Returns the largest error.
+
+    ``cancels`` (whisper's layers, whose cotangents are about 1e-9 to 1e-6
+    and whose dq sums terms thousands of times its own size): there the
+    plain backward in f32 lies tens of times outside 2e-5 max|g| from the
+    same backward in f64, so no f32 sum in another order meets that limit
+    against it. dq is then held to the backward in f64, each element within
+    2^-8 |g| + the larger of 2e-5 max|g| and ``BWD_F64_MULTIPLE`` times the
+    plain f32's own largest distance from f64; dk and dv keep the rule
+    above. Printed beside it: each gradient's reading under each rule, the
+    multiple that the kernel's dq needs, and dq's largest sum of terms'
+    sizes over max|g|. Two controls: a skipped key tile must fail every
+    gradient on its own, and the backward with bf16 products
+    (``bwd_bf16_products``) must fail dq."""
     (q, k, v, o32, lse, do, causal, cap, window), _ = seen[0]
     require(q.dtype == torch.bfloat16 and q.shape == (peers, seq, cfg.num_heads,
-                                                      cfg.resolved_head_dim),
-            f"the path's backward inputs: {q.dtype} {tuple(q.shape)}")
-    require(causal and cap == softcap, f"the path's backward: causal={causal} softcap={cap}")
+                                                      cfg.resolved_head_dim)
+            and k.shape[1] == (kv_seq or seq),
+            f"the path's backward inputs: {q.dtype} q {tuple(q.shape)} k {tuple(k.shape)}")
+    require(causal == causal_expected and cap == softcap,
+            f"the path's backward: causal={causal} softcap={cap}")
     got = kf.FlashAttentionBackwardFn.apply(q, k, v, o32, lse, do, causal, cap, window)
-    ref = kf.flash_attention_backward_plain(*(t.float() for t in (q, k, v, do)), causal=causal,
-                                            softcap=cap, window=window)
+    opts = dict(causal=causal, softcap=cap, window=window)
+    ref = kf.flash_attention_backward_plain(*(t.float() for t in (q, k, v, do)), **opts)
     torch.cuda.synchronize()
-    worst = 0.0
-    for gname, a, r in zip(("dq", "dk", "dv"), got, ref):
-        tol, rule = flash_bwd_tolerance(torch, r, q.dtype)
-        err = (a.float() - r).abs()
+    held = [(r,) + flash_bwd_tolerance(torch, r, q.dtype) for r in ref]
+    if cancels:
+        exact = kf.flash_attention_backward_plain(*(t.double() for t in (q, k, v, do)), **opts)
+        e32 = float((ref[0].double() - exact[0]).abs().max())
+        top = float(exact[0].abs().max())
+        held[0] = (exact[0], 2.0 ** -8 * exact[0].abs() + max(2e-5 * top, BWD_F64_MULTIPLE * e32),
+                   f"2^-8 |g| + max(2e-5 max|g|, {BWD_F64_MULTIPLE:g} x the plain f32's largest "
+                   f"distance {e32:.3e}) of the backward in f64")
+        Skv = k.shape[1]
+        t0, kpos = Skv // 2 // 64 * 64, torch.arange(Skv, device=k.device)
+        planted = [g.to(q.dtype) for g in autograd_of_plain(
+            torch, kf, q, k, v, do, **opts, kv_positions=torch.where(
+                (kpos >= t0) & (kpos < t0 + 64), -1, kpos))]
+        control = bwd_bf16_products(torch, kf, q, k, v, do, **opts)
+        cancel = float(flash_bwd_dq_term_sizes(torch, kf, q, k, v, do, **opts).max()) / top
+    reading = lambda x, r, tol: float(((x.to(r.dtype) - r).abs() / tol).max())
+    worst, notes = 0.0, []
+    for i, (gname, a, (r, tol, rule)) in enumerate(zip(("dq", "dk", "dv"), got, held)):
+        err = (a.to(r.dtype) - r).abs()
         require(bool(torch.all(err <= tol)), f"flash_attention_backward {gname} on {what}'s "
-                f"inputs: max err/limit {float((err / tol).max()):.3f}")
+                f"inputs: max err/limit {float((err / tol).max()):.3f} ({rule})")
         worst = max(worst, float(err.max()))
+        if not cancels:
+            notes.append(rule)
+            continue
+        bad, ctl = reading(planted[i], r, tol), reading(control[i], r, tol)
+        require(bad > 1, f"the backward check on {what} would pass a planted fault (a skipped "
+                f"key tile) in {gname}: max err/limit {bad:.3f}")
+        require(i > 0 or ctl > 1, f"the backward check on {what} would pass dq with bf16 "
+                f"products: max err/limit {ctl:.3f}")
+        old64, _ = flash_bwd_tolerance(torch, exact[i], q.dtype)
+        old32, _ = flash_bwd_tolerance(torch, ref[i], q.dtype)
+        needed = (f", the multiple it needs {float(((err - 2.0 ** -8 * r.abs()).clamp_min(0)).max()) / e32:.2f}"
+                  f" (limit {BWD_F64_MULTIPLE:g}), largest sum of terms' sizes {cancel:.0f} x "
+                  "max|g|" if i == 0 else "")
+        notes.append(f"{gname} {float((err / tol).max()):.3f} of {rule}{needed}; under 2^-8 |g| + "
+                     f"2e-5 max|g| the kernel {reading(a, ref[i], old32):.3f} against the plain "
+                     f"f32 and {reading(a, exact[i], old64):.3f} against f64, the plain f32 "
+                     f"{reading(ref[i], exact[i], old64):.3f} against f64; controls: a skipped key "
+                     f"tile [{t0}, {t0 + 64}) {bad:.1f}, bf16 products {ctl:.1f}"
+                     f"{' (both rejected)' if ctl > 1 else ' (the tile rejected)'}")
     print(f"kernel check flash_attention_backward on {what}'s q, k, v, do of a train step "
-          f"{tuple(q.shape)} K={k.shape[2]} window={window}: max_abs_err={worst:.3e} ({rule} "
-          f"of the plain backward in f32)")
+          f"{tuple(q.shape)} Skv={k.shape[1]} K={k.shape[2]} causal={causal} window={window}: "
+          f"max_abs_err={worst:.3e} ("
+          + (f"{notes[0]} of the plain backward in f32)" if not cancels
+             else "max err/limit " + "; ".join(notes) + ")"))
     return worst
 
 
@@ -3171,7 +3518,8 @@ def drive_slice_train(torch, mods, arch: str):
     from repro_torch.kernels import flash_attention as kf
 
     seen = []
-    counts, (cfg, peers, seq) = drive_train(torch, mods, arch, recorded=seen,
+    counts, (cfg, peers, seq) = drive_train(torch, mods, arch,
+                                            recorded={"last": (lambda args, kw: True, seen)},
                                             lr=SLICE_TRAIN[arch])
     release(torch)
     err = hold_bwd_to_plain(torch, kf, seen, f"{arch}'s last attention layer", cfg, peers, seq,
@@ -3229,6 +3577,128 @@ def granite_cli_rate(torch):
             f"losses {runs} lie {gap:.3e} apart, beyond {tolerance}")
     print(f"path granite-moe-3b-a800m train at the CLI's rate: the two runs' losses within "
           f"{gap:.3e} of each other (relative; limit {tolerance})")
+
+
+def drive_whisper_train(torch, mods):
+    """whisper-base at full width trained through ``train.build_train_step``
+    as the LM train paths (``drive_train``): ``allgather_mean``, Adam at the
+    train paths' 3e-3 under ``warmup_cosine``, remat on as published (every
+    encoder and decoder layer run again in the backward), 2 peers x 8 rows
+    of (1500 frames, 448 tokens), 4 steps on one fixed batch: 36 flash
+    forwards (each of the 18 attention calls and its recompute) and 18
+    backwards a step, the peers folded into the batch. The last step
+    records the flash backward's inputs of the last encoder layer (non-
+    causal, 1500 x 1500), of the last decoder layer's cross attention
+    (448 queries over 1500 keys), whose gradient reaches the encoder
+    through its K/V, and of the last decoder layer's causal self-attention
+    (448 x 448); the backward kernel is then held to the plain backward on
+    each (``hold_bwd_to_plain`` with ``cancels``: their cotangents are tiny
+    and dq cancels, so dq is held to the backward in f64) and timed on the
+    first two (``time_bwd_against_sdpa``). Returns (the launches of the
+    steps, the largest error)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kf
+
+    cfg = get_config("whisper-base")
+    E = cfg.encoder_seq
+    square = lambda args: args[0].shape[1] == args[1].shape[1]
+    encoder, cross, decoder = [], [], []
+    counts, (cfg, peers, seq) = drive_train(
+        torch, mods, "whisper-base", cuts=((TRAIN_PEERS, WHISPER_TEXT),), rows=WHISPER_TRAIN_ROWS,
+        extra=lambda g, rows: stub_inputs(torch, cfg, rows, g, "cuda"),
+        recorded={"encoder": (lambda a, kw: not a[6] and square(a), encoder),
+                  "cross": (lambda a, kw: not a[6] and not square(a), cross),
+                  "decoder": (lambda a, kw: a[6], decoder)})
+    release(torch)
+    rows = peers * WHISPER_TRAIN_ROWS
+    err = 0.0
+    for what, seen, q_seq, kv_seq, causal in (("last encoder layer", encoder, E, E, False),
+                                               ("last cross attention", cross, seq, E, False),
+                                               ("last decoder self-attention", decoder, seq, seq,
+                                                True)):
+        err = max(err, hold_bwd_to_plain(torch, kf, seen, f"whisper-base's {what}", cfg, rows,
+                                         q_seq, 0.0, causal_expected=causal, kv_seq=kv_seq,
+                                         cancels=True))
+        release(torch)
+    for what, seen in (("last encoder layer", encoder), ("last cross attention", cross)):
+        time_bwd_against_sdpa(torch, kf, f"on whisper-base's {what}'s train-step inputs", *seen[0][0][:6])
+    del encoder, cross, decoder
+    release(torch)
+    return counts, err
+
+
+def time_bwd_against_sdpa(torch, kf, what: str, q, k, v, o32, lse, do, causal: bool = False):
+    """The backward kernel (its two launches, from the o in f32 and lse a
+    forward saved), its plain version (plain, kernel, kernel, plain) and
+    the backward of ``scaled_dot_product_attention`` (``is_causal`` as
+    ``causal``, no softcap, no window: the same function, a yardstick the
+    port never calls), on these bf16 inputs, beside the bound. Printed
+    only."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    kern = lambda: kf.FlashAttentionBackwardFn.apply(q, k, v, o32, lse, do, causal, 0.0, 0)
+    plain = lambda: kf.flash_attention_backward_plain(q, k, v, do, causal=causal)
+    leaves = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+    o = sdpa(*leaves, is_causal=causal, enable_gqa=True)
+    lib = lambda: torch.autograd.grad(o, leaves, do.transpose(1, 2), retain_graph=True)
+    lib_err = max(float((a.transpose(1, 2).float() - b.float()).abs().max())
+                  for a, b in zip(lib(), kern()))
+    t_plain1, _ = time_ms(torch, plain, 3)
+    t_kern1, host = time_ms(torch, kern, 20)
+    t_kern2, _ = time_ms(torch, kern, 20)
+    t_plain2, _ = time_ms(torch, plain, 3)
+    t_lib, _ = time_ms(torch, lib, 20)
+    bound, by, nbytes, ops = flash_bound(torch, q, k, 0, backward=True, causal=causal)
+    print(f"timing flash_attention_backward {what} {tuple(q.shape)} Skv={k.shape[1]} "
+          f"K={k.shape[2]} bf16 {'causal' if causal else 'non-causal'}: kernel "
+          f"{t_kern1:.4f}/{t_kern2:.4f} ms, plain {t_plain1:.4f}/{t_plain2:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP at 989.4 TFLOP/s, {nbytes / 1e6:.1f} MB at "
+          f"3.35 TB/s; roofline share {bound / min(t_kern1, t_kern2):.1%}), host enqueue "
+          f"{host * 1e3:.1f} us/call, library scaled_dot_product_attention's backward "
+          f"{t_lib:.4f} ms, max |SDPA - kernel| {lib_err:.3e}")
+    del o, leaves
+    torch.cuda.empty_cache()
+
+
+def whisper_timing(torch, kf):
+    """The flash forward at whisper-base's scoring shapes, bf16, as its
+    scoring forward calls it (under ``torch.inference_mode()``): the
+    encoder's (16, 1500, 8, 64) and the cross attention's 448 queries over
+    1500 keys, both non-causal, and the decoder's causal (16, 448, 8, 64);
+    each beside its plain version, its bound (the pairs its mask keeps:
+    all Sq x Skv without the causal mask) and ``scaled_dot_product_attention``
+    with the same mask, which computes the same function there (no
+    softcap, no window). Printed only: the kernels line keeps the rows of
+    ``flash_timing`` and the train path."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    E, T = 1500, WHISPER_TEXT
+    for what, (Sq, Skv, causal) in (("encoder", (E, E, False)), ("cross attention", (T, E, False)),
+                                    ("decoder self-attention", (T, T, True))):
+        q, k, v = flash_inputs(torch, WHISPER_ROWS, Sq, Skv, 8, 8, 64, torch.bfloat16, seed=6)
+
+        def kern():
+            with torch.inference_mode():
+                return kf.flash_attention(q, k, v, causal=causal)
+
+        qt, kt_, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = lambda: sdpa(qt, kt_, vt, is_causal=causal)
+        lib_err = float((lib().transpose(1, 2).float() - kern().float()).abs().max())
+        t_plain1, _ = time_ms(torch, lambda: kf.flash_attention_plain(q, k, v, causal=causal), 3)
+        t_kern1, host = time_ms(torch, kern, 20)
+        t_kern2, _ = time_ms(torch, kern, 20)
+        t_plain2, _ = time_ms(torch, lambda: kf.flash_attention_plain(q, k, v, causal=causal), 3)
+        t_lib, _ = time_ms(torch, lib, 20)
+        bound, by, nbytes, ops = flash_bound(torch, q, k, 0, causal=causal)
+        print(f"timing flash_attention (whisper-base {what}) {(WHISPER_ROWS, Sq, 8, 64)} Skv={Skv} "
+              f"bf16 {'causal' if causal else 'non-causal'}: kernel {t_kern1:.4f}/{t_kern2:.4f} ms, "
+              f"plain {t_plain1:.4f}/{t_plain2:.4f} ms, bound {bound:.4f} ms ({by}; "
+              f"{ops / 1e9:.2f} GFLOP at 989.4 TFLOP/s, {nbytes / 1e6:.1f} MB at 3.35 TB/s; "
+              f"roofline share {bound / min(t_kern1, t_kern2):.1%}), host enqueue "
+              f"{host * 1e3:.1f} us/call, library scaled_dot_product_attention {t_lib:.4f} ms, "
+              f"max |SDPA - kernel| {lib_err:.3e}")
+        del q, k, v, qt, kt_, vt
+    torch.cuda.empty_cache()
 
 
 def drive_mamba_train(torch, mods):
@@ -3523,6 +3993,33 @@ def drive_example(torch, mods):
     del state
     release(torch)
     return total
+
+
+def drive_serve_decode(torch, mods):
+    """The serve_decode example twin on the card as a user runs it
+    (``python -m repro_torch.examples.serve_decode``): gemma2-2b,
+    mamba2-370m and zamba2-1.2b reduced as the reference's example reduces
+    them, 4 requests x 48 greedy tokens each. Decode launches no kernel
+    (``attend`` over the KV caches, the SSM step), as in the reference;
+    each of its three lines must name its arch and family and give a rate
+    and a sample of tokens in the vocabulary."""
+    import io
+
+    from repro_torch.examples import serve_decode
+
+    out = io.StringIO()
+    reset_counters(mods)
+    with contextlib.redirect_stdout(out):
+        serve_decode.main([])
+    launches = read_counters(mods)
+    lines = out.getvalue().splitlines()
+    require(not any(launches.values()), f"serve_decode twin: launches {launches}")
+    require(len(lines) == len(serve_decode.ARCHS), f"serve_decode twin printed {lines}")
+    for arch, line in zip(serve_decode.ARCHS, lines):
+        sample = [int(x) for x in line.split("sample: [")[1].rstrip("]").split(",")]
+        require(line.startswith(arch) and " tok/s " in line and len(sample) == 10
+                and all(0 <= t < 512 for t in sample), f"serve_decode twin's line: {line}")
+        print(f"path serve_decode twin: {line}")
 
 
 def profile_phase(torch, name, model, cfg, tokens, prompts, flags, bodies):
@@ -3884,20 +4381,26 @@ def ssd_timing(torch, ks):
     return out
 
 
-def flash_bound(torch, q, k, window: int, backward: bool = False):
-    """(bound ms, bound_by, bytes, operations) of causal flash attention on
-    these inputs, pairs = sum_i min(i + 1, window) valid (query, key) pairs
-    (the pairs this run's mask keeps, not the whole square), at the dense
-    bf16 tensor-core rate for bf16 inputs or the fp32 rate for f32, against
-    the bytes at 3.35 TB/s. Forward: q, k, v read and o written once, two
+def flash_bound(torch, q, k, window: int, backward: bool = False, causal: bool = True):
+    """(bound ms, bound_by, bytes, operations) of flash attention on these
+    inputs over the valid (query, key) pairs that this call's mask keeps,
+    not the whole Sq x Skv rectangle: causal, query i keeps min(i + 1, Skv,
+    window) keys (no window: min(i + 1, Skv); S (S + 1) / 2 pairs in all
+    when Sq = Skv); not causal, all Sq x Skv pairs. At the dense bf16
+    tensor-core rate for bf16 inputs or the fp32 rate for f32, against the
+    bytes at 3.35 TB/s. Forward: q, k, v read and o written once, two
     products, 4 D H B operations a pair. ``backward``: q, k, v and do read
     and dq, dk, dv written once, the function's five products (s, dp, dv,
     dq, dk), 10 D H B operations a pair."""
-    B, S_, H, D = q.shape
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
     q_like, k_like, per_pair = (3, 4, 10) if backward else (2, 2, 4)
     nbytes = q_like * q.numel() * q.element_size() + k_like * k.numel() * k.element_size()
-    i = torch.arange(S_, dtype=torch.float64)
-    pairs = float(torch.clamp(i + 1, max=window).sum()) if window else S_ * (S_ + 1) / 2
+    if causal:
+        keys = torch.clamp(torch.arange(Sq, dtype=torch.float64) + 1, max=Skv)
+        pairs = float(torch.clamp(keys, max=window).sum() if window else keys.sum())
+    else:
+        pairs = float(Sq * Skv)
     ops = per_pair * D * H * B * pairs
     rate = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
@@ -4366,6 +4869,8 @@ def main() -> int:
     reference_lm_phase(torch, "mamba2-370m", 40, SSD_FLAGS)
     reference_lm_phase(torch, "gemma2-2b", 160, {})  # 160 > the window of 64
     reference_slice_lm_phase(torch)
+    for arch in ("whisper-base", "internvl2-26b"):  # frames and patches (stub_inputs)
+        reference_lm_phase(torch, arch, 40, {})
     stamp("reference phase")
 
     total = dict.fromkeys(KERNELS, 0)
@@ -4395,7 +4900,10 @@ def main() -> int:
     granite_counts, granite_err = drive_granite(torch, mods)
     errs["flash_attention"] = max(errs["flash_attention"], granite_err)
     stamp("granite-moe-3b-a800m path")
-    for counts in (lm_counts, gemma_counts, zamba_counts, granite_counts):
+    whisper_counts, whisper_err = drive_whisper(torch, mods)
+    errs["flash_attention"] = max(errs["flash_attention"], whisper_err)
+    stamp("whisper-base path")
+    for counts in (lm_counts, gemma_counts, zamba_counts, granite_counts, whisper_counts):
         for name, count in counts.items():
             total[name] += count
 
@@ -4406,6 +4914,7 @@ def main() -> int:
     times.update(flash_timing(torch, kf))
     flash_bwd_timing(torch, kf)
     slice_timing(torch, ks, kf)
+    whisper_timing(torch, kf)
     estimator_timing(torch)
     bank_grad_timing(torch)
     stamp("timing phase")
@@ -4422,6 +4931,9 @@ def main() -> int:
     moon_counts, moon_err = drive_moonshot(torch, mods)
     errs["flash_attention"] = max(errs["flash_attention"], moon_err)
     stamp("moonshot-v1-16b-a3b path")
+    vlm_counts, vlm_err = drive_internvl2(torch, mods)
+    errs["flash_attention"] = max(errs["flash_attention"], vlm_err)
+    stamp("internvl2-26b path")
     # the first train step built switches the allocator to expandable
     # segments (build_train_step): every phase above ran on fixed ones
     reference_train_phase(torch)
@@ -4441,6 +4953,7 @@ def main() -> int:
     stamp("qwen2.5-3b train CLI path")
     ckpt_counts = drive_cli_checkpoint(torch, mods)
     example_counts = drive_example(torch, mods)
+    drive_serve_decode(torch, mods)
     stamp("checkpoint and example paths")
     slice_counts = []
     for arch in ("zamba2-1.2b", "granite-moe-3b-a800m"):
@@ -4451,8 +4964,11 @@ def main() -> int:
         stamp(f"{arch} train path")
     granite_cli_rate(torch)
     stamp("granite-moe-3b-a800m at the CLI's rate")
-    for counts in (moon_counts, train_counts, cli_counts, ckpt_counts, example_counts,
-                   *slice_counts):
+    whisper_train_counts, err = drive_whisper_train(torch, mods)
+    errs["flash_attention_backward"] = max(errs["flash_attention_backward"], err)
+    stamp("whisper-base train path")
+    for counts in (moon_counts, vlm_counts, train_counts, cli_counts, ckpt_counts, example_counts,
+                   *slice_counts, whisper_train_counts):
         for name, count in counts.items():
             total[name] += count
     require(all(total.values()), f"a kernel was never launched on the main path: {total}")

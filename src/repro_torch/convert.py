@@ -29,7 +29,11 @@ is the port's layer ``g * period + j`` and ``tail/r`` its layer
 vectors, ``embed``, and a MoE layer's expert banks ``w_gate``, ``w_up``
 (E, d, f) and ``w_down`` (E, f, d), told from an MLP's linears by their
 rank) is unchanged. zamba2's ``shared_block/...`` leaves are the port's
-``shared_block.*``.
+``shared_block.*``; the VLM's ``projector`` (din, dout) is a linear weight.
+Whisper's encoder-decoder stacks all its encoder layers on the leading axis
+of ``encoder/...`` and its decoder layers on that of ``decoder/...``
+(``decoder/cross/wq``, ``decoder/ln_cross/scale`` among them): layer i is
+the port's ``encoder.i.*`` or ``decoder.i.*``.
 
 ``jax_order`` gives the order of JAX's tree flatten (sorted dict keys,
 list entries by index), which is also the order in which the QSGD wire
@@ -136,7 +140,8 @@ def opt_state_to_jax(state) -> Dict[str, np.ndarray]:
 
 
 _LM_LINEAR = ("in_proj", "out_proj", "unembed", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
-              "router")
+              "router", "projector")
+_ENCDEC_STACKS = ("encoder", "decoder")  # whisper's: every layer on the leading axis
 
 
 def _lm_leaf_to_torch(path: str, arr: np.ndarray):
@@ -165,13 +170,18 @@ def _lm_leaf_to_jax(name: str, t: torch.Tensor):
 
 
 def lm_from_jax(flat: Mapping[str, np.ndarray], cfg: ModelConfig, *, device) -> Dict[str, torch.Tensor]:
-    """Reference LM ``{path: array}`` -> the port's ``LM`` state dict
-    ``{name: float32 tensor}`` on ``device``."""
+    """Reference LM ``{path: array}`` -> the port's ``LM`` (or ``EncDec``)
+    state dict ``{name: float32 tensor}`` on ``device``."""
     period, n_groups, _ = layer_grouping(cfg)
     out = {}
     for path in sorted(flat):
         parts = path.split("/")
-        if parts[0] in ("stack", "tail"):
+        if parts[0] in _ENCDEC_STACKS:
+            rest = "/".join(parts[1:])
+            for i, arr in enumerate(flat[path]):
+                name, t = _lm_leaf_to_torch(rest, arr)
+                out[f"{parts[0]}.{i}.{name}"] = t.to(device)
+        elif parts[0] in ("stack", "tail"):
             slot, rest = int(parts[1]), "/".join(parts[2:])
             if parts[0] == "stack":
                 layers = [(g * len(period) + slot, flat[path][g]) for g in range(n_groups)]
@@ -189,24 +199,30 @@ def lm_from_jax(flat: Mapping[str, np.ndarray], cfg: ModelConfig, *, device) -> 
 def lm_to_jax(
     model_or_params: Union[nn.Module, Mapping[str, torch.Tensor]], cfg: ModelConfig
 ) -> Dict[str, np.ndarray]:
-    """The port's LM (a module or its ``{name: tensor}``) -> the reference's
+    """The port's LM or EncDec (a module or its ``{name: tensor}``) -> the reference's
     flat ``{path: numpy array}``, slot layers stacked on a leading axis; the
     inverse of :func:`lm_from_jax`."""
     params = (dict(model_or_params.named_parameters())
               if isinstance(model_or_params, nn.Module) else dict(model_or_params))
     period, n_groups, _ = layer_grouping(cfg)
     per_layer: Dict[int, Dict[str, np.ndarray]] = {}
+    stacked: Dict[str, Dict[int, np.ndarray]] = {}
     out = {}
     for name, t in params.items():
         parts = name.split(".")
-        if parts[0] == "layers":
+        if parts[0] in _ENCDEC_STACKS:
+            path, arr = _lm_leaf_to_jax(".".join(parts[2:]), t)
+            stacked.setdefault(f"{parts[0]}/{path}", {})[int(parts[1])] = arr
+        elif parts[0] == "layers":
             path, arr = _lm_leaf_to_jax(".".join(parts[2:]), t)
             per_layer.setdefault(int(parts[1]), {})[path] = arr
         else:
             path, arr = _lm_leaf_to_jax(name, t)
             out[path] = arr
+    for path, layers in stacked.items():
+        out[path] = np.stack([layers[i] for i in range(len(layers))])
     P = len(period)
-    for j in range(P):
+    for j in range(P if per_layer else 0):
         for path in per_layer[j]:
             out[f"stack/{j}/{path}"] = np.stack(
                 [per_layer[g * P + j][path] for g in range(n_groups)])

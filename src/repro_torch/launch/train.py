@@ -6,9 +6,12 @@
     PYTHONPATH=src python -m repro_torch.launch.train --full --arch qwen2.5-3b \\
         --data-parallel 2 --batch 2 --seq 2048 --steps 4     # on the card
 
-``--arch`` takes every LM of the port's registry (``configs.LM_ARCHS``:
-the Mamba-2, dense, hybrid and MoE LMs; a MoE layer takes the dense
-dispatch, the reference trainer's default). Where they differ:
+``--arch`` takes the LMs of the port's registry (``configs.LM_ARCHS``:
+the Mamba-2, dense, hybrid and MoE LMs, a MoE layer taking the dense
+dispatch, the reference trainer's default; internvl2 on text alone).
+Like the reference's CLI it builds token-only batches, so whisper-base,
+whose batches need frames, trains through ``train.build_train_step``
+instead. Where they differ:
 
 * ``--data-parallel N`` is the peer count P (default 1, what the reference
   gets on one device): the P peers are a stacked dimension on one card.

@@ -1,5 +1,5 @@
 """Model primitives of the port: the parts of the reference's
-``repro/models/layers.py`` that the Mamba-2, dense, hybrid and MoE LMs use.
+``repro/models/layers.py`` that its LMs and encoder-decoder use.
 
 Parameters are stored in ``param_dtype`` (float32) and cast to the
 config's working dtype (bfloat16) at each use, as in the reference.
@@ -120,41 +120,54 @@ def attention_apply(
     cfg: ModelConfig,
     *,
     positions: torch.Tensor,  # (S,) absolute positions of x
+    causal: bool = True,
     window: int = 0,
     cache: Optional[Cache] = None,  # prefill / decode: {"k", "v"} buffers
     cache_pos: Optional[int] = None,  # decode: the current position
     cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """The reference's ``attention_apply`` for causal self-attention, three
-    routes: the full sequence (no cache), prefill (a cache and S > 1) and
-    decode (a cache and S = 1). Prefill and decode write the cache buffers
-    in place, where the reference returns new ones (a decode step would
-    otherwise copy every layer's whole cache), and return the same buffers.
+    """The reference's ``attention_apply``, self-attention on three routes:
+    the full sequence (no cache), prefill (a cache and S > 1) and decode (a
+    cache and S = 1). Prefill and decode write the cache buffers in place,
+    where the reference returns new ones (a decode step would otherwise copy
+    every layer's whole cache), and return the same buffers.
 
-    The full-sequence and prefill routes go through the flash kernel: their
-    positions are ``arange(S)``, where it computes ``attend``'s function (on
-    the CPU the wrapper takes its plain version). Decode attends over the
-    rolling cache by position, through ``attend``. The reference's
-    ``causal=False`` (whisper's encoder) comes with cross attention."""
-    if cross_kv is not None:
-        raise NotImplementedError(
-            "cross attention is not ported yet: ROADMAP.md, Queue 1, item 11 "
-            "(the encoder-decoder, whisper)"
-        )
+    The full-sequence and prefill routes go through the flash kernel,
+    causal or not (``causal=False`` is whisper's encoder, at window 0):
+    their positions are ``arange(S)``, where it computes ``attend``'s
+    function (on the CPU the wrapper takes its plain version). Decode
+    attends over the rolling cache by position, through ``attend``.
+
+    With ``cross_kv``, the encoder's precomputed K/V (B, Senc, K, hd), it is
+    whisper's cross attention: q from ``wq`` (and ``bq``), no RoPE, every
+    query over every encoder position (``causal=False``), then ``wo``; the
+    cache is returned as given. A decoding step (``cache_pos`` given and S =
+    1) attends through ``attend``, any other call through the flash kernel."""
     B, S, _ = x.shape
     hd, H, K = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
     dt = x.dtype
     q = F.linear(x, attn.wq.weight.to(dt)).reshape(B, S, H, hd)
+    if cfg.qkv_bias:
+        q = q + attn.bq.to(dt).reshape(H, hd)
+    cap = cfg.attn_logit_softcap
+
+    if cross_kv is not None:
+        kx, vx = cross_kv
+        if cache_pos is not None and S == 1:
+            o = attend(q, kx, vx, causal=False, q_positions=positions,
+                       kv_positions=torch.arange(kx.shape[1], device=x.device), softcap_val=cap)
+        else:
+            o = flash_attention(q, kx, vx, causal=False, softcap=cap)
+        return F.linear(o.reshape(B, S, H * hd), attn.wo.weight.to(dt)), cache
+
     k = F.linear(x, attn.wk.weight.to(dt)).reshape(B, S, K, hd)
     v = F.linear(x, attn.wv.weight.to(dt)).reshape(B, S, K, hd)
     if cfg.qkv_bias:
-        q = q + attn.bq.to(dt).reshape(H, hd)
         k = k + attn.bk.to(dt).reshape(K, hd)
         v = v + attn.bv.to(dt).reshape(K, hd)
     if cfg.rope_theta:
         sin, cos = rope_tables(positions, hd, cfg.rope_theta)
         q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
-    cap = cfg.attn_logit_softcap
 
     if cache is not None and S == 1:
         # decode: write this step's K/V into the cache, attend over the cache
@@ -184,7 +197,7 @@ def attention_apply(
         else:
             cache["k"][:, :S] = k.to(cache["k"].dtype)
             cache["v"][:, :S] = v.to(cache["v"].dtype)
-    o = flash_attention(q, k, v, causal=True, softcap=cap, window=window)
+    o = flash_attention(q, k, v, causal=causal, softcap=cap, window=window)
     return F.linear(o.reshape(B, S, H * hd), attn.wo.weight.to(dt)), cache
 
 

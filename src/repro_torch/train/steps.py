@@ -28,7 +28,6 @@ from repro_torch import models
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.p2p import Topology, TrainState, build_p2p_train_step
 from repro_torch.core.simulate import resolve_device
-from repro_torch.models.transformer import LM
 from repro_torch.optim import Optimizer
 
 
@@ -156,7 +155,7 @@ class ChunkedHeadBackwardFn(torch.autograd.Function):
 
 
 def lm_loss(
-    model: LM,
+    model: torch.nn.Module,
     params: Dict[str, torch.Tensor],
     batch: Dict[str, torch.Tensor],
     cfg: ModelConfig,
@@ -170,10 +169,13 @@ def lm_loss(
     f32 logits of ``model`` run with ``params``. Returns (loss, ce). The
     model runs up to ``final_norm`` and :class:`ChunkedHeadFn` applies the
     head, a chunk of tokens at a time: the reference's value, without its
-    (B, S, vocab) f32 logits."""
+    (B, S, vocab) f32 logits. Whisper's batch carries ``frames`` (B, F, d)
+    and the VLM's may carry ``patches`` (B, V, d): the model takes them, and
+    the loss covers the S text positions."""
+    extra = {k: batch[k] for k in ("frames", "patches") if k in batch}
     x, aux = functional_call(model, params, (batch["tokens"], cfg),
                              {"moe_dispatch": moe_dispatch, "use_ssd_kernel": use_ssd_kernel,
-                              "head": False})
+                              "head": False, **extra})
     w = params["embed"] if cfg.tie_embeddings else params["unembed.weight"]
     lse, gold = ChunkedHeadFn.apply(x.reshape(-1, x.shape[-1]), w, batch["labels"].reshape(-1),
                                     cfg.vocab_size, float(cfg.final_logit_softcap or 0.0))
@@ -223,8 +225,8 @@ def build_train_step(
     on its 4th step with 29 GiB reserved but unallocated)."""
     if resolve_device(device).type == "cuda":
         torch._C._accelerator_setAllocatorSettings("expandable_segments:True")
-    with torch.device("meta"):
-        model = LM(cfg, generator=None, device="meta")  # a skeleton: params come from the state
+    with torch.device("meta"):  # a skeleton: params come from the state
+        model = models.init_model(cfg, generator=None, device="meta")
 
     def loss_fn(params, batch):
         return lm_loss(model, params, batch, cfg, moe_dispatch=moe_dispatch,

@@ -382,9 +382,22 @@ def test_init_decode_state_sizes_caches_like_the_reference():
 
 
 def test_unported_dense_features_are_refused():
-    _, cfg = _cfgs("starcoder2-3b", "float32")
-    model = models.init_model(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
-    x = torch.zeros((1, 4, cfg.d_model))
-    attn = model.layers[0].mixer
-    with pytest.raises(NotImplementedError, match="whisper"):
-        L.attention_apply(attn, x, cfg, positions=torch.arange(4), cross_kv=(x, x))
+    """Nothing of the attention layer is refused now: its cross branch
+    (whisper's decoder), on starcoder2's QKV-biased layer (q with its
+    bias, no RoPE), equals the reference's on the same inputs within 1e-6, through the flash wrapper
+    for 4 queries and through ``attend`` for a decoding step."""
+    jcfg, cfg, jparams, model = _pair("starcoder2-3b", "float32")
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(1, 4, cfg.d_model)).astype(np.float32)
+    kv = [rng.normal(size=(1, 12, cfg.num_kv_heads, cfg.resolved_head_dim)).astype(np.float32)
+          for _ in range(2)]
+    p = jax.tree.map(lambda a: a[0], jparams["stack"][0]["mixer"])
+    for rows, cache_pos in ((slice(None), None), (slice(3, 4), 3)):
+        pos = np.arange(4)[rows]
+        theirs, _ = JL.attention_apply(p, jnp.asarray(x[:, rows]), jcfg, positions=jnp.asarray(pos),
+                                       cross_kv=tuple(jnp.asarray(a) for a in kv))
+        with torch.no_grad():
+            ours, _ = L.attention_apply(model.layers[0].mixer, torch.from_numpy(x[:, rows]), cfg,
+                                        positions=torch.from_numpy(pos), cache_pos=cache_pos,
+                                        cross_kv=tuple(torch.from_numpy(a) for a in kv))
+        np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), atol=1e-6, rtol=1e-5)

@@ -1,5 +1,5 @@
-"""The port's twins of ``examples/quickstart.py`` and
-``examples/cost_explorer.py``, on the CPU.
+"""The port's twins of ``examples/quickstart.py``,
+``examples/cost_explorer.py`` and ``examples/serve_decode.py``, on the CPU.
 
 * ``cost_explorer``: every line equals the reference script's, except the
   wire-cost lines of protocols the port has not ported (none now) and the
@@ -13,14 +13,25 @@
 """
 import contextlib
 import io
+import re
 import runpy
 from pathlib import Path
 
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
 import torch
 
+from repro import models as jmodels
+from repro.configs import get_config as jget_config
+from repro.configs import reduced as jreduced
 from repro.core import events as jevents
+from repro.train.checkpoint import _flatten
+from repro_torch import convert, models
+from repro_torch.configs import get_config, reduced
 from repro_torch.core import available_exchanges
-from repro_torch.examples import cost_explorer, quickstart
+from repro_torch.examples import cost_explorer, quickstart, serve_decode
 
 torch.set_num_threads(2)  # the test workers share the CPU with each other
 
@@ -65,3 +76,54 @@ def test_quickstart_runs_one_epoch_on_the_cpu():
     assert "2 lambdas x " in text
     assert "serverless vs instance (t2.large): " in text
     assert "nan" not in text
+
+
+SERVE_GEN = 10  # the example's 48 tokens cut to 10 (its printed sample's length)
+
+
+def _reference_decode(jcfg, params, batch, gen):
+    """The reference example's loop (its untimed first step, then ``gen``
+    greedy steps), keeping each step's logits."""
+    step = jax.jit(lambda p, s, t: jmodels.decode_step(p, s, t, jcfg))
+    state = jmodels.init_decode_state(jcfg, batch, gen + 8)
+    first, state = step(params, state, jnp.ones((batch, 1), jnp.int32))
+    tok, logits = jnp.argmax(first, -1)[:, None].astype(jnp.int32), []
+    for _ in range(gen):
+        out, state = step(params, state, tok)
+        logits.append(np.asarray(out, np.float32))
+        tok = jnp.argmax(out, -1)[:, None].astype(jnp.int32)
+    return np.asarray(first, np.float32), np.stack(logits, 1)
+
+
+@pytest.mark.parametrize("arch", serve_decode.ARCHS)
+def test_serve_decode_twin_holds_to_the_reference_example(arch):
+    example = runpy.run_path(str(ROOT / "examples" / "serve_decode.py"), run_name="example")
+    theirs = _lines(lambda: example["serve"](arch, gen=SERVE_GEN))
+    jcfg = jreduced(jget_config(arch), vocab_size=512)
+    cfg = reduced(get_config(arch), vocab_size=512)
+    params = jmodels.init_model(jax.random.PRNGKey(0), jcfg)  # the example's weights
+    model = models.init_model(cfg, generator=torch.Generator(), device="cpu")
+    model.load_state_dict(convert.lm_from_jax(_flatten(params), cfg, device="cpu"))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        first, toks = serve_decode.serve(arch, gen=SERVE_GEN, device="cpu", model=model)
+    ours = out.getvalue().splitlines()
+    rate = re.compile(r" *\d+\.\d tok/s")
+    assert len(ours) == len(theirs) == 1 and rate.sub("", ours[0]).split("sample")[0] == \
+        rate.sub("", theirs[0]).split("sample")[0]
+    jfirst, jlogits = _reference_decode(jcfg, params, 4, SERVE_GEN)
+    jfirst32, _ = _reference_decode(jreduced(jget_config(arch), vocab_size=512, dtype="float32"),
+                                    params, 4, 1)
+    budget = 2 * np.abs(jfirst - jfirst32).max()  # twice the reference's own bf16 error
+    assert 0 < budget < 0.05 * np.abs(jfirst32).max()
+    np.testing.assert_allclose(first, jfirst, atol=budget, rtol=0)
+    jtoks = jlogits.argmax(-1)
+    sample = [int(t) for t in theirs[0].split("sample: [")[1].rstrip("]").split(",")]
+    assert jtoks[0].tolist() == sample  # the loop above is the example's
+    top2 = np.sort(jlogits, -1)
+    margin = top2[..., -1] - top2[..., -2]
+    for r in range(4):  # up to the first token that parts, which must be a close call
+        for i in range(SERVE_GEN):
+            if toks[r, i] != jtoks[r, i]:
+                assert margin[r, i] <= 2 * budget, (r, i, margin[r, i])
+                break

@@ -189,18 +189,19 @@ def test_weights_round_trip_exactly():
 
 
 def test_unported_families_are_refused():
-    cfg = reduced(get_config("mamba2-370m"))
-    for family, what in (("encdec", "whisper"), ("vlm", "internvl2")):
-        with pytest.raises(NotImplementedError, match=f"item 11.*{what}"):
-            models.init_model(dataclasses.replace(cfg, family=family),
-                              generator=torch.Generator(), device="cpu")
-    # the MoE and hybrid families are ported: they build, leaf for leaf the reference's
-    for arch in ("granite-moe-3b-a800m", "zamba2-1.2b"):
+    """No LM family of the reference is refused now: whisper, internvl2, the
+    MoE and hybrid LMs build, leaf for leaf the reference's (its
+    ``param_count``, every leaf's shape through ``convert``)."""
+    for arch in ("whisper-base", "internvl2-26b", "granite-moe-3b-a800m", "zamba2-1.2b"):
         ours = reduced(get_config(arch))
         shapes = jax.eval_shape(lambda: jmodels.init_model(jax.random.PRNGKey(0),
                                                            jreduced(jget_config(arch))))
         model = models.init_model(ours, generator=torch.Generator(), device="cpu")
         assert models.param_count(model) == sum(x.size for x in jax.tree.leaves(shapes))
+        zeros = _flatten(jax.tree.map(lambda a: np.zeros(a.shape, np.float32), shapes))
+        ported = convert.lm_from_jax(zeros, ours, device="cpu")
+        assert {k: t.shape for k, t in ported.items()} == {
+            k: p.shape for k, p in model.named_parameters()}
 
 
 def test_serve_twin_runs_on_the_cpu(capsys, tmp_path):

@@ -196,9 +196,15 @@ REFERENCE = inspect.getsource(fill_params) + textwrap.dedent(
         for s in range(steps):
             if not (fixed and s):
                 toks = rng.integers(0, cfg.vocab_size, size=(2 * peers, seq + 1)).astype(np.int32)
+                extra = {}  # whisper's frames, the VLM's patches
+                for key, n in (("frames", cfg.encoder_seq), ("patches", cfg.vision_tokens)):
+                    if n:
+                        extra[key] = rng.normal(size=(2 * peers, n, cfg.d_model)).astype(np.float32)
             out[f"batch{s}"] = toks
+            out.update({f"{key}{s}": a for key, a in extra.items()})
             state, m = step(state, {"tokens": jnp.asarray(toks[:, :-1]),
-                                    "labels": jnp.asarray(toks[:, 1:])})
+                                    "labels": jnp.asarray(toks[:, 1:]),
+                                    **{key: jnp.asarray(a) for key, a in extra.items()}})
             losses.append(float(m["loss"]))
             out.update({f"step{s}/params/{k}": v for k, v in _flatten(state.params).items()})
             out.update({f"step{s}/opt/{k}": v for k, v in _flatten(state.opt_state).items()})
@@ -217,7 +223,8 @@ def run_reference_steps(out_dir, arch="qwen2.5-3b", *, steps=STEPS, schedule=SCH
     steps under ``warmup_cosine(*schedule)`` of ``reduced(arch,
     dtype="float32", **overrides)`` from ``fill_params`` (``fill=False``:
     from ``init_train_state``'s own weights), each step on a new batch
-    (``fixed``: all on the first), in a subprocess. Returns a reader of
+    (``fixed``: all on the first; whisper's with normal frames, the VLM's
+    with normal patches), in a subprocess. Returns a reader of
     what it saved: ``read(prefix)`` gives the ``{path: array}`` under
     ``prefix/`` or the array named ``prefix``."""
     path = out_dir / "reference.npz"
@@ -258,7 +265,11 @@ def hold_steps_to_reference(reference, cfg, *, settle=False, **step_kw):
         if settle and s:
             state = _settle(state, reference, s - 1, cfg)
         toks = torch.from_numpy(reference(f"batch{s}")).long()
-        state, metrics = step(state, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        for key, n in (("frames", cfg.encoder_seq), ("patches", cfg.vision_tokens)):
+            if n:
+                batch[key] = torch.from_numpy(reference(f"{key}{s}"))
+        state, metrics = step(state, batch)
         assert metrics["loss"].shape == () and metrics["aux"].shape == (PEERS,)
         losses.append(float(metrics["loss"]))
     np.testing.assert_allclose(losses, reference("loss"), rtol=1e-5)
