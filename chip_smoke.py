@@ -281,6 +281,31 @@ failure):
              device record of a launch it recorded on the host is taken
              again, at most three times in all; the last one is held to the
              rule.
+7. dryrun  — the H100 dry run (``repro_torch.launch.dryrun``) held to the
+             card on five paths the script runs anyway: the train steps
+             of gemma2-2b and zamba2-1.2b (2 peers x 2048, remat; zamba2's
+             weight-tied shared block in every group) and whisper-base's
+             (2 x 8 x (1500, 448)), each one more step after the path's
+             checks, and
+             mamba2-370m's and zamba2-1.2b's scoring forwards (4 x 2048,
+             the SSD kernel; zamba2's flash kernel too), one more forward
+             after their timed ones. Each runs on the card under
+             ``launch.op_analysis.OpCount`` and on the meta device from the
+             same shapes: FLOPs and op bytes equal, each kernel charged as
+             many times, the meta peak within 5 % of
+             ``max_memory_allocated`` (after ``reset_peak_memory_stats``,
+             less what is held beside the run's arguments). Printed: the
+             reckoned time (the larger of the compute and memory terms at
+             989.4 TFLOP/s and 3.35 TB/s) beside the measured s/step or
+             s/forward, the model-FLOPs share of 989.4 TFLOP/s with the
+             card's name and power limit, and the card's memory against
+             ``launch.mesh.HBM_BYTES``. These runs' launches stay out of
+             the kernels line. The two train paths print the meta count's
+             peak and FLOPs before their first step. The kernels' bounds in the timing phase come from the cost
+             functions that the kernels charge and the dry run counts
+             (``repro_torch/kernels/cost.py``), this checkout's in every
+             mode, so the ``SRC`` modes below time an earlier checkout's
+             kernels against the same bounds.
 
 The last two lines of stdout are a ``{"kernels": [...]}`` JSON line and the
 result ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
@@ -330,9 +355,26 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (data sheet)
-BF16_FLOPS = 989.4e12  # H100 SXM dense bf16 on the tensor cores (data sheet)
+
+def _load_by_path(name: str, *parts: str):
+    """A module of this checkout's ``repro_torch`` that imports nothing of
+    the package, loaded by its path: the timing modes import another
+    checkout's ``repro_torch``, and time it against this one's yardsticks."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT.joinpath("src", "repro_torch", *parts))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the H100 SXM's data sheet (HBM bandwidth, fp32 and dense bf16 rates,
+# memory) and every kernel's cost function, which the bounds reckon from
+CARD = _load_by_path("_card_mesh", "launch", "mesh.py")
+COST = _load_by_path("_kernel_cost", "kernels", "cost.py")
+HBM_BYTES_PER_S = CARD.HBM_BW
+FP32_FLOPS = CARD.PEAK_FLOPS_FP32
+BF16_FLOPS = CARD.PEAK_FLOPS_BF16
 S = 127  # QSGD levels on the main path
 BUCKET = 2048  # QSGD bucket on the main path
 FC2 = 4096 * 4096  # vgg11 fc2/w, the largest leaf
@@ -2652,6 +2694,7 @@ def drive_lm(torch, mods):
     tokens = torch.randint(0, cfg.vocab_size, (4, 2048), generator=g, device="cuda")
     expect = dict(dict.fromkeys(KERNELS, 0), ssd_scan=cfg.num_layers)
     total = drive_scoring(torch, mods, model, cfg, tokens, SSD_FLAGS, expect)
+    dryrun_scoring(torch, mods, model, cfg, tokens, SSD_FLAGS, expect)
     prompts = tokens[:, :PROMPT].contiguous()
     for gen, what in ((2, "warm-up"), (GEN, "batch 4")):
         _, res = drive_serve(torch, mods, model, cfg, prompts, gen, dict.fromkeys(KERNELS, 0), what)
@@ -2882,6 +2925,7 @@ def drive_zamba(torch, mods):
     expect = dict(dict.fromkeys(KERNELS, 0), ssd_scan=cfg.num_layers - shared,
                   flash_attention=shared)
     total = drive_scoring(torch, mods, model, cfg, tokens, SSD_FLAGS, expect)
+    dryrun_scoring(torch, mods, model, cfg, tokens, SSD_FLAGS, expect)
     prompts = tokens[:, :PROMPT].contiguous()
     prefill = dict(dict.fromkeys(KERNELS, 0), flash_attention=shared)
     for gen, what in ((2, "warm-up"), (GEN, "batch 4")):
@@ -3079,78 +3123,118 @@ def drive_internvl2(torch, mods):
     release(torch)
     return total, err
 
-def train_bytes(n_params: int, cfg, peers: int, seq: int, rows: int = 1) -> dict:
-    """The train step's device bytes reckoned before it runs, printed beside
-    the card's memory. Exact from the config: f32 params and Adam's two
-    moments (written in place: ``build_train_step`` donates the state), one
-    f32 gradient (the full graph's ``allgather_mean`` takes the gradient of
-    the peers' mean loss: no per-peer bank), the embedding's gradient twice
-    in f32 (the gather's and the tied or untied unembedding's, before they
-    are summed). With ``cfg.remat`` (every published config) the backward
-    keeps each group's input (bf16, d_model wide) and runs one group at a
-    time again: one group's activations and bf16 weights are alive at
-    once, and its attention o in f32; without remat, every layer's.
-    Estimated per token and layer, by the layer's kind: the activations
-    kept for the backward, about 14 bf16 d-wide tensors every layer, 5
-    d_ff-wide ones a dense MLP, 6 (E x f)-wide ones a MoE layer's dense
-    dispatch (every expert's h1, h2, activation, product, gated product
-    and its (token, expert x f) copy) and 5 of the shared expert's width,
-    50 f32 d_inner-wide ones a Mamba-2 layer (the chunked scan's), and an
-    attention layer's o in f32 (a ``shared_attn`` layer's too, with the
-    shared block's MLP); and, for the loss's chunked head, three f32
-    tensors of one chunk's logits (``LOGITS_CHUNK_BYTES`` each) alive at
-    once in its backward. Without remat the reckoning was 65.32 GiB for
-    gemma2-2b at 2 peers x 2048 tokens against a peak of 74.26 GiB
-    allocated, on an NVIDIA H100 80GB HBM3 at 700 W: the per-token terms
-    were short by about 60 %. ``rows``: each peer's batch. Whisper's
-    encoder layers run over its ``encoder_seq`` frames a row, each decoder
-    layer's cross attention adds its q, o and normed input (3 d-wide bf16
-    tensors), its o in f32 and its K/V over the frames; with remat the
-    group inputs are every encoder layer's over the frames and every
-    decoder layer's over the tokens, and the encoder's output, which each
-    decoder group takes as an input, is kept once."""
-    from repro_torch.models.transformer import layer_grouping
-    from repro_torch.train.steps import LOGITS_CHUNK_BYTES
+DRYRUN_ROWS = []  # the dryrun phase's reckoned-against-measured rows, one per path
+DRYRUN_PEAK_TOL = 0.05  # the meta peak against the card's max_memory_allocated, relative
 
-    tokens, emb = peers * rows * seq, cfg.padded_vocab * cfg.d_model
 
-    def layer(spec):  # (activations, attention o in f32) per token
-        act = 14 * cfg.d_model * 2 + {
-            "dense": 5 * cfg.d_ff * 2,
-            "moe": 6 * cfg.num_experts * cfg.d_ff * 2 + 5 * cfg.moe_shared_ff * 2,
-        }.get(spec.ffn, 0)
-        if spec.mixer == "mamba":
-            return act + 50 * cfg.d_inner * 4, 0
-        return act, cfg.num_heads * cfg.resolved_head_dim * 4
+def dryrun_check(torch, what: str, card, meta, held: int, peak: int, secs: float,
+                 model_flops: float) -> None:
+    """Hold the dry run's reckoning of one path (``meta``: its count on the
+    meta device) to the same path counted on the card (``card``, under the
+    same counting mode): FLOPs and op bytes equal, each kernel charged as
+    many times, and the meta peak within ``DRYRUN_PEAK_TOL`` of the card's
+    ``max_memory_allocated`` (``peak``, read after
+    ``reset_peak_memory_stats``) less what was allocated beside the counted
+    run's arguments (``held`` less the arguments' bytes). Prints the
+    reckoned time, the larger of the compute and memory terms at the card's
+    peaks (bf16 tensor cores, HBM), beside the measured ``secs``, and
+    ``model_flops`` over ``secs`` at 989.4 TFLOP/s."""
+    c, m = card.ops, meta.ops
+    calls = lambda k: {name: v[0] for name, v in k.items()}
+    require(c.flops == m.flops and c.op_bytes == m.op_bytes and c.dot_bytes == m.dot_bytes,
+            f"dryrun {what}: meta FLOPs {m.flops}, op bytes {m.op_bytes}, dot bytes {m.dot_bytes} "
+            f"against the card's {c.flops}, {c.op_bytes}, {c.dot_bytes}")
+    require(calls(c.kernels) == calls(m.kernels),
+            f"dryrun {what}: kernels charged {calls(m.kernels)} on meta, {calls(c.kernels)} on the card")
+    beside = held - card.argument_bytes
+    measured = peak - beside
+    rel = m.peak / measured - 1
+    require(abs(rel) <= DRYRUN_PEAK_TOL, f"dryrun {what}: meta peak {m.peak} B against the card's "
+            f"{measured} B ({rel:+.2%}, limit {DRYRUN_PEAK_TOL:.0%})")
+    compute, memory = m.flops / BF16_FLOPS, m.dot_bytes / HBM_BYTES_PER_S
+    share = model_flops / (secs * BF16_FLOPS)
+    row = {"path": what, "flops": m.flops, "op_bytes": m.op_bytes, "meta_peak_gib": m.peak / 2**30,
+           "card_peak_gib": measured / 2**30, "peak_rel": rel, "compute_s": compute,
+           "memory_s": memory, "reckoned_s": max(compute, memory), "measured_s": secs,
+           "unfused_s": m.op_bytes / HBM_BYTES_PER_S, "model_flops": model_flops,
+           "model_flops_share": share}
+    DRYRUN_ROWS.append(row)
+    print(f"dryrun {what}: FLOPs {m.flops} and op bytes {m.op_bytes} on meta = the card's; kernels "
+          f"{calls(m.kernels) or 'none'} on both; peak {m.peak / 2**30:.3f} GiB on meta against "
+          f"{measured / 2**30:.3f} GiB on the card ({rel:+.2%}; max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB less {beside / 2**30:.3f} held beside the arguments); reckoned "
+          f"{row['reckoned_s']:.4f} s (compute {compute:.4f} s at 989.4 TFLOP/s, matrix-product "
+          f"bytes {memory:.4f} s at 3.35 TB/s; every op's bytes {row['unfused_s']:.4f} s) against "
+          f"{secs:.4f} s measured; model FLOPs {model_flops:.4e}, {share:.2%} of 989.4 TFLOP/s "
+          f"({card_line()})", flush=True)
 
-    chunk = min(tokens, max(1, LOGITS_CHUNK_BYTES // (4 * cfg.vocab_size))) * cfg.vocab_size * 4
-    if cfg.family == "encdec":
-        frames = peers * rows * cfg.encoder_seq
-        (act, o32), kv = layer(cfg.block_specs()[0]), 2 * cfg.num_kv_heads * cfg.resolved_head_dim * 2
-        live = 1 if cfg.remat else cfg.encoder_layers  # layers alive at once, each stack
-        dec = 1 if cfg.remat else cfg.num_layers
-        weights = 2 * n_params * (live + dec) // (cfg.encoder_layers + cfg.num_layers)
-        parts = {"params and moments": 12 * n_params, "bf16 weights": weights,
-                 "gradient": 4 * n_params, "embedding gradients": 8 * emb,
-                 "attention o in f32": (frames * live + 2 * tokens * dec) * o32,
-                 "activations": frames * live * act
-                 + dec * (tokens * (act + 3 * cfg.d_model * 2) + frames * kv),
-                 "logits": 3 * chunk, "encoder output": frames * cfg.d_model * 2}
-        if cfg.remat:
-            parts["group inputs"] = (cfg.encoder_layers * frames + cfg.num_layers * tokens) \
-                * cfg.d_model * 2
-        return parts
-    period, n_groups, rem = layer_grouping(cfg)
-    specs = cfg.block_specs()
-    live = (period + specs[n_groups * len(period):]) if cfg.remat else specs  # alive at once
-    weights = 2 * n_params * len(live) // cfg.num_layers
-    parts = {"params and moments": 12 * n_params, "bf16 weights": weights,
-             "gradient": 4 * n_params, "embedding gradients": 8 * emb,
-             "attention o in f32": tokens * sum(layer(s)[1] for s in live),
-             "activations": tokens * sum(layer(s)[0] for s in live), "logits": 3 * chunk}
-    if cfg.remat:
-        parts["group inputs"] = tokens * n_groups * cfg.d_model * 2
-    return parts
+
+def dryrun_train(torch, cfg, step, st, batch, meta, peers: int, rows: int, seq: int,
+                 secs: float):
+    """One more train step of ``step`` on the card under the counting mode
+    (``launch.dryrun.count_train_step``) on contiguous copies of ``batch``,
+    as ``launch.dryrun.on_meta`` makes the meta batch, beside ``meta``, the
+    dry run's count of the same step on meta; ``dryrun_check``. Returns the
+    state."""
+    from repro_torch.launch import dryrun as D
+
+    cbatch = {k: v.contiguous() for k, v in batch.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    card, (st, metrics) = D.count_train_step(step, st, cbatch)
+    require(math.isfinite(float(metrics["loss"])), f"dryrun {cfg.name} train: non-finite loss")
+    peak = torch.cuda.max_memory_allocated()
+    tokens = peers * rows * seq
+    dryrun_check(torch, f"{cfg.name} train step, {peers} peers x {rows} x {seq} tokens", card, meta,
+                 held, peak, secs, 6 * cfg.active_param_count() * tokens)
+    return st
+
+
+def dryrun_scoring(torch, mods, model, cfg, tokens, flags: dict, expect: dict) -> None:
+    """The scoring forward with ``flags`` timed twice (the faster kept) and
+    run once more under the counting mode (``launch.dryrun.count_forward``;
+    its launches must be ``expect`` and stay out of the kernels line),
+    beside the dry run's count of the same forward on meta (``meta_model``
+    and the tokens' shape); ``dryrun_check``."""
+    from repro_torch import models
+    from repro_torch.launch import dryrun as D
+
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            models.forward(model, {"tokens": tokens}, cfg, **flags)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    meta, _ = D.count_forward(D.meta_model(cfg), D.on_meta({"tokens": tokens}), cfg, **flags)
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counters(mods)
+    card, (logits, _) = D.count_forward(model, {"tokens": tokens}, cfg, **flags)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_counters(mods)
+    require(launches == expect and bool(torch.isfinite(logits).all()),
+            f"dryrun {cfg.name} scoring: launches {launches} != {expect}, or logits not finite")
+    del logits
+    dryrun_check(torch, f"{cfg.name} scoring, {tokens.shape[0]} x {tokens.shape[1]} tokens, {flags}",
+                 card, meta, held, peak, min(secs), 2 * cfg.active_param_count() * tokens.numel())
+
+
+def dryrun_phase(torch) -> None:
+    """The dryrun phase's close: the card's memory against
+    ``launch.mesh.HBM_BYTES`` and the rows of the paths held (the train
+    steps of gemma2-2b, zamba2-1.2b and whisper-base, mamba2-370m's and
+    zamba2-1.2b's scoring), all five required."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"dryrun card: total_memory {total} B ({total / 1e9:.2f} GB) against launch.mesh's "
+          f"HBM_BYTES {CARD.HBM_BYTES:.0f} B; peaks used {BF16_FLOPS / 1e12:.1f} TFLOP/s bf16, "
+          f"{FP32_FLOPS / 1e12:.1f} fp32, {HBM_BYTES_PER_S / 1e12:.2f} TB/s ({card_line()})")
+    require(len(DRYRUN_ROWS) == 5, f"dryrun: {len(DRYRUN_ROWS)} of 5 paths held")
+    print(f"dryrun rows: {json.dumps(DRYRUN_ROWS)}")
 
 
 def release(torch) -> None:
@@ -3190,16 +3274,15 @@ CUTS = tuple((p, s) for p in range(TRAIN_PEERS, 0, -1) for s in (TRAIN_SEQ, 1024
 
 
 def drive_train(torch, mods, arch: str, *, steps: int = TRAIN_STEPS, schedule=None,
-                cuts=((TRAIN_PEERS, TRAIN_SEQ),), reckon: bool = True,
+                cuts=((TRAIN_PEERS, TRAIN_SEQ),),
                 check_launches: bool = True, recorded: dict = None, lr: float = TRAIN_LR,
-                rows: int = 1, extra=None):
+                rows: int = 1, extra=None, dryrun: bool = False):
     """``arch`` at full width trained through ``train.build_train_step`` on
     the full graph: ``allgather_mean``, Adam at ``lr`` (by default the
     reference CLI's 3e-3) under ``schedule``, by default
     ``warmup_cosine(lr, steps // 10 + 1, steps)``, ``cuts[0]``'s peers x
     batch ``rows`` x its sequence (by default TRAIN_PEERS x 1 x TRAIN_SEQ
-    tokens), ``steps`` steps on one fixed batch. The bytes are reckoned and printed first
-    (``train_bytes``); then each of ``cuts`` (peers, sequence) is tried in
+    tokens), ``steps`` steps on one fixed batch. Each of ``cuts`` (peers, sequence) is tried in
     turn from a fresh state, until one runs its steps without running out
     of memory, and each cut is printed; by default there is none to try,
     and running out of memory fails the run. The step writes the new params
@@ -3213,8 +3296,11 @@ def drive_train(torch, mods, arch: str, *, steps: int = TRAIN_STEPS, schedule=No
     gradient) but the unread params of the
     ``shared_attn`` layers (``unread_params``, reference behaviour 23),
     which must come out bit for bit as they went in, their Adam moments
-    zero. ``reckon``: print ``train_bytes``' reckoning (of this checkout's
-    layout). ``recorded``: {name: (a test of ``kf._backward``'s (args,
+    zero. ``dryrun``: the step reckoned before it runs by this checkout's
+    dry run on meta (``launch.dryrun.meta_train`` on the batch's shapes:
+    its peak and FLOPs printed), and one more step after the checks,
+    counted on the card and held to that count (``dryrun_train``), its
+    launches left out of the returned ones. ``recorded``: {name: (a test of ``kf._backward``'s (args,
     kwargs), a list)}: each list takes the arguments of the last step's
     first flash backward launch that its test accepts (the backward runs
     the layers last to first). ``rows``: each peer's batch. ``extra``:
@@ -3233,21 +3319,13 @@ def drive_train(torch, mods, arch: str, *, steps: int = TRAIN_STEPS, schedule=No
     n_params = models.param_count(models.init_model(cfg, generator=None, device="meta"))
     card = torch.cuda.get_device_properties(0).total_memory
     unread = unread_params(cfg)
-    if reckon:
-        parts = train_bytes(n_params, cfg, *cuts[0], rows)
-        print(f"path {arch} train: reckoned bytes at {cuts[0][0]} peers x {rows} x {cuts[0][1]} tokens "
-              f"(remat={cfg.remat}): { {k: round(v / 2**30, 2) for k, v in parts.items()} } GiB, "
-              f"{sum(parts.values()) / 2**30:.2f} GiB in all against the card's "
-              f"{card / 2**30:.2f} GiB")
     opt = adam()
     sched = schedule or warmup_cosine(lr, steps // 10 + 1, steps)
     expect = train_launches(cfg)
     total = dict.fromkeys(KERNELS, 0)
     for peers, seq in cuts:
         if (peers, seq) != cuts[0]:
-            reckoned = (f" (reckoned {sum(train_bytes(n_params, cfg, peers, seq).values()) / 2**30:.2f} "
-                        "GiB)" if reckon else "")
-            print(f"path {arch} train: CUT to {peers} peers x {seq} tokens{reckoned}")
+            print(f"path {arch} train: CUT to {peers} peers x {seq} tokens")
         g = torch.Generator(device="cuda").manual_seed(0)
         t0 = time.perf_counter()
         held = torch.cuda.memory_allocated()
@@ -3258,6 +3336,13 @@ def drive_train(torch, mods, arch: str, *, steps: int = TRAIN_STEPS, schedule=No
         toks = torch.randint(0, cfg.vocab_size, (peers * rows, seq + 1), generator=g, device="cuda")
         batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
                  **(extra(g, peers * rows) if extra else {})}
+        if dryrun:  # the dry run's reckoning: the same step on the batch's shapes, on meta
+            from repro_torch.launch import dryrun as D
+
+            meta = D.meta_train(cfg, peers, rows, seq, batch=D.on_meta(batch))[0]
+            print(f"path {arch} train: reckoned by the dry run at {peers} peers x {rows} x {seq} "
+                  f"tokens (remat={cfg.remat}): peak {meta.ops.peak / 2**30:.2f} GiB against the "
+                  f"card's {card / 2**30:.2f} GiB, {meta.ops.flops:.4e} FLOPs a step")
         read = toks[:, :-1].reshape(-1).unique()[:8]  # rows of an untied embedding that get a gradient
         sample = lambda k, p: (p[read] if k == "embed" and not cfg.tie_embeddings
                                else p.reshape(-1)[:4096])
@@ -3323,6 +3408,12 @@ def drive_train(torch, mods, arch: str, *, steps: int = TRAIN_STEPS, schedule=No
           + (f"the other {len(before) - len(unread)} leaves moved, the {len(unread)} unread params "
              "of the shared_attn layers bit for bit as initialised, their moments 0"
              if unread else f"all {len(before)} leaves moved"))
+    if dryrun:
+        reset_counters(mods)
+        st = dryrun_train(torch, cfg, step, st, batch, meta, peers, rows, seq,
+                          sum(secs[1:]) / (steps - 1))
+        require(read_counters(mods) == dict(dict.fromkeys(KERNELS, 0), **expect),
+                f"dryrun {arch} train step: launches {read_counters(mods)}, expected {expect}")
     return total, (cfg, peers, seq)
 
 
@@ -3514,13 +3605,14 @@ def drive_slice_train(torch, mods, arch: str):
     default), remat on as published, its last step recording its last
     attention layer's flash backward; the backward kernel is then held to
     the plain backward on those inputs (``hold_bwd_to_plain``, no softcap).
+    zamba2-1.2b's step is held to the dry run's count too (``dryrun``).
     Returns (the launches of the steps, the largest error)."""
     from repro_torch.kernels import flash_attention as kf
 
     seen = []
     counts, (cfg, peers, seq) = drive_train(torch, mods, arch,
                                             recorded={"last": (lambda args, kw: True, seen)},
-                                            lr=SLICE_TRAIN[arch])
+                                            lr=SLICE_TRAIN[arch], dryrun=arch == "zamba2-1.2b")
     release(torch)
     err = hold_bwd_to_plain(torch, kf, seen, f"{arch}'s last attention layer", cfg, peers, seq,
                             cfg.attn_logit_softcap)
@@ -3605,7 +3697,7 @@ def drive_whisper_train(torch, mods):
     encoder, cross, decoder = [], [], []
     counts, (cfg, peers, seq) = drive_train(
         torch, mods, "whisper-base", cuts=((TRAIN_PEERS, WHISPER_TEXT),), rows=WHISPER_TRAIN_ROWS,
-        extra=lambda g, rows: stub_inputs(torch, cfg, rows, g, "cuda"),
+        extra=lambda g, rows: stub_inputs(torch, cfg, rows, g, "cuda"), dryrun=True,
         recorded={"encoder": (lambda a, kw: not a[6] and square(a), encoder),
                   "cross": (lambda a, kw: not a[6] and not square(a), cross),
                   "decoder": (lambda a, kw: a[6], decoder)})
@@ -3867,11 +3959,7 @@ def drive_cli_train(torch, mods):
 
     cfg = get_config("qwen2.5-3b")
     n_params = models.param_count(models.init_model(cfg, generator=None, device="meta"))
-    parts = train_bytes(n_params, cfg, TRAIN_PEERS, TRAIN_SEQ)
-    print(f"path qwen2.5-3b train CLI: {n_params} params, reckoned bytes at {TRAIN_PEERS} peers x "
-          f"{TRAIN_SEQ} tokens (remat={cfg.remat}): "
-          f"{ {k: round(v / 2**30, 2) for k, v in parts.items()} } GiB, "
-          f"{sum(parts.values()) / 2**30:.2f} GiB in all")
+    print(f"path qwen2.5-3b train CLI: {n_params} params")
     expect = dict(dict.fromkeys(KERNELS, 0), **train_launches(cfg))
     losses, secs, before, seen = [], [], {}, []
 
@@ -4099,22 +4187,22 @@ def timing_phase(torch, kq, kt, only=None):
     idx64 = idx4.reshape(-1).long()
     k = FC2_K
     cases = (
-        # name, kernel, plain, library call, bytes, fp32 operations
+        # name, kernel, plain, library call, (fp32 operations, bytes): the kernel's cost function
         ("qsgd_quantize", lambda: kq.qsgd_quantize(x, u, S), lambda: kq.quantize_plain(x, u, S),
-         None, 9 * n + 4 * rows, 13 * n),
+         None, COST.qsgd_quantize_cost(rows, BUCKET)),
         ("qsgd_dequantize", lambda: kq.qsgd_dequantize(lev, nrm, S),
-         lambda: kq.dequantize_plain(lev, nrm, S), None, 5 * n + 4 * rows, n + rows),
+         lambda: kq.dequantize_plain(lev, nrm, S), None, COST.qsgd_dequantize_cost(rows, BUCKET)),
         ("qsgd_dequant_reduce", lambda: kq.qsgd_dequant_reduce(lev4, nrm4, w4, S),
          lambda: kq.dequant_reduce_plain(lev4, nrm4, w4, S), None,
-         PEERS * n + 4 * PEERS * rows + 4 * PEERS + 4 * n, 2 * PEERS * n + 2 * PEERS * rows),
+         COST.qsgd_dequant_reduce_cost(PEERS, rows, BUCKET)),
         # library: the same function at uniform weights, up to the atomics' summation order
         ("topk_scatter_accum", lambda: kt.topk_scatter_accum(vals4, idx4, w4, n),
          lambda: kt.scatter_accum_plain(vals4, idx4, w4, n),
          lambda: torch.zeros((n,), device="cuda").index_add_(0, idx64, vals4.view(-1), alpha=1 / PEERS),
-         8 * PEERS * k + 4 * PEERS + 4 * n, 2 * PEERS * k),
+         COST.topk_scatter_cost(PEERS, k, 1, n)),
     )
     out = {}
-    for name, kern, plain, library, nbytes, ops in cases:
+    for name, kern, plain, library, (ops, nbytes) in cases:
         if only and name != only:
             continue
         iters = 50
@@ -4180,7 +4268,7 @@ def select_timing(torch, kt):
         t_kern2, host2 = time_ms(torch, kern, iters)
         t_plain2, _ = time_ms(torch, plain, iters)
         t_lib, _ = time_ms(torch, library, iters)
-        nbytes = rows * (4 * n + 8 * k)
+        nbytes = COST.topk_select_cost(rows, n, k)[1]
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         row = {"ms": min(t_kern1, t_kern2), "plain_ms": min(t_plain1, t_plain2), "bound_ms": bound,
                "bound_by": "bytes", "library_ms": t_lib}
@@ -4194,7 +4282,7 @@ def select_timing(torch, kt):
     step = lambda: [bank(x, topk_k(x.shape[1])) for x in leaves]
     t_step, host_step = time_ms(torch, step, 2)
     t_lib, _ = time_ms(torch, lambda: [torch.topk(x.abs(), topk_k(x.shape[1]), dim=1) for x in leaves], 2)
-    nbytes = sum(PEERS * (4 * x.shape[1] + 8 * topk_k(x.shape[1])) for x in leaves)
+    nbytes = sum(COST.topk_select_cost(PEERS, x.shape[1], topk_k(x.shape[1]))[1] for x in leaves)
     print(f"timing topk_select_pack, one mobilenet-v3-small device step's {len(leaves)} bank selects "
           f"({PEERS} peers): device {t_step:.4f} ms, host enqueue {host_step:.4f} ms, bound "
           f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes / 1e6:.2f} MB), library torch.topk per "
@@ -4243,19 +4331,12 @@ def bank_scatter(torch, kt):
     return two_launches
 
 
-def bank_bytes(peers, k, mixes, n, own=True):
-    """The bytes a bank scatter must move: vbank and idx (and vals) read,
-    W read, every row written once."""
-    return 8 * peers * k + (4 * peers * k if own else 0) + 4 * mixes * peers + 4 * (
-        mixes + (peers if own else 0)) * n
-
-
 def scatter_timing(torch, kt):
     """The bank scatter as the mobilenet top-k + EF device step calls it (1
     mix + 4 own rows, the select's payload) at 240 (the median leaf),
     82,944 and 589,824 entries and at fc2/w, then one device step's 180
     bank scatters together; beside the plain version and the bound (bytes:
-    ``bank_bytes``). ``kt`` without a bank scatter (an earlier checkout's)
+    ``COST.topk_scatter_cost``). ``kt`` without a bank scatter (an earlier checkout's)
     makes two launches a leaf, as its device step did. With both bodies
     (``scatter_launch``): each body forced over a sweep of row lengths, P
     = 4 banks and P = 1 rows (the cluster's decodes), the main path's k."""
@@ -4270,7 +4351,7 @@ def scatter_timing(torch, kt):
         t_kern1, host1 = time_ms(torch, lambda: bank(vbank, vals, idx, W, n), iters)
         t_kern2, host2 = time_ms(torch, lambda: bank(vbank, vals, idx, W, n), iters)
         t_plain2, _ = time_ms(torch, plain, iters)
-        nbytes = bank_bytes(PEERS, k, 1, n)
+        nbytes = COST.topk_scatter_cost(PEERS, k, 1, n, own=True)[1]
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         print(f"timing topk_scatter_accum bank ({PEERS}, {n}), k {k}, 1 mix + {PEERS} own rows: kernel "
               f"{t_kern1:.4f}/{t_kern2:.4f} ms, plain {t_plain1:.4f}/{t_plain2:.4f} ms, bound {bound:.4f} ms "
@@ -4282,7 +4363,7 @@ def scatter_timing(torch, kt):
     # one step: an earlier checkout's took ~70 ms to enqueue, and two would
     # outlast the spin kernel that keeps the device busy meanwhile
     t_step, host_step = time_ms(torch, step, 1)
-    nbytes = sum(bank_bytes(PEERS, i.shape[1], 1, n) for _, _, i, n in leaves)
+    nbytes = sum(COST.topk_scatter_cost(PEERS, i.shape[1], 1, n, own=True)[1] for _, _, i, n in leaves)
     print(f"timing topk_scatter_accum, one mobilenet-v3-small device step's {len(leaves)} bank scatters "
           f"({PEERS} peers, 1 mix + {PEERS} own rows, "
           f"{len(leaves) * (1 if bank is getattr(kt, 'topk_scatter_accum_bank', None) else 2)} "
@@ -4356,9 +4437,7 @@ def ssd_timing(torch, ks):
         t_kern1, host1 = time_ms(torch, kern, iters)
         t_kern2, host2 = time_ms(torch, kern, iters)
         t_plain2, _ = time_ms(torch, plain, plain_iters)
-        nbytes = 2 * Bsz * S_ * H * P + 4 * Bsz * S_ * H + 4 * H + 2 * 2 * Bsz * S_ * G * N \
-            + 4 * Bsz * S_ * H * P
-        ops = 4 * Bsz * S_ * H * P * N
+        ops, nbytes = COST.ssd_scan_cost(args[0], args[3])
         chunked_ops = Bsz * H * (-(-S_ // Q)) * (Q * (Q + 1) * (N + P) + 4 * Q * N * P)
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_FLOPS * 1e3
         fp32_ms = max(bytes_ms, ops / FP32_FLOPS * 1e3)
@@ -4383,25 +4462,17 @@ def ssd_timing(torch, ks):
 
 def flash_bound(torch, q, k, window: int, backward: bool = False, causal: bool = True):
     """(bound ms, bound_by, bytes, operations) of flash attention on these
-    inputs over the valid (query, key) pairs that this call's mask keeps,
-    not the whole Sq x Skv rectangle: causal, query i keeps min(i + 1, Skv,
-    window) keys (no window: min(i + 1, Skv); S (S + 1) / 2 pairs in all
-    when Sq = Skv); not causal, all Sq x Skv pairs. At the dense bf16
-    tensor-core rate for bf16 inputs or the fp32 rate for f32, against the
-    bytes at 3.35 TB/s. Forward: q, k, v read and o written once, two
-    products, 4 D H B operations a pair. ``backward``: q, k, v and do read
-    and dq, dk, dv written once, the function's five products (s, dp, dv,
-    dq, dk), 10 D H B operations a pair."""
-    B, Sq, H, D = q.shape
-    Skv = k.shape[1]
-    q_like, k_like, per_pair = (3, 4, 10) if backward else (2, 2, 4)
-    nbytes = q_like * q.numel() * q.element_size() + k_like * k.numel() * k.element_size()
-    if causal:
-        keys = torch.clamp(torch.arange(Sq, dtype=torch.float64) + 1, max=Skv)
-        pairs = float(torch.clamp(keys, max=window).sum() if window else keys.sum())
-    else:
-        pairs = float(Sq * Skv)
-    ops = per_pair * D * H * B * pairs
+    inputs, from the kernels' cost functions (``flash_attention_cost``,
+    ``flash_attention_backward_cost``), over the valid (query, key) pairs
+    that this call's mask keeps, not the whole Sq x Skv rectangle: causal,
+    query i keeps min(i + 1, Skv, window) keys; not causal, all Sq x Skv
+    pairs. At the dense bf16 tensor-core rate for bf16 inputs or the fp32
+    rate for f32, against the bytes at 3.35 TB/s. Forward: q, k, v read and
+    o written once, two products, 4 D H B operations a pair. ``backward``:
+    q, k, v and do read and dq, dk, dv written once, the function's five
+    products (s, dp, dv, dq, dk), 10 D H B operations a pair."""
+    cost = COST.flash_attention_backward_cost if backward else COST.flash_attention_cost
+    ops, nbytes = cost(q, k, causal=causal, window=window)
     rate = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", nbytes, ops
@@ -4557,9 +4628,8 @@ def slice_timing(torch, ks, kf):
     args = ssd_inputs(torch, SSD_ZAMBA, torch.bfloat16, seed=3)
     t_plain, _ = time_ms(torch, lambda: ks.ssd_scan_plain(*args, chunk=Q), 5)
     t_kern, host = time_ms(torch, lambda: ks.ssd_scan(*args, chunk=Q), 20)
-    nbytes = 2 * Bsz * S_ * H * P + 4 * Bsz * S_ * H + 4 * H + 2 * 2 * Bsz * S_ * G * N \
-        + 4 * Bsz * S_ * H * P
-    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, 4 * Bsz * S_ * H * P * N / BF16_FLOPS * 1e3
+    ops, nbytes = COST.ssd_scan_cost(args[0], args[3])
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_FLOPS * 1e3
     bound = max(bytes_ms, ops_ms)
     print(f"timing ssd_scan {SSD_ZAMBA[:4]} G={G} N={N} chunk {Q} bf16 (zamba2-1.2b scoring): "
           f"kernel {t_kern:.4f} ms, plain {t_plain:.4f} ms, bound {bound:.4f} ms "
@@ -4800,12 +4870,11 @@ def train_timing_only(torch, src: Path) -> int:
     mods = {"kq": kq, "kt": kt, "ks": ks, "kf": kf}
     start = time.perf_counter()
     drive_train(torch, mods, "mamba2-370m", steps=6, schedule=constant(TRAIN_LR),
-                cuts=((TRAIN_PEERS, 1024),), reckon=False, check_launches=False)
+                cuts=((TRAIN_PEERS, 1024),), check_launches=False)
     release(torch)
-    drive_train(torch, mods, "gemma2-2b", cuts=CUTS, reckon=False, check_launches=False)
+    drive_train(torch, mods, "gemma2-2b", cuts=CUTS, check_launches=False)
     release(torch)
-    drive_train(torch, mods, "gemma2-2b", cuts=((TRAIN_PEERS, 512),), reckon=False,
-                check_launches=False)
+    drive_train(torch, mods, "gemma2-2b", cuts=((TRAIN_PEERS, 512),), check_launches=False)
     release(torch)
     print(f"train paths of {src}: {time.perf_counter() - start:.1f} s")
     return 0
@@ -4939,7 +5008,7 @@ def main() -> int:
     reference_train_phase(torch)
     remat_phase(torch, mods)
     stamp("reference train phase")
-    train_counts, (train_cfg, peers, seq) = drive_train(torch, mods, "gemma2-2b")
+    train_counts, (train_cfg, peers, seq) = drive_train(torch, mods, "gemma2-2b", dryrun=True)
     release(torch)
     path_err, times["flash_attention_backward"] = check_flash_bwd_on_path(torch, mods, train_cfg,
                                                                           peers, seq)
@@ -4967,6 +5036,8 @@ def main() -> int:
     whisper_train_counts, err = drive_whisper_train(torch, mods)
     errs["flash_attention_backward"] = max(errs["flash_attention_backward"], err)
     stamp("whisper-base train path")
+    dryrun_phase(torch)
+    stamp("dryrun phase")
     for counts in (moon_counts, vlm_counts, train_counts, cli_counts, ckpt_counts, example_counts,
                    *slice_counts, whisper_train_counts):
         for name, count in counts.items():

@@ -157,16 +157,30 @@ def _lm_leaf_to_torch(path: str, arr: np.ndarray):
     return name, t
 
 
-def _lm_leaf_to_jax(name: str, t: torch.Tensor):
+def _lm_layout_to_jax(name: str, t: torch.Tensor):
     """A port LM parameter (name within its layer or at the top) -> (reference
-    path, numpy array); the inverse of :func:`_lm_leaf_to_torch`."""
-    t = t.detach().cpu()
+    path, the tensor in the reference's layout, a view); the one place that
+    says which leaves change layout, for tensors and for shapes alike."""
     parts = name.split(".")
     if parts[-1] == "weight" and parts[-2] in _LM_LINEAR:
-        return jax_path(".".join(parts[:-1])), t.t().numpy().copy()
+        return jax_path(".".join(parts[:-1])), t.t()
     if parts[-1] == "conv_w":
-        return jax_path(name), t[:, 0, :].t().numpy().copy()
-    return jax_path(name), t.numpy().copy()
+        return jax_path(name), t[:, 0, :].t()
+    return jax_path(name), t
+
+
+def _lm_leaf_to_jax(name: str, t: torch.Tensor):
+    """A port LM parameter -> (reference path, numpy array); the inverse of
+    :func:`_lm_leaf_to_torch`."""
+    path, t = _lm_layout_to_jax(name, t.detach().cpu())
+    return path, t.numpy().copy()
+
+
+def _lm_shape_to_jax(name: str, shape) -> tuple:
+    """A port LM parameter's name and shape -> (reference path, shape in the
+    reference's layout)."""
+    path, t = _lm_layout_to_jax(name, torch.empty(tuple(shape), device="meta"))
+    return path, tuple(t.shape)
 
 
 def lm_from_jax(flat: Mapping[str, np.ndarray], cfg: ModelConfig, *, device) -> Dict[str, torch.Tensor]:
@@ -196,6 +210,38 @@ def lm_from_jax(flat: Mapping[str, np.ndarray], cfg: ModelConfig, *, device) -> 
     return out
 
 
+def _lm_tree_to_jax(params: Mapping, cfg: ModelConfig, leaf, stack) -> Dict:
+    """The port's ``{name: leaf}`` -> the reference's ``{path: leaf}``, each
+    leaf through ``leaf(name, x) -> (path, y)``, slot layers joined on a
+    leading axis by ``stack(list)``."""
+    period, n_groups, _ = layer_grouping(cfg)
+    per_layer: Dict[int, Dict] = {}
+    stacked: Dict[str, Dict] = {}
+    out = {}
+    for name, t in params.items():
+        parts = name.split(".")
+        if parts[0] in _ENCDEC_STACKS:
+            path, arr = leaf(".".join(parts[2:]), t)
+            stacked.setdefault(f"{parts[0]}/{path}", {})[int(parts[1])] = arr
+        elif parts[0] == "layers":
+            path, arr = leaf(".".join(parts[2:]), t)
+            per_layer.setdefault(int(parts[1]), {})[path] = arr
+        else:
+            path, arr = leaf(name, t)
+            out[path] = arr
+    for path, layers in stacked.items():
+        out[path] = stack([layers[i] for i in range(len(layers))])
+    P = len(period)
+    for j in range(P if per_layer else 0):
+        for path in per_layer[j]:
+            out[f"stack/{j}/{path}"] = stack([per_layer[g * P + j][path] for g in range(n_groups)])
+    for layer in sorted(per_layer):
+        if layer >= n_groups * P:
+            for path, arr in per_layer[layer].items():
+                out[f"tail/{layer - n_groups * P}/{path}"] = arr
+    return {k: out[k] for k in sorted(out)}
+
+
 def lm_to_jax(
     model_or_params: Union[nn.Module, Mapping[str, torch.Tensor]], cfg: ModelConfig
 ) -> Dict[str, np.ndarray]:
@@ -204,30 +250,12 @@ def lm_to_jax(
     inverse of :func:`lm_from_jax`."""
     params = (dict(model_or_params.named_parameters())
               if isinstance(model_or_params, nn.Module) else dict(model_or_params))
-    period, n_groups, _ = layer_grouping(cfg)
-    per_layer: Dict[int, Dict[str, np.ndarray]] = {}
-    stacked: Dict[str, Dict[int, np.ndarray]] = {}
-    out = {}
-    for name, t in params.items():
-        parts = name.split(".")
-        if parts[0] in _ENCDEC_STACKS:
-            path, arr = _lm_leaf_to_jax(".".join(parts[2:]), t)
-            stacked.setdefault(f"{parts[0]}/{path}", {})[int(parts[1])] = arr
-        elif parts[0] == "layers":
-            path, arr = _lm_leaf_to_jax(".".join(parts[2:]), t)
-            per_layer.setdefault(int(parts[1]), {})[path] = arr
-        else:
-            path, arr = _lm_leaf_to_jax(name, t)
-            out[path] = arr
-    for path, layers in stacked.items():
-        out[path] = np.stack([layers[i] for i in range(len(layers))])
-    P = len(period)
-    for j in range(P if per_layer else 0):
-        for path in per_layer[j]:
-            out[f"stack/{j}/{path}"] = np.stack(
-                [per_layer[g * P + j][path] for g in range(n_groups)])
-    for layer in sorted(per_layer):
-        if layer >= n_groups * P:
-            for path, arr in per_layer[layer].items():
-                out[f"tail/{layer - n_groups * P}/{path}"] = arr
-    return {k: out[k] for k in sorted(out)}
+    return _lm_tree_to_jax(params, cfg, _lm_leaf_to_jax, np.stack)
+
+
+def lm_jax_shapes(shapes: Mapping[str, tuple], cfg: ModelConfig) -> Dict[str, tuple]:
+    """The port's LM or EncDec ``{name: shape}`` -> the reference's ``{path:
+    shape}`` (its layouts, slot layers stacked): :func:`lm_to_jax` on shapes,
+    for the meta device and the sharding rules."""
+    return _lm_tree_to_jax(shapes, cfg, _lm_shape_to_jax,
+                           lambda xs: (len(xs),) + tuple(xs[0]))

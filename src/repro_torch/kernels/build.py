@@ -8,7 +8,11 @@ finished build is reused. Several sources build in
 parallel: one ``nvcc`` each, all started together.
 
 Nothing here runs at import time; the first kernel launch builds what it
-needs. Each build runs with ``-Xptxas -v`` and keeps nvcc's output beside
+needs. Tensors on the ``meta`` device build and launch nothing: a wrapper
+given one runs its checks and allocates its outputs and scratch (shapes
+and dtypes only), then reports its kernel's cost (``charge``), as it does
+after each launch on the card. ``launch.op_analysis`` counts those costs
+beside every PyTorch op (the H100 dry run). Each build runs with ``-Xptxas -v`` and keeps nvcc's output beside
 the library (``build/<stem>-<hash>.log``): what ptxas reports for each
 kernel, registers, shared memory and spills. ``python -m
 repro_torch.kernels.build SOURCE...`` builds the named sources if needed
@@ -144,6 +148,25 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
             "torch.inference_mode() or torch.no_grad(), or on CPU tensors, where its plain "
             "version differentiates"
         )
+
+
+# The cost sinks (``launch.op_analysis.OpCount`` while it is active) that
+# each kernel's (name, FLOPs, bytes) is reported to.
+SINKS: List = []
+
+
+def charge(name: str, flops: float, nbytes: float) -> None:
+    """Report one kernel call's cost (its module's ``*_cost`` function) to
+    every active sink: after a launch on the card, or in place of one on the
+    meta device."""
+    for sink in SINKS:
+        sink.charge(name, flops, nbytes)
+
+
+def on_meta(t: torch.Tensor) -> bool:
+    """True for a tensor on the meta device: the wrapper takes its CUDA
+    route's checks and allocations, charges its cost and launches nothing."""
+    return t.device.type == "meta"
 
 
 def cuda_stream(device: torch.device) -> ctypes.c_void_p:

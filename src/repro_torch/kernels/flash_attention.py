@@ -38,7 +38,10 @@ forward is ``flash_attention_plain`` (with ``flash_attention_stats_plain``)
 and the backward ``flash_attention_backward_plain``, which computes the
 statistics again; ``flash_attention_backward_saved_plain`` is the bf16
 backward kernels' plain twin, from the saved lse. On CUDA tensors
-both are the kernels, or raise: there is no fallback.
+both are the kernels, or raise: there is no fallback. On meta tensors (the
+dry run) both allocate what the kernels would and charge
+``flash_attention_cost`` / ``flash_attention_backward_cost``, the
+formulas of the kernels' bounds, without a launch.
 
 ``attend`` is the port's copy of the reference's ``models/layers.py:attend``
 (masks from positions, ``finfo(f32).min`` as the mask value, a direct
@@ -57,6 +60,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.kernels.cost import (  # noqa: F401 (valid_pairs: exported beside the wrappers)
+    flash_attention_backward_cost,
+    flash_attention_cost,
+    valid_pairs,
+)
 
 SOURCE = "flash_attention.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
@@ -386,7 +394,8 @@ def _forward(q, k, v, causal: bool, softcap: float, window: int, stats: bool):
             return o, _no_stats(q), _no_stats(q)
         return (o, *flash_attention_stats_plain(q, k, v, causal=causal, softcap=softcap,
                                                 window=window))
-    stream = build.cuda_stream(q.device)
+    meta = build.on_meta(q)
+    stream = None if meta else build.cuda_stream(q.device)
     B, Sq, H, D = q.shape
     Skv, K = k.shape[1], k.shape[2]
     _check_launch(D, q, k, v)
@@ -400,17 +409,20 @@ def _forward(q, k, v, causal: bool, softcap: float, window: int, stats: bool):
         lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, o32, lse
-    with torch.cuda.device(q.device):
-        err = _lib().flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr() if lse.numel() else None, o32.data_ptr() if o32.numel() else None,
-            B, Sq, Skv, H, K, D, _DTYPES[q.dtype],
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            1.0 / math.sqrt(D), float(softcap), int(causal), int(window), stream,
-        )
-    if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
-    flash_attention.launches += 1
+    if not meta:
+        with torch.cuda.device(q.device):
+            err = _lib().flash_attention_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr() if lse.numel() else None, o32.data_ptr() if o32.numel() else None,
+                B, Sq, Skv, H, K, D, _DTYPES[q.dtype],
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                1.0 / math.sqrt(D), float(softcap), int(causal), int(window), stream,
+            )
+        if err:
+            raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
+        flash_attention.launches += 1
+    build.charge("flash_attention", *flash_attention_cost(q, k, causal=causal, window=window,
+                                                          stats=o32.numel() > 0))
     return o, o32, lse
 
 
@@ -536,7 +548,7 @@ def flash_attention_backward(
         raise ValueError(f"do must have q's shape {tuple(q.shape)}, dtype {q.dtype} and device, "
                          f"got {tuple(do.shape)} {do.dtype} on {do.device}")
     causal, softcap, window = bool(causal), float(softcap), int(window)
-    if q.device.type == "cuda" and q.dtype == torch.bfloat16:
+    if q.device.type != "cpu" and q.dtype == torch.bfloat16:
         _, o32, lse = _forward(q, k, v, causal, softcap, window, stats=True)
     else:
         o32 = lse = _no_stats(q)  # the f32 body and the plain backward recompute them
@@ -558,7 +570,8 @@ def _backward(q, k, v, o32, lse, do, causal: bool, softcap: float, window: int):
     if q.dtype == torch.bfloat16 and tuple(lse.shape) != (B, H, Sq):
         raise RuntimeError("flash_attention's bf16 backward needs the forward's lse: the "
                            "forward ran under torch.inference_mode(), which saves none")
-    stream = build.cuda_stream(q.device)
+    meta = build.on_meta(q)
+    stream = None if meta else build.cuda_stream(q.device)
     Skv, K = k.shape[1], k.shape[2]
     _check_launch(D, q, k, v, do)
     bf16 = q.dtype == torch.bfloat16
@@ -574,16 +587,19 @@ def _backward(q, k, v, o32, lse, do, causal: bool, softcap: float, window: int):
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     scratch = torch.empty((1 if bf16 else 2, B, H, Sq), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = _bwd_lib().flash_attention_backward_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr() if bf16 else None,
-            do.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
-            B, Sq, Skv, H, K, D, _DTYPES[q.dtype],
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-            1.0 / math.sqrt(D), float(softcap), int(causal), int(window), stream,
-        )
-    if err:
-        raise RuntimeError(f"flash_attention_backward kernel launch failed: cudaError {err}")
-    flash_attention_backward.launches += 1
+    if not meta:
+        with torch.cuda.device(q.device):
+            err = _bwd_lib().flash_attention_backward_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr() if bf16 else None,
+                do.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
+                B, Sq, Skv, H, K, D, _DTYPES[q.dtype],
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+                1.0 / math.sqrt(D), float(softcap), int(causal), int(window), stream,
+            )
+        if err:
+            raise RuntimeError(f"flash_attention_backward kernel launch failed: cudaError {err}")
+        flash_attention_backward.launches += 1
+    build.charge("flash_attention_backward",
+                 *flash_attention_backward_cost(q, k, causal=causal, window=window))
     return dq, dk, dv

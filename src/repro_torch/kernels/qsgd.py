@@ -10,7 +10,9 @@ kernels on the card (device memory) and why they are shaped as they are.
 A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel, or raises: there is no fallback. Each
 wrapper counts its kernel launches in its ``launches`` attribute, so a run
-can show that the main path went through the kernel.
+can show that the main path went through the kernel. For a meta tensor (the
+dry run) a wrapper allocates its outputs and charges its ``*_cost``, the
+formula of the kernel's bound, without a launch.
 
 The uniforms ``u`` are an operand, as in the reference: the kernel draws
 no random numbers, so the kernel and the plain version give the same
@@ -25,6 +27,11 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.cost import (
+    qsgd_dequant_reduce_cost,
+    qsgd_dequantize_cost,
+    qsgd_quantize_cost,
+)
 
 SOURCE = "qsgd.cu"
 
@@ -116,20 +123,23 @@ def qsgd_quantize(
         )
     if buckets.device.type == "cpu":
         return quantize_plain(buckets, u, s)
-    stream = build.cuda_stream(buckets.device)
+    meta = build.on_meta(buckets)
+    stream = None if meta else build.cuda_stream(buckets.device)
     nb, bucket = buckets.shape
     levels = torch.empty((nb, bucket), dtype=torch.int8, device=buckets.device)
     norms = torch.empty((nb,), dtype=torch.float32, device=buckets.device)
     if nb == 0 or bucket == 0:
         return levels, norms.zero_()
-    with torch.cuda.device(buckets.device):
-        err = _lib().qsgd_quantize_launch(
-            buckets.data_ptr(), u.data_ptr(), levels.data_ptr(), norms.data_ptr(),
-            nb, bucket, float(s), _vectorizable(bucket, buckets, u, levels), stream,
-        )
-    if err:
-        raise RuntimeError(f"qsgd_quantize kernel launch failed: cudaError {err}")
-    qsgd_quantize.launches += 1
+    if not meta:
+        with torch.cuda.device(buckets.device):
+            err = _lib().qsgd_quantize_launch(
+                buckets.data_ptr(), u.data_ptr(), levels.data_ptr(), norms.data_ptr(),
+                nb, bucket, float(s), _vectorizable(bucket, buckets, u, levels), stream,
+            )
+        if err:
+            raise RuntimeError(f"qsgd_quantize kernel launch failed: cudaError {err}")
+        qsgd_quantize.launches += 1
+    build.charge("qsgd_quantize", *qsgd_quantize_cost(nb, bucket))
     return levels, norms
 
 
@@ -148,19 +158,22 @@ def qsgd_dequantize(levels: torch.Tensor, norms: torch.Tensor, s: int) -> torch.
         )
     if levels.device.type == "cpu":
         return dequantize_plain(levels, norms, s)
-    stream = build.cuda_stream(levels.device)
+    meta = build.on_meta(levels)
+    stream = None if meta else build.cuda_stream(levels.device)
     nb, bucket = levels.shape
     out = torch.empty((nb, bucket), dtype=torch.float32, device=levels.device)
     if nb == 0 or bucket == 0:
         return out
-    with torch.cuda.device(levels.device):
-        err = _lib().qsgd_dequantize_launch(
-            levels.data_ptr(), norms.data_ptr(), out.data_ptr(),
-            nb, bucket, float(s), _vectorizable(bucket, levels, out), stream,
-        )
-    if err:
-        raise RuntimeError(f"qsgd_dequantize kernel launch failed: cudaError {err}")
-    qsgd_dequantize.launches += 1
+    if not meta:
+        with torch.cuda.device(levels.device):
+            err = _lib().qsgd_dequantize_launch(
+                levels.data_ptr(), norms.data_ptr(), out.data_ptr(),
+                nb, bucket, float(s), _vectorizable(bucket, levels, out), stream,
+            )
+        if err:
+            raise RuntimeError(f"qsgd_dequantize kernel launch failed: cudaError {err}")
+        qsgd_dequantize.launches += 1
+    build.charge("qsgd_dequantize", *qsgd_dequantize_cost(nb, bucket))
     return out
 
 
@@ -186,18 +199,21 @@ def qsgd_dequant_reduce(
         )
     if levels.device.type == "cpu":
         return dequant_reduce_plain(levels, norms, w, s)
-    stream = build.cuda_stream(levels.device)
+    meta = build.on_meta(levels)
+    stream = None if meta else build.cuda_stream(levels.device)
     out = torch.empty((nb, bucket), dtype=torch.float32, device=levels.device)
     if nb == 0 or bucket == 0 or peers == 0:
         return out.zero_()
-    with torch.cuda.device(levels.device):
-        err = _lib().qsgd_dequant_reduce_launch(
-            levels.data_ptr(), norms.data_ptr(), w.data_ptr(), out.data_ptr(), peers,
-            nb, bucket, float(s), _vectorizable(bucket, levels, out), stream,
-        )
-    if err:
-        raise RuntimeError(f"qsgd_dequant_reduce kernel launch failed: cudaError {err}")
-    qsgd_dequant_reduce.launches += 1
+    if not meta:
+        with torch.cuda.device(levels.device):
+            err = _lib().qsgd_dequant_reduce_launch(
+                levels.data_ptr(), norms.data_ptr(), w.data_ptr(), out.data_ptr(), peers,
+                nb, bucket, float(s), _vectorizable(bucket, levels, out), stream,
+            )
+        if err:
+            raise RuntimeError(f"qsgd_dequant_reduce kernel launch failed: cudaError {err}")
+        qsgd_dequant_reduce.launches += 1
+    build.charge("qsgd_dequant_reduce", *qsgd_dequant_reduce_cost(peers, nb, bucket))
     return out
 
 

@@ -27,7 +27,9 @@ any launch) the shapes it does not take.
 The plain version is ``ssd_chunked``, the port's copy of the reference's
 ``models/ssm.py:ssd_chunked``; the model's prefill calls it too, for the
 final state. A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
-tensor it launches the kernel, or raises: there is no fallback. The
+tensor it launches the kernel, or raises: there is no fallback. For a meta
+tensor (the dry run) it allocates y and the scratch and charges
+``ssd_scan_cost``, the formula of the kernel's bound, without a launch. The
 wrapper counts its calls that launch the kernel in its ``launches``
 attribute: one per call, though the bf16 body's call is three launches.
 """
@@ -41,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.kernels.cost import ssd_scan_cost
 
 SOURCE = "ssd_scan.cu"
 # what each body's shared-memory tiling takes (csrc/ssd_scan.cu): the f32
@@ -234,7 +237,8 @@ def ssd_scan(
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
     build.refuse_grad("ssd_scan", x, dt, A, Bm, Cm)
-    stream = build.cuda_stream(x.device)
+    meta = build.on_meta(x)
+    stream = None if meta else build.cuda_stream(x.device)
     _check_launchable(x, Bm, Cm, chunk)
     if not all(t.stride(-1) == 1 for t in (x, Bm, Cm)) or A.stride(0) != 1:
         raise ValueError("x, B, C and A must be contiguous in their last dimension")
@@ -253,15 +257,17 @@ def ssd_scan(
         scratch = torch.empty(split_at + 4 * n_states, dtype=torch.uint8, device=x.device)
         states = scratch.data_ptr()
         decay, split = states + 4 * n_states, states + split_at
-    with torch.cuda.device(x.device):
-        err = _lib().ssd_scan_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
-            states, decay, split, Bsz, S, H, P, G, N, chunk, _DTYPES[x.dtype],
-            *x.stride()[:3], *dt.stride(), *Bm.stride()[:3], *Cm.stride()[:3], stream,
-        )
-    if err:
-        raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err}")
-    ssd_scan.launches += 1
+    if not meta:
+        with torch.cuda.device(x.device):
+            err = _lib().ssd_scan_launch(
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                y.data_ptr(), states, decay, split, Bsz, S, H, P, G, N, chunk, _DTYPES[x.dtype],
+                *x.stride()[:3], *dt.stride(), *Bm.stride()[:3], *Cm.stride()[:3], stream,
+            )
+        if err:
+            raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err}")
+        ssd_scan.launches += 1
+    build.charge("ssd_scan", *ssd_scan_cost(x, Bm))
     return y
 
 

@@ -27,7 +27,11 @@ k of them, by index, as the Pallas kernel's padded banks drop the rest).
 
 A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel, or raises: there is no fallback. Each
-wrapper counts its kernel launches in its ``launches`` attribute.
+wrapper counts its kernel launches in its ``launches`` attribute. For a
+meta tensor (the dry run) a launch allocates its outputs (not the long-row
+scatter's scratch, which the built library sizes) and charges
+``topk_select_cost`` / ``topk_scatter_cost``, the formulas of the kernels'
+bounds, without a launch.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.cost import topk_scatter_cost, topk_select_cost
 
 SOURCE = "topk.cu"
 BISECT_STEPS = 64
@@ -185,18 +190,21 @@ def select_launch(x: torch.Tensor, k: int, body: int = 0) -> Tuple[torch.Tensor,
     (values (rows, k), indices (rows, k)). ``body``: 0 by the row length
     (``small_row_max``), 1 one block per row, 2 the cooperative grid."""
     rows, n = x.shape
-    stream = build.cuda_stream(x.device)
+    meta = build.on_meta(x)
+    stream = None if meta else build.cuda_stream(x.device)
     vals = torch.empty((rows, k), dtype=torch.float32, device=x.device)
     idx = torch.empty((rows, k), dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _lib().topk_select_launch(
-            x.data_ptr(), rows, n, k, vals.data_ptr(), idx.data_ptr(),
-            _select_scratch(x.device, stream.value or 0).data_ptr(), MAX_GRID, body, stream,
-        )
-    if err:
-        raise RuntimeError(f"topk_select_pack kernel launch failed at ({rows}, {n}), k={k}: "
-                           f"cudaError {err}")
-    topk_select_pack.launches += 1
+    if not meta:
+        with torch.cuda.device(x.device):
+            err = _lib().topk_select_launch(
+                x.data_ptr(), rows, n, k, vals.data_ptr(), idx.data_ptr(),
+                _select_scratch(x.device, stream.value or 0).data_ptr(), MAX_GRID, body, stream,
+            )
+        if err:
+            raise RuntimeError(f"topk_select_pack kernel launch failed at ({rows}, {n}), k={k}: "
+                               f"cudaError {err}")
+        topk_select_pack.launches += 1
+    build.charge("topk_select_pack", *topk_select_cost(rows, n, k))
     return vals, idx
 
 
@@ -277,9 +285,13 @@ def scatter_launch(vbank: torch.Tensor, vals, idx: torch.Tensor, W: torch.Tensor
     rule, 1 the tile body, 2 the long-row body (two kernels, one count)."""
     (peers, k), mixes = vbank.shape, W.shape[0]
     own = vals is not None
-    stream = build.cuda_stream(vbank.device)
+    meta = build.on_meta(vbank)
+    stream = None if meta else build.cuda_stream(vbank.device)
     out = torch.empty((mixes + (peers if own else 0), n), dtype=torch.float32, device=vbank.device)
     if n == 0:
+        return out
+    if meta:  # the long-row body's scratch is sized by the built library's rule
+        build.charge("topk_scatter_accum", *topk_scatter_cost(peers, k, mixes, n, own))
         return out
     lib = _lib()
     counters = work = None
@@ -300,6 +312,7 @@ def scatter_launch(vbank: torch.Tensor, vals, idx: torch.Tensor, W: torch.Tensor
         raise RuntimeError(f"topk_scatter_accum kernel launch failed at {mixes} mixes, "
                            f"({peers}, {k}) pairs, n={n}, own rows {own}: cudaError {err}")
     topk_scatter_accum.launches += 1
+    build.charge("topk_scatter_accum", *topk_scatter_cost(peers, k, mixes, n, own))
     return out
 
 

@@ -17,8 +17,12 @@ instead. Where they differ:
   gets on one device): the P peers are a stacked dimension on one card.
   ``--batch`` is the global batch, P x b rows; peer r takes rows
   [r b, (r + 1) b).
-* ``--model-parallel`` other than 1 is refused: the Lambda mesh axis is TPU
-  tooling (ROADMAP.md, Queue 1, item 12).
+* ``--model-parallel M`` is the Lambda slots of each peer, the reference's
+  "model" mesh axis: it sets only the printed mesh
+  (``launch.mesh.make_host_mesh``). The reference's slots each take a part
+  of a peer's batch and reduce their gradients, which is the gradient of
+  the peer's whole batch; on one card the slots are stacked in that batch,
+  so M changes no number.
 * ``--device`` (default ``cuda``; ``cpu`` runs the plain versions).
 * ``--qsgd-impl`` and ``--topk-impl`` are accepted and change nothing: the
   tensor's device picks the implementation, the CUDA kernels on the card
@@ -46,6 +50,7 @@ from repro_torch.core.p2p import Topology
 from repro_torch.core.robust import ATTACK_KINDS, AdversarySpec
 from repro_torch.core.scheduler import available_schedulers
 from repro_torch.data import BatchKey, DataLoader, Partitioner, make_dataset
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.serve import _sync
 from repro_torch.optim import adam, sgd
 from repro_torch.optim.schedules import warmup_cosine
@@ -121,8 +126,7 @@ def main(argv=None):
     ap.add_argument("--data-parallel", type=int, default=1,
                     help="peers P, a stacked dimension on the one card")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="must be 1: the Lambda mesh axis is TPU tooling "
-                         "(ROADMAP.md, Queue 1, item 12)")
+                    help="Lambda slots per peer (the mesh's model axis), stacked on the one card")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--restore", default=None)
@@ -170,11 +174,6 @@ def main(argv=None):
                     help="scheduler: whole-cluster epoch budget in dollars")
     args = ap.parse_args(argv)
 
-    if args.model_parallel != 1:
-        raise NotImplementedError(
-            f"--model-parallel {args.model_parallel}: the Lambda mesh axis is TPU tooling, not "
-            "ported: ROADMAP.md, Queue 1, item 12"
-        )
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to train on the CPU")
@@ -216,8 +215,9 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg, vocab_size=512)
-    npeers = args.data_parallel
-    print(f"mesh={ {'data': npeers, 'model': 1} } peers={npeers} arch={cfg.name}")
+    mesh = make_host_mesh(args.data_parallel, args.model_parallel)
+    npeers = mesh["data"]
+    print(f"mesh={mesh} peers={npeers} arch={cfg.name}")
 
     topo = Topology(
         exchange=args.exchange,

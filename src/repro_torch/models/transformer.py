@@ -316,7 +316,7 @@ class LM(nn.Module):
         period, n_groups, _ = layer_grouping(cfg)
         P = len(period)
         shared = getattr(self, "shared_block", None)
-        if use_ssd_kernel and x.device.type == "cuda" and any(s.mixer == "mamba" for s in period):
+        if use_ssd_kernel and x.device.type != "cpu" and any(s.mixer == "mamba" for s in period):
             # the groups' forwards run with grad mode off: the SSD kernel's
             # refusal of grad mode (reference behaviour 18) is made here
             build.refuse_grad("ssd_scan", x, *self.layers[0].parameters())

@@ -164,7 +164,12 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         K.flash_attention(q, k[:, :0], v[:, :0])
     with pytest.raises(ValueError, match="window must be"):
         K.flash_attention(q, k, v, window=-1)
-    with pytest.raises(ValueError, match="CUDA or CPU"):
+    # meta tensors (the dry run) take the CUDA route: its checks, no launch
+    launches = K.flash_attention.launches
+    assert K.flash_attention(*(t.to("meta") for t in (q, k, v))).shape == q.shape
+    assert K.flash_attention.launches == launches
+    q, k, v = map(torch.from_numpy, _inputs(1, 16, 16, 4, 2, 48))
+    with pytest.raises(ValueError, match="multiple of 32"):
         K.flash_attention(*(t.to("meta") for t in (q, k, v)))
 
 

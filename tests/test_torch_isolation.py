@@ -75,18 +75,28 @@ def test_cluster_defaults_to_the_card_and_refuses_to_fall_back():
 
 
 def test_kernel_wrappers_raise_on_a_device_they_do_not_serve():
+    """A launch needs a CUDA stream, which only a CUDA device has. Meta
+    tensors (the dry run) take the CUDA route's checks and allocations and
+    launch nothing."""
+    from repro_torch.kernels import build
     from repro_torch.kernels import qsgd as K
-
     from repro_torch.kernels import topk as T
 
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        build.cuda_stream(torch.device("meta"))
     x = torch.zeros(2, 256, device="meta")
-    with pytest.raises(ValueError, match="CUDA or CPU"):
-        K.qsgd_quantize(x, x, 7)
-    with pytest.raises(ValueError, match="CUDA or CPU"):
-        T.topk_select_pack(x[0], 3)
-    with pytest.raises(ValueError, match="CUDA or CPU"):
-        T.topk_scatter_accum(x, torch.zeros(2, 256, dtype=torch.int32, device="meta"),
-                             torch.ones(2, device="meta"), 9)
+    launches = (K.qsgd_quantize.launches, T.topk_select_pack.launches,
+                T.topk_scatter_accum.launches)
+    levels, norms = K.qsgd_quantize(x, x, 7)
+    vals, idx = T.topk_select_pack(x[0], 3)
+    out = T.topk_scatter_accum(x, torch.zeros(2, 256, dtype=torch.int32, device="meta"),
+                               torch.ones(2, device="meta"), 9)
+    assert (levels.dtype, levels.shape, norms.shape) == (torch.int8, x.shape, (2,))
+    assert (vals.shape, idx.dtype, out.shape, out.device.type) == ((3,), torch.int32, (9,), "meta")
+    assert (K.qsgd_quantize.launches, T.topk_select_pack.launches,
+            T.topk_scatter_accum.launches) == launches
+    with pytest.raises(ValueError, match="must be a 2-d"):
+        K.qsgd_quantize(x[0], x[0], 7)
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

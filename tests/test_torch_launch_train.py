@@ -18,7 +18,11 @@ and both ``--restore`` it. The reference runs each command line on a
   and the reference's v1 params;
 * reference behaviour 21: the port prints row 0 of the step's ``(P,)``
   ``aux``, which differs from row 1;
-* ``--model-parallel`` other than 1 is refused (item 12).
+* ``--data-parallel 2 --model-parallel 2``: the reference's CLI on a
+  4-host-device mesh (2 peers x 2 Lambda slots) prints the same lines,
+  the mesh line identical, loss and ce within 3e-4; in the port the Lambda
+  slots are stacked on the one card, so ``--model-parallel 2`` gives the
+  bits of ``--model-parallel 1``.
 """
 import inspect
 import os
@@ -179,9 +183,54 @@ def _record(step, self, state, batch, seen):
     return state, metrics
 
 
-def test_model_parallel_is_refused():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ttrain.main(["--device", "cpu", "--model-parallel", "2", "--steps", "1"])
+MODEL_PARALLEL = COMMON + ["--model-parallel", "2"]
+REFERENCE_MP = textwrap.dedent(
+    """
+    import contextlib, io, os, sys
+    from repro.launch import train
+
+    out, argv = sys.argv[1], eval(sys.argv[2])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train.main(argv + ["--restore", os.path.join(out, "init"),
+                           "--checkpoint", os.path.join(out, "model_parallel")])
+    with open(os.path.join(out, "model_parallel.log"), "w") as f:
+        f.write(buf.getvalue())
+    print("OK")
+    """
+)
+
+
+@pytest.fixture(scope="module")
+def reference_model_parallel(reference):
+    """The reference CLI's lines for ``MODEL_PARALLEL`` on 4 host devices
+    (2 peers x 2 Lambda slots), from the ``reference`` fixture's init."""
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
+    r = subprocess.run([sys.executable, "-c", REFERENCE_MP, str(reference), repr(MODEL_PARALLEL)],
+                       env=env, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0 and "OK" in r.stdout, r.stderr[-3000:]
+    return (reference / "model_parallel.log").read_text()
+
+
+def test_model_parallel_prints_the_reference_lines(reference, reference_model_parallel, capsys,
+                                                   tmp_path):
+    ours = _port_run(capsys, MODEL_PARALLEL + ["--restore", str(reference / "init"),
+                                               "--checkpoint", str(tmp_path / "mp")])
+    assert "mesh={'data': 2, 'model': 2} peers=2" in reference_model_parallel
+    _same_lines(ours, reference_model_parallel)
+
+
+def test_model_parallel_changes_no_number(capsys):
+    """The Lambda slots are stacked on the one card: two steps with 2 slots
+    a peer give the params of two steps with 1, bit for bit."""
+    argv = ["--steps", "2", "--batch", "4", "--seq", "16", "--data-parallel", "2"]
+    one = ttrain.main(argv + ["--device", "cpu", "--model-parallel", "1"])
+    two = ttrain.main(argv + ["--device", "cpu", "--model-parallel", "2"])
+    out = capsys.readouterr().out
+    assert "mesh={'data': 2, 'model': 2} peers=2" in out
+    assert one.params.keys() == two.params.keys()
+    assert all(torch.equal(one.params[k], two.params[k]) for k in one.params)
 
 
 def test_example_twin_runs_on_the_cpu(capsys, tmp_path):

@@ -291,9 +291,13 @@ def test_wrapper_refuses_what_the_scan_does_not_take():
         K.ssd_scan(x, dt.double(), A, Bm, Cm, chunk=16)
     with pytest.raises(ValueError, match="must be"):
         K.ssd_scan(x, dt[:, :16], A, Bm, Cm, chunk=16)
+    # meta tensors (the dry run) take the CUDA route: its checks, no launch
     meta = [t.to("meta") for t in (x, dt, A, Bm, Cm)]
-    with pytest.raises(ValueError, match="CUDA or CPU"):
-        K.ssd_scan(*meta, chunk=16)
+    launches = K.ssd_scan.launches
+    y = K.ssd_scan(*meta, chunk=16)
+    assert (y.shape, y.dtype, K.ssd_scan.launches) == (x.shape, torch.float32, launches)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        K.ssd_scan(*meta, chunk=18)
 
 
 def test_reference_pallas_scan_has_no_gradient():
