@@ -350,6 +350,28 @@ def _update_by_leaf(optimizer: Optimizer, grads, opt_state, params, lr, donate: 
     return new_params, _merge_leaf_states(opt_state, names, parts)
 
 
+# The profiler ranges of one train step, outermost first: the whole call,
+# then its three stages in order (the host cluster's ``StageMetrics`` names
+# its stages alike). The fused plain mean has no exchange.
+STEP_SPANS = ("repro_torch.step", "repro_torch.step.compute_gradients",
+              "repro_torch.step.exchange", "repro_torch.step.model_update")
+
+
+def _span(name: str, step=None):
+    """A host range ``name`` of ``torch.profiler`` around a ``with`` block,
+    carrying ``step`` as its input where that is a host int (a tensor step
+    is left out: reading it would sync). The range has the profiler's
+    function scope, not ``record_function``'s user scope: the profiler
+    projects a user range onto the card as an activity that spans the
+    kernels launched inside it, idle gaps included, so a trace's device
+    work would count the range itself. A trace tells this range's kernels
+    by their launches, which lie inside it on the host. With no profiler
+    listening the range is one call on enter and one on exit: it neither
+    syncs the device nor reads a tensor."""
+    args = ((int(step),),) if isinstance(step, (int, np.integer)) else ()
+    return torch._C._profiler._RecordFunctionFast(name, *args)
+
+
 def exchange_gradients(grads, topo: Topology, generator=None, mailbox=None, *,
                        num_peers: Optional[int] = None):
     """``{name: (P, *shape)}`` bank -> (every peer's mixed gradient, new
@@ -539,42 +561,45 @@ def build_p2p_train_step(
 
     def step(state, batch):
         state = as_train_state(state)
-        off = [k for k, p in state.params.items() if p.device != device]
-        if off:
-            raise ValueError(f"params {off[:3]} are not on the step's device {device}")
-        _check_banks(state.params, state.opt_state, num_peers, banked)
-        split = {}
-        for k, v in batch.items():
-            v = torch.as_tensor(v).to(device)
-            if v.shape[0] % num_peers:
-                raise ValueError(
-                    f"batch[{k!r}] has {v.shape[0]} rows, not a multiple of "
-                    f"{num_peers} peers"
-                )
-            split[k] = v.reshape(num_peers, v.shape[0] // num_peers, *v.shape[1:])
-        fused = plain_mean and state.ef is None
-        with f32_numerics():
-            if fused:
-                avg, loss, aux = mean_grads(compute_params(state.params), split)
-                gnorm = loss.new_zeros(loss.shape)
-            else:
-                grads, loss, aux, gnorm = per_peer(compute_params(state.params), split)
-        with torch.no_grad():
-            mailbox, ef = state.mailbox, state.ef
-            if not fused:
-                avg, mailbox, ef = combine_bank(grads, state)
-                del grads  # the bank, P copies of the params' size, before the update's copies
-            lr = schedule(state.step)
-            params, opt_state = _update_by_leaf(optimizer, avg, state.opt_state, state.params, lr,
-                                                donate)
-        if banked:
-            names = set(params)
-            params = PeerBank(params)
-            opt_state = _map_leaf_dicts(opt_state, names, PeerBank)
-        metrics = {"loss": loss.mean(), "grad_norm": gnorm, "lr": lr, "aux": aux}
-        new_state = state.replace(
-            params=params, opt_state=opt_state, step=state.step + 1, mailbox=mailbox, ef=ef,
-        )
-        return new_state, metrics
+        with _span(STEP_SPANS[0], state.step):
+            off = [k for k, p in state.params.items() if p.device != device]
+            if off:
+                raise ValueError(f"params {off[:3]} are not on the step's device {device}")
+            _check_banks(state.params, state.opt_state, num_peers, banked)
+            split = {}
+            for k, v in batch.items():
+                v = torch.as_tensor(v).to(device)
+                if v.shape[0] % num_peers:
+                    raise ValueError(
+                        f"batch[{k!r}] has {v.shape[0]} rows, not a multiple of "
+                        f"{num_peers} peers"
+                    )
+                split[k] = v.reshape(num_peers, v.shape[0] // num_peers, *v.shape[1:])
+            fused = plain_mean and state.ef is None
+            with f32_numerics(), _span(STEP_SPANS[1]):
+                if fused:
+                    avg, loss, aux = mean_grads(compute_params(state.params), split)
+                    gnorm = loss.new_zeros(loss.shape)
+                else:
+                    grads, loss, aux, gnorm = per_peer(compute_params(state.params), split)
+            with torch.no_grad():
+                mailbox, ef = state.mailbox, state.ef
+                if not fused:
+                    with _span(STEP_SPANS[2]):
+                        avg, mailbox, ef = combine_bank(grads, state)
+                    del grads  # the bank, P copies of the params, before the update's copies
+                with _span(STEP_SPANS[3]):
+                    lr = schedule(state.step)
+                    params, opt_state = _update_by_leaf(optimizer, avg, state.opt_state,
+                                                        state.params, lr, donate)
+            if banked:
+                names = set(params)
+                params = PeerBank(params)
+                opt_state = _map_leaf_dicts(opt_state, names, PeerBank)
+            metrics = {"loss": loss.mean(), "grad_norm": gnorm, "lr": lr, "aux": aux}
+            new_state = state.replace(
+                params=params, opt_state=opt_state, step=state.step + 1, mailbox=mailbox, ef=ef,
+            )
+            return new_state, metrics
 
     return step
