@@ -64,7 +64,14 @@ failure):
              requiring grad the flash wrapper launches its forward and
              backward kernels once each; the SSD wrapper, which has no
              backward (reference behaviour 18), refuses grad mode with no
-             launch, and launches under ``torch.inference_mode()``.
+             launch, and launches under ``torch.inference_mode()``. The
+             SSD's training route (``ssd_chunked_grad`` and its backward)
+             at mamba2-370m's train cell, 2 peers x 16 x 2048 folded, on
+             the model's strided views: y within 2e-5 of max|y| and dx,
+             ddt, dA, dB and dC within 5e-5 of each one's largest
+             magnitude (plus bf16 rounding where written in bf16) of
+             autograd of ``ssd_chunked``, a second backward the same bits;
+             both timed beside their plain versions.
 3. reference — small runs on the card against the same runs on the CPU
              (plain versions), same init and uniforms: a 4-peer squeezenet
              QSGD cluster epoch, one device train step with qsgd + EF and
@@ -201,7 +208,8 @@ failure):
              (kept out of the kernels line), its profile showing the
              forward's 52 and the backward's two tensor-core launches a
              layer; two mamba2-370m steps at 2 x 2048 through
-             ``ssd_chunked`` (no launch), and the same step with
+             ``ssd_chunked_grad`` (96 forward and 48 backward launches a
+             step), and the same step with
              ``use_ssd_kernel=True`` refused before any launch. The train
              CLI twin (``repro_torch.launch.train.main``, through
              ``P2PTrainer``): qwen2.5-3b at full width, ``--data-parallel 2
@@ -217,7 +225,8 @@ failure):
              file the same bits as the same step from the state held in
              memory, and the serve twin's ``--checkpoint`` reading the
              file; the example twin (qwen-100m, qsgd, 2 peers) for 3 steps.
-             Then zamba2-1.2b (through ``ssd_chunked``) and
+             Then zamba2-1.2b (its Mamba-2 layers through
+             ``ssd_chunked_grad``: 62 forwards and 32 backwards a step) and
              granite-moe-3b-a800m (dense dispatch) through
              ``train.build_train_step`` as gemma2-2b: 2 peers x 2048, 4 Adam
              steps, remat on, no cut; 12 flash forwards and 6 backwards a
@@ -392,9 +401,14 @@ KERNELS = {  # name -> (module attribute, CUDA source, TPU kernel it replaces)
     "flash_attention": ("kf", "flash_attention.cu", "src/repro/kernels/flash_attention.py:26"),
     # the gradient of the forward's function: the reference differentiates attend
     "flash_attention_backward": ("kf", "flash_attention_bwd.cu", "src/repro/models/layers.py:188"),
+    # the SSD's training route, forward and backward: the reference differentiates ssd_chunked
+    "ssd_chunked_grad": ("ks", "ssd_scan.cu", "src/repro/models/ssm.py:52"),
+    "ssd_chunked_grad_backward": ("ks", "ssd_scan_bwd.cu", "src/repro/models/ssm.py:52"),
 }
 SSD_SCORING = (4, 2048, 32, 64, 1, 128, 256)  # B, S, H, P, G, N, chunk of mamba2-370m scoring
 SSD_LONG = (1, 32768, 32, 64, 1, 128, 256)  # one 32k sequence
+SSD_TRAIN = (32, 2048, 32, 64, 1, 128, 256)  # mamba2-370m's train cell: 2 peers x 16 x 2048 folded
+MAMBA_LAYERS = 48  # mamba2-370m's layers: each runs 2 SSD forwards (remat) and 1 backward a step
 PROMPT, GEN = 512, 32  # the serve path
 FLASH_SCORING = (1, 8192, 8, 4, 256)  # B, S, H, K, D of gemma2-2b scoring: its full context
 GEMMA_WINDOW, GEMMA_SOFTCAP = 4096, 50.0  # the local layers' window, the attention softcap
@@ -428,16 +442,19 @@ def card_line() -> str:
 
 
 def wrapper(mods, name):
-    return getattr(mods[KERNELS[name][0]], name)
+    """The wrapper that counts ``name``'s launches, or None in a checkout
+    without it (the SRC modes run earlier checkouts)."""
+    return getattr(mods[KERNELS[name][0]], name, None)
 
 
 def reset_counters(mods) -> None:
     for name in KERNELS:
-        wrapper(mods, name).launches = 0
+        if wrapper(mods, name) is not None:
+            wrapper(mods, name).launches = 0
 
 
 def read_counters(mods) -> dict:
-    return {name: wrapper(mods, name).launches for name in KERNELS}
+    return {name: getattr(wrapper(mods, name), "launches", 0) for name in KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -1218,6 +1235,119 @@ def flash_bwd_phase(torch, kf):
             del q, k, v, do
             torch.cuda.empty_cache()
     return worst
+
+
+def ssd_grad_inputs(torch, shape, seed: int):
+    """``mamba2_apply``'s layout at ``shape`` (B, S, H, P, G, N, chunk): x, B
+    and C bf16 slices of one convolution output, dt = 0.2 softplus(N), A =
+    -exp(0.3 N), and a cotangent dy of y. Returns ((x, dt, A, B, C), dy)."""
+    Bsz, S_, H, P, G, N, _ = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    conv = (torch.randn((Bsz, S_, H * P + 2 * G * N), generator=g, device="cuda") * 0.5).bfloat16()
+    x, Bm, Cm = torch.split(conv, [H * P, G * N, G * N], dim=-1)
+    dt = torch.nn.functional.softplus(torch.randn((Bsz, S_, H), generator=g, device="cuda")) * 0.2
+    A = -torch.exp(torch.randn((H,), generator=g, device="cuda") * 0.3)
+    dy = torch.randn((Bsz, S_, H, P), generator=g, device="cuda")
+    return (x.unflatten(-1, (H, P)), dt, A, Bm.unflatten(-1, (G, N)), Cm.unflatten(-1, (G, N))), dy
+
+
+def ssd_grad_phase(torch, ks):
+    """The SSD's training route at mamba2-370m's train cell (SSD_TRAIN: 2
+    peers x 16 x 2048 folded, 32 heads of 64, N 128, chunk 256) on the
+    model's strided views: ``ssd_chunked_grad``'s y within 2e-5 of max|y|
+    of the plain ``ssd_chunked``'s; ``ssd_chunked_grad_backward``'s dx, ddt,
+    dA, dB and dC each within 5e-5 of its largest magnitude of autograd of
+    ``ssd_chunked`` (x, B and C as f32 leaves of the same values), plus for
+    dx, dB and dC, which the kernel writes in bf16, their rounding (2^-8 of
+    the element): the card tests' limit (tests/test_torch_ssd_grad.py); a
+    second backward the same bits. Then each half timed beside its plain
+    version (plain, kernel, kernel, plain): the forward without grad (a
+    remat group's forward; its recompute runs the same kernel) and the
+    backward alone (the kernel's from the forward's saved states, the plain
+    one through autograd's graph), against the bounds of ``ssd_scan_cost``
+    and ``ssd_scan_bwd_cost``, and a train step's SSD reckoned as
+    MAMBA_LAYERS x (2 forwards + 1 backward). Returns ({name: max abs
+    error}, {name: the kernels line's timing keys})."""
+    Bsz, S_, H, P, G, N, Q = SSD_TRAIN
+    (x, dt, A, Bm, Cm), dy = ssd_grad_inputs(torch, SSD_TRAIN, seed=21)
+    with torch.no_grad():
+        y = ks.ssd_chunked_grad(x, dt, A, Bm, Cm, Q)
+    got = ks.ssd_chunked_grad_backward(x, dt, A, Bm, Cm, dy, Q)
+    again = ks.ssd_chunked_grad_backward(x, dt, A, Bm, Cm, dy, Q)
+    bits = lambda t: t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+    require(all(torch.equal(bits(a), bits(b)) for a, b in zip(got, again)),
+            f"ssd_chunked_grad_backward at {SSD_TRAIN[:6]}: a second call gave other bits")
+    del again
+    leaves = [t.detach().float().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+    want_y = ks.ssd_chunked(*leaves, Q)[0]
+    want = torch.autograd.grad(want_y, leaves, dy)
+    y_err, y_scale = float((y - want_y.detach()).abs().max()), float(want_y.detach().abs().max())
+    require(y_err <= 2e-5 * y_scale, f"ssd_chunked_grad at {SSD_TRAIN[:6]}: y max abs error "
+            f"{y_err:.3e} > 2e-5 x {y_scale:.3e}")
+    del y, want_y
+    worst, rel = 0.0, {}
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        scale = float(w.abs().max())
+        err = (g.float() - w).abs()
+        limit = 5e-5 * scale + (2.0 ** -8 * w.abs() if g.dtype == torch.bfloat16 else 0.0)
+        bad = int((err > limit).sum())
+        require(bad == 0, f"ssd_chunked_grad_backward at {SSD_TRAIN[:6]}: {bad} elements of {name} "
+                f"past 5e-5 x max|{name}| {scale:.3e}" + (" + its bf16 rounding" if g.dtype ==
+                torch.bfloat16 else "") + f", worst {float(err.max()) / scale:.3e} of it")
+        rel[name] = float(err.max()) / scale
+        worst = max(worst, float(err.max()))
+        del err, limit
+    print(f"kernel check ssd_chunked_grad {SSD_TRAIN[:4]} G={G} N={N} chunk {Q} bf16 on strided views "
+          f"(mamba2-370m's train cell, peers folded): y within {y_err / y_scale:.3e} of max|y| (limit "
+          f"2e-5); backward against autograd of ssd_chunked: "
+          + ", ".join(f"{n} {r:.3e}" for n, r in rel.items())
+          + " of each gradient's largest magnitude (limit 5e-5, dx/dB/dC plus their bf16 rounding); "
+          "a second backward the same bits")
+    del got, want
+    release(torch)
+
+    args = (x, dt, A, Bm, Cm)
+
+    def plain_fwd():
+        with torch.no_grad():
+            ks.ssd_chunked(*args, Q)
+
+    def kern_fwd():
+        with torch.no_grad():
+            ks.ssd_chunked_grad(*args, Q)
+
+    with torch.no_grad():
+        _, split = ks.SsdChunkedFn.apply(*args, Q)
+    kern_bwd = lambda: ks.SsdChunkedBackwardFn.apply(*args, split, dy, Q)
+    y_plain = ks.ssd_chunked(*leaves, Q)[0]
+    plain_bwd = lambda: torch.autograd.grad(y_plain, leaves, dy, retain_graph=True)
+    rows, secs = {}, {}
+    for name, plain, kern, cost in (
+            ("ssd_chunked_grad", plain_fwd, kern_fwd, COST.ssd_scan_cost(x, Bm)),
+            ("ssd_chunked_grad_backward", plain_bwd, kern_bwd, COST.ssd_scan_bwd_cost(x, Bm, Q))):
+        t_plain1, _ = time_ms(torch, plain, 3)
+        t_kern1, host1 = time_ms(torch, kern, 20)
+        t_kern2, host2 = time_ms(torch, kern, 20)
+        t_plain2, _ = time_ms(torch, plain, 3)
+        ops, nbytes = cost
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_FLOPS * 1e3
+        row = {"ms": min(t_kern1, t_kern2), "plain_ms": min(t_plain1, t_plain2),
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": None}
+        rows[name] = row
+        print(f"timing {name} {SSD_TRAIN[:4]} G={G} N={N} chunk {Q} bf16 (mamba2-370m's train cell): "
+              f"kernel {t_kern1:.4f}/{t_kern2:.4f} ms, plain {t_plain1:.4f}/{t_plain2:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {nbytes / 1e6:.1f} MB at 3.35 TB/s = "
+              f"{bytes_ms:.4f} ms, {ops / 1e9:.2f} GFLOP at 989.4 TFLOP/s = {ops_ms:.4f} ms; roofline "
+              f"share {row['bound_ms'] / row['ms']:.1%}), host enqueue {min(host1, host2) * 1e3:.1f} "
+              f"us/call, library none: no single PyTorch call computes it")
+    del y_plain, split
+    release(torch)
+    fwd, bwd = rows["ssd_chunked_grad"], rows["ssd_chunked_grad_backward"]
+    reckon = lambda key: MAMBA_LAYERS * (2 * fwd[key] + bwd[key]) / 1e3
+    print(f"timing a mamba2-370m train step's SSD ({MAMBA_LAYERS} layers x (2 forwards + 1 "
+          f"backward)): kernels {reckon('ms'):.4f} s, plain {reckon('plain_ms'):.4f} s")
+    return {"ssd_chunked_grad": y_err, "ssd_chunked_grad_backward": worst}, rows
 
 
 # ---------------------------------------------------------------------------
@@ -3250,10 +3380,12 @@ def train_launches(cfg) -> dict:
     attention layer (``attn``, ``attn_local`` or ``shared_attn``) and again
     in the backward's recompute of each remat group (``cfg.remat``: the
     attention layers of ``layer_grouping``'s groups, the tail layers once),
-    its backward once per attention layer. Mamba-2 layers launch none
-    (``ssd_chunked``). Whisper's encoder-decoder: each encoder layer's
-    attention and each decoder layer's self and cross attention, every
-    layer a remat group of its own."""
+    its backward once per attention layer. Each Mamba-2 layer likewise
+    launches ``ssd_chunked_grad``'s forward (twice in a remat group) and
+    its backward once, where the layer takes that route
+    (``takes_ssd_grad``), else none. Whisper's encoder-decoder: each
+    encoder layer's attention and each decoder layer's self and cross
+    attention, every layer a remat group of its own."""
     from repro_torch.models.transformer import layer_grouping
 
     if cfg.family == "encdec":
@@ -3261,13 +3393,31 @@ def train_launches(cfg) -> dict:
         return {"flash_attention": (2 if cfg.remat else 1) * calls,
                 "flash_attention_backward": calls}
     period, n_groups, rem = layer_grouping(cfg)
-    attn = lambda specs: sum(s.mixer != "mamba" for s in specs)
-    grouped = n_groups * attn(period)
-    tail = attn(cfg.block_specs()[n_groups * len(period):])
-    if not grouped + tail:
-        return {}
-    return {"flash_attention": (2 if cfg.remat else 1) * grouped + tail,
-            "flash_attention_backward": grouped + tail}
+    tail_specs = cfg.block_specs()[n_groups * len(period):]
+    out = {}
+    for fwd, kind in (("flash_attention", lambda s: s.mixer != "mamba"),
+                      ("ssd_chunked_grad", lambda s: s.mixer == "mamba")):
+        grouped = n_groups * sum(map(kind, period))
+        tail = sum(map(kind, tail_specs))
+        if grouped + tail and (fwd == "flash_attention" or takes_ssd_grad(cfg)):
+            out.update({fwd: (2 if cfg.remat else 1) * grouped + tail,
+                        f"{fwd}_backward": grouped + tail})
+    return out
+
+
+def takes_ssd_grad(cfg) -> bool:
+    """Whether ``cfg``'s Mamba-2 layers take ``ssd_chunked_grad`` on the card:
+    ``ssd_grad_takes`` of meta tensors laid out as ``mamba2_apply`` passes
+    x, B and C (slices of the convolution's output) in ``cfg.dtype``."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ssd_grad_takes
+
+    H, P, G, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_ngroups, cfg.ssm_state
+    conv = torch.empty((2, 64, H * P + 2 * G * N), dtype=getattr(torch, cfg.dtype), device="meta")
+    x, Bm, Cm = torch.split(conv, [H * P, G * N, G * N], dim=-1)
+    return ssd_grad_takes(x.unflatten(-1, (H, P)), Bm.unflatten(-1, (G, N)),
+                          Cm.unflatten(-1, (G, N)), cfg.ssm_chunk)
 
 
 CUTS = tuple((p, s) for p in range(TRAIN_PEERS, 0, -1) for s in (TRAIN_SEQ, 1024, 512, 256))
@@ -3794,10 +3944,11 @@ def whisper_timing(torch, kf):
 
 
 def drive_mamba_train(torch, mods):
-    """Two mamba2-370m train steps at full width through ``ssd_chunked``
-    (``use_ssd_kernel=False``, the reference's default) at Adam's constant
-    rate TRAIN_LR, with ``drive_train``'s cuts and checks (the loss falls,
-    every leaf moves): no kernel launch. Then the same step with
+    """Two mamba2-370m train steps at full width through the gradient of
+    ``ssd_chunked`` (``use_ssd_kernel=False``, the reference's default; on
+    the card ``ssd_chunked_grad``'s forward and backward kernels) at Adam's
+    constant rate TRAIN_LR, with ``drive_train``'s cuts and checks (the loss
+    falls, every leaf moves). Then the same step with
     ``use_ssd_kernel=True`` must refuse (grad mode through the SSD kernel,
     reference behaviour 18) before any launch."""
     from repro_torch.core.p2p import Topology
@@ -4914,7 +5065,7 @@ def main() -> int:
     print(f"nvidia-smi: {card}")
 
     t0 = time.perf_counter()
-    libs = build.build_all([kq.SOURCE, kt.SOURCE, ks.SOURCE, kf.SOURCE, kf.BWD_SOURCE])
+    libs = build.build_all([kq.SOURCE, kt.SOURCE, ks.SOURCE, ks.BWD_SOURCE, kf.SOURCE, kf.BWD_SOURCE])
     for mod in (kq, kt, ks, kf):
         mod.load_library()
     print(f"build: {', '.join(str(p.relative_to(ROOT)) for p in libs.values())} in "
@@ -4927,6 +5078,8 @@ def main() -> int:
     errs["ssd_scan"] = ssd_kernel_phase(torch, ks)
     errs["flash_attention"] = flash_kernel_phase(torch, kf)
     errs["flash_attention_backward"] = flash_bwd_phase(torch, kf)
+    ssd_grad_errs, ssd_grad_rows = ssd_grad_phase(torch, ks)
+    errs.update(ssd_grad_errs)
     grad_guard_phase(torch, kf, ks)
     stamp("kernels phase")
     reference_phase(torch)
@@ -4980,6 +5133,7 @@ def main() -> int:
     times.update(select_timing(torch, kt))
     scatter_timing(torch, kt)
     times.update(ssd_timing(torch, ks))
+    times.update(ssd_grad_rows)
     times.update(flash_timing(torch, kf))
     flash_bwd_timing(torch, kf)
     slice_timing(torch, ks, kf)
@@ -5015,7 +5169,7 @@ def main() -> int:
     errs["flash_attention_backward"] = max(errs["flash_attention_backward"], path_err)
     stamp("gemma2-2b train path")
     release(torch)
-    drive_mamba_train(torch, mods)
+    mamba_train_counts = drive_mamba_train(torch, mods)
     stamp("mamba2-370m train path")
     cli_counts, cli_err = drive_cli_train(torch, mods)
     errs["flash_attention_backward"] = max(errs["flash_attention_backward"], cli_err)
@@ -5038,8 +5192,8 @@ def main() -> int:
     stamp("whisper-base train path")
     dryrun_phase(torch)
     stamp("dryrun phase")
-    for counts in (moon_counts, vlm_counts, train_counts, cli_counts, ckpt_counts, example_counts,
-                   *slice_counts, whisper_train_counts):
+    for counts in (moon_counts, vlm_counts, train_counts, mamba_train_counts, cli_counts, ckpt_counts,
+                   example_counts, *slice_counts, whisper_train_counts):
         for name, count in counts.items():
             total[name] += count
     require(all(total.values()), f"a kernel was never launched on the main path: {total}")

@@ -177,6 +177,23 @@ def cuda_stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def fold(info, in_dims, tensors):
+    """Tensors under ``vmap`` -> plain tensors with the vmapped dimension
+    folded into the batch (an unbatched one expanded to it): a kernel
+    wrapper's ``vmap`` rule launches once for every slice, since a kernel
+    that reads ``data_ptr()`` cannot see a batched tensor."""
+    out = []
+    for t, d in zip(tensors, in_dims):
+        t = t.expand(info.batch_size, *t.shape) if d is None else t.movedim(d, 0)
+        out.append(t.flatten(0, 1))  # also the (P, B, 0) statistics of an f32 CUDA forward
+    return out
+
+
+def unfold(info, tensors):
+    """Outputs of a launch on folded tensors -> outputs batched in dim 0."""
+    return tuple(t.unflatten(0, (info.batch_size, -1)) for t in tensors)
+
+
 def ptxas_report(source: str) -> str:
     """What ptxas reported when ``csrc/<source>`` was built (``-Xptxas -v``
     in its build log), building it first if needed."""

@@ -60,6 +60,23 @@ def ssd_scan_cost(x, Bm):
     return 4 * Bsz * S * H * P * N, nbytes
 
 
+def ssd_scan_bwd_cost(x, Bm, chunk: int):
+    """(FLOPs, bytes) of one backward call at least: the per-step
+    recurrence's backward, 8 B S H P N operations (the state's gradient
+    carried back and the multiply-adds of dx, dB and dC against it, a
+    multiply-add each per state element and step); x, B, C, the forward's
+    entering states (B, chunks, H, 2, P, N) as bf16 hi and lo, dt, A and dy
+    (B, S, H, P) in f32 read once; dx, dB, dC in their dtypes and ddt, dA in
+    f32 written once."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    chunks = -(-S // chunk)
+    nbytes = (2 * x.element_size() * Bsz * S * H * P + 4 * Bsz * S * H * P
+              + 4 * Bm.element_size() * Bsz * S * G * N + 2 * 2 * Bsz * chunks * H * P * N
+              + 2 * 4 * Bsz * S * H + 2 * 4 * H)
+    return 8 * Bsz * S * H * P * N, nbytes
+
+
 # QSGD, for rows of ``bucket`` entries (n in all): the f32 operations
 
 

@@ -9,8 +9,10 @@
 //   L     = exp(where(i >= j, cum_i - cum_j, -inf))      (masked before exp)
 //   y     = ((C B^T) o L) (x dt) + (C state^T) o exp(cum)
 //   state = state * exp(cum_Q) + ((x dt) o exp(cum_Q - cum))^T B
-// with head h reading group h / (H / G) of B and C. dt, A and y are f32;
-// the carried state (P, N) is f32 and is not returned, as in Pallas. Rows
+// with head h reading group h / (H / G) of B and C. dt, A and y are f32; A
+// is one (H,) row for the whole batch or one per batch row (a_sb = H: the
+// peers of a vmapped banked step). The carried state (P, N) is f32 and is
+// not returned, as in Pallas. Rows
 // past the sequence are masked in the kernel (the wrapper pads nothing), and
 // x, B and C may be strided views whose last dimension is contiguous.
 // ssd_scan_launch picks one of two bodies by the type of x, B and C;
@@ -160,8 +162,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ Aneg,
            const T* __restrict__ Bm, const T* __restrict__ Cm, float* __restrict__ y,
-           int S, int H, int P, int G, int N, int Q, Strides xs, Strides dts, Strides bs,
-           Strides cs) {
+           int S, int H, int P, int G, int N, int Q, long long a_sb, Strides xs, Strides dts,
+           Strides bs, Strides cs) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* Ct = smem;                  // C tile, k-major: [N][kPitch]
@@ -174,7 +176,7 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt, const float* _
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int g = h / (H / G);
-  const float A = Aneg[h];
+  const float A = Aneg[b * a_sb + h];
   const T* xb = x + b * xs.b + h * xs.h;
   const float* dtb = dt + b * dts.b + h * dts.h;
   const T* Bb = Bm + b * bs.b + g * bs.h;
@@ -330,15 +332,15 @@ size_t smem_bytes(int P, int N, int Q) {
 
 template <typename T>
 int launch(const void* x, const float* dt, const float* A, const void* Bm, const void* Cm,
-           float* y, int batch, int S, int H, int P, int G, int N, int Q, Strides xs,
-           Strides dts, Strides bs, Strides cs, cudaStream_t stream) {
+           float* y, int batch, int S, int H, int P, int G, int N, int Q, long long a_sb,
+           Strides xs, Strides dts, Strides bs, Strides cs, cudaStream_t stream) {
   const size_t smem = smem_bytes(P, N, Q);
   cudaError_t err = cudaFuncSetAttribute(ssd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   ssd_kernel<T><<<dim3(H, batch), kThreads, smem, stream>>>(
       static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm), static_cast<const T*>(Cm), y,
-      S, H, P, G, N, Q, xs, dts, bs, cs);
+      S, H, P, G, N, Q, a_sb, xs, dts, bs, cs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -433,6 +435,7 @@ __device__ __forceinline__ void split(float v0, float v1, uint32_t& hi, uint32_t
 struct Dims {
   int S, H, P, G, N, Q, Qp, chunks;  // Qp: the chunk padded to 64-row tiles
   int box;                           // rows of a TMA box: the chunk below 64, else 64
+  long long a_sb;                    // A's stride between batch rows: 0 where one A is shared
 };
 
 // Where a chunk of rows sits in shared memory and what its boxes bring: per
@@ -508,7 +511,7 @@ ssd_kernel_states(const __grid_constant__ CUtensorMap xmap,
     }
     return;
   }
-  const float A = Aneg[h];
+  const float A = Aneg[b * d.a_sb + h];
   const float dtq = tid < L.valid ? dt[b * dts.b + h * dts.h + (L.s0 + tid) * dts.s] : 0.0f;
   zero_unloaded<kPp>(sX, d.Qp, d.box, L.chunks_p);
   zero_unloaded<kNp>(sB, d.Qp, d.box, L.chunks_n);
@@ -842,7 +845,7 @@ ssd_kernel_outputs(const __grid_constant__ CUtensorMap xmap,
     }
     return;
   }
-  const float A = Aneg[h];
+  const float A = Aneg[b * d.a_sb + h];
   const float dtq = tid < L.valid ? dt[b * dts.b + h * dts.h + (L.s0 + tid) * dts.s] : 0.0f;
   zero_unloaded<kNp>(T.C, d.Qp, d.box, L.chunks_n);
   zero_unloaded<kNp>(T.B, d.Qp, d.box, L.chunks_n);
@@ -936,8 +939,9 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A, con
                                int Q, int bf16_inputs, long long x_sb, long long x_ss,
                                long long x_sh, long long dt_sb, long long dt_ss, long long dt_sh,
                                long long b_sb, long long b_ss, long long b_sg, long long c_sb,
-                               long long c_ss, long long c_sg, void* stream) {
-  if (G <= 0 || H % G || batch <= 0 || S <= 0 || Q <= 0 || H > 65535 || batch > 65535) {
+                               long long c_ss, long long c_sg, long long a_sb, void* stream) {
+  if (G <= 0 || H % G || batch <= 0 || S <= 0 || Q <= 0 || H > 65535 || batch > 65535 ||
+      (a_sb != 0 && a_sb != H)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Strides xs{x_sb, x_ss, x_sh}, dts{dt_sb, dt_ss, dt_sh}, bs{b_sb, b_ss, b_sg},
@@ -953,7 +957,7 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A, con
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const int chunks = (S + Q - 1) / Q;
-    const Dims d{S, H, P, G, N, Q, (Q + kRows - 1) / kRows * kRows, chunks, min(Q, kRows)};
+    const Dims d{S, H, P, G, N, Q, (Q + kRows - 1) / kRows * kRows, chunks, min(Q, kRows), a_sb};
     float* sf = static_cast<float*>(states);
     float* df = static_cast<float*>(decay);
     return N <= 64 ? launch_tc<64>(x, dtf, Af, Bm, Cm, yf, sf, df, split_states, batch, d, xs,
@@ -964,5 +968,5 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A, con
   if (P % 4 || N % 4 || Q % 4 || P > 128 || N > 128 || Q > 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch<float>(x, dtf, Af, Bm, Cm, yf, batch, S, H, P, G, N, Q, xs, dts, bs, cs, st);
+  return launch<float>(x, dtf, Af, Bm, Cm, yf, batch, S, H, P, G, N, Q, a_sb, xs, dts, bs, cs, st);
 }

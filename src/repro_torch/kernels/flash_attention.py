@@ -426,21 +426,6 @@ def _forward(q, k, v, causal: bool, softcap: float, window: int, stats: bool):
     return o, o32, lse
 
 
-def _fold(info, in_dims, tensors):
-    """Tensors under ``vmap`` -> plain tensors with the vmapped dimension
-    folded into the batch (an unbatched one expanded to it)."""
-    out = []
-    for t, d in zip(tensors, in_dims):
-        t = t.expand(info.batch_size, *t.shape) if d is None else t.movedim(d, 0)
-        out.append(t.flatten(0, 1))  # also the (P, B, 0) statistics of an f32 CUDA forward
-    return out
-
-
-def _unfold(info, tensors):
-    """Outputs of a launch on folded tensors -> outputs batched in dim 0."""
-    return tuple(t.unflatten(0, (info.batch_size, -1)) for t in tensors)
-
-
 class FlashAttentionFn(torch.autograd.Function):
     """``flash_attention`` with its backward, in the ``setup_context`` form
     that ``torch.func`` transforms take. It returns (o, o32, lse): o32 (o
@@ -471,8 +456,9 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, q, k, v, causal, softcap, window):
-        outs = FlashAttentionFn.apply(*_fold(info, in_dims[:3], (q, k, v)), causal, softcap, window)
-        return _unfold(info, outs), (0, 0, 0)
+        outs = FlashAttentionFn.apply(*build.fold(info, in_dims[:3], (q, k, v)), causal, softcap,
+                                      window)
+        return build.unfold(info, outs), (0, 0, 0)
 
 
 class FlashAttentionBackwardFn(torch.autograd.Function):
@@ -495,8 +481,8 @@ class FlashAttentionBackwardFn(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, q, k, v, o32, lse, do, causal, softcap, window):
         grads = FlashAttentionBackwardFn.apply(
-            *_fold(info, in_dims[:6], (q, k, v, o32, lse, do)), causal, softcap, window)
-        return _unfold(info, grads), (0, 0, 0)
+            *build.fold(info, in_dims[:6], (q, k, v, o32, lse, do)), causal, softcap, window)
+        return build.unfold(info, grads), (0, 0, 0)
 
 
 def flash_attention(

@@ -32,6 +32,14 @@ tensor (the dry run) it allocates y and the scratch and charges
 ``ssd_scan_cost``, the formula of the kernel's bound, without a launch. The
 wrapper counts its calls that launch the kernel in its ``launches``
 attribute: one per call, though the bf16 body's call is three launches.
+
+``ssd_scan`` has no backward, as the Pallas scan has no gradient. The
+training route is ``ssd_chunked_grad``: ``ssd_chunked``'s y as an autograd
+Function whose forward is the same bf16 body, keeping the entering states
+that its pass 2 writes, and whose backward is a kernel of its own
+(``csrc/ssd_scan_bwd.cu``, :class:`SsdChunkedBackwardFn`), both with
+``vmap`` rules that fold the vmapped peers into the batch. On the CPU it is
+``ssd_chunked`` under autograd.
 """
 from __future__ import annotations
 
@@ -43,7 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
-from repro_torch.kernels.cost import ssd_scan_cost
+from repro_torch.kernels.cost import ssd_scan_bwd_cost, ssd_scan_cost
 
 SOURCE = "ssd_scan.cu"
 # what each body's shared-memory tiling takes (csrc/ssd_scan.cu): the f32
@@ -149,6 +157,7 @@ def _lib() -> ctypes.CDLL:
         i64, i64, i64,  # dt strides
         i64, i64, i64,  # B strides (batch, seq, group)
         i64, i64, i64,  # C strides
+        i64,  # A's stride between batch rows (0: one A for all)
         ptr,  # stream
     ]
     lib.ssd_scan_launch.restype = ctypes.c_int
@@ -160,14 +169,19 @@ def load_library() -> None:
     _lib()
 
 
-def _check(x, dt, A, Bm, Cm, chunk: int) -> None:
-    if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or Bm.dim() != 4 or Cm.dim() != 4:
-        raise ValueError("x, dt, A, B, C must be 4-, 3-, 1-, 4- and 4-d")
+def _check(x, dt, A, Bm, Cm, chunk: int, rows_of_A: bool = False) -> None:
+    """The inputs' shapes, dtypes and device; ``rows_of_A``: A may also be
+    (n, H), one row for each of n equal runs of the batch (the training
+    route's ``vmap`` rules fold a per-peer A so)."""
+    if x.dim() != 4 or dt.dim() != 3 or Bm.dim() != 4 or Cm.dim() != 4:
+        raise ValueError("x, dt, B, C must be 4-, 3-, 4- and 4-d")
     Bsz, S, H, _ = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
-    if tuple(dt.shape) != (Bsz, S, H) or tuple(A.shape) != (H,):
+    rows = rows_of_A and A.dim() == 2 and A.shape[1] == H and A.shape[0] and Bsz % A.shape[0] == 0
+    if tuple(dt.shape) != (Bsz, S, H) or (tuple(A.shape) != (H,) and not rows):
         raise ValueError(f"dt {tuple(dt.shape)} and A {tuple(A.shape)} must be "
-                         f"{(Bsz, S, H)} and {(H,)}")
+                         f"{(Bsz, S, H)} and {(H,)}"
+                         + (f" or (n, {H}) with n dividing {Bsz}" if rows_of_A else ""))
     if tuple(Bm.shape) != (Bsz, S, G, N) or Cm.shape != Bm.shape:
         raise ValueError(f"B {tuple(Bm.shape)} and C {tuple(Cm.shape)} must both be "
                          f"(batch {Bsz}, seq {S}, groups, state)")
@@ -211,6 +225,58 @@ def _check_launchable(x, Bm, Cm, chunk: int) -> None:
         )
 
 
+def _A_rows(A: torch.Tensor, batch: int) -> Tuple[torch.Tensor, int]:
+    """A as the kernels read it -> (A, its stride between batch rows): an
+    (H,) A is every row's (stride 0); an (n, H) A, n dividing the batch, is
+    repeated to one row per batch row (stride H)."""
+    if A.dim() == 1:
+        return A, 0
+    n, H = A.shape
+    return A[:, None].expand(n, batch // n, H).reshape(batch, H).contiguous(), H
+
+
+def _launch(x, dt, A, Bm, Cm, chunk: int, split: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The forward kernel on CUDA or meta tensors -> y (B, S, H, P) f32,
+    after the launch checks; on meta, allocations only. In bf16 the entering
+    states R_c go to ``split`` (B, chunks, H, 2, P, N) bf16 where given (the
+    training route saves them), else to the scratch."""
+    meta = build.on_meta(x)
+    stream = None if meta else build.cuda_stream(x.device)
+    _check_launchable(x, Bm, Cm, chunk)
+    Bsz, S, H, P = x.shape
+    A, a_sb = _A_rows(A, Bsz)
+    if not all(t.stride(-1) == 1 for t in (x, Bm, Cm, A)):
+        raise ValueError("x, B, C and A must be contiguous in their last dimension")
+    G, N = Bm.shape[2], Bm.shape[3]
+    y = torch.empty((Bsz, S, H, P), dtype=torch.float32, device=x.device)
+    if y.numel() == 0:
+        return y
+    states = decay = split_ptr = None
+    if x.dtype == torch.bfloat16:
+        # one buffer: the chunk states s_c (B, chunks, H, P, N) f32, their
+        # decays (B, chunks, H) f32, and unless ``split`` is given the
+        # entering states R_c as bf16 hi and lo (B, chunks, H, 2, P, N), each
+        # part 256-byte aligned
+        n_states, n_decay = Bsz * -(-S // chunk) * H * P * N, Bsz * -(-S // chunk) * H
+        split_at = -(-(4 * n_states + 4 * n_decay) // 256) * 256
+        scratch = torch.empty(split_at + (0 if split is not None else 4 * n_states),
+                              dtype=torch.uint8, device=x.device)
+        states = scratch.data_ptr()
+        decay = states + 4 * n_states
+        split_ptr = split.data_ptr() if split is not None else states + split_at
+    if not meta:
+        with torch.cuda.device(x.device):
+            err = _lib().ssd_scan_launch(
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                y.data_ptr(), states, decay, split_ptr, Bsz, S, H, P, G, N, chunk,
+                _DTYPES[x.dtype], *x.stride()[:3], *dt.stride(), *Bm.stride()[:3],
+                *Cm.stride()[:3], a_sb, stream,
+            )
+        if err:
+            raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err}")
+    return y
+
+
 def ssd_scan(
     x: torch.Tensor,  # (B, S, H, P) f32 or bf16
     dt: torch.Tensor,  # (B, S, H) f32, after softplus
@@ -237,38 +303,265 @@ def ssd_scan(
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
     build.refuse_grad("ssd_scan", x, dt, A, Bm, Cm)
-    meta = build.on_meta(x)
-    stream = None if meta else build.cuda_stream(x.device)
-    _check_launchable(x, Bm, Cm, chunk)
-    if not all(t.stride(-1) == 1 for t in (x, Bm, Cm)) or A.stride(0) != 1:
-        raise ValueError("x, B, C and A must be contiguous in their last dimension")
-    Bsz, S, H, P = x.shape
-    G, N = Bm.shape[2], Bm.shape[3]
-    y = torch.empty((Bsz, S, H, P), dtype=torch.float32, device=x.device)
-    if y.numel() == 0:
-        return y
-    states = decay = split = None
-    if x.dtype == torch.bfloat16:
-        # one buffer: the chunk states s_c (B, chunks, H, P, N) f32, their
-        # decays (B, chunks, H) f32, the entering states R_c as bf16 hi and
-        # lo (B, chunks, H, 2, P, N), each part 256-byte aligned
-        n_states, n_decay = Bsz * -(-S // chunk) * H * P * N, Bsz * -(-S // chunk) * H
-        split_at = -(-(4 * n_states + 4 * n_decay) // 256) * 256
-        scratch = torch.empty(split_at + 4 * n_states, dtype=torch.uint8, device=x.device)
-        states = scratch.data_ptr()
-        decay, split = states + 4 * n_states, states + split_at
-    if not meta:
-        with torch.cuda.device(x.device):
-            err = _lib().ssd_scan_launch(
-                x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                y.data_ptr(), states, decay, split, Bsz, S, H, P, G, N, chunk, _DTYPES[x.dtype],
-                *x.stride()[:3], *dt.stride(), *Bm.stride()[:3], *Cm.stride()[:3], stream,
-            )
-        if err:
-            raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err}")
+    y = _launch(x, dt, A, Bm, Cm, chunk)
+    if not build.on_meta(x) and y.numel():
         ssd_scan.launches += 1
     build.charge("ssd_scan", *ssd_scan_cost(x, Bm))
     return y
 
 
 ssd_scan.launches = 0
+
+
+# -- the training route: the bf16 forward kernel and its backward kernel --------
+
+BWD_SOURCE = "ssd_scan_bwd.cu"
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load(BWD_SOURCE)
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ssd_scan_backward_launch.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # x, dt, A, B, C, dy, the saved entering states
+        ptr, ptr, ptr, ptr, ptr,  # dx, ddt, dA, dB, dC
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # scratch (_grad_backward's order)
+        i32, i32, i32, i32,  # batch, seq, heads, headdim
+        i32, i32, i32, i32,  # groups, state, chunk, dA's groups of batch rows
+        i64, i64, i64,  # x strides (batch, seq, head)
+        i64, i64, i64,  # dt strides
+        i64, i64, i64,  # B strides (batch, seq, group)
+        i64, i64, i64,  # C strides
+        i64,  # A's stride between batch rows (0: one A for all)
+        ptr,  # stream
+    ]
+    lib.ssd_scan_backward_launch.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _grad_libs() -> None:
+    """Both libraries of the training route, built in parallel (one ``nvcc``
+    each) at its first forward, and loaded."""
+    build.build_all([SOURCE, BWD_SOURCE])
+    _lib()
+    _bwd_lib()
+
+
+def ssd_grad_takes(x, Bm, Cm, chunk: int) -> bool:
+    """Whether the training route's kernels take these inputs: x on CUDA or
+    meta, x, B and C in bf16 with headdim and state that are multiples of 8
+    up to 64 and 128 (the bf16 body's), a chunk that is a multiple of 64 up to
+    256, and rows the TMA loads take (last dimension contiguous, strides of
+    16 bytes; a base address off 16 bytes is copied, ``_rows16``). It reads
+    only what a tensor under ``torch.func`` transforms shows."""
+    if x.device.type not in ("cuda", "meta") or x.dim() != 4 or Bm.dim() != 4 or Cm.dim() != 4:
+        return False
+    if not all(t.dtype == torch.bfloat16 for t in (x, Bm, Cm)):
+        return False
+    P, N = x.shape[3], Bm.shape[3]
+    if P % 8 or N % 8 or P > BF16_MAX_HEADDIM or N > BF16_MAX_STATE:
+        return False
+    if chunk <= 0 or chunk % 64 or chunk > BF16_MAX_CHUNK:
+        return False
+    return all(t.stride(-1) == 1 and all(st % 8 == 0 for st, n in zip(t.stride()[:3], t.shape[:3])
+                                         if n > 1) for t in (x, Bm, Cm))
+
+
+def _rows16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a contiguous copy where its base address is off 16 bytes."""
+    return t if build.on_meta(t) or t.data_ptr() % 16 == 0 else t.contiguous()
+
+
+def _grad_forward(x, dt, A, Bm, Cm, chunk: int):
+    """The training route's forward on plain tensors -> (y (B, S, H, P) f32,
+    the entering states (B, chunks, H, 2, P, N) bf16 as hi and lo halves):
+    the bf16 body's three passes, its pass 2 writing the states that the
+    backward reads."""
+    _check(x, dt, A, Bm, Cm, chunk, rows_of_A=True)
+    if not ssd_grad_takes(x, Bm, Cm, chunk):
+        raise ValueError("ssd_chunked_grad's kernels take bf16 x, B and C with headdim and state "
+                         "multiples of 8 up to 64 and 128, a chunk that is a multiple of 64 up to "
+                         "256, and 16-byte rows")
+    x, Bm, Cm = (_rows16(t) for t in (x, Bm, Cm))
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[3]
+    split = torch.empty((Bsz, -(-S // chunk), H, 2, P, N), dtype=torch.bfloat16, device=x.device)
+    if not build.on_meta(x):
+        _grad_libs()
+    y = _launch(x, dt, A, Bm, Cm, chunk, split=split)
+    if not build.on_meta(x) and y.numel():
+        ssd_chunked_grad.launches += 1
+    build.charge("ssd_chunked_grad", *ssd_scan_cost(x, Bm))
+    return y, split
+
+
+def _grad_backward(x, dt, A, Bm, Cm, split, dy, chunk: int, groups: Optional[int] = None):
+    """The backward kernel on plain tensors -> (dx, ddt, dA, dB, dC) in the
+    inputs' dtypes. dA has A's shape, (H,) or (n, H) (``_A_rows``), or with
+    ``groups`` given (groups, H): the sums over each of ``groups`` equal runs
+    of the batch (the slices of a vmapped call). Seven launches, counted as
+    one on ``ssd_chunked_grad_backward``; the scratch (ssd_scan_bwd.cu's
+    launch function) is allocated here."""
+    x, Bm, Cm = (_rows16(t) for t in (x, Bm, Cm))
+    meta = build.on_meta(x)
+    stream = None if meta else build.cuda_stream(x.device)
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    nc = -(-S // chunk)
+    if tuple(split.shape) != (Bsz, nc, H, 2, P, N) or not split.is_contiguous():
+        raise ValueError(f"the saved states must be contiguous {(Bsz, nc, H, 2, P, N)}, "
+                         f"got {tuple(split.shape)}")
+    rows = groups if groups is not None else 1 if A.dim() == 1 else A.shape[0]
+    if Bsz % rows:
+        raise ValueError(f"{rows} groups must divide the batch of {Bsz}")
+    dy = dy.to(torch.float32).contiguous()
+    dev, f32 = x.device, torch.float32
+    dx = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=dev)
+    ddt = torch.empty((Bsz, S, H), dtype=f32, device=dev)
+    dA = torch.empty((rows, H), dtype=f32, device=dev)
+    vector_dA = groups is None and A.dim() == 1
+    A, a_sb = _A_rows(A, Bsz)
+    dB = torch.empty((Bsz, S, G, N), dtype=Bm.dtype, device=dev)
+    dC = torch.empty((Bsz, S, G, N), dtype=Cm.dtype, device=dev)
+    scratch = [torch.empty(shape, dtype=f32, device=dev) for shape in (
+        (Bsz, nc, H, P, N),  # direct: the state gradient each chunk's outputs give
+        (Bsz, nc, H), (Bsz, nc, H), (Bsz, nc, H),  # decay, the chunk-end dcum, dA's shares
+        (Bsz, S, H, N), (Bsz, S, H, N),  # dC and dB per head
+        (Bsz, S, H))]  # dcum: the gradient of the within-chunk cumsum
+    scratch.append(torch.empty_like(split))  # ds_c as bf16 hi and lo
+    if not meta and dx.numel():
+        with torch.cuda.device(dev):
+            err = _bwd_lib().ssd_scan_backward_launch(
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                dy.data_ptr(), split.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+                dB.data_ptr(), dC.data_ptr(), *(t.data_ptr() for t in scratch),
+                Bsz, S, H, P, G, N, chunk, rows, *x.stride()[:3], *dt.stride(),
+                *Bm.stride()[:3], *Cm.stride()[:3], a_sb, stream,
+            )
+        if err:
+            raise RuntimeError(f"ssd_chunked_grad backward kernel launch failed: cudaError {err}")
+        ssd_chunked_grad_backward.launches += 1
+    build.charge("ssd_chunked_grad_backward", *ssd_scan_bwd_cost(x, Bm, chunk))
+    return dx, ddt, dA[0] if vector_dA else dA, dB, dC
+
+
+def _fold_A(info, in_dim, A: torch.Tensor) -> torch.Tensor:
+    """A under ``vmap`` -> the rows the kernels read for the folded batch:
+    an unbatched (H,) stays one row for all; otherwise each slice's rows in
+    turn, (slices x n, H), as ``build.fold`` orders the batch (a per-peer
+    A: a banked step's, or one a nested rule folded)."""
+    if in_dim is None and A.dim() == 1:
+        return A
+    A = A.expand(info.batch_size, *A.shape) if in_dim is None else A.movedim(in_dim, 0)
+    return A.reshape(-1, A.shape[-1])
+
+
+class SsdChunkedFn(torch.autograd.Function):
+    """``ssd_chunked``'s y on the kernels, in the ``setup_context`` form that
+    ``torch.func`` transforms take. It returns (y, the entering states as
+    bf16 hi and lo): the states are marked non-differentiable and saved, with
+    the inputs, for the backward. Its ``vmap`` rule folds the vmapped
+    dimension into the batch (a kernel that reads ``data_ptr()`` cannot see a
+    batched tensor), and a batched A into one row per slice (``_fold_A``),
+    which the kernels read per batch row."""
+
+    @staticmethod
+    def forward(x, dt, A, Bm, Cm, chunk):
+        return _grad_forward(x, dt, A, Bm, Cm, chunk)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, dt, A, Bm, Cm, chunk = inputs
+        ctx.mark_non_differentiable(output[1])
+        ctx.save_for_backward(x, dt, A, Bm, Cm, output[1])
+        ctx.chunk = chunk
+
+    @staticmethod
+    def backward(ctx, dy, _dsplit):
+        x, dt, A, Bm, Cm, split = ctx.saved_tensors
+        grads = SsdChunkedBackwardFn.apply(x, dt, A, Bm, Cm, split, dy, ctx.chunk)
+        return (*grads, None)
+
+    @staticmethod
+    def vmap(info, in_dims, x, dt, A, Bm, Cm, chunk):
+        x, dt, Bm, Cm = build.fold(info, in_dims[:2] + in_dims[3:5], (x, dt, Bm, Cm))
+        A = _fold_A(info, in_dims[2], A)
+        return build.unfold(info, SsdChunkedFn.apply(x, dt, A, Bm, Cm, chunk)), (0, 0)
+
+
+class SsdChunkedBackwardFn(torch.autograd.Function):
+    """The backward as a function of (x, dt, A, B, C, the saved states, dy),
+    so that it too runs under ``vmap`` with the vmapped dimension folded into
+    the batch, one launch for all; dA then comes back per slice: the sums
+    over ``groups`` equal runs of the folded batch. It has no backward of
+    its own: a second derivative raises."""
+
+    @staticmethod
+    def forward(x, dt, A, Bm, Cm, split, dy, chunk, groups=None):
+        return _grad_backward(x, dt, A, Bm, Cm, split, dy, chunk, groups)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("ssd_chunked_grad has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, x, dt, A, Bm, Cm, split, dy, chunk, groups=None):
+        # each slice's dA has A's shape, (H,) or (n, H), or (groups, H)
+        shape = [n for i, n in enumerate(A.shape) if i != in_dims[2]]
+        rows = groups if groups is not None else shape[0] if len(shape) == 2 else 1
+        x, dt, Bm, Cm, split, dy = build.fold(info, in_dims[:2] + in_dims[3:7],
+                                              (x, dt, Bm, Cm, split, dy))
+        A = _fold_A(info, in_dims[2], A)
+        dx, ddt, dA, dB, dC = SsdChunkedBackwardFn.apply(x, dt, A, Bm, Cm, split.contiguous(), dy,
+                                                         chunk, info.batch_size * rows)
+        dA = dA.unflatten(0, (info.batch_size, rows))
+        if groups is None and len(shape) == 1:
+            dA = dA[:, 0]
+        return (*build.unfold(info, (dx, ddt)), dA, *build.unfold(info, (dB, dC))), (0,) * 5
+
+
+def ssd_chunked_grad(
+    x: torch.Tensor,  # (B, S, H, P) bf16
+    dt: torch.Tensor,  # (B, S, H) f32, after softplus
+    A: torch.Tensor,  # (H,) f32, negative
+    Bm: torch.Tensor,  # (B, S, G, N) bf16
+    Cm: torch.Tensor,  # (B, S, G, N) bf16
+    chunk: int,
+) -> torch.Tensor:
+    """``ssd_chunked``'s y (B, S, H, P) f32 with no initial state, for
+    training: differentiable on every device. On the CPU it is the plain
+    ``ssd_chunked`` under autograd. On CUDA (and meta: allocations and
+    costs, no launch) :class:`SsdChunkedFn`: the bf16 forward kernel, which
+    keeps its entering states for the backward kernel (``csrc/ssd_scan_bwd.cu``),
+    both for the inputs ``ssd_grad_takes``. ``launches`` counts the forward
+    calls that launch, ``ssd_chunked_grad_backward.launches`` the backward's."""
+    if x.device.type == "cpu":
+        return ssd_chunked(x, dt, A, Bm, Cm, chunk)[0]
+    return SsdChunkedFn.apply(x, dt, A, Bm, Cm, int(chunk))[0]
+
+
+ssd_chunked_grad.launches = 0
+
+
+def ssd_chunked_grad_backward(x, dt, A, Bm, Cm, dy, chunk: int):
+    """The backward of ``ssd_chunked_grad`` at (x, dt, A, B, C) for the
+    cotangent ``dy`` of y -> (dx, ddt, dA, dB, dC) in the inputs' dtypes. On
+    CUDA the forward kernel runs first for the entering states that the
+    backward kernel reads (counted on ``ssd_chunked_grad.launches``); on the
+    CPU autograd of ``ssd_chunked``. The same inputs give the same bits: the
+    kernels use no atomics."""
+    if x.device.type == "cpu":
+        leaves = [t.detach().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+        with torch.enable_grad():
+            y = ssd_chunked(*leaves, chunk)[0]
+        return torch.autograd.grad(y, leaves, dy)
+    _, split = _grad_forward(x, dt, A, Bm, Cm, chunk)
+    return _grad_backward(x, dt, A, Bm, Cm, split, dy, chunk)
+
+
+ssd_chunked_grad_backward.launches = 0

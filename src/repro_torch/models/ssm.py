@@ -3,9 +3,12 @@
 A copy of the reference's ``repro/models/ssm.py`` in PyTorch. A full
 sequence runs the chunked SSD algorithm (arXiv:2405.21060 §6): the
 intra-chunk dual form plus the inter-chunk state recurrence. Scoring may
-take the hand-written kernel (``kernels/ssd_scan.py``); prefill takes the
-plain ``ssd_chunked`` (beside the kernel there), which also returns the
-final state; decode takes the O(1) recurrent step.
+take the hand-written forward kernel (``kernels/ssd_scan.py``, no
+gradient); otherwise a full sequence in bf16 on the card, training
+included, takes ``ssd_chunked_grad`` (the forward kernel and its backward
+kernel) where its widths and chunk allow, and the plain ``ssd_chunked``
+elsewhere (the CPU, f32, other shapes); prefill takes ``ssd_chunked``, which
+also returns the final state; decode takes the O(1) recurrent step.
 
 Public functions keep the reference's layouts: x (B, S, H, P), B/C
 (B, S, G, N), a convolution weight (K, C). The module stores its
@@ -21,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_chunked_grad, ssd_grad_takes, ssd_scan
 from repro_torch.models.layers import RMSNorm, dense_linear
 
 State = Dict[str, torch.Tensor]
@@ -94,9 +97,12 @@ def mamba2_apply(
     use_kernel: bool = False,
 ) -> Tuple[torch.Tensor, Optional[State]]:
     """The reference's ``mamba2_apply``, three routes: a full sequence
-    (``state`` None) through the SSD kernel when ``use_kernel``, else the
-    plain ``ssd_chunked``; a prefill (``state`` given, S > 1) through
-    ``ssd_chunked``, filling the decode state; and one decode step."""
+    (``state`` None) through the SSD kernel when ``use_kernel`` (no
+    gradient), else through ``ssd_chunked_grad`` (the forward and backward
+    kernels) where ``ssd_grad_takes`` the inputs (CUDA or meta, bf16, the
+    kernels' widths and chunk), else the plain ``ssd_chunked``; a prefill
+    (``state`` given, S > 1) through ``ssd_chunked``, filling the decode
+    state; and one decode step."""
     B, S, _ = x.shape
     di, H, N, G = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_ngroups
     Pd = cfg.ssm_headdim
@@ -117,6 +123,8 @@ def mamba2_apply(
         dtv = F.softplus(dt_raw.to(f32) + mod.dt_bias.to(f32))
         if use_kernel and state is None:
             y, final = ssd_scan(xs, dtv, A, Bm, Cm, chunk=cfg.ssm_chunk), None
+        elif state is None and ssd_grad_takes(xs, Bm, Cm, cfg.ssm_chunk):
+            y, final = ssd_chunked_grad(xs, dtv, A, Bm, Cm, cfg.ssm_chunk), None
         else:
             y, final = ssd_chunked(xs, dtv, A, Bm, Cm, cfg.ssm_chunk)
         y = y + xs.to(f32) * mod.D.to(f32)[:, None]

@@ -11,10 +11,13 @@ can take per-peer gradients with ``torch.func.grad_and_value`` under
 On the card the full-sequence attention runs the flash kernels, forward and
 backward (``kernels/flash_attention.py``). ``lm_loss`` applies the LM head
 a chunk of tokens at a time (:class:`ChunkedHeadFn`): no (B, S, vocab)
-f32 logits are held for the backward. The SSD scan's kernel has no
-backward, as the reference's Pallas scan has no gradient (ROADMAP.md,
-reference behaviour 18): ``use_ssd_kernel`` defaults to False, and Mamba-2
-trains through ``ssd_chunked``, as the reference's ``lm_loss`` does.
+f32 logits are held for the backward. The SSD scan's scoring kernel
+(``ssd_scan``) has no backward, as the reference's Pallas scan has no
+gradient (ROADMAP.md, reference behaviour 18): ``use_ssd_kernel`` defaults
+to False. Mamba-2 then trains through the gradient of ``ssd_chunked``, as the
+reference's ``lm_loss`` does: on the card in bf16 through
+``ssd_chunked_grad`` (the forward kernel, which saves its entering states,
+and a backward kernel), elsewhere through ``ssd_chunked`` under autograd.
 """
 from __future__ import annotations
 

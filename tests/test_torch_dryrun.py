@@ -158,7 +158,7 @@ def test_cost_functions_load_by_path_alone():
     spec.loader.exec_module(cost)
     assert set(sys.modules) == before
     for mod, names in ((kf, ("valid_pairs", "flash_attention_cost", "flash_attention_backward_cost")),
-                       (ks, ("ssd_scan_cost",)),
+                       (ks, ("ssd_scan_cost", "ssd_scan_bwd_cost")),
                        (kq, ("qsgd_quantize_cost", "qsgd_dequantize_cost",
                              "qsgd_dequant_reduce_cost")),
                        (kt, ("topk_select_cost", "topk_scatter_cost"))):

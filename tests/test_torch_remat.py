@@ -268,10 +268,11 @@ def test_flash_vmap_rules_fold_the_empty_statistics():
     its rule folds those empty tensors with the peers as it folds q."""
     from types import SimpleNamespace
 
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as kf
 
     q = torch.zeros(PEERS, 3, 5, 2, 4)
     stats = torch.stack([kf._no_stats(q[0])] * PEERS)
-    folded = kf._fold(SimpleNamespace(batch_size=PEERS), (0, 0, None), (q, stats, stats[0]))
+    folded = build.fold(SimpleNamespace(batch_size=PEERS), (0, 0, None), (q, stats, stats[0]))
     assert [tuple(t.shape) for t in folded] == [(PEERS * 3, 5, 2, 4), (PEERS * 3, 0),
                                                 (PEERS * 3, 0)]

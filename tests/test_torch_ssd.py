@@ -122,6 +122,117 @@ def _emulate_bf16_body(x, dt, A, Bm, Cm, chunk, terms=2):
     return y.reshape(Bsz, nc * chunk, H, P)[:, :S_].numpy()
 
 
+def _terms_product(eq, a, b, terms, a_exact=False, b_exact=False):
+    """einsum(eq, a, b) with each f32 operand as ``terms`` bf16 terms and the
+    products of term pairs (u, v) with u + v < terms summed in f32: with two
+    terms hi hi + hi lo + lo hi where both are f32, hi + lo where one is
+    exact in bf16."""
+    sa = [a] if a_exact else _split(a, terms)
+    sb = [b] if b_exact else _split(b, terms)
+    return sum(torch.einsum(eq, pa, pb) for u, pa in enumerate(sa) for v, pb in enumerate(sb)
+               if u + v < terms)
+
+
+def _emulate_bf16_backward(x, dt, A, Bm, Cm, dy, chunk, terms=2):
+    """The backward kernel's passes (csrc/ssd_scan_bwd.cu) in f32 on the CPU,
+    every product of the kernel as ``_terms_product`` of its operands: x, B
+    and C exact, dy, e o dy, M, dS and the states R_c and ds_c in ``terms``
+    bf16 terms. The entering states come from the forward's passes 1-2 as
+    its saved hi and lo halves. Returns (dx, ddt, dA, dB, dC) as numpy f32."""
+    Bsz, S_, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    nc = -(-S_ // chunk)
+    pad = nc * chunk - S_
+    padded = lambda a: np.pad(a, [(0, 0), (0, pad)] + [(0, 0)] * (a.ndim - 2))
+    xt, dtt, Bt, Ct, dyt = (torch.from_numpy(padded(a)).float() for a in (x, dt, Bm, Cm, dy))
+    At = torch.from_numpy(A).float()
+    heads = torch.arange(H) // (H // G)
+    xc = xt.reshape(Bsz, nc, chunk, H, P)
+    dtc = dtt.reshape(Bsz, nc, chunk, H)
+    dyc = dyt.reshape(Bsz, nc, chunk, H, P)
+    Bc = Bt.reshape(Bsz, nc, chunk, G, N)[:, :, :, heads]  # (B, nc, Q, H, N)
+    Cc = Ct.reshape(Bsz, nc, chunk, G, N)[:, :, :, heads]
+    cum = torch.cumsum(dtc * At, dim=2)
+    e, w, D = torch.exp(cum), torch.exp(cum[:, :, -1:] - cum), torch.exp(cum[:, :, -1])
+    # the forward's entering states R_c, saved as terms
+    states = _terms_product("bcqhp,bcqhn->bchpn", xc, Bc * (dtc * w)[..., None], terms,
+                            a_exact=True)
+    R, entering = torch.zeros((Bsz, H, P, N)), []
+    for c in range(nc):
+        entering.append(R)
+        R = R * D[:, c, :, None, None] + states[:, c]
+    R = sum(_split(torch.stack(entering, dim=1), terms))
+    # 1. direct: (e dy)^T C
+    direct = _terms_product("bcqhp,bcqhn->bchpn", e[..., None] * dyc, Cc, terms, b_exact=True)
+    # 2. carry: ds_c = dR_{c+1}; the chunk end gets D_c sum(ds_c o R_c)
+    G_, ds, dcumQ = torch.zeros((Bsz, H, P, N)), torch.zeros_like(R), torch.zeros((Bsz, nc, H))
+    for c in reversed(range(nc)):
+        ds[:, c] = G_
+        dcumQ[:, c] = (G_ * R[:, c]).sum((-1, -2)) * D[:, c]
+        G_ = G_ * D[:, c, :, None, None] + direct[:, c]
+    ds = sum(_split(ds, terms))
+    # 3. rows: dC = e (dy R), dcum = C . dC; S, dM = dt_j (dy_i . x_j), dC += dS B
+    dC = _terms_product("bcqhp,bchpn->bcqhn", dyc, R, terms) * e[..., None]
+    dcum = (Cc * dC).sum(-1)
+    ii = torch.arange(chunk)
+    causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
+    L = torch.exp(torch.where(causal, cum[:, :, :, None, :] - cum[:, :, None, :, :],
+                              float("-inf")))  # (B, nc, i, j, H)
+    M = torch.einsum("bcihn,bcjhn->bcijh", Cc, Bc) * L
+    dM = _terms_product("bcihp,bcjhp->bcijh", dyc, xc, terms, b_exact=True)
+    dM = dM * dtc[:, :, None, :, :] * causal
+    Z = dM * M
+    dS = dM * L
+    dC = dC + _terms_product("bcijh,bcjhn->bcihn", dS, Bc, terms, b_exact=True)
+    dcum = dcum + Z.sum(3)
+    # 4. cols: the state terms T = x ds, B ds^T; dxdt += M^T dy, dB += dS^T C
+    T = _terms_product("bcjhp,bchpn->bcjhn", xc, ds, 1, a_exact=True, b_exact=True)
+    wdw = w * dtc * (Bc * T).sum(-1)
+    dxdt = w[..., None] * _terms_product("bcjhn,bchpn->bcjhp", Bc, ds, 1, a_exact=True,
+                                         b_exact=True)
+    dB = (w * dtc)[..., None] * T
+    dcum = dcum - wdw
+    dcumQ = dcumQ + wdw.sum(2)
+    dxdt = dxdt + _terms_product("bcijh,bcihp->bcjhp", M, dyc, terms)
+    dB = dB + _terms_product("bcijh,bcihn->bcjhn", dS, Cc, terms, b_exact=True)
+    dcum = dcum - Z.sum(2)
+    # 5. finish: the reverse cumsum within the chunk
+    dcum[:, :, -1] += dcumQ
+    da = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2])
+    ddt = (xc * dxdt).sum(-1) + da * At
+    dA = (da * dtc).sum((0, 1, 2))
+    # 6. heads to groups
+    to_groups = lambda t: t.reshape(Bsz, nc, chunk, G, H // G, N).sum(4)
+    cut = lambda t: t.reshape(Bsz, nc * chunk, *t.shape[3:])[:, :S_].numpy()
+    return (cut(dxdt * dtc[..., None]), cut(ddt), dA.numpy(), cut(to_groups(dB)),
+            cut(to_groups(dC)))
+
+
+def _ssd_grads_autograd(arrays, dy, chunk):
+    """Autograd of the port's ``ssd_chunked``'s y in f32 at ``dy``."""
+    leaves = [t.requires_grad_(True) for t in _torch(*arrays)]
+    y = K.ssd_chunked(*leaves, chunk)[0]
+    return [g.numpy() for g in torch.autograd.grad(y, leaves, torch.from_numpy(dy))]
+
+
+def _ssd_grads_jax(arrays, dy, chunk):
+    """jax.grad of the reference's ``models/ssm.py:ssd_chunked``'s y at ``dy``."""
+    f = lambda *a: jnp.sum(JS.ssd_chunked(*a, chunk)[0] * jnp.asarray(dy))
+    return [np.asarray(g) for g in jax.grad(f, argnums=range(5))(*map(jnp.asarray, arrays))]
+
+
+def _grad_case(B, S_, H, P, G, N, seed):
+    """bf16-rounded x, B, C, f32 dt, A and a cotangent dy."""
+    arrays = _bf16_rounded(*_inputs(B, S_, H, P, G, N, seed=seed))
+    dy = np.random.default_rng(seed + 1).normal(size=(B, S_, H, P)).astype(np.float32)
+    return arrays, dy
+
+
+def _worst_gaps(got, want):
+    """Each gradient's largest gap over its reference's largest magnitude."""
+    return [float(np.abs(g - w).max() / np.abs(w).max()) for g, w in zip(got, want)]
+
+
 @functools.lru_cache(maxsize=None)
 def _mamba2_width_case():
     """One (batch, head group) of mamba2-370m's scoring widths, chip_smoke's
@@ -233,6 +344,52 @@ def test_single_bf16_term_misses_the_limit_at_mamba2_widths():
     arrays, y_ref = _mamba2_width_case()
     err = np.abs(_emulate_bf16_body(*arrays, 256, terms=1) - y_ref).max()
     assert err > 2e-5 * np.abs(y_ref).max()
+
+
+GRAD_SHAPES = SHAPES + [(2, 700, 8, 64, 2, 128, 256)]  # groups and a ragged last chunk
+
+
+@pytest.mark.parametrize("B,S_,H,P,G,N,chunk", GRAD_SHAPES)
+def test_bf16_backward_emulation_matches_autograd_and_jax_grad(B, S_, H, P, G, N, chunk):
+    """The backward kernel's algorithm, hi + lo products summed in f32, holds
+    every gradient within 5e-5 of its largest magnitude of autograd through
+    the port's ``ssd_chunked`` and of ``jax.grad`` of the reference's, on the
+    same bf16-rounded inputs: the split leaves about 2^-16 of each product
+    term (measured 1e-6 to 1.1e-5 of the largest magnitude here), and f32
+    sums in another order a few ulps more; the two f32 references, which
+    sum in different orders too, agree within 1e-5 (6.3e-6 measured, dA at
+    the largest shape)."""
+    arrays, dy = _grad_case(B, S_, H, P, G, N, seed=S_ + N)
+    got = _emulate_bf16_backward(*arrays, dy, chunk)
+    torch_grads = _ssd_grads_autograd(arrays, dy, chunk)
+    jax_grads = _ssd_grads_jax(arrays, dy, chunk)
+    for g, t, j in zip(got, torch_grads, jax_grads):
+        assert g.shape == t.shape == j.shape
+    assert max(_worst_gaps(torch_grads, jax_grads)) <= 1e-5
+    assert max(_worst_gaps(got, torch_grads)) <= 5e-5
+    assert max(_worst_gaps(got, jax_grads)) <= 5e-5
+
+
+@functools.lru_cache(maxsize=None)
+def _mamba2_grad_case():
+    """One (batch, head group) of mamba2-370m's training widths (S 2048, P
+    64, N 128, chunk 256, 4 heads): inputs, dy and autograd's gradients."""
+    arrays, dy = _grad_case(1, 2048, 4, 64, 1, 128, seed=31)
+    return arrays, dy, _ssd_grads_autograd(arrays, dy, 256)
+
+
+def test_bf16_backward_emulation_holds_at_mamba2_widths():
+    """Each gradient within 5e-5 of its largest magnitude (the card tests'
+    limit for the backward kernel, ``tests/test_torch_ssd_grad.py``)."""
+    arrays, dy, want = _mamba2_grad_case()
+    assert max(_worst_gaps(_emulate_bf16_backward(*arrays, dy, 256), want)) <= 5e-5
+
+
+def test_single_bf16_term_misses_the_backward_limit_at_mamba2_widths():
+    """The split is needed: one bf16 term per f32 operand puts every
+    gradient past 5e-5 of its largest magnitude (about 1e-3 to 3e-3)."""
+    arrays, dy, want = _mamba2_grad_case()
+    assert min(_worst_gaps(_emulate_bf16_backward(*arrays, dy, 256, terms=1), want)) > 5e-5
 
 
 def test_bf16_body_refuses_the_shapes_it_does_not_take():
