@@ -6,6 +6,7 @@
     python3 chip_smoke.py --scatter-timing SRC  # the scatter alone (below)
     python3 chip_smoke.py --ssd-timing SRC      # the SSD scan alone (below)
     python3 chip_smoke.py --p2p-timing SRC      # the P2P paths holding params once (below)
+    python3 chip_smoke.py --zamba2-kernels      # the zamba2-7b cell's kernel shapes (below)
 
 Phases, each of which fails the run on a failed check (none catches its own
 failure):
@@ -71,7 +72,13 @@ failure):
              ddt, dA, dB and dC within 5e-5 of each one's largest
              magnitude (plus bf16 rounding where written in bf16) of
              autograd of ``ssd_chunked``, a second backward the same bits;
-             both timed beside their plain versions.
+             both timed beside their plain versions. The same at the
+             zamba2-7b cell's (4, 4096, 112 heads of 64, 2 groups), N 64;
+             and the flash kernels at its (4, 4096, 32 heads of 224),
+             causal, at the release's scale (224 / 2)^-1/2: the forward and
+             the backward within their limits of the plain versions at that
+             scale, the default scale's outside them, each timed beside its
+             plain version (the kernels line's ``zamba2_7b`` entries).
 3. reference — small runs on the card against the same runs on the CPU
              (plain versions), same init and uniforms: a 4-peer squeezenet
              QSGD cluster epoch, one device train step with qsgd + EF and
@@ -320,6 +327,10 @@ The last two lines of stdout are a ``{"kernels": [...]}`` JSON line and the
 result ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
 a checkout of the repository, it exits non-zero and prints no result.
 
+``--zamba2-kernels`` runs only the zamba2-7b cell's kernel checks and
+timings (the SSD's training route and the flash kernels at its shapes)
+and prints their rows as one JSON line, no result line.
+
 ``--ssd-timing SRC`` runs only the SSD kernel's timing, likewise with the
 ``repro_torch`` under SRC; it prints no result line.
 
@@ -409,6 +420,12 @@ SSD_SCORING = (4, 2048, 32, 64, 1, 128, 256)  # B, S, H, P, G, N, chunk of mamba
 SSD_LONG = (1, 32768, 32, 64, 1, 128, 256)  # one 32k sequence
 SSD_TRAIN = (32, 2048, 32, 64, 1, 128, 256)  # mamba2-370m's train cell: 2 peers x 16 x 2048 folded
 MAMBA_LAYERS = 48  # mamba2-370m's layers: each runs 2 SSD forwards (remat) and 1 backward a step
+# the zamba2-7b benchmark cell (2 peers x 2 x 4096 folded): its SSD (112 heads of 64 in 2 groups, N
+# 64) in 24 layers, and its shared blocks' attention (32 heads of 224 at scale (224 / 2)^-1/2) in 4
+SSD_ZAMBA2_7B = (4, 4096, 112, 64, 2, 64, 256)
+ZAMBA2_7B_LAYERS = 24
+FLASH_ZAMBA2_7B = (4, 4096, 32, 224)
+ZAMBA2_7B_APPLICATIONS = 4
 PROMPT, GEN = 512, 32  # the serve path
 FLASH_SCORING = (1, 8192, 8, 4, 256)  # B, S, H, K, D of gemma2-2b scoring: its full context
 GEMMA_WINDOW, GEMMA_SOFTCAP = 4096, 50.0  # the local layers' window, the attention softcap
@@ -906,7 +923,7 @@ def flash_tolerance(torch, ref, dtype):
             "every element within 2^-8 |o| + 2e-5 max|o| of the plain version in f32")
 
 
-def planted_faults(torch, kf, q, k, v, *, causal, softcap, window):
+def planted_faults(torch, kf, q, k, v, *, causal, softcap, window, scale=None):
     """Outputs of a kernel with a planted fault, made with the plain version
     on q, k and v in f32 and rounded to q's dtype as the kernel rounds:
     the key tile [S/2, S/2 + 64) skipped, and, when windowed, the window one
@@ -921,17 +938,19 @@ def planted_faults(torch, kf, q, k, v, *, causal, softcap, window):
         faults[f"window {window + 1}"] = (kpos, window + 1)
     for name, (kv_positions, w) in faults.items():
         yield name, kf.attend(*f, causal=causal, q_positions=qpos, kv_positions=kv_positions,
-                              window=w if causal else 0, softcap_val=softcap).to(q.dtype)
+                              window=w if causal else 0, softcap_val=softcap,
+                              scale=scale).to(q.dtype)
 
 
-def check_flash(torch, kf, q, k, v, what, *, causal=True, softcap=0.0, window=0, faults=None):
+def check_flash(torch, kf, q, k, v, what, *, causal=True, softcap=0.0, window=0, faults=None,
+                scale=None):
     """The flash kernel against its plain version on the same inputs, within
     ``flash_tolerance``. ``faults="require"``: each of ``planted_faults``
     must fall outside that limit; ``"report"``: print how far outside.
     Returns the largest abs error."""
-    out = kf.flash_attention(q, k, v, causal=causal, softcap=softcap, window=window)
+    out = kf.flash_attention(q, k, v, causal=causal, softcap=softcap, window=window, scale=scale)
     ref = kf.flash_attention_plain(*(t.float() for t in (q, k, v)), causal=causal, softcap=softcap,
-                                   window=window)
+                                   window=window, scale=scale)
     torch.cuda.synchronize()
     require(out.shape == ref.shape == (*q.shape[:3], q.shape[3]) and out.dtype == q.dtype,
             f"flash_attention output {tuple(out.shape)} {out.dtype} at {what}")
@@ -944,7 +963,7 @@ def check_flash(torch, kf, q, k, v, what, *, causal=True, softcap=0.0, window=0,
           f"max err/limit {float((err / tol).max()):.3f} (max|o| {float(ref.abs().max()):.3f}; {rule})")
     if faults:
         for name, bad in planted_faults(torch, kf, q, k, v, causal=causal, softcap=softcap,
-                                        window=window):
+                                        window=window, scale=scale):
             bad_err = (bad.float() - ref).abs()
             ratio = float((bad_err / tol).max())
             require(faults == "report" or ratio > 1, f"the flash check at {what} would pass a "
@@ -1251,11 +1270,12 @@ def ssd_grad_inputs(torch, shape, seed: int):
     return (x.unflatten(-1, (H, P)), dt, A, Bm.unflatten(-1, (G, N)), Cm.unflatten(-1, (G, N))), dy
 
 
-def ssd_grad_phase(torch, ks):
-    """The SSD's training route at mamba2-370m's train cell (SSD_TRAIN: 2
-    peers x 16 x 2048 folded, 32 heads of 64, N 128, chunk 256) on the
-    model's strided views: ``ssd_chunked_grad``'s y within 2e-5 of max|y|
-    of the plain ``ssd_chunked``'s; ``ssd_chunked_grad_backward``'s dx, ddt,
+def ssd_grad_phase(torch, ks, shape=SSD_TRAIN, what="mamba2-370m's train cell",
+                   layers=MAMBA_LAYERS):
+    """The SSD's training route at ``shape`` (B, S, H, P, G, N, chunk), by
+    default mamba2-370m's train cell (SSD_TRAIN: 2 peers x 16 x 2048
+    folded, 32 heads of 64, N 128, chunk 256), on the model's strided
+    views: ``ssd_chunked_grad``'s y within 2e-5 of max|y| of the plain ``ssd_chunked``'s; ``ssd_chunked_grad_backward``'s dx, ddt,
     dA, dB and dC each within 5e-5 of its largest magnitude of autograd of
     ``ssd_chunked`` (x, B and C as f32 leaves of the same values), plus for
     dx, dB and dC, which the kernel writes in bf16, their rounding (2^-8 of
@@ -1266,23 +1286,23 @@ def ssd_grad_phase(torch, ks):
     backward alone (the kernel's from the forward's saved states, the plain
     one through autograd's graph), against the bounds of ``ssd_scan_cost``
     and ``ssd_scan_bwd_cost``, and a train step's SSD reckoned as
-    MAMBA_LAYERS x (2 forwards + 1 backward). Returns ({name: max abs
+    ``layers`` x (2 forwards + 1 backward). Returns ({name: max abs
     error}, {name: the kernels line's timing keys})."""
-    Bsz, S_, H, P, G, N, Q = SSD_TRAIN
-    (x, dt, A, Bm, Cm), dy = ssd_grad_inputs(torch, SSD_TRAIN, seed=21)
+    Bsz, S_, H, P, G, N, Q = shape
+    (x, dt, A, Bm, Cm), dy = ssd_grad_inputs(torch, shape, seed=21)
     with torch.no_grad():
         y = ks.ssd_chunked_grad(x, dt, A, Bm, Cm, Q)
     got = ks.ssd_chunked_grad_backward(x, dt, A, Bm, Cm, dy, Q)
     again = ks.ssd_chunked_grad_backward(x, dt, A, Bm, Cm, dy, Q)
     bits = lambda t: t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
     require(all(torch.equal(bits(a), bits(b)) for a, b in zip(got, again)),
-            f"ssd_chunked_grad_backward at {SSD_TRAIN[:6]}: a second call gave other bits")
+            f"ssd_chunked_grad_backward at {shape[:6]}: a second call gave other bits")
     del again
     leaves = [t.detach().float().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
     want_y = ks.ssd_chunked(*leaves, Q)[0]
     want = torch.autograd.grad(want_y, leaves, dy)
     y_err, y_scale = float((y - want_y.detach()).abs().max()), float(want_y.detach().abs().max())
-    require(y_err <= 2e-5 * y_scale, f"ssd_chunked_grad at {SSD_TRAIN[:6]}: y max abs error "
+    require(y_err <= 2e-5 * y_scale, f"ssd_chunked_grad at {shape[:6]}: y max abs error "
             f"{y_err:.3e} > 2e-5 x {y_scale:.3e}")
     del y, want_y
     worst, rel = 0.0, {}
@@ -1291,14 +1311,14 @@ def ssd_grad_phase(torch, ks):
         err = (g.float() - w).abs()
         limit = 5e-5 * scale + (2.0 ** -8 * w.abs() if g.dtype == torch.bfloat16 else 0.0)
         bad = int((err > limit).sum())
-        require(bad == 0, f"ssd_chunked_grad_backward at {SSD_TRAIN[:6]}: {bad} elements of {name} "
+        require(bad == 0, f"ssd_chunked_grad_backward at {shape[:6]}: {bad} elements of {name} "
                 f"past 5e-5 x max|{name}| {scale:.3e}" + (" + its bf16 rounding" if g.dtype ==
                 torch.bfloat16 else "") + f", worst {float(err.max()) / scale:.3e} of it")
         rel[name] = float(err.max()) / scale
         worst = max(worst, float(err.max()))
         del err, limit
-    print(f"kernel check ssd_chunked_grad {SSD_TRAIN[:4]} G={G} N={N} chunk {Q} bf16 on strided views "
-          f"(mamba2-370m's train cell, peers folded): y within {y_err / y_scale:.3e} of max|y| (limit "
+    print(f"kernel check ssd_chunked_grad {shape[:4]} G={G} N={N} chunk {Q} bf16 on strided views "
+          f"({what}, peers folded): y within {y_err / y_scale:.3e} of max|y| (limit "
           f"2e-5); backward against autograd of ssd_chunked: "
           + ", ".join(f"{n} {r:.3e}" for n, r in rel.items())
           + " of each gradient's largest magnitude (limit 5e-5, dx/dB/dC plus their bf16 rounding); "
@@ -1335,7 +1355,7 @@ def ssd_grad_phase(torch, ks):
                "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": None}
         rows[name] = row
-        print(f"timing {name} {SSD_TRAIN[:4]} G={G} N={N} chunk {Q} bf16 (mamba2-370m's train cell): "
+        print(f"timing {name} {shape[:4]} G={G} N={N} chunk {Q} bf16 ({what}): "
               f"kernel {t_kern1:.4f}/{t_kern2:.4f} ms, plain {t_plain1:.4f}/{t_plain2:.4f} ms, bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {nbytes / 1e6:.1f} MB at 3.35 TB/s = "
               f"{bytes_ms:.4f} ms, {ops / 1e9:.2f} GFLOP at 989.4 TFLOP/s = {ops_ms:.4f} ms; roofline "
@@ -1344,10 +1364,120 @@ def ssd_grad_phase(torch, ks):
     del y_plain, split
     release(torch)
     fwd, bwd = rows["ssd_chunked_grad"], rows["ssd_chunked_grad_backward"]
-    reckon = lambda key: MAMBA_LAYERS * (2 * fwd[key] + bwd[key]) / 1e3
-    print(f"timing a mamba2-370m train step's SSD ({MAMBA_LAYERS} layers x (2 forwards + 1 "
+    reckon = lambda key: layers * (2 * fwd[key] + bwd[key]) / 1e3
+    print(f"timing a train step's SSD at {what} ({layers} layers x (2 forwards + 1 "
           f"backward)): kernels {reckon('ms'):.4f} s, plain {reckon('plain_ms'):.4f} s")
     return {"ssd_chunked_grad": y_err, "ssd_chunked_grad_backward": worst}, rows
+
+
+def zamba2_flash_phase(torch, kf):
+    """The flash kernels at the zamba2-7b cell's attention (FLASH_ZAMBA2_7B:
+    2 peers x 2 x 4096 folded, 32 MHA heads of 224, causal) at the
+    release's scale (224 / 2)^-1/2: the forward within ``flash_tolerance``
+    of the plain version in f32 at that scale, and the plain version at the
+    default scale outside it (a ``scale`` the kernel dropped would pass
+    unseen otherwise); the backward's dq, dk and dv within
+    ``flash_bwd_tolerance`` of autograd of ``attend`` at that scale, the
+    default-scale gradients outside it. Then each timed beside its plain
+    version (plain, kernel, kernel, plain; the backward from the forward's
+    saved statistics, as a train step calls it) against the frozen bounds,
+    and a train step's flash reckoned as ZAMBA2_7B_APPLICATIONS x (2
+    forwards + 1 backward). Returns ({name: max abs error}, {name: timing
+    keys})."""
+    B, S_, H, D = FLASH_ZAMBA2_7B
+    scale = (D / 2) ** -0.5
+    q, k, v = flash_inputs(torch, B, S_, S_, H, H, D, torch.bfloat16, seed=31)
+    what = f"{FLASH_ZAMBA2_7B} causal scale (D / 2)^-1/2 (zamba2-7b's cell)"
+    out = kf.flash_attention(q, k, v, causal=True, scale=scale)
+    f = [t.float() for t in (q, k, v)]
+    ref = kf.flash_attention_plain(*f, causal=True, scale=scale)
+    tol, rule = flash_tolerance(torch, ref, torch.bfloat16)
+    err = (out.float() - ref).abs()
+    fwd_ratio = float((err / tol).max())
+    require(fwd_ratio <= 1, f"flash_attention outside the limit at {what}: max err/limit {fwd_ratio:.3f}")
+    fwd_err = float(err.max())
+    dropped = float(((kf.flash_attention_plain(*f, causal=True).to(q.dtype).float() - ref).abs()
+                     / tol).max())
+    require(dropped > 1, f"the flash check at {what} would pass the default scale: {dropped:.3f}")
+    print(f"kernel check flash_attention {what} bf16: max_abs_err={fwd_err:.3e}, max err/limit "
+          f"{fwd_ratio:.3f} ({rule}); the default scale's output {dropped:.1f}x the limit (rejected)")
+    del out, ref, err, tol
+    release(torch)
+    g = torch.Generator(device="cuda").manual_seed(32)
+    do = torch.randn((B, S_, H, D), generator=g, device="cuda").to(torch.bfloat16)
+    got = kf.flash_attention_backward(q, k, v, do, causal=True, scale=scale)
+    pos = torch.arange(S_, device="cuda")
+
+    def autograd(sc):
+        leaves = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+        o = kf.attend(*leaves, causal=True, q_positions=pos, kv_positions=pos, scale=sc)
+        return torch.autograd.grad(o, leaves, do.float())
+
+    want = autograd(scale)
+    bwd_err, ratios = 0.0, []
+    for name, gk, w in zip(("dq", "dk", "dv"), got, want):
+        tol, rule = flash_bwd_tolerance(torch, w, torch.bfloat16)
+        e = (gk.float() - w).abs()
+        ratios.append(float((e / tol).max()))
+        require(ratios[-1] <= 1, f"flash_attention_backward {name} outside the limit at {what}: "
+                f"max err/limit {ratios[-1]:.3f}")
+        bwd_err = max(bwd_err, float(e.max()))
+    default = autograd(None)
+    dropped = max(float(((b.to(q.dtype).float() - w).abs()
+                         / flash_bwd_tolerance(torch, w, q.dtype)[0]).max())
+                  for b, w in zip(default, want))
+    require(dropped > 1, f"the backward check at {what} would pass the default scale: {dropped:.3f}")
+    print(f"kernel check flash_attention_backward {what} bf16: max_abs_err={bwd_err:.3e}, max "
+          f"err/limit dq {ratios[0]:.3f} dk {ratios[1]:.3f} dv {ratios[2]:.3f} ({rule} of autograd "
+          f"of attend in f32); the default scale's gradients {dropped:.1f}x the limit (rejected)")
+    del got, want, default
+    release(torch)
+
+    _, o32, lse = kf.FlashAttentionFn.apply(q, k, v, True, 0.0, 0, scale)
+    plain_fwd = lambda: kf.flash_attention_plain(q, k, v, causal=True, scale=scale)
+    kern_fwd = lambda: kf.FlashAttentionFn.apply(q, k, v, True, 0.0, 0, scale)
+    kern_bwd = lambda: kf.FlashAttentionBackwardFn.apply(q, k, v, o32, lse, do, True, 0.0, 0, scale)
+    plain_bwd = lambda: kf.flash_attention_backward_plain(q, k, v, do, causal=True, scale=scale)
+    rows = {}
+    for name, plain, kern, cost in (
+            ("flash_attention", plain_fwd, kern_fwd, COST.flash_attention_cost(q, k, stats=True)),
+            ("flash_attention_backward", plain_bwd, kern_bwd,
+             COST.flash_attention_backward_cost(q, k))):
+        t_plain1, _ = time_ms(torch, plain, 2)
+        t_kern1, _ = time_ms(torch, kern, 10)
+        t_kern2, _ = time_ms(torch, kern, 10)
+        t_plain2, _ = time_ms(torch, plain, 2)
+        release(torch)
+        ops, nbytes = cost
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_FLOPS * 1e3
+        rows[name] = {"ms": min(t_kern1, t_kern2), "plain_ms": min(t_plain1, t_plain2),
+                      "bound_ms": max(bytes_ms, ops_ms),
+                      "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        print(f"timing {name} {what} bf16: kernel {t_kern1:.4f}/{t_kern2:.4f} ms, plain "
+              f"{t_plain1:.4f}/{t_plain2:.4f} ms, bound {rows[name]['bound_ms']:.4f} ms "
+              f"({rows[name]['bound_by']}; {ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; roofline "
+              f"share {rows[name]['bound_ms'] / rows[name]['ms']:.1%})")
+    fwd, bwd = rows["flash_attention"], rows["flash_attention_backward"]
+    print(f"timing a zamba2-7b train step's flash ({ZAMBA2_7B_APPLICATIONS} applications x (2 "
+          f"forwards + 1 backward)): kernels "
+          f"{ZAMBA2_7B_APPLICATIONS * (2 * fwd['ms'] + bwd['ms']):.3f} ms, bound "
+          f"{ZAMBA2_7B_APPLICATIONS * (2 * fwd['bound_ms'] + bwd['bound_ms']):.3f} ms")
+    del o32, lse, q, k, v, do
+    release(torch)
+    return {"flash_attention": fwd_err, "flash_attention_backward": bwd_err}, rows
+
+
+def zamba2_kernel_phase(torch, ks, kf):
+    """The zamba2-7b cell's new kernel shapes: the SSD's training route at
+    SSD_ZAMBA2_7B (``ssd_grad_phase``: G = 2, 112 heads, N 64) and the
+    flash kernels at FLASH_ZAMBA2_7B with the release's scale
+    (``zamba2_flash_phase``). Returns ({name: max abs error}, {name: timing
+    keys}), the kernels line's ``zamba2_7b`` entries."""
+    errs, rows = ssd_grad_phase(torch, ks, SSD_ZAMBA2_7B, "zamba2-7b's cell", ZAMBA2_7B_LAYERS)
+    flash_errs, flash_rows = zamba2_flash_phase(torch, kf)
+    errs.update(flash_errs)
+    rows.update(flash_rows)
+    return errs, rows
 
 
 # ---------------------------------------------------------------------------
@@ -3631,7 +3761,7 @@ def hold_bwd_to_plain(torch, kf, seen, what: str, cfg, peers: int, seq: int, sof
     sizes over max|g|. Two controls: a skipped key tile must fail every
     gradient on its own, and the backward with bf16 products
     (``bwd_bf16_products``) must fail dq."""
-    (q, k, v, o32, lse, do, causal, cap, window), _ = seen[0]
+    (q, k, v, o32, lse, do, causal, cap, window, *_), _ = seen[0]  # then the default scale
     require(q.dtype == torch.bfloat16 and q.shape == (peers, seq, cfg.num_heads,
                                                       cfg.resolved_head_dim)
             and k.shape[1] == (kv_seq or seq),
@@ -3734,7 +3864,7 @@ def check_flash_bwd_on_path(torch, mods, cfg, peers: int, seq: int):
     for name, seen in (("a local layer", local), ("a global layer", glob)):
         worst = max(worst, hold_bwd_to_plain(torch, kf, seen, name, cfg, peers, seq,
                                              GEMMA_SOFTCAP))
-        (q, k, v, _, _, do, _, _, window), _ = seen[0]
+        (q, k, v, _, _, do, _, _, window, *_), _ = seen[0]
         row = time_flash_bwd(torch, kf, f"on {name}'s inputs of the train step", q, k, v, do,
                              window)
     return worst, row
@@ -4913,6 +5043,22 @@ def scatter_timing_only(torch, src: Path) -> int:
     return 0
 
 
+def zamba2_kernels_only(torch) -> int:
+    """``--zamba2-kernels``: only ``zamba2_kernel_phase``, printing its
+    rows; prints no result line."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ssd_scan as ks
+
+    build.build_all([ks.SOURCE, ks.BWD_SOURCE, kf.SOURCE, kf.BWD_SOURCE])
+    ks.load_library()
+    kf.load_library()
+    print(f"nvidia-smi: {card_line()}")
+    errs, rows = zamba2_kernel_phase(torch, ks, kf)
+    print(json.dumps({"zamba2_7b": {name: dict(rows[name], max_abs_err=errs[name]) for name in rows}}))
+    return 0
+
+
 def ssd_timing_only(torch, src: Path) -> int:
     """``--ssd-timing SRC``: only ``ssd_timing``, with the ``repro_torch``
     package under SRC (another checkout's ``src``, to time an earlier SSD
@@ -5047,6 +5193,8 @@ def main() -> int:
         return p2p_timing_only(torch, Path(sys.argv[2]))
     if sys.argv[1:2] == ["--train-timing"]:
         return train_timing_only(torch, Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--zamba2-kernels"]:
+        return zamba2_kernels_only(torch)
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import qsgd as kq
@@ -5080,6 +5228,7 @@ def main() -> int:
     errs["flash_attention_backward"] = flash_bwd_phase(torch, kf)
     ssd_grad_errs, ssd_grad_rows = ssd_grad_phase(torch, ks)
     errs.update(ssd_grad_errs)
+    zamba2_errs, zamba2_rows = zamba2_kernel_phase(torch, ks, kf)
     grad_guard_phase(torch, kf, ks)
     stamp("kernels phase")
     reference_phase(torch)
@@ -5197,6 +5346,8 @@ def main() -> int:
         for name, count in counts.items():
             total[name] += count
     require(all(total.values()), f"a kernel was never launched on the main path: {total}")
+    for name, row in zamba2_rows.items():  # the zamba2-7b cell's shapes, held and timed apart
+        times[name]["zamba2_7b"] = dict(row, max_abs_err=zamba2_errs[name])
     kernels = [
         {
             "name": name,

@@ -1,5 +1,9 @@
 """Model configuration of the port: a copy of the reference's
-``repro/configs/base.py`` :class:`ModelConfig` (fields unchanged).
+``repro/configs/base.py`` :class:`ModelConfig`, with the fields of the
+port's own release-layout hybrid added at the end of its zamba2 group
+(``hybrid_layer_ids``, ``num_mem_blocks``, ``adapter_rank``), each at a
+default that leaves every reference config as it was, and the exact
+(erf) GELU beside the tanh one in ``act``.
 
 A config fully determines parameter shapes. It is a frozen dataclass, so
 configs are hashable. :func:`reduced` and the input shapes
@@ -16,6 +20,7 @@ from typing import Tuple
 # Per-layer block specification
 # ---------------------------------------------------------------------------
 # mixer:  "attn" | "attn_local" | "mamba" | "shared_attn" (weight-tied, zamba)
+#         | "hybrid" (the release layout: a shared block, then a Mamba-2 layer)
 # ffn:    "dense" | "moe" | "none"
 
 
@@ -69,6 +74,13 @@ class ModelConfig:
 
     # --- hybrid (zamba2) ----------------------------------------------------
     shared_attn_every: int = 0  # insert the shared attention block every N layers
+    # the release layout (hf Zyphra/Zamba2-*): every layer is Mamba-2, and
+    # the layers listed first apply one of ``num_mem_blocks`` weight-tied
+    # attention + MLP blocks (in turn), a rank-``adapter_rank`` LoRA on its
+    # MLP's gate and up projections and a linear of their own
+    hybrid_layer_ids: Tuple[int, ...] = ()
+    num_mem_blocks: int = 0
+    adapter_rank: int = 0
 
     # --- encoder/decoder (whisper) -------------------------------------------
     encoder_layers: int = 0
@@ -86,7 +98,7 @@ class ModelConfig:
     # --- numerics / structure -------------------------------------------------
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
-    act: str = "silu"  # silu (SwiGLU) | gelu
+    act: str = "silu"  # silu (SwiGLU) | gelu (tanh) | gelu_erf (exact)
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
     remat: bool = True
@@ -94,6 +106,10 @@ class ModelConfig:
     # --- sharding hints ---------------------------------------------------------
     fsdp: bool = False  # additionally shard params over the data axis (ZeRO-3)
     serve_window: int = 0  # opt-in sliding-window serving for long_500k
+
+    def __post_init__(self):
+        # a configuration file gives the list; the frozen config keeps a tuple
+        object.__setattr__(self, "hybrid_layer_ids", tuple(self.hybrid_layer_ids))
 
     # ------------------------------------------------------------------
     @property
@@ -115,6 +131,14 @@ class ModelConfig:
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_headdim
 
+    @property
+    def ssm_norm_groups(self) -> int:
+        """The groups of channels Mamba-2's gated RMSNorm normalises apart:
+        the B/C groups in the release layout, as hf Zamba2 (and mamba_ssm)
+        do; one, the whole width, in the reference's layouts, as the
+        reference does at any ``ssm_ngroups``."""
+        return self.ssm_ngroups if self.hybrid_layer_ids else 1
+
     def block_specs(self) -> Tuple[BlockSpec, ...]:
         """The per-layer pattern of the decoder stack."""
         if self.family == "cnn":
@@ -123,6 +147,11 @@ class ModelConfig:
         for i in range(self.num_layers):
             if self.family == "ssm":
                 specs.append(BlockSpec("mamba", "none"))
+            elif self.family == "hybrid" and self.hybrid_layer_ids:
+                # the release layout: Mamba-2 everywhere, the shared block first
+                # at the hybrid layers
+                specs.append(BlockSpec("hybrid" if i in self.hybrid_layer_ids else "mamba",
+                                       "none"))
             elif self.family == "hybrid":
                 # zamba2: mamba backbone; a weight-tied attention+MLP block is
                 # applied every `shared_attn_every` layers.
@@ -146,9 +175,13 @@ class ModelConfig:
         return tuple(specs)
 
     def param_count(self) -> int:
-        """Analytic parameter count (embedding + blocks + head)."""
+        """Analytic parameter count (embedding + blocks + head). The release
+        layout's is the module's own, the final norm and each layer's one
+        norm included."""
         if self.family == "cnn":
             return -1  # computed from the pytree instead
+        if self.hybrid_layer_ids:
+            return self._release_param_count()
         d, hd = self.d_model, self.resolved_head_dim
         n = self.vocab_size * d  # embedding
         if not self.tie_embeddings:
@@ -186,6 +219,27 @@ class ModelConfig:
             n += self.encoder_layers * (2 * d + attn + dense_ffn)
             n += self.num_layers * (d + attn)  # decoder cross-attention
         return n
+
+    def shared_block_param_count(self) -> int:
+        """One weight-tied block of the release layout: the norm over
+        concat(hidden, embeddings), attention from 2 d, the MLP's norm and
+        its gated MLP."""
+        d, hd = self.d_model, self.resolved_head_dim
+        attn = 2 * d * hd * (self.num_heads + 2 * self.num_kv_heads) + self.num_heads * hd * d
+        return 2 * d + attn + d + 3 * d * self.d_ff
+
+    def _release_param_count(self) -> int:
+        """The embedding (or two tables) and the final norm; each layer's norm
+        and Mamba-2 mixer (in_proj, the biased depthwise conv, A_log, D,
+        dt_bias, the gated norm, out_proj); the tied blocks once; each
+        application's LoRA (d -> rank -> 2 d_ff) and linear (d, d)."""
+        d, di, H, N, G = self.d_model, self.d_inner, self.ssm_heads, self.ssm_state, self.ssm_ngroups
+        mamba = (d * (2 * di + 2 * G * N + H) + (self.ssm_conv + 1) * (di + 2 * G * N) + 3 * H + di
+                 + di * d)
+        application = self.adapter_rank * (d + 2 * self.d_ff) + d * d
+        return (self.vocab_size * d * (1 if self.tie_embeddings else 2) + d
+                + self.num_layers * (d + mamba) + self.num_mem_blocks * self.shared_block_param_count()
+                + len(self.hybrid_layer_ids) * application)
 
     def active_param_count(self) -> int:
         """Parameters touched per token (MoE: only routed experts)."""

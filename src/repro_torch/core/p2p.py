@@ -359,8 +359,8 @@ STEP_SPANS = ("repro_torch.step", "repro_torch.step.compute_gradients",
 
 def _span(name: str, step=None):
     """A host range ``name`` of ``torch.profiler`` around a ``with`` block,
-    carrying ``step`` as its input where that is a host int (a tensor step
-    is left out: reading it would sync). The range has the profiler's
+    carrying ``step`` as its input where that is a host int or a tuple of
+    them (a tensor step is left out: reading it would sync). The range has the profiler's
     function scope, not ``record_function``'s user scope: the profiler
     projects a user range onto the card as an activity that spans the
     kernels launched inside it, idle gaps included, so a trace's device
@@ -368,7 +368,10 @@ def _span(name: str, step=None):
     by their launches, which lie inside it on the host. With no profiler
     listening the range is one call on enter and one on exit: it neither
     syncs the device nor reads a tensor."""
-    args = ((int(step),),) if isinstance(step, (int, np.integer)) else ()
+    if isinstance(step, tuple):
+        args = (tuple(int(v) for v in step),)
+    else:
+        args = ((int(step),),) if isinstance(step, (int, np.integer)) else ()
     return torch._C._profiler._RecordFunctionFast(name, *args)
 
 

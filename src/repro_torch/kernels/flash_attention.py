@@ -19,11 +19,13 @@ The kernels' function, for query i and key j with positions counted from
 0 on both sides (also when Sq != Skv), query head h reading KV head
 h // (H / K):
 
-    s_ij  = (q_i / sqrt(D)) . k_j                 in f32
+    s_ij  = (q_i * scale) . k_j                   in f32, scale 1 / sqrt(D) by default
     s_ij  = tanh(s_ij / softcap) * softcap        when softcap > 0
     valid = j < Skv and, only when causal, 0 <= i - j < window  (window 0: none)
     o_i   = softmax over the valid j of s_ij, times v, cast to q's dtype
 
+Every function here takes ``scale`` (None: 1 / sqrt(D)); the Zamba2
+release's shared attention scores at (D / 2)^-1/2.
 Without ``causal`` the window is ignored, as the Pallas kernel ignores it
 (``attend`` bounds |i - j| there; ``flash_attention_plain`` therefore
 passes it no window).
@@ -88,6 +90,7 @@ def attend(
     window: int = 0,
     softcap_val: float = 0.0,
     block_kv: int = 1024,
+    scale=None,
 ) -> torch.Tensor:
     """Masked multi-head attention with GQA and online-softmax blocking
     (the reference's ``attend``). Validity and locality come from the
@@ -100,7 +103,8 @@ def attend(
         raise ValueError(f"the {K} KV heads must divide the {H} query heads")
     G = H // K
     f32 = torch.promote_types(q.dtype, torch.float32)  # f32, or f64 for a gradient check
-    qf = q.reshape(B, Sq, K, G, D).to(f32) / math.sqrt(D)
+    qf = q.reshape(B, Sq, K, G, D).to(f32)
+    qf = qf / math.sqrt(D) if scale is None else qf * scale
     mask_value = torch.finfo(f32).min
 
     def block(kb, kpos):
@@ -146,7 +150,7 @@ def attend(
 
 def flash_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-    causal: bool = True, softcap: float = 0.0, window: int = 0,
+    causal: bool = True, softcap: float = 0.0, window: int = 0, scale=None,
 ) -> torch.Tensor:
     """Plain PyTorch flash attention: ``attend`` at positions ``arange(Sq)``
     and ``arange(Skv)``, the window only when causal (the kernel's function)."""
@@ -154,11 +158,15 @@ def flash_attention_plain(
         q, k, v, causal=causal,
         q_positions=torch.arange(q.shape[1], device=q.device),
         kv_positions=torch.arange(k.shape[1], device=k.device),
-        window=window if causal else 0, softcap_val=softcap,
+        window=window if causal else 0, softcap_val=softcap, scale=scale,
     )
 
 
-def _masked_scores(q, k, *, causal: bool, softcap: float, window: int):
+def _scale(D: int, scale) -> float:
+    return 1.0 / math.sqrt(D) if scale is None else scale
+
+
+def _masked_scores(q, k, *, causal: bool, softcap: float, window: int, scale=None):
     """The kernels' scores, (B, K, G, Sq, Skv) in f32 (f64 for f64 inputs),
     -inf on the masked pairs, with t = tanh(u / softcap) (None without a
     softcap), the validity mask and q in f32 as (B, Sq, K, G, D)."""
@@ -166,7 +174,7 @@ def _masked_scores(q, k, *, causal: bool, softcap: float, window: int):
     Skv, K = k.shape[1], k.shape[2]
     f32 = torch.promote_types(q.dtype, torch.float32)  # f32, or f64 for a gradient check
     qf = q.reshape(B, Sq, K, H // K, D).to(f32)
-    u = torch.einsum("bqkgd,bskd->bkgqs", qf * (1.0 / math.sqrt(D)), k.to(f32))
+    u = torch.einsum("bqkgd,bskd->bkgqs", qf * _scale(D, scale), k.to(f32))
     t = torch.tanh(u / softcap) if softcap else None
     s = softcap * t if softcap else u
     i = torch.arange(Sq, device=q.device)[:, None]
@@ -177,7 +185,7 @@ def _masked_scores(q, k, *, causal: bool, softcap: float, window: int):
 
 def flash_attention_stats_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-    causal: bool = True, softcap: float = 0.0, window: int = 0,
+    causal: bool = True, softcap: float = 0.0, window: int = 0, scale=None,
 ):
     """Plain PyTorch version of what the forward kernel saves for the
     backward -> (o, lse): o = softmax(s) v in f32 (f64 for f64 inputs), (B,
@@ -186,7 +194,8 @@ def flash_attention_stats_plain(
     A query row with no valid key gets o = 0 and lse = -inf, as the kernel
     gives it."""
     B, Sq, H, D = q.shape
-    s, _, valid, _ = _masked_scores(q, k, causal=causal, softcap=softcap, window=window)
+    s, _, valid, _ = _masked_scores(q, k, causal=causal, softcap=softcap, window=window,
+                                    scale=scale)
     lse = torch.logsumexp(s, dim=-1)  # -inf on a row with no valid key
     p = torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(p.dtype))
@@ -195,19 +204,19 @@ def flash_attention_stats_plain(
 
 def flash_attention_backward_saved_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
-    causal: bool = True, softcap: float = 0.0, window: int = 0,
+    causal: bool = True, softcap: float = 0.0, window: int = 0, scale=None,
 ):
     """Plain PyTorch backward in the bf16 kernels' form, from the forward's
     lse (B, H, Sq) -> (dq, dk, dv) in the dtypes of q, k and v, step by
     step in f32 (f64 for f64 inputs) over the whole (Sq, Skv) score matrix.
 
-        u_ij  = (q_i / sqrt(D)) . k_j,  t_ij = tanh(u_ij / softcap)
+        u_ij  = (q_i scale) . k_j,  t_ij = tanh(u_ij / softcap)
         s_ij  = softcap * t_ij  (u_ij without softcap), masked as the forward
         p_ij  = exp(s_ij - lse_i) on the valid j, else 0
         dv_j  = sum_i p_ij do_i               dp_ij = do_i . v_j
         ds_ij = p_ij (dp_ij - delta_i),       delta_i = sum_j p_ij dp_ij / sum_j p_ij
         du_ij = ds_ij (1 - t_ij^2)            (ds_ij without softcap)
-        dq_i  = sum_j du_ij k_j / sqrt(D)     dk_j = sum_i du_ij q_i / sqrt(D)
+        dq_i  = sum_j du_ij k_j scale         dk_j = sum_i du_ij q_i scale
 
     delta_i is do_i . o_i; divided by the row's sum of p it carries no error
     of lse, which p shares along the row (an error of lse then scales each
@@ -218,8 +227,9 @@ def flash_attention_backward_saved_plain(
     B, Sq, H, D = q.shape
     K = k.shape[2]
     G = H // K
-    scale = 1.0 / math.sqrt(D)
-    s, t, valid, qf = _masked_scores(q, k, causal=causal, softcap=softcap, window=window)
+    s, t, valid, qf = _masked_scores(q, k, causal=causal, softcap=softcap, window=window,
+                                     scale=scale)
+    scale = _scale(D, scale)
     f32 = s.dtype
     kf, vf = k.to(f32), v.to(f32)
     dof = do.reshape(B, Sq, K, G, D).to(f32)
@@ -238,20 +248,20 @@ def flash_attention_backward_saved_plain(
 
 def flash_attention_backward_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, *,
-    causal: bool = True, softcap: float = 0.0, window: int = 0,
+    causal: bool = True, softcap: float = 0.0, window: int = 0, scale=None,
 ):
     """Plain PyTorch backward of the kernels' function -> (dq, dk, dv) in
     the dtypes of q, k and v: the formula the backward kernels compute,
     step by step in f32 (f64 for f64 inputs) over the whole (Sq, Skv)
     score matrix, in one pass (the scores once; o and delta from p).
 
-        u_ij  = (q_i / sqrt(D)) . k_j,  t_ij = tanh(u_ij / softcap)
+        u_ij  = (q_i scale) . k_j,  t_ij = tanh(u_ij / softcap)
         s_ij  = softcap * t_ij  (u_ij without softcap), masked as the forward
         p_ij  = exp(s_ij - lse_i) on the valid j, else 0
         dv_j  = sum_i p_ij do_i               dp_ij = do_i . v_j
         ds_ij = p_ij (dp_ij - delta_i),       delta_i = do_i . o_i, o_i = sum_j p_ij v_j
         du_ij = ds_ij (1 - t_ij^2)            (ds_ij without softcap)
-        dq_i  = sum_j du_ij k_j / sqrt(D)     dk_j = sum_i du_ij q_i / sqrt(D)
+        dq_i  = sum_j du_ij k_j scale         dk_j = sum_i du_ij q_i scale
 
     dk and dv sum over the H / K query heads of each KV group. A query row
     with no valid key gets zero gradient, as the kernel's forward gives it
@@ -260,8 +270,9 @@ def flash_attention_backward_plain(
     B, Sq, H, D = q.shape
     K = k.shape[2]
     G = H // K
-    scale = 1.0 / math.sqrt(D)
-    s, t, valid, qf = _masked_scores(q, k, causal=causal, softcap=softcap, window=window)
+    s, t, valid, qf = _masked_scores(q, k, causal=causal, softcap=softcap, window=window,
+                                     scale=scale)
+    scale = _scale(D, scale)
     f32 = s.dtype
     kf, vf = k.to(f32), v.to(f32)
     dof = do.reshape(B, Sq, K, G, D).to(f32)
@@ -382,18 +393,19 @@ def _no_stats(q) -> torch.Tensor:
     return q.new_empty((q.shape[0], 0), dtype=torch.float32)
 
 
-def _forward(q, k, v, causal: bool, softcap: float, window: int, stats: bool):
+def _forward(q, k, v, causal: bool, softcap: float, window: int, stats: bool, scale=None):
     """The forward on plain tensors -> (o, o32, lse): the plain version on
     the CPU, the kernel on CUDA. With ``stats`` also o in f32 (B, Sq, H, D)
     and lse (B, H, Sq), the backward's inputs (f64 for f64 inputs on the
     CPU); without, or for f32 on CUDA (the f32 backward recomputes its
     own), two empty tensors."""
     if q.device.type == "cpu":
-        o = flash_attention_plain(q, k, v, causal=causal, softcap=softcap, window=window)
+        o = flash_attention_plain(q, k, v, causal=causal, softcap=softcap, window=window,
+                                  scale=scale)
         if not stats:
             return o, _no_stats(q), _no_stats(q)
         return (o, *flash_attention_stats_plain(q, k, v, causal=causal, softcap=softcap,
-                                                window=window))
+                                                window=window, scale=scale))
     meta = build.on_meta(q)
     stream = None if meta else build.cuda_stream(q.device)
     B, Sq, H, D = q.shape
@@ -416,7 +428,7 @@ def _forward(q, k, v, causal: bool, softcap: float, window: int, stats: bool):
                 lse.data_ptr() if lse.numel() else None, o32.data_ptr() if o32.numel() else None,
                 B, Sq, Skv, H, K, D, _DTYPES[q.dtype],
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                1.0 / math.sqrt(D), float(softcap), int(causal), int(window), stream,
+                _scale(D, scale), float(softcap), int(causal), int(window), stream,
             )
         if err:
             raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
@@ -436,28 +448,28 @@ class FlashAttentionFn(torch.autograd.Function):
     a batched tensor, so ``generate_vmap_rule`` would not do."""
 
     @staticmethod
-    def forward(q, k, v, causal, softcap, window):
+    def forward(q, k, v, causal, softcap, window, scale=None):
         return _forward(q, k, v, causal, softcap, window,
-                        stats=not torch.is_inference_mode_enabled())
+                        stats=not torch.is_inference_mode_enabled(), scale=scale)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, causal, softcap, window = inputs
+        q, k, v, causal, softcap, window, *scale = inputs
         _, o32, lse = output
         ctx.mark_non_differentiable(o32, lse)
         ctx.save_for_backward(q, k, v, o32, lse)
-        ctx.opts = (causal, softcap, window)
+        ctx.opts = (causal, softcap, window, *scale)
 
     @staticmethod
     def backward(ctx, do, _do32, _dlse):
         q, k, v, o32, lse = ctx.saved_tensors
         dq, dk, dv = FlashAttentionBackwardFn.apply(q, k, v, o32, lse, do, *ctx.opts)
-        return dq, dk, dv, None, None, None
+        return (dq, dk, dv) + (None,) * len(ctx.opts)
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, causal, softcap, window):
+    def vmap(info, in_dims, q, k, v, causal, softcap, window, scale=None):
         outs = FlashAttentionFn.apply(*build.fold(info, in_dims[:3], (q, k, v)), causal, softcap,
-                                      window)
+                                      window, scale)
         return build.unfold(info, outs), (0, 0, 0)
 
 
@@ -467,8 +479,8 @@ class FlashAttentionBackwardFn(torch.autograd.Function):
     has no backward of its own: a second derivative raises."""
 
     @staticmethod
-    def forward(q, k, v, o32, lse, do, causal, softcap, window):
-        return _backward(q, k, v, o32, lse, do, causal, softcap, window)
+    def forward(q, k, v, o32, lse, do, causal, softcap, window, scale=None):
+        return _backward(q, k, v, o32, lse, do, causal, softcap, window, scale)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -479,9 +491,9 @@ class FlashAttentionBackwardFn(torch.autograd.Function):
         raise RuntimeError("flash_attention has no second derivative")
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, o32, lse, do, causal, softcap, window):
+    def vmap(info, in_dims, q, k, v, o32, lse, do, causal, softcap, window, scale=None):
         grads = FlashAttentionBackwardFn.apply(
-            *build.fold(info, in_dims[:6], (q, k, v, o32, lse, do)), causal, softcap, window)
+            *build.fold(info, in_dims[:6], (q, k, v, o32, lse, do)), causal, softcap, window, scale)
         return build.unfold(info, grads), (0, 0, 0)
 
 
@@ -493,6 +505,7 @@ def flash_attention(
     causal: bool = True,
     softcap: float = 0.0,
     window: int = 0,
+    scale=None,
 ) -> torch.Tensor:
     """Flash attention -> (B, Sq, H, D) in q's dtype, differentiable
     (:class:`FlashAttentionFn`). The inputs may be strided views as long as
@@ -509,7 +522,8 @@ def flash_attention(
     kernel weight 1 on its first fully masked block. Such rows are outside
     the parity contract (ROADMAP.md, Queue 3)."""
     _check(q, k, v, window)
-    return FlashAttentionFn.apply(q, k, v, bool(causal), float(softcap), int(window))[0]
+    return FlashAttentionFn.apply(q, k, v, bool(causal), float(softcap), int(window),
+                                  None if scale is None else float(scale))[0]
 
 
 flash_attention.launches = 0
@@ -517,7 +531,7 @@ flash_attention.launches = 0
 
 def flash_attention_backward(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, *,
-    causal: bool = True, softcap: float = 0.0, window: int = 0,
+    causal: bool = True, softcap: float = 0.0, window: int = 0, scale=None,
 ):
     """Backward of ``flash_attention`` at (q, k, v) for the output's
     cotangent ``do`` (q's shape and dtype) -> (dq, dk, dv) in the inputs'
@@ -534,17 +548,18 @@ def flash_attention_backward(
         raise ValueError(f"do must have q's shape {tuple(q.shape)}, dtype {q.dtype} and device, "
                          f"got {tuple(do.shape)} {do.dtype} on {do.device}")
     causal, softcap, window = bool(causal), float(softcap), int(window)
+    scale = None if scale is None else float(scale)
     if q.device.type != "cpu" and q.dtype == torch.bfloat16:
-        _, o32, lse = _forward(q, k, v, causal, softcap, window, stats=True)
+        _, o32, lse = _forward(q, k, v, causal, softcap, window, stats=True, scale=scale)
     else:
         o32 = lse = _no_stats(q)  # the f32 body and the plain backward recompute them
-    return _backward(q, k, v, o32, lse, do, causal, softcap, window)
+    return _backward(q, k, v, o32, lse, do, causal, softcap, window, scale)
 
 
 flash_attention_backward.launches = 0
 
 
-def _backward(q, k, v, o32, lse, do, causal: bool, softcap: float, window: int):
+def _backward(q, k, v, o32, lse, do, causal: bool, softcap: float, window: int, scale=None):
     """The backward on plain tensors: on the CPU the plain version, which
     computes the scores once and needs neither o32 nor lse; on CUDA the
     kernel, which in bf16 reads the forward's lse (not o32: it takes each
@@ -552,7 +567,7 @@ def _backward(q, k, v, o32, lse, do, causal: bool, softcap: float, window: int):
     B, Sq, H, D = q.shape
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, do, causal=causal, softcap=softcap,
-                                              window=window)
+                                              window=window, scale=scale)
     if q.dtype == torch.bfloat16 and tuple(lse.shape) != (B, H, Sq):
         raise RuntimeError("flash_attention's bf16 backward needs the forward's lse: the "
                            "forward ran under torch.inference_mode(), which saves none")
@@ -581,7 +596,7 @@ def _backward(q, k, v, o32, lse, do, causal: bool, softcap: float, window: int):
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
                 B, Sq, Skv, H, K, D, _DTYPES[q.dtype],
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-                1.0 / math.sqrt(D), float(softcap), int(causal), int(window), stream,
+                _scale(D, scale), float(softcap), int(causal), int(window), stream,
             )
         if err:
             raise RuntimeError(f"flash_attention_backward kernel launch failed: cudaError {err}")

@@ -49,6 +49,8 @@ def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
         return F.silu(x)
     if kind == "gelu":
         return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+    if kind == "gelu_erf":
+        return F.gelu(x)  # the exact GELU (the Zamba2 release's ``hidden_act``)
     if kind == "relu":
         return F.relu(x)
     raise ValueError(f"unknown activation {kind}")
@@ -59,6 +61,17 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Te
     x32 = x.to(torch.float32)
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(x.dtype)
+
+
+def rmsnorm_grouped(x: torch.Tensor, scale: torch.Tensor, eps: float, groups: int) -> torch.Tensor:
+    """``rmsnorm`` with each of ``groups`` equal slices of the last dimension
+    normalised on its own (Mamba-2's gated norm at ``ssm_ngroups`` > 1); one
+    group is ``rmsnorm`` itself."""
+    if groups == 1:
+        return rmsnorm(x, scale, eps)
+    x32 = x.to(torch.float32).unflatten(-1, (groups, x.shape[-1] // groups))
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return ((x32 * torch.rsqrt(var + eps)).flatten(-2) * scale.to(torch.float32)).to(x.dtype)
 
 
 class RMSNorm(nn.Module):
@@ -101,14 +114,19 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.T
 
 class Attention(nn.Module):
     """The parameters of the reference's ``init_attention``: ``wq``, ``wk``,
-    ``wv``, ``wo`` and, with ``qkv_bias``, ``bq``, ``bk``, ``bv``."""
+    ``wv``, ``wo`` and, with ``qkv_bias``, ``bq``, ``bk``, ``bv``. ``in_dim``
+    (default ``d_model``) is the width q, k and v are projected from: the
+    Zamba2 release's shared block attends over concat(hidden, embeddings),
+    2 d_model wide; ``wo`` returns d_model."""
 
-    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator, device):
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator, device, in_dim: int = 0):
         super().__init__()
         d, hd, H, K = cfg.d_model, cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+        din = in_dim or d
         pdt = getattr(torch, cfg.param_dtype)
         lin = functools.partial(dense_linear, generator=generator, device=device, dtype=pdt)
-        self.wq, self.wk, self.wv, self.wo = lin(d, H * hd), lin(d, K * hd), lin(d, K * hd), lin(H * hd, d)
+        self.wq, self.wk, self.wv, self.wo = (lin(din, H * hd), lin(din, K * hd), lin(din, K * hd),
+                                              lin(H * hd, d))
         if cfg.qkv_bias:
             zeros = lambda n: nn.Parameter(torch.zeros((n,), device=device, dtype=pdt))
             self.bq, self.bk, self.bv = zeros(H * hd), zeros(K * hd), zeros(K * hd)
@@ -125,6 +143,7 @@ def attention_apply(
     cache: Optional[Cache] = None,  # prefill / decode: {"k", "v"} buffers
     cache_pos: Optional[int] = None,  # decode: the current position
     cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    scale: Optional[float] = None,  # the scores' scale; None: 1 / sqrt(head_dim)
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """The reference's ``attention_apply``, self-attention on three routes:
     the full sequence (no cache), prefill (a cache and S > 1) and decode (a
@@ -142,8 +161,14 @@ def attention_apply(
     whisper's cross attention: q from ``wq`` (and ``bq``), no RoPE, every
     query over every encoder position (``causal=False``), then ``wo``; the
     cache is returned as given. A decoding step (``cache_pos`` given and S =
-    1) attends through ``attend``, any other call through the flash kernel."""
+    1) attends through ``attend``, any other call through the flash kernel.
+
+    ``scale`` replaces the scores' 1 / sqrt(head_dim) on the full-sequence
+    route (the Zamba2 release's (head_dim / 2)^-1/2); the cache routes take
+    only the default."""
     B, S, _ = x.shape
+    if scale is not None and (cache is not None or cross_kv is not None):
+        raise ValueError("a non-default attention scale is taken on the full-sequence route only")
     hd, H, K = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
     dt = x.dtype
     q = F.linear(x, attn.wq.weight.to(dt)).reshape(B, S, H, hd)
@@ -197,7 +222,7 @@ def attention_apply(
         else:
             cache["k"][:, :S] = k.to(cache["k"].dtype)
             cache["v"][:, :S] = v.to(cache["v"].dtype)
-    o = flash_attention(q, k, v, causal=causal, softcap=cap, window=window)
+    o = flash_attention(q, k, v, causal=causal, softcap=cap, window=window, scale=scale)
     return F.linear(o.reshape(B, S, H * hd), attn.wo.weight.to(dt)), cache
 
 
@@ -225,11 +250,19 @@ class MLP(nn.Module):
         self.w_down = dense_linear(f, d, generator=generator, device=device, dtype=dtype)
 
 
-def mlp_apply(mlp: MLP, x: torch.Tensor, act: str) -> torch.Tensor:
+def mlp_apply(mlp: MLP, x: torch.Tensor, act: str, lora=None) -> torch.Tensor:
+    """The gated MLP. ``lora``, (A (rank, d), B (2 f, rank)), adds B A x to
+    the gate and up projections, [gate | up] along B's rows, before the
+    activation: the Zamba2 release's per-application adapter on its
+    ``gate_up_proj``."""
     dt = x.dtype
-    g = activation(F.linear(x, mlp.w_gate.weight.to(dt)), act)
+    gate = F.linear(x, mlp.w_gate.weight.to(dt))
     u = F.linear(x, mlp.w_up.weight.to(dt))
-    return F.linear(g * u, mlp.w_down.weight.to(dt))
+    if lora is not None:
+        a, b = lora
+        gu = F.linear(F.linear(x, a.to(dt)), b.to(dt))
+        gate, u = gate + gu[..., :gate.shape[-1]], u + gu[..., gate.shape[-1]:]
+    return F.linear(activation(gate, act) * u, mlp.w_down.weight.to(dt))
 
 
 # ---------------------------------------------------------------------------

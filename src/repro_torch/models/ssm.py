@@ -10,6 +10,11 @@ kernel) where its widths and chunk allow, and the plain ``ssd_chunked``
 elsewhere (the CPU, f32, other shapes); prefill takes ``ssd_chunked``, which
 also returns the final state; decode takes the O(1) recurrent step.
 
+The gated RMSNorm normalises the whole width, as the reference does at any
+``ssm_ngroups``; in the Zamba2 release's layout (the port's own) it
+normalises each of the ``ssm_ngroups`` groups of channels apart, as that
+release does (``ModelConfig.ssm_norm_groups``).
+
 Public functions keep the reference's layouts: x (B, S, H, P), B/C
 (B, S, G, N), a convolution weight (K, C). The module stores its
 depthwise convolution weight as PyTorch's ``Conv1d`` does, (C, 1, K), and
@@ -25,7 +30,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_chunked_grad, ssd_grad_takes, ssd_scan
-from repro_torch.models.layers import RMSNorm, dense_linear
+from repro_torch.models.layers import RMSNorm, dense_linear, rmsnorm_grouped
 
 State = Dict[str, torch.Tensor]
 
@@ -149,8 +154,9 @@ def mamba2_apply(
         y = y1.reshape(B, 1, di).to(dt_)
         new_state = {"ssm": ssm_new.to(state["ssm"].dtype), "conv": conv_buf[:, 1:]}
 
-    # gated RMSNorm, then the output projection
-    y = mod.norm(y * F.silu(z), cfg.norm_eps)
+    # gated RMSNorm (in the release layout each B/C group of channels on its
+    # own, ``cfg.ssm_norm_groups``), then the output projection
+    y = rmsnorm_grouped(y * F.silu(z), mod.norm.scale, cfg.norm_eps, cfg.ssm_norm_groups)
     return F.linear(y, mod.out_proj.weight.to(dt_)), new_state
 
 

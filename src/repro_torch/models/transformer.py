@@ -17,6 +17,18 @@ reference's ``_init_block`` makes them: they keep the params, the
 checkpoints and the wire bytes leaf for leaf the reference's, and their
 gradients are zero on both sides (ROADMAP.md, reference behaviour 23).
 
+The Zamba2 release's layout (``cfg.hybrid_layer_ids``, the port's own; the
+reference has no such config) keeps a Mamba-2 mixer in every layer. With
+e the embeddings and h starting at e, a plain layer is h + Mamba(ln1(h));
+the k-th hybrid layer first applies ``LM.shared_blocks[k % num_mem_blocks]``
+(:class:`MemBlock`) to (h, e), with its own LoRA on the block's MLP, then
+its own ``linear``, and adds that to the Mamba input only: h +
+Mamba(ln1(h + linear(block(h, e)))). Each application is a host range
+``SHARED_BLOCK_SPAN`` with (block, application) as its input. Under remat
+each layer is a :class:`RecomputeGroupFn` group of its own, a hybrid
+layer's taking e and its block's params as inputs. It trains and scores;
+it has no decode state.
+
 The VLM stub is the decoder-only LM with a ``projector`` (d, d): the
 stubbed vision encoder's ``patches`` (B, V, d), projected, go before the
 token embeddings, and the forward drops their V rows before the head.
@@ -63,6 +75,7 @@ DecodeState = Dict[str, object]
 
 
 LM_FAMILIES = ("ssm", "dense", "hybrid", "moe", "vlm")  # the decoder-only LM's
+SHARED_BLOCK_SPAN = "repro_torch.model.shared_block"  # one application of a tied block
 
 
 def require_known_family(cfg: ModelConfig) -> None:
@@ -179,13 +192,41 @@ class SharedBlock(nn.Module):
         return x + L.mlp_apply(self.ffn, self.ln2(x, cfg.norm_eps), cfg.act), new_cache
 
 
+class MemBlock(nn.Module):
+    """One weight-tied block of the Zamba2 release (hf
+    ``Zamba2AttentionDecoderLayer``): ``ln1`` over concat(hidden,
+    embeddings), 2 d wide; attention projected from those 2 d, causal, at
+    the release's scale (head_dim / 2)^-1/2, RoPE over the whole head; ``ln2``
+    over the attention's output; the gated MLP with the applying layer's
+    LoRA. No residual inside: the layer's ``linear`` takes the MLP's output."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator, device):
+        super().__init__()
+        pdt = getattr(torch, cfg.param_dtype)
+        d = cfg.d_model
+        self.ln1 = RMSNorm(2 * d, device=device, dtype=pdt)
+        self.mixer = L.Attention(cfg, generator=generator, device=device, in_dim=2 * d)
+        self.ln2 = RMSNorm(d, device=device, dtype=pdt)
+        self.ffn = L.MLP(d, cfg.d_ff, generator=generator, device=device, dtype=pdt)
+
+    def forward(self, x, emb, cfg, *, positions, lora):
+        u = self.ln1(torch.cat([x, emb], dim=-1), cfg.norm_eps)
+        a, _ = L.attention_apply(self.mixer, u, cfg, positions=positions, window=0,
+                                 scale=(cfg.resolved_head_dim / 2) ** -0.5)
+        return L.mlp_apply(self.ffn, self.ln2(a, cfg.norm_eps), cfg.act, lora=lora)
+
+
 class Block(nn.Module):
     """``ln1`` and the mixer (Mamba-2, or attention for ``attn`` and
     ``attn_local``), then, with ``cross`` (whisper's decoder), ``ln_cross``
     and the cross attention, then ``ln2`` and the dense MLP (``ffn ==
     "dense"``) or the MoE layer (``"moe"``). A ``shared_attn`` layer has no
     mixer: it applies the ``shared`` block it is given, and its own ``ln1``,
-    ``ln2`` and ``ffn`` are never read (reference behaviour 23)."""
+    ``ln2`` and ``ffn`` are never read (reference behaviour 23). A
+    ``hybrid`` layer (the Zamba2 release's) is a Mamba-2 layer that first
+    applies the ``shared`` :class:`MemBlock` to (x, ``emb``) with its LoRA
+    (``adapter_in``, ``adapter_out``) and adds its ``linear`` of that to the
+    Mamba input."""
 
     def __init__(self, cfg: ModelConfig, spec: BlockSpec, *, generator: torch.Generator, device,
                  cross: bool = False):
@@ -193,8 +234,14 @@ class Block(nn.Module):
         self.spec = spec
         pdt = getattr(torch, cfg.param_dtype)
         self.ln1 = RMSNorm(cfg.d_model, device=device, dtype=pdt)
-        if spec.mixer == "mamba":
+        if spec.mixer in ("mamba", "hybrid"):
             self.mixer = S.Mamba2(cfg, generator=generator, device=device)
+        if spec.mixer == "hybrid":
+            lin = lambda din, dout: dense_linear(din, dout, generator=generator, device=device,
+                                                 dtype=pdt)
+            self.adapter_in = lin(cfg.d_model, cfg.adapter_rank)
+            self.adapter_out = lin(cfg.adapter_rank, 2 * cfg.d_ff)
+            self.linear = lin(cfg.d_model, cfg.d_model)
         elif spec.mixer in ("attn", "attn_local"):
             self.mixer = L.Attention(cfg, generator=generator, device=device)
         if spec.ffn == "dense":
@@ -208,16 +255,27 @@ class Block(nn.Module):
             self.cross = L.Attention(cfg, generator=generator, device=device)
 
     def forward(self, x, cfg, *, positions, cache=None, cache_pos=None, shared=None,
-                cross_kv=None, causal=True, moe_dispatch="dense", use_ssd_kernel=False):
+                cross_kv=None, causal=True, moe_dispatch="dense", use_ssd_kernel=False,
+                emb=None, application=0):
         """Returns (x, the MoE aux loss or None without MoE (the reference's
         zero: adding it changes no bit), the new cache). ``cross_kv``: the
         encoder's K/V for a block with cross attention; ``causal=False``:
-        whisper's encoder."""
+        whisper's encoder. A ``hybrid`` layer takes the embeddings ``emb``
+        and its ``application`` (its rank among the hybrid layers), which
+        names its range."""
         if self.spec.mixer == "shared_attn":
             x, new_cache = shared(x, cfg, positions=positions, cache=cache, cache_pos=cache_pos)
             return x, None, new_cache
-        h = self.ln1(x, cfg.norm_eps)
-        if self.spec.mixer == "mamba":
+        if self.spec.mixer == "hybrid":
+            from repro_torch.core.p2p import _span  # core imports the models
+
+            with _span(SHARED_BLOCK_SPAN, (application % cfg.num_mem_blocks, application)):
+                t = shared(x, emb, cfg, positions=positions,
+                           lora=(self.adapter_in.weight, self.adapter_out.weight))
+            h = self.ln1(x + F.linear(t, self.linear.weight.to(t.dtype)), cfg.norm_eps)
+        else:
+            h = self.ln1(x, cfg.norm_eps)
+        if self.spec.mixer in ("mamba", "hybrid"):
             y, new_cache = S.mamba2_apply(self.mixer, h, cfg, state=cache, use_kernel=use_ssd_kernel)
         else:
             # the reference's window rule (_block_apply)
@@ -257,6 +315,9 @@ class LM(nn.Module):
                                         device=device, dtype=pdt)
         if any(s.mixer == "shared_attn" for s in cfg.block_specs()):
             self.shared_block = SharedBlock(cfg, generator=generator, device=device)
+        if cfg.hybrid_layer_ids:
+            self.shared_blocks = nn.ModuleList(MemBlock(cfg, generator=generator, device=device)
+                                               for _ in range(cfg.num_mem_blocks))
         if cfg.vision_tokens:
             self.projector = dense_linear(cfg.d_model, cfg.d_model, generator=generator,
                                           device=device, dtype=pdt)
@@ -293,6 +354,8 @@ class LM(nn.Module):
     def run(self, x, cfg, *, positions, caches: Optional[List] = None, cache_pos=None,
             moe_dispatch: str = "dense", use_ssd_kernel: bool = False):
         """The stack and ``final_norm``: (x, the summed aux, the new caches)."""
+        if cfg.hybrid_layer_ids:  # no decode state: init_decode_state refuses the layout
+            return self._run_release(x, cfg, positions=positions, use_ssd_kernel=use_ssd_kernel)
         if cfg.remat and caches is None and torch.is_grad_enabled():
             return self._run_remat(x, cfg, positions=positions, moe_dispatch=moe_dispatch,
                                    use_ssd_kernel=use_ssd_kernel)
@@ -333,6 +396,53 @@ class LM(nn.Module):
                 aux = aux + a
         return rmsnorm(x, self.final_norm.scale, cfg.norm_eps), aux, [None] * len(self.layers)
 
+    def _run_release(self, x, cfg, *, positions, use_ssd_kernel: bool):
+        """The Zamba2 release's stack: x is the embeddings e, carried into
+        every hybrid layer. Under ``cfg.remat`` in a training forward each
+        layer is one :class:`RecomputeGroupFn`, a hybrid layer's with e and
+        its block's params among its inputs."""
+        emb, k, remat = x, 0, cfg.remat and torch.is_grad_enabled()
+        if remat and use_ssd_kernel and x.device.type != "cpu":
+            build.refuse_grad("ssd_scan", x, *self.layers[0].parameters())  # as _run_remat
+        for i, block in enumerate(self.layers):
+            hybrid = block.spec.mixer == "hybrid"
+            shared = self.shared_blocks[k % cfg.num_mem_blocks] if hybrid else None
+            if remat:
+                run, params = _release_runner(block, shared, cfg, k, use_ssd_kernel)
+                x, _ = RecomputeGroupFn.apply(run, positions, x, *([emb] if hybrid else []),
+                                              *params)
+            else:
+                x, _, _ = block(x, cfg, positions=positions, shared=shared, emb=emb,
+                                application=k, use_ssd_kernel=use_ssd_kernel)
+            k += hybrid
+        return rmsnorm(x, self.final_norm.scale, cfg.norm_eps), _zero(x), [None] * len(self.layers)
+
+
+def _release_runner(block, shared, cfg, application: int, use_ssd_kernel: bool):
+    """(the run function of one layer of the release layout for
+    :class:`RecomputeGroupFn`, its parameter tensors in order: the layer's,
+    then its block's where it is hybrid). A hybrid layer's run takes the
+    embeddings as its first parameter, so that their gradient flows through
+    every application."""
+    names = [n for n, _ in block.named_parameters()]
+    shared_names = [n for n, _ in shared.named_parameters()] if shared is not None else []
+
+    def run(positions, x, params):
+        it = iter(params)
+        emb = next(it) if shared is not None else None
+        bp = {n: next(it) for n in names}
+        tied = {n: next(it) for n in shared_names}
+        fn = (lambda h, e, c, **kw: functional_call(shared, tied, (h, e, c), kw)) if tied else None
+        x, _, _ = functional_call(block, bp, (x, cfg), {
+            "positions": positions, "shared": fn, "emb": emb, "application": application,
+            "use_ssd_kernel": use_ssd_kernel})
+        return x, _zero(x)
+
+    params = list(block.parameters())
+    if shared is not None:
+        params += list(shared.parameters())
+    return run, params
+
 
 def lm_forward(
     model: LM, tokens: torch.Tensor, cfg: ModelConfig, *, patches=None,
@@ -357,6 +467,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int, *, device) -> 
     another attention layer's (a ``shared_attn`` layer's too: each keeps its
     own) ``min(seq_len, serve_window)`` when that is set, else ``seq_len``."""
     require_known_family(cfg)
+    if cfg.hybrid_layer_ids:
+        raise ValueError(f"{cfg.name}: the release layout trains and scores; it has no decode state")
     dt = getattr(torch, cfg.dtype)
 
     def one(spec: BlockSpec):
