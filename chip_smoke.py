@@ -78,7 +78,13 @@ failure):
              causal, at the release's scale (224 / 2)^-1/2: the forward and
              the backward within their limits of the plain versions at that
              scale, the default scale's outside them, each timed beside its
-             plain version (the kernels line's ``zamba2_7b`` entries).
+             plain version (the kernels line's ``zamba2_7b`` entries). The
+             causal conv's kernels (``causal_conv_silu`` and its backward)
+             at both cells' shapes on the projection's strided view: y, dx,
+             dw and db within 1e-5 of each one's largest magnitude plus
+             their bf16 rounding of autograd of the plain conv and SiLU in
+             f32, a second call the same bits; each timed beside the plain
+             bf16 version and its autograd.
 3. reference — small runs on the card against the same runs on the CPU
              (plain versions), same init and uniforms: a 4-peer squeezenet
              QSGD cluster epoch, one device train step with qsgd + EF and
@@ -328,8 +334,9 @@ result ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
 a checkout of the repository, it exits non-zero and prints no result.
 
 ``--zamba2-kernels`` runs only the zamba2-7b cell's kernel checks and
-timings (the SSD's training route and the flash kernels at its shapes)
-and prints their rows as one JSON line, no result line.
+timings (the SSD's training route, the flash kernels and the causal conv's
+kernels at its shapes) and prints their rows as one JSON line, no result
+line.
 
 ``--ssd-timing SRC`` runs only the SSD kernel's timing, likewise with the
 ``repro_torch`` under SRC; it prints no result line.
@@ -415,6 +422,10 @@ KERNELS = {  # name -> (module attribute, CUDA source, TPU kernel it replaces)
     # the SSD's training route, forward and backward: the reference differentiates ssd_chunked
     "ssd_chunked_grad": ("ks", "ssd_scan.cu", "src/repro/models/ssm.py:52"),
     "ssd_chunked_grad_backward": ("ks", "ssd_scan_bwd.cu", "src/repro/models/ssm.py:52"),
+    # Mamba-2's causal conv, bias and SiLU, forward and backward: the reference's plain
+    # _causal_conv under jax.grad
+    "causal_conv_silu": ("kc", "causal_conv.cu", "src/repro/models/ssm.py:42"),
+    "causal_conv_silu_backward": ("kc", "causal_conv.cu", "src/repro/models/ssm.py:42"),
 }
 SSD_SCORING = (4, 2048, 32, 64, 1, 128, 256)  # B, S, H, P, G, N, chunk of mamba2-370m scoring
 SSD_LONG = (1, 32768, 32, 64, 1, 128, 256)  # one 32k sequence
@@ -426,6 +437,10 @@ SSD_ZAMBA2_7B = (4, 4096, 112, 64, 2, 64, 256)
 ZAMBA2_7B_LAYERS = 24
 FLASH_ZAMBA2_7B = (4, 4096, 32, 224)
 ZAMBA2_7B_APPLICATIONS = 4
+# the causal conv of both LM cells, on the x|B|C view of in_proj's output: (B, S, C, the
+# projection's width, x's first column, taps)
+CONV_MAMBA2 = (32, 2048, 2304, 4384, 2048, 4)
+CONV_ZAMBA2_7B = (4, 4096, 7424, 14704, 7168, 4)
 PROMPT, GEN = 512, 32  # the serve path
 FLASH_SCORING = (1, 8192, 8, 4, 256)  # B, S, H, K, D of gemma2-2b scoring: its full context
 GEMMA_WINDOW, GEMMA_SOFTCAP = 4096, 50.0  # the local layers' window, the attention softcap
@@ -461,7 +476,7 @@ def card_line() -> str:
 def wrapper(mods, name):
     """The wrapper that counts ``name``'s launches, or None in a checkout
     without it (the SRC modes run earlier checkouts)."""
-    return getattr(mods[KERNELS[name][0]], name, None)
+    return getattr(mods.get(KERNELS[name][0]), name, None)
 
 
 def reset_counters(mods) -> None:
@@ -1467,17 +1482,127 @@ def zamba2_flash_phase(torch, kf):
     return {"flash_attention": fwd_err, "flash_attention_backward": bwd_err}, rows
 
 
-def zamba2_kernel_phase(torch, ks, kf):
-    """The zamba2-7b cell's new kernel shapes: the SSD's training route at
-    SSD_ZAMBA2_7B (``ssd_grad_phase``: G = 2, 112 heads, N 64) and the
-    flash kernels at FLASH_ZAMBA2_7B with the release's scale
-    (``zamba2_flash_phase``). Returns ({name: max abs error}, {name: timing
-    keys}), the kernels line's ``zamba2_7b`` entries."""
+def zamba2_kernel_phase(torch, ks, kf, kc):
+    """The zamba2-7b cell's kernel shapes: the SSD's training route at
+    SSD_ZAMBA2_7B (``ssd_grad_phase``: G = 2, 112 heads, N 64), the flash
+    kernels at FLASH_ZAMBA2_7B with the release's scale
+    (``zamba2_flash_phase``) and the causal conv's at CONV_ZAMBA2_7B
+    (``conv_phase``). Returns ({name: max abs error}, {name: timing keys}),
+    the kernels line's ``zamba2_7b`` entries."""
     errs, rows = ssd_grad_phase(torch, ks, SSD_ZAMBA2_7B, "zamba2-7b's cell", ZAMBA2_7B_LAYERS)
-    flash_errs, flash_rows = zamba2_flash_phase(torch, kf)
-    errs.update(flash_errs)
-    rows.update(flash_rows)
+    for more_errs, more_rows in (zamba2_flash_phase(torch, kf),
+                                 conv_phase(torch, kc, CONV_ZAMBA2_7B, "zamba2-7b's cell",
+                                            ZAMBA2_7B_LAYERS)):
+        errs.update(more_errs)
+        rows.update(more_rows)
     return errs, rows
+
+
+def conv_inputs(torch, shape, seed: int):
+    """``mamba2_apply``'s layout at ``shape`` (B, S, C, width, col, K): x the
+    (B, S, C) view at column ``col`` of a bf16 (B, S, width) projection, w
+    (K, C) and b (C,) in bf16, and a cotangent dy of y in bf16."""
+    Bsz, S_, C, width, col, K = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    proj = torch.randn((Bsz, S_, width), generator=g, device="cuda").bfloat16()
+    w = (torch.randn((K, C), generator=g, device="cuda") * 0.3).bfloat16()
+    b = (torch.randn((C,), generator=g, device="cuda") * 0.1).bfloat16()
+    dy = torch.randn((Bsz, S_, C), generator=g, device="cuda").bfloat16()
+    return proj[..., col:col + C], w, b, dy
+
+
+def conv_phase(torch, kc, shape, what: str, layers: int):
+    """The causal conv's kernels at ``shape`` (``conv_inputs``) on the
+    projection's strided view: ``causal_conv_silu``'s y and
+    ``causal_conv_silu_backward``'s dx, dw and db each within 1e-5 of its
+    largest magnitude plus its rounding to bf16 (2^-8 of the element) of
+    autograd of the plain ``causal_conv`` and SiLU in f32 on the same
+    values (the card tests' limit, tests/test_torch_conv_grad.py); a second
+    call of each the same bits. The plain bf16 version's y against the same
+    limit is printed beside it. Then each timed beside its plain version
+    (plain, kernel, kernel, plain): the forward without grad, the backward
+    against autograd of the plain bf16 version through its retained graph,
+    against the bounds of ``causal_conv_cost`` and ``causal_conv_bwd_cost``,
+    and a train step's conv reckoned as ``layers`` x (2 forwards + 1
+    backward). Returns ({name: max abs error}, {name: the kernels line's
+    timing keys})."""
+    F = torch.nn.functional
+    K = shape[5]
+    x, w, b, dy = conv_inputs(torch, shape, seed=41)
+    with torch.no_grad():
+        y, y_again = kc.causal_conv_silu(x, w, b), kc.causal_conv_silu(x, w, b)
+        plain_y = F.silu(kc.causal_conv(x, w, b))
+    got = kc.causal_conv_silu_backward(x, w, b, dy)
+    again = kc.causal_conv_silu_backward(x, w, b, dy)
+    bits = lambda t: t.view(torch.int16)
+    require(torch.equal(bits(y), bits(y_again)) and all(torch.equal(bits(a), bits(r))
+                                                        for a, r in zip(got, again)),
+            f"causal_conv_silu at {shape[:3]}: a second call gave other bits")
+    del y_again, again
+    leaves = [t.detach().float().requires_grad_(True) for t in (x, w, b)]
+    want_y = F.silu(kc.causal_conv(*leaves))
+    want = torch.autograd.grad(want_y, leaves, dy.float())
+    want_y = want_y.detach()
+    del leaves
+    ratios, errs = {}, {}
+    for name, g, wt in (("y", y, want_y), ("dx", got[0], want[0]), ("dw", got[1], want[1]),
+                        ("db", got[2], want[2]), ("plain y", plain_y, want_y)):
+        err = (g.float() - wt).abs()
+        ratios[name] = float((err / (1e-5 * float(wt.abs().max()) + 2.0 ** -8 * wt.abs())).max())
+        errs[name] = float(err.max())
+        del err
+        if name != "plain y":
+            require(ratios[name] <= 1, f"causal_conv_silu at {shape[:3]} ({what}): {name} max "
+                    f"err/limit {ratios[name]:.3f} (1e-5 max|{name}| + 2^-8 |{name}|)")
+    print(f"kernel check causal_conv_silu {shape[:3]} K={K} bf16 on the projection's view (row "
+          f"{shape[3]}, column {shape[4]}; {what}): max err/limit y {ratios['y']:.3f}, dx "
+          f"{ratios['dx']:.3f}, dw {ratios['dw']:.3f}, db {ratios['db']:.3f} (limit 1e-5 of the "
+          f"largest magnitude + 2^-8 of the element, against autograd of the plain conv and SiLU "
+          f"in f32); the plain bf16 version's y {ratios['plain y']:.3f}; a second call of each "
+          f"the same bits")
+    del y, got, want, want_y, plain_y
+    release(torch)
+
+    def plain_fwd():
+        with torch.no_grad():
+            F.silu(kc.causal_conv(x, w, b))
+
+    def kern_fwd():
+        with torch.no_grad():
+            kc.causal_conv_silu(x, w, b)
+
+    bf_leaves = [t.detach().requires_grad_(True) for t in (x, w, b)]
+    y_plain = F.silu(kc.causal_conv(*bf_leaves))
+    plain_bwd = lambda: torch.autograd.grad(y_plain, bf_leaves, dy, retain_graph=True)
+    kern_bwd = lambda: kc.causal_conv_silu_backward(x, w, b, dy)
+    rows = {}
+    for name, plain, kern, cost in (
+            ("causal_conv_silu", plain_fwd, kern_fwd, COST.causal_conv_cost(x, K)),
+            ("causal_conv_silu_backward", plain_bwd, kern_bwd, COST.causal_conv_bwd_cost(x, K))):
+        t_plain1, _ = time_ms(torch, plain, 5)
+        t_kern1, host1 = time_ms(torch, kern, 20)
+        t_kern2, host2 = time_ms(torch, kern, 20)
+        t_plain2, _ = time_ms(torch, plain, 5)
+        ops, nbytes = cost
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_FLOPS * 1e3
+        row = {"ms": min(t_kern1, t_kern2), "plain_ms": min(t_plain1, t_plain2),
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": None}
+        rows[name] = row
+        print(f"timing {name} {shape[:3]} K={K} bf16 ({what}): kernel {t_kern1:.4f}/{t_kern2:.4f} "
+              f"ms, plain {t_plain1:.4f}/{t_plain2:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}; {nbytes / 1e6:.1f} MB at 3.35 TB/s), share of the bound "
+              f"{row['bound_ms'] / row['ms']:.1%}, host enqueue {min(host1, host2) * 1e3:.1f} "
+              f"us/call, library none: no single PyTorch call computes it")
+    del y_plain, bf_leaves
+    release(torch)
+    fwd, bwd = rows["causal_conv_silu"], rows["causal_conv_silu_backward"]
+    reckon = lambda key: layers * (2 * fwd[key] + bwd[key])
+    print(f"timing a train step's causal conv at {what} ({layers} layers x (2 forwards + 1 "
+          f"backward)): kernels {reckon('ms'):.3f} ms, bound {reckon('bound_ms'):.3f} ms, plain "
+          f"{reckon('plain_ms'):.3f} ms")
+    return {"causal_conv_silu": errs["y"],
+            "causal_conv_silu_backward": max(errs["dx"], errs["dw"], errs["db"])}, rows
 
 
 # ---------------------------------------------------------------------------
@@ -2897,8 +3022,9 @@ def check_prefill_vs_forward(torch, mods, model, cfg, prompts, prefill_logits, f
     """Prefill's last logits against the scoring forward's last position on
     the same prompts (and ``extra``, the frames or patches the prefill
     had), within twice that forward's own bf16 error (its distance from the
-    same forward in f32). The two forwards must launch 2 x ``expect``; a
-    check, so kept out of the kernels line."""
+    same forward in f32). The two forwards must launch 2 x ``expect``, the
+    causal conv's kernels once (they take bf16 alone: the f32 forward runs
+    the plain conv); a check, so kept out of the kernels line."""
     import dataclasses
 
     from repro_torch import models
@@ -2909,7 +3035,7 @@ def check_prefill_vs_forward(torch, mods, model, cfg, prompts, prefill_logits, f
         full, _ = models.forward(model, batch, cfg, **flags)
         full32, _ = models.forward(model, batch, dataclasses.replace(cfg, dtype="float32"), **flags)
     launches = read_counters(mods)
-    twice = {k: 2 * v for k, v in expect.items()}
+    twice = {k: (1 if k == "causal_conv_silu" else 2) * v for k, v in expect.items()}
     require(launches == twice, f"{cfg.name} prefill check's two forwards: launches {launches} != {twice}")
     last, last32 = full[:, -1], full32[:, -1]
     budget = 2 * float((last - last32).abs().max())
@@ -2952,7 +3078,8 @@ def drive_lm(torch, mods):
     model, cfg = init_lm(torch, "mamba2-370m")
     g = torch.Generator(device="cuda").manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (4, 2048), generator=g, device="cuda")
-    expect = dict(dict.fromkeys(KERNELS, 0), ssd_scan=cfg.num_layers)
+    expect = dict(dict.fromkeys(KERNELS, 0), ssd_scan=cfg.num_layers,
+                  causal_conv_silu=cfg.num_layers if takes_conv(cfg) else 0)
     total = drive_scoring(torch, mods, model, cfg, tokens, SSD_FLAGS, expect)
     dryrun_scoring(torch, mods, model, cfg, tokens, SSD_FLAGS, expect)
     prompts = tokens[:, :PROMPT].contiguous()
@@ -3183,7 +3310,8 @@ def drive_zamba(torch, mods):
     tokens = torch.randint(0, cfg.vocab_size, SCORING_BATCH, generator=g, device="cuda")
     shared = sum(s.mixer == "shared_attn" for s in cfg.block_specs())
     expect = dict(dict.fromkeys(KERNELS, 0), ssd_scan=cfg.num_layers - shared,
-                  flash_attention=shared)
+                  flash_attention=shared,
+                  causal_conv_silu=cfg.num_layers - shared if takes_conv(cfg) else 0)
     total = drive_scoring(torch, mods, model, cfg, tokens, SSD_FLAGS, expect)
     dryrun_scoring(torch, mods, model, cfg, tokens, SSD_FLAGS, expect)
     prompts = tokens[:, :PROMPT].contiguous()
@@ -3513,7 +3641,9 @@ def train_launches(cfg) -> dict:
     its backward once per attention layer. Each Mamba-2 layer likewise
     launches ``ssd_chunked_grad``'s forward (twice in a remat group) and
     its backward once, where the layer takes that route
-    (``takes_ssd_grad``), else none. Whisper's encoder-decoder: each
+    (``takes_ssd_grad``), else none, and ``causal_conv_silu``'s forward and
+    backward as many times where it takes the conv's kernels
+    (``takes_conv``). Whisper's encoder-decoder: each
     encoder layer's attention and each decoder layer's self and cross
     attention, every layer a remat group of its own."""
     from repro_torch.models.transformer import layer_grouping
@@ -3525,11 +3655,12 @@ def train_launches(cfg) -> dict:
     period, n_groups, rem = layer_grouping(cfg)
     tail_specs = cfg.block_specs()[n_groups * len(period):]
     out = {}
-    for fwd, kind in (("flash_attention", lambda s: s.mixer != "mamba"),
-                      ("ssd_chunked_grad", lambda s: s.mixer == "mamba")):
+    for fwd, kind, takes in (("flash_attention", lambda s: s.mixer != "mamba", True),
+                             ("ssd_chunked_grad", lambda s: s.mixer == "mamba", takes_ssd_grad(cfg)),
+                             ("causal_conv_silu", lambda s: s.mixer == "mamba", takes_conv(cfg))):
         grouped = n_groups * sum(map(kind, period))
         tail = sum(map(kind, tail_specs))
-        if grouped + tail and (fwd == "flash_attention" or takes_ssd_grad(cfg)):
+        if grouped + tail and takes:
             out.update({fwd: (2 if cfg.remat else 1) * grouped + tail,
                         f"{fwd}_backward": grouped + tail})
     return out
@@ -3548,6 +3679,25 @@ def takes_ssd_grad(cfg) -> bool:
     x, Bm, Cm = torch.split(conv, [H * P, G * N, G * N], dim=-1)
     return ssd_grad_takes(x.unflatten(-1, (H, P)), Bm.unflatten(-1, (G, N)),
                           Cm.unflatten(-1, (G, N)), cfg.ssm_chunk)
+
+
+def takes_conv(cfg) -> bool:
+    """Whether ``cfg``'s Mamba-2 layers take the causal conv's kernels on the
+    card in a full-sequence call: ``conv_takes`` of meta tensors laid out
+    as ``mamba2_apply`` passes them (the x|B|C view of the projection) in
+    ``cfg.dtype`` (none in a checkout without them: the SRC modes)."""
+    import torch
+
+    try:
+        from repro_torch.kernels.causal_conv import conv_takes
+    except ImportError:
+        return False
+    di, G, N, H = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_heads
+    dt = getattr(torch, cfg.dtype)
+    proj = torch.empty((2, 64, 2 * di + 2 * G * N + H), dtype=dt, device="meta")
+    C = di + 2 * G * N
+    return conv_takes(proj[..., di:di + C], torch.empty((cfg.ssm_conv, C), dtype=dt, device="meta"),
+                      torch.empty((C,), dtype=dt, device="meta"))
 
 
 CUTS = tuple((p, s) for p in range(TRAIN_PEERS, 0, -1) for s in (TRAIN_SEQ, 1024, 512, 256))
@@ -5047,14 +5197,15 @@ def zamba2_kernels_only(torch) -> int:
     """``--zamba2-kernels``: only ``zamba2_kernel_phase``, printing its
     rows; prints no result line."""
     from repro_torch.kernels import build
+    from repro_torch.kernels import causal_conv as kc
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import ssd_scan as ks
 
-    build.build_all([ks.SOURCE, ks.BWD_SOURCE, kf.SOURCE, kf.BWD_SOURCE])
-    ks.load_library()
-    kf.load_library()
+    build.build_all([ks.SOURCE, ks.BWD_SOURCE, kf.SOURCE, kf.BWD_SOURCE, kc.SOURCE])
+    for mod in (ks, kf, kc):
+        mod.load_library()
     print(f"nvidia-smi: {card_line()}")
-    errs, rows = zamba2_kernel_phase(torch, ks, kf)
+    errs, rows = zamba2_kernel_phase(torch, ks, kf, kc)
     print(json.dumps({"zamba2_7b": {name: dict(rows[name], max_abs_err=errs[name]) for name in rows}}))
     return 0
 
@@ -5196,12 +5347,13 @@ def main() -> int:
     if sys.argv[1:2] == ["--zamba2-kernels"]:
         return zamba2_kernels_only(torch)
     from repro_torch.kernels import build
+    from repro_torch.kernels import causal_conv as kc
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import qsgd as kq
     from repro_torch.kernels import ssd_scan as ks
     from repro_torch.kernels import topk as kt
 
-    mods = {"kq": kq, "kt": kt, "ks": ks, "kf": kf}
+    mods = {"kq": kq, "kt": kt, "ks": ks, "kf": kf, "kc": kc}
     start = time.perf_counter()
     stamp = lambda what: print(f"[{time.perf_counter() - start:.1f} s] {what} done", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
@@ -5213,8 +5365,9 @@ def main() -> int:
     print(f"nvidia-smi: {card}")
 
     t0 = time.perf_counter()
-    libs = build.build_all([kq.SOURCE, kt.SOURCE, ks.SOURCE, ks.BWD_SOURCE, kf.SOURCE, kf.BWD_SOURCE])
-    for mod in (kq, kt, ks, kf):
+    libs = build.build_all([kq.SOURCE, kt.SOURCE, ks.SOURCE, ks.BWD_SOURCE, kf.SOURCE, kf.BWD_SOURCE,
+                            kc.SOURCE])
+    for mod in (kq, kt, ks, kf, kc):
         mod.load_library()
     print(f"build: {', '.join(str(p.relative_to(ROOT)) for p in libs.values())} in "
           f"{time.perf_counter() - t0:.2f} s")
@@ -5228,7 +5381,10 @@ def main() -> int:
     errs["flash_attention_backward"] = flash_bwd_phase(torch, kf)
     ssd_grad_errs, ssd_grad_rows = ssd_grad_phase(torch, ks)
     errs.update(ssd_grad_errs)
-    zamba2_errs, zamba2_rows = zamba2_kernel_phase(torch, ks, kf)
+    conv_errs, conv_rows = conv_phase(torch, kc, CONV_MAMBA2, "mamba2-370m's train cell",
+                                      MAMBA_LAYERS)
+    errs.update(conv_errs)
+    zamba2_errs, zamba2_rows = zamba2_kernel_phase(torch, ks, kf, kc)
     grad_guard_phase(torch, kf, ks)
     stamp("kernels phase")
     reference_phase(torch)
@@ -5283,6 +5439,7 @@ def main() -> int:
     scatter_timing(torch, kt)
     times.update(ssd_timing(torch, ks))
     times.update(ssd_grad_rows)
+    times.update(conv_rows)
     times.update(flash_timing(torch, kf))
     flash_bwd_timing(torch, kf)
     slice_timing(torch, ks, kf)

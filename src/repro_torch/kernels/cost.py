@@ -77,6 +77,29 @@ def ssd_scan_bwd_cost(x, Bm, chunk: int):
     return 8 * Bsz * S * H * P * N, nbytes
 
 
+# Mamba-2's causal conv1d + bias + SiLU: x (B, S, C) and K taps
+
+
+def causal_conv_cost(x, K: int):
+    """(FLOPs, bytes) of one forward call at least: x read and y (B, S, C)
+    written once in x's dtype, w (K, C) and b (C,) read once. Its 2K + 4
+    operations an element (the taps' multiply-adds, the bias, SiLU) are
+    elementwise, which the dry run's count of matrix-product FLOPs leaves
+    out, as it does PyTorch's: 0 (the bound is by bytes)."""
+    B, S, C = x.shape
+    e = x.element_size()
+    return 0, 2 * e * B * S * C + e * (K + 1) * C
+
+
+def causal_conv_bwd_cost(x, K: int):
+    """(FLOPs, bytes) of one backward call at least: x and dy read and dx
+    written once in x's dtype, w and b read and dw and db written once. Its
+    6K + 9 operations an element are elementwise: 0, as the forward's."""
+    B, S, C = x.shape
+    e = x.element_size()
+    return 0, 3 * e * B * S * C + 2 * e * (K + 1) * C
+
+
 # QSGD, for rows of ``bucket`` entries (n in all): the f32 operations
 
 

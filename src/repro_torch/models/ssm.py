@@ -8,7 +8,12 @@ gradient); otherwise a full sequence in bf16 on the card, training
 included, takes ``ssd_chunked_grad`` (the forward kernel and its backward
 kernel) where its widths and chunk allow, and the plain ``ssd_chunked``
 elsewhere (the CPU, f32, other shapes); prefill takes ``ssd_chunked``, which
-also returns the final state; decode takes the O(1) recurrent step.
+also returns the final state; decode takes the O(1) recurrent step. Before
+the scan, a full sequence in bf16 on the card takes the causal conv, its
+bias and SiLU as one kernel and its gradient as another
+(``kernels/causal_conv.py``), reading x, B and C in place from the input
+projection; elsewhere (the CPU, f32, prefill, decode) the plain
+``causal_conv`` and ``F.silu``.
 
 The gated RMSNorm normalises the whole width, as the reference does at any
 ``ssm_ngroups``; in the Zamba2 release's layout (the port's own) it
@@ -29,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.causal_conv import causal_conv, causal_conv_silu, conv_takes
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_chunked_grad, ssd_grad_takes, ssd_scan
 from repro_torch.models.layers import RMSNorm, dense_linear, rmsnorm_grouped
 
@@ -59,18 +65,6 @@ class Mamba2(nn.Module):
     def conv_kc(self) -> torch.Tensor:
         """The convolution weight in the reference's (K, C) layout (a view)."""
         return self.conv_w[:, 0, :].t()
-
-
-def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv1d. x: (B, S, C); w: (K, C). K shifted products
-    added one at a time in x's dtype, one rounding per step, as the
-    reference does (``F.conv1d`` would sum in f32 and round once)."""
-    K = w.shape[0]
-    xp = F.pad(x, (0, 0, K - 1, 0))
-    out = torch.zeros_like(x)
-    for i in range(K):
-        out = out + xp[:, i : i + x.shape[1], :] * w[i]
-    return out + b
 
 
 def ssd_decode_step(
@@ -107,7 +101,10 @@ def mamba2_apply(
     kernels) where ``ssd_grad_takes`` the inputs (CUDA or meta, bf16, the
     kernels' widths and chunk), else the plain ``ssd_chunked``; a prefill
     (``state`` given, S > 1) through ``ssd_chunked``, filling the decode
-    state; and one decode step."""
+    state; and one decode step. A full sequence applies the conv, its bias
+    and SiLU through ``causal_conv_silu`` (the kernels) where
+    ``conv_takes`` the inputs (CUDA or meta, bf16, C a multiple of 4, K <=
+    4, 8-byte strides), else through the plain ``causal_conv``."""
     B, S, _ = x.shape
     di, H, N, G = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_ngroups
     Pd = cfg.ssm_headdim
@@ -115,12 +112,16 @@ def mamba2_apply(
     f32 = torch.float32
 
     proj = F.linear(x, mod.in_proj.weight.to(dt_))
-    z, xs, Bm, Cm, dt_raw = torch.split(proj, [di, di, G * N, G * N, H], dim=-1)
-    conv_in = torch.cat([xs, Bm, Cm], dim=-1)  # (B, S, conv_ch)
+    # x, B and C are adjacent columns of the projection: one (B, S, conv_ch) view
+    z, conv_in, dt_raw = torch.split(proj, [di, di + 2 * G * N, H], dim=-1)
     A = -torch.exp(mod.A_log.to(f32))
 
     if state is None or S > 1:
-        conv_out = F.silu(causal_conv(conv_in, mod.conv_kc().to(dt_), mod.conv_b.to(dt_)))
+        w, b = mod.conv_kc().to(dt_), mod.conv_b.to(dt_)
+        if state is None and conv_takes(conv_in, w, b):
+            conv_out = causal_conv_silu(conv_in, w, b)
+        else:
+            conv_out = F.silu(causal_conv(conv_in, w, b))
         xs, Bm, Cm = torch.split(conv_out, [di, G * N, G * N], dim=-1)
         xs = xs.reshape(B, S, H, Pd)
         Bm = Bm.reshape(B, S, G, N)
@@ -137,7 +138,8 @@ def mamba2_apply(
         new_state = None
         if state is not None:
             K = cfg.ssm_conv
-            tail = conv_in[:, -(K - 1):] if S >= K - 1 else torch.cat(
+            # a copy: a view of conv_in would keep the whole projection alive
+            tail = conv_in[:, -(K - 1):].contiguous() if S >= K - 1 else torch.cat(
                 [state["conv"][:, S:], conv_in], dim=1)
             new_state = {"ssm": final.to(state["ssm"].dtype), "conv": tail.to(state["conv"].dtype)}
     else:

@@ -147,6 +147,7 @@ def test_cost_functions_load_by_path_alone():
     import importlib.util
     import sys
 
+    from repro_torch.kernels import causal_conv as kc
     from repro_torch.kernels import qsgd as kq
     from repro_torch.kernels import ssd_scan as ks
     from repro_torch.kernels import topk as kt
@@ -161,7 +162,8 @@ def test_cost_functions_load_by_path_alone():
                        (ks, ("ssd_scan_cost", "ssd_scan_bwd_cost")),
                        (kq, ("qsgd_quantize_cost", "qsgd_dequantize_cost",
                              "qsgd_dequant_reduce_cost")),
-                       (kt, ("topk_select_cost", "topk_scatter_cost"))):
+                       (kt, ("topk_select_cost", "topk_scatter_cost")),
+                       (kc, ("causal_conv_cost", "causal_conv_bwd_cost"))):
         for name in names:
             assert getattr(mod, name).__code__.co_code == getattr(cost, name).__code__.co_code
     q = torch.empty((2, 64, 4, 32), dtype=torch.bfloat16, device="meta")

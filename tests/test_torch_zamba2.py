@@ -246,13 +246,15 @@ def test_a_meta_step_at_the_cells_size_counts_its_kernel_calls():
     """One train step of the benchmark cell (2 peers x 2 x 4,096 tokens, the
     24 layers at published widths) on the meta device: 8 flash forwards (4
     applications and their remat recompute) and 4 backwards, 48 SSD
-    forwards and 24 backwards, each call charged as it would launch."""
+    forwards and 24 backwards, 48 causal conv forwards and 24 backwards,
+    each call charged as it would launch."""
     from repro_torch.launch import dryrun
 
     count, _, _ = dryrun.meta_train(ModelConfig(**CONFIG["model"]), 2, 2, 4096)
     calls = {k: v[0] for k, v in count.ops.kernels.items()}
     assert calls == {"flash_attention": 8, "flash_attention_backward": 4, "ssd_chunked_grad": 48,
-                     "ssd_chunked_grad_backward": 24}
+                     "ssd_chunked_grad_backward": 24, "causal_conv_silu": 48,
+                     "causal_conv_silu_backward": 24}
 
 
 def test_the_release_layout_has_no_decode_state():
